@@ -15,3 +15,7 @@ def pytest_configure(config):
         "property: hypothesis property-based suites; the CI `property` job "
         "re-runs them with a raised example budget (PROPERTY_EXAMPLES), "
         "tier-1 keeps the fast default profile")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips without one (decided inside each "
+        "test). On the H100: python -m pytest -m gpu tests/test_torch_gpu.py")

@@ -5,30 +5,45 @@ NVIDIA card.  Run from the repository root:
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the four dense attention kernels from ``src/repro_torch/kernels/
-   csrc`` (one nvcc per source, in parallel) and prints the build time;
+2. builds the six attention kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, in parallel) and prints the build time;
 3. kernel phase: holds each kernel against its plain PyTorch version at the
-   main path's shapes (Hq=32, Hkv=8, D=128) in bfloat16 and float32, and
-   times kernel, plain version and — as a yardstick the port never calls —
-   ``scaled_dot_product_attention``, beside the least time the card could
-   take (bound);
+   main path's shapes (Hq=32, Hkv=8, D=128) in bfloat16 and float32 —
+   dense caches, and page pools behind permuted block tables with -1
+   holes, a shared page and a wrapped ring — and times kernel, plain
+   version and, as a yardstick the port never calls,
+   ``scaled_dot_product_attention`` (for the paged kernels: on the cache
+   already gathered, the gather not timed), beside the least time the card
+   could take (bound).  Times come from CUDA graphs of 30 calls (``cuda_ms``),
+   three timed replays each;
 4. path phase: builds a skipless Mistral-7B at full width on the card from
    a seeded generator, merges it exactly (``merge_skipless(..., "qp")``)
-   and serves 4 prompts (16, 37, 100, 250 tokens; 16 new tokens each)
-   through ``Engine(cache="dense")``, merged and source, in float32:
+   and serves 4 prompts (16, 37, 100, 250 tokens; 16 new tokens each),
+   merged and source, in float32:
    - at 4 layers, calibrated so activations stay O(1) (see ``build``), the
-     greedy streams must be identical and the merged prefill logits must
-     agree with the plain PyTorch forward.  A random skipless GLU stack
-     amplifies float32 rounding roughly 2x per layer and has no well-scaled
-     regime at depth (``tools/skipless_depth.py``), so this is the depth at which float32 can hold two
-     mathematically identical models token-identical;
-   - at the full 32 layers the launch counters must show that the merged
-     engine ran only the merged kernels (32 flash launches per prompt, 32
-     decode launches per step) and the source only the generic ones; the
-     merged model then serves in bfloat16, and tok/s, TTFT and a profile of
-     its decode steps are printed beside the card's name;
+     greedy streams through ``Engine(cache="dense")`` must be identical,
+     the merged prefill logits must agree with the plain PyTorch forward,
+     and ``Engine(cache="paged")`` must give the dense streams: on a
+     dense-sized pool, on a pool too small for all four (deferral,
+     preemption and resume), with a repeated prompt (shared pages,
+     copy-on-write), and with the window cut to 64 so the ring wraps (ring
+     recycling).  A random skipless GLU stack amplifies float32 rounding
+     roughly 2x per layer and has no well-scaled regime at depth
+     (``tools/skipless_depth.py``), so this is the depth at which float32
+     can hold two mathematically identical models token-identical;
+   - at the full 32 layers the launch counters must show that each engine
+     ran only its own kernels (32 flash launches per prompt, 32 decode
+     launches per step): merged dense the merged dense pair, source the
+     generic pair, and on the paged pool the paged decode kernels; the
+     merged model then serves in bfloat16 on both caches, and tok/s, TTFT
+     and a profile of its dense decode steps are printed beside the card's
+     name;
 5. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
+
+Everything printed to stdout is also written to ``build/chip_smoke.log``
+beside the script (``build/`` is gitignored), since a remote run may
+return only the end of the output.
 
 Any failure raises (non-zero exit, no result lines).  Without a CUDA card,
 or without the repository's ``src/`` beside it, the script exits non-zero
@@ -67,6 +82,12 @@ KERNELS = {
     "decode_attention_merged_bsd": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:172"),
+    "decode_attention_paged_bhsd": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:263"),
+    "decode_attention_paged_merged_bsd": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:336"),
 }
 
 
@@ -74,10 +95,60 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, n_sets: int, iters: int = 30) -> float:
-    """Mean device time of ``fn(i)`` over ``iters`` calls cycling through
-    ``n_sets`` input sets (enough sets that the L2 cache is cold for each
-    call, as it is for the real caller), by CUDA events after a warm-up."""
+class Tee:
+    """A stdout that also writes every line to an open file."""
+
+    def __init__(self, stream, file):
+        self.stream, self.file = stream, file
+
+    def write(self, s: str) -> None:
+        self.stream.write(s)
+        self.file.write(s)
+
+    def flush(self) -> None:
+        self.stream.flush()
+        self.file.flush()
+
+
+def cuda_ms(fn, n_sets: int, iters: int = 30, runs: int = 3):
+    """Device time of one call of ``fn(i)``, cycling through ``n_sets``
+    input sets (enough that the L2 cache is cold for each call, as it is
+    for the real caller): ``iters`` calls are captured in one CUDA graph
+    and the replay is timed with CUDA events, ``runs`` times.  A replay
+    runs only the captured kernels, so the host work of the calls (Python
+    checks, allocation, the ctypes launch) cannot land between them in
+    the timed interval.  Returns (median ms per call, the runs' ms)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for i in range(3):
+            fn(i % n_sets)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i % n_sets)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(times)[len(times) // 2], times
+
+
+def eager_ms(fn, n_sets: int, iters: int = 30) -> float:
+    """The timer used before ``cuda_ms``: CUDA events around ``iters``
+    eager calls, so host gaps between launches count.  Printed beside the
+    graph time to show how much of a row's time was the host."""
     import torch
     for i in range(3):
         fn(i % n_sets)
@@ -90,6 +161,27 @@ def cuda_ms(fn, n_sets: int, iters: int = 30) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_row(name, dtype, case, kern, plain, library, n_sets, bound,
+               timed) -> dict:
+    """One kernel-phase row: the kernel against its plain version on input
+    set 0 (raises beyond ``tolerance``), then the kernel, plain and library
+    times."""
+    import torch
+    got, want = kern(0), plain(0)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = tolerance(want, dtype)
+    if not err <= tol:
+        raise AssertionError(f"{name} {dtype} {case}: max abs err {err} > "
+                             f"{tol}")
+    ms, runs = cuda_ms(kern, n_sets)
+    return dict(name=name, dtype=str(dtype), case=case, max_abs_err=err,
+                tol=tol, **bound, ms=ms, ms_runs=runs,
+                eager_ms=eager_ms(kern, n_sets),
+                plain_ms=cuda_ms(plain, n_sets)[0],
+                library_ms=cuda_ms(library, n_sets)[0], timed=timed)
 
 
 def tolerance(want, dtype) -> float:
@@ -199,20 +291,10 @@ def decode_phase(rng, rows):
                         return ref.ref_decode_attention(
                             us[i].reshape(B, Hkv, G, D), khs[i], vhs[i],
                             kvp, qp, sliding_window=window).reshape(B, Hq, D)
-                got, want = kern(0), plain(0)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                tol = tolerance(want, dtype)
-                if not err <= tol:
-                    raise AssertionError(
-                        f"{name} {dtype} {label}: max abs err {err} > {tol}")
-                rows.append(dict(
-                    name=name, dtype=str(dtype), case=f"B={B} S={S} {label}",
-                    max_abs_err=err, tol=tol, ms=cuda_ms(kern, n_sets),
-                    plain_ms=cuda_ms(plain, n_sets), **bound,
-                    library_ms=cuda_ms(sdpa, n_sets),
-                    timed=(label.startswith("no window")
-                           and dtype == torch.bfloat16)))
+                rows.append(kernel_row(
+                    name, dtype, f"B={B} S={S} {label}", kern, plain, sdpa,
+                    n_sets, bound, timed=(label.startswith("no window")
+                                          and dtype == torch.bfloat16)))
             del us, ks, vs, khs, vhs
 
 
@@ -275,36 +357,143 @@ def flash_phase(rng, rows):
                         def plain(i):
                             return ref.ref_attention(
                                 qh[i], kh[i], vh[i], sliding_window=window)
-                    got, want = kern(0), plain(0)
-                    torch.cuda.synchronize()
-                    err = float((got.float() - want.float()).abs().max())
-                    tol = tolerance(want, dtype)
-                    if not err <= tol:
-                        raise AssertionError(
-                            f"{name} {dtype} S={S} window={window}: max abs "
-                            f"err {err} > {tol}")
-                    rows.append(dict(
-                        name=name, dtype=str(dtype),
-                        case=f"B={B} Sq=Sk={S} causal window={window}",
-                        max_abs_err=err, tol=tol, ms=cuda_ms(kern, n_sets),
-                        plain_ms=cuda_ms(plain, n_sets), **bound,
-                        library_ms=cuda_ms(sdpa, n_sets),
+                    rows.append(kernel_row(
+                        name, dtype,
+                        f"B={B} Sq=Sk={S} causal window={window}", kern,
+                        plain, sdpa, n_sets, bound,
                         timed=(S == 250 and window == 0
                                and dtype == torch.bfloat16)))
                 del us, ks, vs, qh, kh, vh
+
+
+PAGE, NB_POOL = 16, 128  # paged kernel rows: page size, pages in the pool
+FILLS = (16, 37, 100, 250 + 15)  # tokens in each slot of the absolute table
+RING_WINDOW, RING_QPOS = 64, (37, 130, 351, 1000)  # the ring table's rows
+
+
+def paged_tables():
+    """The paged kernel rows' tables, on pages drawn from a seeded
+    permutation of the pool (so the gather is not contiguous):
+
+    * absolute: max_len 512 (MB = 32), slots filled to ``FILLS`` tokens
+      (q_position = fill - 1), -1 beyond; slot 1's first block is slot 0's
+      page (a shared page);
+    * ring: window 64 (MB = R = 5 slots), q_positions ``RING_QPOS``: row 0
+      has not wrapped (slots of blocks < 0 are -1), the others have, the
+      last past 4 * R * bs; row 3's slot of its oldest block is -1 (a hole).
+    Returns [(label, window, table, q_position)] as numpy int32."""
+    import numpy as np
+    from repro_torch.kernels.paging import paged_ring_blocks
+
+    rng = np.random.default_rng(13)
+    perm = iter(rng.permutation(NB_POOL).tolist())
+    mb = 512 // PAGE
+    absolute = np.full((len(FILLS), mb), -1, np.int32)
+    for b, n in enumerate(FILLS):
+        for j in range(-(-n // PAGE)):
+            absolute[b, j] = next(perm)
+    absolute[1, 0] = absolute[0, 0]
+    R = paged_ring_blocks(RING_WINDOW, PAGE)
+    ring = np.full((len(RING_QPOS), R), -1, np.int32)
+    for b, qp in enumerate(RING_QPOS):
+        lb = qp // PAGE
+        for j in range(R):
+            if lb - (lb + R - j) % R >= 0:
+                ring[b, j] = next(perm)
+    ring[3, (RING_QPOS[3] // PAGE + 1) % R] = -1
+    return [("absolute MB=32, shared page", 0, absolute,
+             np.asarray(FILLS, np.int32) - 1),
+            (f"ring R={R} window {RING_WINDOW}, wrapped", RING_WINDOW, ring,
+             np.asarray(RING_QPOS, np.int32))]
+
+
+def paged_phase(rng, rows):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk, ref
+    from repro_torch.kernels.paging import paged_ring_active
+
+    G = Hq // Hkv
+    dev = torch.device("cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        el = torch.tensor([], dtype=dtype).element_size()
+        for label, window, bt_np, qp_np in paged_tables():
+            B, MB = bt_np.shape
+            bt = torch.from_numpy(bt_np).to(dev)
+            qp = torch.from_numpy(qp_np).to(dev)
+            ring = paged_ring_active(window, PAGE, MB)
+            kvp = ref.ref_paged_positions(bt, PAGE, qp, ring)
+            ok = (kvp >= 0) & (kvp <= qp[:, None])
+            if window:
+                ok &= qp[:, None] - kvp < window
+            n_att = int(ok.sum())
+            n_sets = n_sets_for(2 * NB_POOL * PAGE * Hkv * D * el)
+
+            def rand(*shape):
+                return torch.from_numpy(rng.standard_normal(
+                    shape, np.float32)).to(dev, dtype)
+
+            us = [rand(B, Hq, D) for _ in range(n_sets)]
+            kps = [rand(NB_POOL, PAGE, Hkv, D) for _ in range(n_sets)]
+            vps = [rand(NB_POOL, PAGE, Hkv, D) for _ in range(n_sets)]
+            # the yardstick's dense K/V, gathered here, outside its timing
+            khs = [ref.ref_paged_gather(k, bt).transpose(1, 2).contiguous()
+                   for k in kps]
+            vhs = [ref.ref_paged_gather(v, bt).transpose(1, 2).contiguous()
+                   for v in vps]
+            nbytes = (2 * n_att * Hkv * D * el + 2 * B * Hq * D * el
+                      + B * MB * 4 + B * 4)
+            bound = bound_ms(nbytes, 4 * D * Hq * n_att, dtype)
+            mask = ok[:, None, None, :]
+
+            def sdpa(i):
+                return F.scaled_dot_product_attention(
+                    us[i].reshape(B, Hq, 1, D), khs[i], vhs[i],
+                    attn_mask=mask, enable_gqa=True)
+
+            for name in ("decode_attention_paged_merged_bsd",
+                         "decode_attention_paged_bhsd"):
+                if name == "decode_attention_paged_merged_bsd":
+                    def kern(i):
+                        return dk.decode_attention_paged_merged_bsd(
+                            us[i], kps[i], vps[i], bt, qp,
+                            sliding_window=window, ring_blocks=ring)
+
+                    def plain(i):
+                        return ref.ref_decode_attention_paged_merged(
+                            us[i], kps[i], vps[i], bt, qp,
+                            sliding_window=window, ring_blocks=ring)
+                else:
+                    def kern(i):
+                        return dk.decode_attention_paged_bhsd(
+                            us[i].reshape(B, Hkv, G, D), kps[i], vps[i], bt,
+                            qp, sliding_window=window,
+                            ring_blocks=ring).reshape(B, Hq, D)
+
+                    def plain(i):
+                        return ref.ref_decode_attention_paged(
+                            us[i].reshape(B, Hkv, G, D), kps[i], vps[i], bt,
+                            qp, sliding_window=window,
+                            ring_blocks=ring).reshape(B, Hq, D)
+                rows.append(kernel_row(
+                    name, dtype, f"B={B} bs={PAGE} {label}", kern, plain,
+                    sdpa, n_sets, bound,
+                    timed=(window == 0 and dtype == torch.bfloat16)))
+            del us, kps, vps, khs, vhs
 
 
 # ---------------------------------------------------------------------------
 # path phase
 # ---------------------------------------------------------------------------
 
-def serve(cfg, params, prompts, max_new):
+def serve(cfg, params, prompts, max_new, cache="dense", **serve_kw):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import Engine, ServeConfig
     import torch
 
-    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=512),
-                 impl="cuda", cache="dense", device="cuda")
+    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=512, **serve_kw),
+                 impl="cuda", cache=cache, device="cuda")
     torch.cuda.synchronize()
     reset_launch_counts()  # counts cover exactly this serve
     t0 = time.perf_counter()
@@ -315,14 +504,22 @@ def serve(cfg, params, prompts, max_new):
 
 
 def check_counts(tag, counts, eng, n_layers, n_prompts, merged):
+    """Each prefill (a resume after preemption is one more) launches the
+    engine's flash kernel once per layer, each decode step its decode
+    kernel once per layer, and no other kernel runs."""
     flash_k = "flash_attention_merged_bsd" if merged else "flash_attention_bhsd"
-    dec_k = "decode_attention_merged_bsd" if merged else "decode_attention_bhsd"
+    dec_k = ("decode_attention_paged_" if eng.paged else "decode_attention_") \
+        + ("merged_bsd" if merged else "bhsd")
     want = {k: 0 for k in KERNELS}
-    want[flash_k] = n_layers * n_prompts
+    want[flash_k] = n_layers * (n_prompts + eng.stats["n_preempted"])
     want[dec_k] = n_layers * eng.stats["n_steps"]
     if counts != want:
         raise AssertionError(f"{tag}: launch counts {counts} != {want}")
     log(f"  {tag}: launches {counts} ({eng.stats['n_steps']} decode steps)")
+
+
+def streams(outs):
+    return [list(o) for o in outs]
 
 
 def first_mismatch(cfg, params, prompts, a, b):
@@ -396,6 +593,59 @@ def build(n_layers, calibrate):
     return cfg, params, mcfg, mparams
 
 
+def paged_checks(tag, cfg, params, prompts, max_new, want):
+    """The paged engine at 4 layers, float32, against the dense engine's
+    greedy streams ``want`` on the same model: a dense-sized pool; a pool
+    just above the largest request (deferral, preemption, resume; the
+    prompts reordered so the longest is admitted beside a short one); a
+    repeated prompt (shared pages, copy-on-write).  Returns the events."""
+    n = len(prompts)
+    merged = cfg.block_style == "skipless_merged"
+    eng, out, counts, _ = serve(cfg, params, prompts, max_new, cache="paged")
+    check_counts(f"{tag} paged float32", counts, eng, cfg.n_layers, n, merged)
+    if streams(out) != streams(want):
+        raise AssertionError(f"{tag}: paged streams differ from dense")
+    need = max(-(-(len(p) + max_new - 1) // 16) for p in prompts)
+    order = [0, 3, 1, 2]  # 16 and 250 tokens fill the pool, 37 waits
+    eng, out, counts, _ = serve(cfg, params, [prompts[i] for i in order],
+                                max_new, cache="paged", n_blocks=need + 1)
+    check_counts(f"{tag} paged float32, {need + 1}-page pool", counts, eng,
+                 cfg.n_layers, n, merged)
+    ev = {"pool_pages": need + 1, "deferred": eng.stats["n_deferred"],
+          "preempted_and_resumed": eng.stats["n_preempted"]}
+    same = streams(out) == [list(want[i]) for i in order]
+    if not (same and ev["deferred"] and ev["preempted_and_resumed"]):
+        raise AssertionError(f"{tag}: small pool {ev}, streams equal {same}")
+    rep = [1, 1, 2]
+    eng, out, _, _ = serve(cfg, params, [prompts[i] for i in rep], max_new,
+                           cache="paged")
+    ev.update(shared_pages=eng.pm.allocator.n_shared_hits,
+              copy_on_write=eng.pm.allocator.n_cow)
+    if streams(out) != [list(want[i]) for i in rep] or \
+            not ev["shared_pages"] or not ev["copy_on_write"]:
+        raise AssertionError(f"{tag}: repeated prompt {ev}")
+    log(f"  {tag}: paged streams == dense streams on a dense-sized pool, a "
+        f"{need + 1}-page pool and with a repeated prompt; events {ev}")
+    return ev
+
+
+def window_checks(tag, cfg, params, prompts, max_new):
+    """Mistral's window cut from 4096 to 64, so the paged ring (R = 5
+    slots of 16) wraps within max_len 512: paged == dense, with at least
+    one page recycled in place."""
+    wcfg = cfg.with_(sliding_window=64)
+    _, dense, _, _ = serve(wcfg, params, prompts, max_new)
+    eng, paged, _, _ = serve(wcfg, params, prompts, max_new, cache="paged")
+    recycled = eng.pm.allocator.n_recycled
+    if streams(paged) != streams(dense) or not eng.pm.ring or not recycled:
+        raise AssertionError(f"{tag} window 64: paged == dense "
+                             f"{streams(paged) == streams(dense)}, ring "
+                             f"{eng.pm.ring}, recycled {recycled}")
+    log(f"  {tag}, window cut to 64: paged streams == dense streams (ring of "
+        f"{eng.pm.ring} slots, {recycled} pages recycled)")
+    return recycled
+
+
 def path_phase(summary):
     import numpy as np
     import torch
@@ -415,7 +665,7 @@ def path_phase(summary):
                      merged=False)
         mrg, mrg_out, counts, _ = serve(mcfg, mparams, prompts, max_new)
         check_counts("merged float32", counts, mrg, EQ_LAYERS, n, merged=True)
-        if [list(o) for o in src_out] != [list(o) for o in mrg_out]:
+        if streams(src_out) != streams(mrg_out):
             bad = first_mismatch(cfg, params, prompts, src_out, mrg_out)
             raise AssertionError(
                 f"merged and source greedy streams differ: prompt {bad[0]}, "
@@ -436,21 +686,32 @@ def path_phase(summary):
                                  f"max diff {diff} (scale {scale})")
         log(f"  merged prefill logits vs plain PyTorch forward (37 tokens):"
             f" max |diff| {diff:.3g} at logit scale {scale:.3g}")
+        # the paged pool: the same streams, through its deferral,
+        # preemption, sharing and ring paths
+        summary["paged_events"] = {
+            tag: paged_checks(tag, c, p, prompts, max_new, want)
+            for tag, c, p, want in (("source", cfg, params, src_out),
+                                    ("merged", mcfg, mparams, mrg_out))}
+        for tag, c, p in (("source", cfg, params), ("merged", mcfg, mparams)):
+            summary["paged_events"][tag]["ring_recycled_w64"] = \
+                window_checks(tag, c, p, prompts, max_new)
         del src, mrg, params, mparams
         torch.cuda.empty_cache()
 
         # 2. the full 32-layer model, uncalibrated (its activations decay to
         # exact zeros, which costs the kernels and matmuls the same work):
-        # launch counts on the main path, and speed
+        # launch counts on the main paths, and speed
         cfg, params, mcfg, mparams = build(32, calibrate=False)
         L = cfg.n_layers
-        src, _, src_counts, _ = serve(cfg, params, prompts, max_new)
-        check_counts("source (generic) float32", src_counts, src, L, n,
-                     merged=False)
-        mrg, _, mrg_counts, _ = serve(mcfg, mparams, prompts, max_new)
-        check_counts("merged float32", mrg_counts, mrg, L, n, merged=True)
-        summary["launches"] = {k: src_counts[k] + mrg_counts[k]
-                               for k in KERNELS}
+        launches = {k: 0 for k in KERNELS}
+        for cache in ("dense", "paged"):
+            for tag, c, p, merged in (("source (generic)", cfg, params, False),
+                                      ("merged", mcfg, mparams, True)):
+                eng, _, counts, _ = serve(c, p, prompts, max_new, cache=cache)
+                check_counts(f"{tag} {cache} float32", counts, eng, L, n,
+                             merged)
+                launches = {k: launches[k] + counts[k] for k in KERNELS}
+        summary["launches"] = launches
         lg, _ = forward_prefill(mparams, mcfg, x, DensePrefillDest(512),
                                 impl="cuda")
         if not torch.isfinite(lg).all():
@@ -462,19 +723,23 @@ def path_phase(summary):
             eng, outs, _, wall = serve(c, p, prompts, max_new)
             summary[f"{tag}_f32"] = report(f"{tag} float32 ({L} layers)",
                                            outs, wall)
-        del eng, src, mrg, params, p
+        del eng, params, p
         torch.cuda.empty_cache()
         bcfg = mcfg.with_(dtype="bfloat16", param_dtype="bfloat16")
         bparams = tree_map(lambda t: t.to(torch.bfloat16), mparams)
         del mparams
         torch.cuda.empty_cache()
-        serve(bcfg, bparams, prompts, max_new)  # warm-up
-        eng, outs, counts, wall = serve(bcfg, bparams, prompts, max_new)
-        check_counts("merged bfloat16", counts, eng, L, n, merged=True)
-        if not all(0 <= t < bcfg.vocab_size for o in outs for t in o):
-            raise AssertionError("bfloat16 serve emitted out-of-vocab ids")
-        summary["merged_bf16"] = report(f"merged bfloat16 ({L} layers)",
-                                        outs, wall)
+        for cache in ("dense", "paged"):
+            serve(bcfg, bparams, prompts, max_new, cache=cache)  # warm-up
+            eng, outs, counts, wall = serve(bcfg, bparams, prompts, max_new,
+                                            cache=cache)
+            check_counts(f"merged bfloat16 {cache}", counts, eng, L, n,
+                         merged=True)
+            if not all(0 <= t < bcfg.vocab_size for o in outs for t in o):
+                raise AssertionError("bfloat16 serve emitted out-of-vocab ids")
+            key = "merged_bf16" if cache == "dense" else "merged_bf16_paged"
+            summary[key] = report(f"merged bfloat16, {cache} cache ({L} "
+                                  "layers)", outs, wall)
         summary["decode_profile_bf16"] = profile_decode(bcfg, bparams,
                                                         prompts)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
@@ -517,7 +782,8 @@ def profile_decode(cfg, params, prompts, steps=5):
            "device_ms_per_step": busy / steps * 1e3,
            "device_busy_share": busy / wall,
            "kernels_per_step": sum(r[2] for r in rows) // steps,
-           "top": [[k, us / steps / 1e3, n // steps] for us, k, n in rows[:8]]}
+           "top": [[k[:90], us / steps / 1e3, n // steps]
+                   for us, k, n in rows[:8]]}
     log(f"  decode profile, {cfg.dtype} ({cfg.n_layers} layers, 4 slots, "
         f"{steps} steps): {out['wall_ms_per_step']:.2f} ms/step wall, "
         f"{out['device_ms_per_step']:.2f} ms/step of kernels "
@@ -555,7 +821,19 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    stdout = sys.stdout
+    with open(os.path.join(ROOT, "build", "chip_smoke.log"), "w") as f:
+        sys.stdout = Tee(stdout, f)
+        try:
+            return run()
+        finally:
+            sys.stdout = stdout
+
+
+def run() -> int:
     import numpy as np
+    import torch
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -582,15 +860,20 @@ def main() -> int:
     rows = []
     decode_phase(rng, rows)
     flash_phase(rng, rows)
-    log(f"kernel phase ({card}; times in ms, L2 cold; bound = the larger "
-        f"of the bytes at 3.35 TB/s and the flops at the dtype's peak):")
+    paged_phase(rng, rows)
+    log(f"kernel phase ({card}; times in ms, L2 cold, per call from a CUDA "
+        f"graph of 30 calls: median [three replays], then the eager timer "
+        f"of earlier runs; bound = the larger of the bytes at 3.35 TB/s and "
+        f"the flops at the dtype's peak; sdpa on the paged rows: SDPA on "
+        f"gathered cache; gather not timed):")
     for r in rows:
-        log(f"  {r['name']:28s} {r['dtype']:15s} {r['case']:34s} err "
+        runs = ", ".join(f"{t:.4f}" for t in r["ms_runs"])
+        log(f"  {r['name']:33s} {r['dtype']:15s} {r['case']:44s} err "
             f"{r['max_abs_err']:.2e} (tol {r['tol']:.1e})  kernel "
-            f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  sdpa "
-            f"{r['library_ms']:.4f}  bound {r['bound_ms']:.5f} "
-            f"({r['bound_by']}; bytes {r['bytes_ms']:.5f}, flops "
-            f"{r['ops_ms']:.5f})")
+            f"{r['ms']:.4f} [{runs}] eager {r['eager_ms']:.4f}  plain "
+            f"{r['plain_ms']:.4f}  sdpa {r['library_ms']:.4f}  bound "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}; bytes "
+            f"{r['bytes_ms']:.5f}, flops {r['ops_ms']:.5f})")
 
     summary = {}
     path_phase(summary)

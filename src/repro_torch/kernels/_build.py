@@ -35,6 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "decode_attention": {
         "decode_attention_launch": [_I, _I] + [_P] * 8 + [_I] * 12 + [_P],
+        "decode_attention_paged_launch": [_I, _I] + [_P] * 8 + [_I] * 11
+        + [_P],
     },
     "flash_attention": {
         "flash_attention_launch": [_I, _I] + [_P] * 4 + [_I] * 13 + [_P],
@@ -159,8 +161,8 @@ def check_operands(name: str, data, ints=()) -> int:
             raise ValueError(f"{name}: operand too large for int32 offsets")
     for t in ints:
         if str(t.dtype) != "torch.int32":
-            raise ValueError(f"{name}: position operands must be int32, "
-                             f"got {t.dtype}")
+            raise ValueError(f"{name}: position and table operands must be "
+                             f"int32, got {t.dtype}")
     if data[0].shape[-1] not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {data[0].shape[-1]} not in "
                          f"{HEAD_DIMS}")

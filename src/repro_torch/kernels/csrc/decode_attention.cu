@@ -1,28 +1,50 @@
-// One-token GQA decode attention against a position-tagged KV cache.
+// One-token GQA decode attention against a position-tagged KV cache or a
+// paged KV pool.
 //
-// Replaces the TPU kernels src/repro/kernels/decode_attention.py::
-// decode_attention_bhsd (generic: grouped query (B, Hkv, G, D), head-major
-// cache (B, Hkv, S, D)) and ::decode_attention_merged_bsd (the paper's
-// merged fast path: the RoPE'd residual stream (B, Hq, D) is the query and
-// K*/V* are read in the serving cache's native (B, S, Hkv, D) layout).  One
-// CUDA body serves both: the layouts differ only in strides.
+// Replaces four TPU kernels of src/repro/kernels/decode_attention.py:
+//   * decode_attention_bhsd (generic: grouped query (B, Hkv, G, D),
+//     head-major cache (B, Hkv, S, D));
+//   * decode_attention_merged_bsd (the paper's merged fast path: the RoPE'd
+//     residual stream (B, Hq, D) is the query and K*/V* are read in the
+//     serving cache's native (B, S, Hkv, D) layout);
+//   * decode_attention_paged_bhsd and decode_attention_paged_merged_bsd
+//     (the same two queries over a pool of pages (NB, bs, Hkv, D) behind a
+//     block table (B, MB): logical key s of slot b lives on page
+//     bt[b, s / bs] at row s % bs).
+// One CUDA body serves all four, specialised at compile time by the
+// ``Paged`` flag: the dense layouts differ only in strides, and the paged
+// layout only in how a key's row address and position are found
+// (``kv_row``).
 //
-// Semantics kept from the TPU kernel: a slot is attendable iff
-// kv_pos >= 0, kv_pos <= q_pos and (window == 0 or q_pos - kv_pos < window);
-// masked scores go to NEG before the row max and their probabilities are
-// then zeroed; a row with nothing to attend to (denominator 0) is exactly 0.
+// Semantics kept from the TPU kernels: a key is attendable iff its
+// position p satisfies p >= 0, p <= q_pos and (window == 0 or
+// q_pos - p < window); masked scores go to NEG before the row max and their
+// probabilities are then zeroed; a row with nothing to attend to
+// (denominator 0) is exactly 0.  Dense positions are read from kv_pos
+// (B, S).  Paged positions are computed here from the table and q_pos, as
+// the TPU kernel's _paged_kpos does: absolute addressing (ring == 0) puts
+// table slot j at block j; ring addressing (a windowed table of exactly
+// ring slots, src/repro/kernels/paging.py) puts slot j at absolute block
+// b = lb - ((lb + ring - j) % ring), lb = q_pos / bs, masked when b < 0.
+// Offsets of the current block beyond q_pos are hidden by the causal mask.
 //
 // What bounds it on an H100: bytes.  Each step reads every attendable K/V
-// row once (B * S * Hkv * D * 2 elements) and does 4 * G * D flops per
-// row, far below the ~295 flop/byte ridge.  What the design does about it:
+// row once (2 * rows * Hkv * D elements) and does 4 * G * D flops per row
+// and kv head, far below the ~295 flop/byte ridge.  What the design does
+// about it:
 //   * one block per (batch, kv head, kv split) loads each K/V row ONCE for
 //     all G query heads that share that kv head;
-//   * the kv axis is split over blocks (flash-decoding) so B * Hkv * splits
-//     blocks fill the 132 SMs at B = 4; a second pass combines the partial
-//     (m, l, acc) of the splits.  The TPU walks the kv axis sequentially
-//     inside one grid row, which on this card would leave most SMs idle;
-//   * rows whose slot is masked (empty, future, out of window) are never
-//     loaded: only the position array is read for them.
+//   * the kv axis (S, or MB * bs for a table) is split over blocks
+//     (flash-decoding) so B * Hkv * splits blocks fill the 132 SMs at B = 4;
+//     a second pass combines the partial (m, l, acc) of the splits.  The
+//     TPU walks the kv axis sequentially inside one grid row, which on this
+//     card would leave most SMs idle;
+//   * keys that are masked (empty, future, out of window) or that lie on an
+//     unmapped table entry (-1) are never loaded: only the position array
+//     or the table entry is read for them.  (The TPU kernel loads page
+//     max(bt, 0) for an unmapped entry and masks it.)  Pages are gathered
+//     row by row in the native (..., Hkv, D) layout, each warp reading one
+//     128- or 256-byte head row.
 // Plain FMA arithmetic in float32, whatever the input type (bf16 or f32).
 
 #include <cuda_runtime.h>
@@ -47,20 +69,53 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 struct DecodeArgs {
   const void* q;  // element (b, h, g, d) at b*q_sb + h*q_sh + g*D + d
-  const void* k;  // element (b, h, s, d) at b*k_sb + h*k_sh + s*k_ss + d
+  // dense: element (b, h, s, d) at b*k_sb + h*k_sh + s*k_ss + d;
+  // paged: element (page, r, h, d) at page*k_sb + r*k_ss + h*k_sh + d
+  const void* k;
   const void* v;  // same strides as k
-  const int* kv_pos;  // (B, S)
+  const int* kv_pos;  // dense: (B, S) positions, -1 empty
+  const int* bt;  // paged: (B, MB) block table, -1 unmapped
   const int* q_pos;  // (B,)
   void* out;  // same strides as q
   float* ws_acc;  // (B, Hkv, n_split, G, D) unnormalised partial outputs
   float* ws_ml;  // (B, Hkv, n_split, G, 2) partial row max and sum
   int B, Hkv, G, S, window, n_split, chunk;
+  int MB, bs, ring;  // paged: table width, page size, ring slots (0: absolute)
   long long q_sb, q_sh, k_sb, k_sh, k_ss;
 };
 
+// Offset of key s's K/V head row for (b, h), or -1 when the key is masked
+// (empty slot or unmapped entry, future position, out of window).  Uniform
+// across a warp: every lane reads the same position or table entry.
+template <bool Paged>
+__device__ __forceinline__ long long kv_row(const DecodeArgs& a, int b, int h,
+                                            int s, int qp) {
+  int pos;
+  long long row;
+  if (Paged) {
+    const int j = s / a.bs, r = s - j * a.bs;
+    const int page = a.bt[b * a.MB + j];
+    if (page < 0) return -1;
+    int blk = j;
+    if (a.ring > 0) {
+      const int lb = qp / a.bs;
+      blk = lb - (lb + a.ring - j) % a.ring;
+      if (blk < 0) return -1;
+    }
+    pos = blk * a.bs + r;
+    row = page * a.k_sb + r * a.k_ss + h * a.k_sh;
+  } else {
+    pos = a.kv_pos[b * a.S + s];
+    if (pos < 0) return -1;
+    row = b * a.k_sb + h * a.k_sh + s * a.k_ss;
+  }
+  const bool ok = pos <= qp && (a.window <= 0 || qp - pos < a.window);
+  return ok ? row : -1;
+}
+
 // Pass 1: one block per (split, kv head, batch) runs the online softmax over
 // its kv range and leaves (m, l, acc) for the G query heads in the workspace.
-template <typename T, int D>
+template <typename T, int D, bool Paged>
 __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
   constexpr int EPL = D / 32;  // elements per lane in the score pass
   constexpr int KP = NT / D;  // key partitions in the P.V pass
@@ -70,7 +125,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
   const int d = tid % D, kpart = tid / D;
 
   __shared__ float s_p[MAX_G][TK];  // scores, then probabilities
-  __shared__ int s_ok[TK];
+  __shared__ long long s_row[TK];  // kv_row of each key, -1 masked
   __shared__ float s_m[MAX_G], s_l[MAX_G], s_alpha[MAX_G];
   __shared__ float s_red[KP][MAX_G][D];
 
@@ -79,7 +134,6 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
   const T* v = static_cast<const T*>(a.v);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   const int qp = a.q_pos[b];
-  const long long kv_base = b * a.k_sb + h * a.k_sh;
 
   float qreg[MAX_G][EPL];
 #pragma unroll
@@ -105,16 +159,13 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
     // scores: one warp per key, lanes split D, butterfly sum
     for (int j = warp; j < TK; j += NWARP) {
       const int s = t0 + j;
-      int ok = 0;
-      if (s < s1) {
-        const int kp = a.kv_pos[b * S + s];
-        ok = kp >= 0 && kp <= qp && (a.window <= 0 || qp - kp < a.window);
-      }
+      const long long row = s < s1 ? kv_row<Paged>(a, b, h, s, qp) : -1;
+      const bool ok = row >= 0;
       float dot[MAX_G];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) dot[g] = 0.f;
       if (ok) {  // uniform across the warp
-        const T* kr = k + kv_base + s * a.k_ss + lane * EPL;
+        const T* kr = k + row + lane * EPL;
         float kf[EPL];
 #pragma unroll
         for (int e = 0; e < EPL; ++e) kf[e] = to_f(kr[e]);
@@ -133,7 +184,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
         }
       }
       if (lane == 0) {
-        s_ok[j] = ok;
+        s_row[j] = row;
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g)
           if (g < G) s_p[g][j] = ok ? dot[g] : NEG;
@@ -152,7 +203,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
       const float m_next = fmaxf(m_prev, mx);
       float sum = 0.f;
       for (int j = lane; j < TK; j += 32) {
-        const float p = s_ok[j] ? expf(s_p[g][j] - m_next) : 0.f;
+        const float p = s_row[j] >= 0 ? expf(s_p[g][j] - m_next) : 0.f;
         s_p[g][j] = p;
         sum += p;
       }
@@ -174,8 +225,8 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
     for (int g = 0; g < MAX_G; ++g)
       if (g < G) acc[g] *= s_alpha[g];
     for (int j = kpart; j < TK; j += KP) {
-      if (!s_ok[j]) continue;  // p == 0: the row is never loaded
-      const float vv = to_f(v[kv_base + (t0 + j) * a.k_ss + d]);
+      if (s_row[j] < 0) continue;  // p == 0: the row is never loaded
+      const float vv = to_f(v[s_row[j] + d]);
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g)
         if (g < G) acc[g] += s_p[g][j] * vv;
@@ -229,28 +280,46 @@ __global__ void __launch_bounds__(D) decode_combine_kernel(DecodeArgs a) {
   out[b * a.q_sb + h * a.q_sh + g * D + d] = from_f<T>(o / (L == 0.f ? 1.f : L));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Paged>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
-  decode_split_kernel<T, D><<<dim3(a.n_split, a.Hkv, a.B), NT, 0, stream>>>(a);
+  decode_split_kernel<T, D, Paged><<<dim3(a.n_split, a.Hkv, a.B), NT, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<T, D><<<dim3(a.G, a.Hkv, a.B), D, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <bool Paged>
+int dispatch(int dtype, int D, const DecodeArgs& a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0)
+    err = D == 64 ? launch<float, 64, Paged>(a, st)
+                  : launch<float, 128, Paged>(a, st);
+  else
+    err = D == 64 ? launch<__nv_bfloat16, 64, Paged>(a, st)
+                  : launch<__nv_bfloat16, 128, Paged>(a, st);
+  return static_cast<int>(err);
+}
+
+bool bad_common(int dtype, int D, int G) {
+  return G < 1 || G > MAX_G || (D != 64 && D != 128) || (dtype != 0 && dtype != 1);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D must be 64 or 128, G at most 8.
-// Returns a cudaError_t (0 on success); the Python wrapper raises on any
-// other value.
+// Each launch function returns a cudaError_t (0 on success); the Python
+// wrapper raises on any other value.
+
+// Dense: position-tagged cache, strides as in DecodeArgs.
 extern "C" int decode_attention_launch(
     int dtype, int D, const void* q, const void* k, const void* v,
     const void* kv_pos, const void* q_pos, void* out, void* ws_acc,
     void* ws_ml, int B, int Hkv, int G, int S, int q_sb, int q_sh, int k_sb,
     int k_sh, int k_ss, int window, int n_split, int chunk, void* stream) {
-  if (G < 1 || G > MAX_G || (D != 64 && D != 128) || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  DecodeArgs a;
+  if (bad_common(dtype, D, G)) return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a = {};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -271,12 +340,41 @@ extern "C" int decode_attention_launch(
   a.k_sb = k_sb;
   a.k_sh = k_sh;
   a.k_ss = k_ss;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = D == 64 ? launch<float, 64>(a, st) : launch<float, 128>(a, st);
-  else
-    err = D == 64 ? launch<__nv_bfloat16, 64>(a, st)
-                  : launch<__nv_bfloat16, 128>(a, st);
-  return static_cast<int>(err);
+  return dispatch<false>(dtype, D, a, stream);
+}
+
+// Paged: pools (NB, bs, Hkv, D) contiguous, block table (B, MB) int32;
+// ring is 0 (absolute addressing) or the table's ring size.
+extern "C" int decode_attention_paged_launch(
+    int dtype, int D, const void* q, const void* k_pool, const void* v_pool,
+    const void* block_tables, const void* q_pos, void* out, void* ws_acc,
+    void* ws_ml, int B, int Hkv, int G, int MB, int bs, int ring, int q_sb,
+    int q_sh, int window, int n_split, int chunk, void* stream) {
+  if (bad_common(dtype, D, G) || MB < 1 || bs < 1 || ring < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a = {};
+  a.q = q;
+  a.k = k_pool;
+  a.v = v_pool;
+  a.bt = static_cast<const int*>(block_tables);
+  a.q_pos = static_cast<const int*>(q_pos);
+  a.out = out;
+  a.ws_acc = static_cast<float*>(ws_acc);
+  a.ws_ml = static_cast<float*>(ws_ml);
+  a.B = B;
+  a.Hkv = Hkv;
+  a.G = G;
+  a.S = MB * bs;
+  a.MB = MB;
+  a.bs = bs;
+  a.ring = ring;
+  a.window = window;
+  a.n_split = n_split;
+  a.chunk = chunk;
+  a.q_sb = q_sb;
+  a.q_sh = q_sh;
+  a.k_ss = static_cast<long long>(Hkv) * D;
+  a.k_sh = D;
+  a.k_sb = a.k_ss * bs;
+  return dispatch<true>(dtype, D, a, stream);
 }

@@ -1,13 +1,19 @@
 """One-token GQA decode attention: wrappers of ``csrc/decode_attention.cu``.
 
-Counterparts of ``repro.kernels.decode_attention``'s dense pair:
+Counterparts of ``repro.kernels.decode_attention``'s dense and paged
+pairs:
 
   * ``decode_attention_bhsd`` — generic: a separately-projected grouped
     query (B, Hkv, G, D) against a head-major (B, Hkv, S, D) cache;
   * ``decode_attention_merged_bsd`` — the paper's merged (Q/P-removed)
     fast path: the RoPE'd residual stream viewed (B, Hq, D) is the query,
     K*/V* are read in the serving cache's native (B, S, Hkv, D) layout and
-    the output lands as (B, Hq, D), a view of the FFN-input stream.
+    the output lands as (B, Hq, D), a view of the FFN-input stream;
+  * ``decode_attention_paged_bhsd`` / ``decode_attention_paged_merged_bsd``
+    — the same two queries over a page pool (NB, bs, Hkv, D) behind a
+    block table (B, MB) int32 (-1 unmapped), with absolute or ring
+    addressing (``ring_blocks``, ``kernels.paging``); key positions are
+    rebuilt in the kernel from the table and ``q_position``.
 
 A tensor on the CPU runs the plain version (``kernels.ref``); a tensor on
 a CUDA device launches the kernel (built at first use) on the current
@@ -20,9 +26,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (ref_decode_attention,
-                                     ref_decode_attention_merged)
+                                     ref_decode_attention_merged,
+                                     ref_decode_attention_paged,
+                                     ref_decode_attention_paged_merged)
 
-launches = {"decode_attention_bhsd": 0, "decode_attention_merged_bsd": 0}
+launches = {"decode_attention_bhsd": 0, "decode_attention_merged_bsd": 0,
+            "decode_attention_paged_bhsd": 0,
+            "decode_attention_paged_merged_bsd": 0}
 
 MAX_G = 8  # query heads per kv head the kernel takes
 _TILE = 64  # keys per tile in the kernel
@@ -38,30 +48,73 @@ def kv_split(B: int, Hkv: int, S: int):
     return -(-max(S, 1) // chunk), chunk
 
 
-def _launch(name, q, k, v, kv_positions, q_position, *, q_strides,
-            k_strides, Hkv, G, S, sliding_window):
-    B, D = q.shape[0], q.shape[-1]
-    code = _build.check_operands(name, (q, k, v), (kv_positions, q_position))
+def _checks(name, q, data, ints, *, G, index, index_shape):
+    """Operand checks shared by the dense and paged launches; returns
+    the dtype code.  ``index`` is the position or table operand."""
+    B = q.shape[0]
+    code = _build.check_operands(name, data, ints)
     if not 1 <= G <= MAX_G:
         raise ValueError(f"{name}: {G} query heads per kv head; the kernel "
                          f"takes 1..{MAX_G}")
-    if tuple(kv_positions.shape) != (B, S) or \
+    q_position = ints[-1]
+    if tuple(index.shape) != index_shape or \
             tuple(q_position.shape) != (B,):
-        raise ValueError(f"{name}: positions must be (B, S) and (B,), got "
-                         f"{tuple(kv_positions.shape)}, "
+        raise ValueError(f"{name}: positions/table must be {index_shape} "
+                         f"and ({B},), got {tuple(index.shape)}, "
                          f"{tuple(q_position.shape)}")
-    n_split, chunk = kv_split(B, Hkv, S)
+    return code
+
+
+def _workspace(q, B, Hkv, n_split, G, D):
     out = torch.empty_like(q)
     ws_acc = torch.empty((B, Hkv, n_split, G, D), dtype=torch.float32,
                          device=q.device)
     ws_ml = torch.empty((B, Hkv, n_split, G, 2), dtype=torch.float32,
                         device=q.device)
+    return out, ws_acc, ws_ml
+
+
+def _launch(name, q, k, v, kv_positions, q_position, *, q_strides,
+            k_strides, Hkv, G, S, sliding_window):
+    B, D = q.shape[0], q.shape[-1]
+    code = _checks(name, q, (q, k, v), (kv_positions, q_position), G=G,
+                   index=kv_positions, index_shape=(B, S))
+    n_split, chunk = kv_split(B, Hkv, S)
+    out, ws_acc, ws_ml = _workspace(q, B, Hkv, n_split, G, D)
     lib = _build.library("decode_attention")
     err = lib.decode_attention_launch(
         code, D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_positions.data_ptr(), q_position.data_ptr(), out.data_ptr(),
         ws_acc.data_ptr(), ws_ml.data_ptr(), B, Hkv, G, S, *q_strides,
         *k_strides, int(sliding_window), n_split, chunk,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch(name, err)
+    launches[name] += 1
+    return out
+
+
+def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
+                  q_strides, Hkv, G, sliding_window, ring_blocks):
+    B, D = q.shape[0], q.shape[-1]
+    NB, bs = k_pool.shape[0], k_pool.shape[1]
+    MB = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if tuple(k_pool.shape) != (NB, bs, Hkv, D) or k_pool.shape != v_pool.shape:
+        raise ValueError(f"{name}: pools must be (NB, bs, Hkv, D) with Hkv="
+                         f"{Hkv}, D={D}, got {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}")
+    if ring_blocks not in (0, MB):
+        raise ValueError(f"{name}: ring_blocks {ring_blocks} must be 0 "
+                         f"(absolute) or the table width {MB}")
+    code = _checks(name, q, (q, k_pool, v_pool), (block_tables, q_position),
+                   G=G, index=block_tables, index_shape=(B, MB))
+    n_split, chunk = kv_split(B, Hkv, MB * bs)
+    out, ws_acc, ws_ml = _workspace(q, B, Hkv, n_split, G, D)
+    lib = _build.library("decode_attention")
+    err = lib.decode_attention_paged_launch(
+        code, D, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), q_position.data_ptr(), out.data_ptr(),
+        ws_acc.data_ptr(), ws_ml.data_ptr(), B, Hkv, G, MB, bs,
+        int(ring_blocks), *q_strides, int(sliding_window), n_split, chunk,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(name, err)
     launches[name] += 1
@@ -119,3 +172,54 @@ def decode_attention_merged_bsd(
                    q_strides=(Hq * D, G * D),
                    k_strides=(S * Hkv * D, D, Hkv * D),
                    Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
+
+
+def decode_attention_paged_bhsd(
+    q: torch.Tensor,  # (B, Hkv, G, D) — grouped query heads
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — physical page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D)
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids; -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+) -> torch.Tensor:
+    """Generic paged decode attention -> (B, Hkv, G, D).  The pool keeps
+    the serving cache's native (…, bs, Hkv, D) page layout."""
+    name = "decode_attention_paged_bhsd"
+    if not _build.on_cuda(name, q, k_pool, v_pool, block_tables, q_position):
+        return ref_decode_attention_paged(
+            q, k_pool, v_pool, block_tables, q_position,
+            sliding_window=sliding_window, ring_blocks=ring_blocks)
+    B, Hkv, G, D = q.shape
+    return _launch_paged(name, q, k_pool, v_pool, block_tables, q_position,
+                         q_strides=(Hkv * G * D, G * D), Hkv=Hkv, G=G,
+                         sliding_window=sliding_window,
+                         ring_blocks=ring_blocks)
+
+
+def decode_attention_paged_merged_bsd(
+    u: torch.Tensor,  # (B, Hq, D) — RoPE'd residual stream viewed as heads
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — K* page pool, native layout
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) — V* page pool
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids; -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+) -> torch.Tensor:
+    """Merged paged decode attention (stream-as-query) -> (B, Hq, D)."""
+    name = "decode_attention_paged_merged_bsd"
+    if not _build.on_cuda(name, u, k_pool, v_pool, block_tables, q_position):
+        return ref_decode_attention_paged_merged(
+            u, k_pool, v_pool, block_tables, q_position,
+            sliding_window=sliding_window, ring_blocks=ring_blocks)
+    B, Hq, D = u.shape
+    Hkv = k_pool.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv heads")
+    G = Hq // Hkv
+    return _launch_paged(name, u, k_pool, v_pool, block_tables, q_position,
+                         q_strides=(Hq * D, G * D), Hkv=Hkv, G=G,
+                         sliding_window=sliding_window,
+                         ring_blocks=ring_blocks)

@@ -1,7 +1,8 @@
 """Wrappers exposing the kernels in model-layer layouts, and the table of
 which (phase, cache_kind, style) has a kernel.
 
-Counterparts of ``repro.kernels.ops``' dense rows.  The generic wrappers
+Counterparts of ``repro.kernels.ops``' dense and paged rows.  The
+generic dense wrappers
 keep the reference's head-major transposes (``.contiguous()`` copies of
 q/k/v, and of the whole cache at decode): they are part of what the
 merged layout removes, so the generic/merged comparison measures it.  The
@@ -17,21 +18,34 @@ The kernel wrappers still take CPU tensors, running the plain version
 plumbing (the transposes and reshapes here) against the JAX package's
 kernels where no card is present.  On a CUDA tensor a wrapper launches its
 kernel or raises.
+
+The paged wrappers hand the pools (NB, bs, Hkv, D) and the block table to
+the kernel as they are (generic and merged alike: the pool is never
+transposed) and derive ring addressing from the window and the table
+width (``kernels.paging``), so callers never pass a ring flag.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention import (decode_attention_bhsd,
-                                                  decode_attention_merged_bsd)
+from repro_torch.kernels.decode_attention import (
+    decode_attention_bhsd, decode_attention_merged_bsd,
+    decode_attention_paged_bhsd, decode_attention_paged_merged_bsd)
 from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                  flash_attention_merged_bsd)
+from repro_torch.kernels.paging import paged_ring_active
 
 
 def _no_kv_valid(kv_valid) -> None:
     if kv_valid is not None:
         raise ValueError("flash kernel: use the decode kernel for padded "
                          "caches (kv_valid is not supported)")
+
+
+def _merged_heads(name, d, Hkv, D, n_kv_heads):
+    if Hkv != n_kv_heads or d % D or (d // D) % Hkv:
+        raise ValueError(f"{name}: d_model {d}, kv heads {Hkv} (expected "
+                         f"{n_kv_heads}), head dim {D}")
 
 
 def flash_attention(
@@ -70,9 +84,7 @@ def flash_attention_merged(
     _no_kv_valid(kv_valid)
     B, Sq, d = u.shape
     Hkv, D = k.shape[2], k.shape[3]
-    if Hkv != n_kv_heads or d % D or (d // D) % Hkv:
-        raise ValueError(f"flash_attention_merged: d_model {d}, kv heads "
-                         f"{Hkv} (expected {n_kv_heads}), head dim {D}")
+    _merged_heads("flash_attention_merged", d, Hkv, D, n_kv_heads)
     out = flash_attention_merged_bsd(
         u.reshape(B, Sq, d // D, D), k.contiguous(), v.contiguous(),
         causal=causal, sliding_window=sliding_window)
@@ -114,14 +126,59 @@ def decode_attention_merged(
     (B, Hq, D) view of the stream is free and the cache is read as is."""
     B, d = u.shape
     Hkv, D = k_cache.shape[2], k_cache.shape[3]
-    if Hkv != n_kv_heads or d % D or (d // D) % Hkv:
-        raise ValueError(f"decode_attention_merged: d_model {d}, kv heads "
-                         f"{Hkv} (expected {n_kv_heads}), head dim {D}")
+    _merged_heads("decode_attention_merged", d, Hkv, D, n_kv_heads)
     out = decode_attention_merged_bsd(
         u.reshape(B, d // D, D).contiguous(), k_cache.contiguous(),
         v_cache.contiguous(), kv_positions.to(torch.int32).contiguous(),
         q_position.to(torch.int32).contiguous(),
         sliding_window=sliding_window)
+    return out.reshape(B, d)
+
+
+def decode_attention_paged(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — physical page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D)
+    *,
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Generic decode attention over a paged KV pool -> (B, Hq, D)."""
+    B, Hq, D = q.shape
+    Hkv = k_pool.shape[2]
+    ring = paged_ring_active(sliding_window, k_pool.shape[1],
+                             block_tables.shape[1])
+    out = decode_attention_paged_bhsd(
+        q.reshape(B, Hkv, Hq // Hkv, D).contiguous(), k_pool.contiguous(),
+        v_pool.contiguous(), block_tables.to(torch.int32).contiguous(),
+        q_position.to(torch.int32).contiguous(),
+        sliding_window=sliding_window, ring_blocks=ring)
+    return out.reshape(B, Hq, D)
+
+
+def decode_attention_paged_merged(
+    u: torch.Tensor,  # (B, d_model) — RoPE'd stream = merged query
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — K* page pool, native layout
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) — V* page pool
+    *,
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    n_kv_heads: int,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Merged (Q/P-removed) decode over a paged KV pool -> (B, d_model)
+    FFN-input stream."""
+    B, d = u.shape
+    Hkv, D = k_pool.shape[2], k_pool.shape[3]
+    _merged_heads("decode_attention_paged_merged", d, Hkv, D, n_kv_heads)
+    ring = paged_ring_active(sliding_window, k_pool.shape[1],
+                             block_tables.shape[1])
+    out = decode_attention_paged_merged_bsd(
+        u.reshape(B, d // D, D).contiguous(), k_pool.contiguous(),
+        v_pool.contiguous(), block_tables.to(torch.int32).contiguous(),
+        q_position.to(torch.int32).contiguous(),
+        sliding_window=sliding_window, ring_blocks=ring)
     return out.reshape(B, d)
 
 
@@ -131,13 +188,19 @@ def decode_attention_merged(
 
 # keyed (phase, cache_kind, style) like models.backends plus the phase axis,
 # minus the impl axis (every wrapper here IS the "cuda" route; on CPU
-# tensors it runs the plain version).  Paged and int8 caches are later
-# slices of the port.
+# tensors it runs the plain version).  Prefill compute is cache-kind
+# independent (paging moves only where the prompt's KV is written,
+# ``models.transformer``), so both prefill cache kinds map to the same
+# flash wrapper.  The int8 pool is a later slice of the port.
 ATTENTION_KERNELS = {
     ("decode", "dense", "generic"): decode_attention,
     ("decode", "dense", "merged"): decode_attention_merged,
+    ("decode", "paged", "generic"): decode_attention_paged,
+    ("decode", "paged", "merged"): decode_attention_paged_merged,
     ("prefill", "dense", "generic"): flash_attention,
     ("prefill", "dense", "merged"): flash_attention_merged,
+    ("prefill", "paged", "generic"): flash_attention,
+    ("prefill", "paged", "merged"): flash_attention_merged,
 }
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four dense attention kernels.
+"""Plain PyTorch versions of the dense and paged attention kernels.
 
 Each function is the transparent O(S²) form of what its CUDA kernel
 computes, in float32, returned in the input dtype.  The kernel wrappers
@@ -7,7 +7,9 @@ on the CPU; on the card ``chip_smoke.py`` and the GPU tests hold each
 kernel against them on the same inputs.  Counterparts of
 ``repro.kernels.ref`` (same names, same masking semantics): masked scores
 go to ``NEG`` before the softmax and their probabilities are then zeroed,
-so a row with nothing to attend to is exactly zero.
+so a row with nothing to attend to is exactly zero.  The paged versions
+gather a slot's pages into a dense view and defer to the dense decode
+version (``ref_decode_attention_paged*``).
 """
 from __future__ import annotations
 
@@ -99,4 +101,86 @@ def ref_decode_attention_merged(
     o = ref_decode_attention(
         u.reshape(B, Hkv, Hq // Hkv, D), k.transpose(1, 2), v.transpose(1, 2),
         kv_positions, q_position, sliding_window=sliding_window)
+    return o.reshape(B, Hq, D)
+
+
+# ---------------------------------------------------------------------------
+# paged decode: block-table gather over a physical page pool
+# ---------------------------------------------------------------------------
+
+def ref_paged_gather(
+    pool: torch.Tensor,  # (NB, bs, Hkv, D) physical page pool
+    block_tables: torch.Tensor,  # (B, MB) int page ids, -1 unmapped
+) -> torch.Tensor:
+    """Densify each slot's logical view: -> (B, MB*bs, Hkv, D).  Unmapped
+    blocks gather page 0; ``ref_paged_positions`` marks them -1."""
+    B, MB = block_tables.shape
+    g = pool[block_tables.long().clamp(min=0)]  # (B, MB, bs, Hkv, D)
+    return g.reshape(B, MB * pool.shape[1], *pool.shape[2:])
+
+
+def ref_paged_positions(block_tables: torch.Tensor, block_size: int,
+                        q_position: torch.Tensor = None,
+                        ring_blocks: int = 0) -> torch.Tensor:
+    """kv positions (B, MB*bs) int32 of the densified view; unmapped
+    blocks are -1 (the empty-slot convention).
+
+    Absolute addressing (``ring_blocks`` = 0): logical block j covers
+    [j*bs, (j+1)*bs).  Ring addressing (``kernels.paging``): slot j holds
+    the latest absolute block b = j (mod ring) not beyond the query's
+    block, b = lb - ((lb + ring - j) % ring) with lb = q_position // bs;
+    never-entered slots (b < 0) are -1."""
+    B, MB = block_tables.shape
+    dev = block_tables.device
+    off = torch.arange(block_size, dtype=torch.int32, device=dev)
+    j = torch.arange(MB, dtype=torch.int32, device=dev)[None, :]
+    mapped = block_tables >= 0
+    if ring_blocks:
+        lb = (q_position.to(torch.int32) // block_size).reshape(B, 1)
+        blk = lb - torch.remainder(lb + ring_blocks - j, ring_blocks)
+        mapped = mapped & (blk >= 0)
+    else:
+        blk = j.expand(B, MB)
+    pos = blk[:, :, None] * block_size + off  # (B, MB, bs)
+    pos = torch.where(mapped[:, :, None], pos, -1)
+    return pos.reshape(B, MB * block_size).to(torch.int32)
+
+
+def ref_decode_attention_paged(
+    q: torch.Tensor,  # (B, Hkv, G, D)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D)
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D)
+    block_tables: torch.Tensor,  # (B, MB) int32, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+) -> torch.Tensor:
+    """Generic paged decode: gather the slot's pages into a dense view and
+    defer to ``ref_decode_attention`` -> (B, Hkv, G, D)."""
+    bs = k_pool.shape[1]
+    k = ref_paged_gather(k_pool, block_tables).transpose(1, 2)
+    v = ref_paged_gather(v_pool, block_tables).transpose(1, 2)
+    kv_pos = ref_paged_positions(block_tables, bs, q_position, ring_blocks)
+    return ref_decode_attention(q, k, v, kv_pos, q_position,
+                                sliding_window=sliding_window)
+
+
+def ref_decode_attention_paged_merged(
+    u: torch.Tensor,  # (B, Hq, D) — RoPE'd stream viewed as heads
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — K* page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) — V* page pool
+    block_tables: torch.Tensor,  # (B, MB) int32, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+) -> torch.Tensor:
+    """Merged paged decode: stream-as-query over the page pool, output as
+    (B, Hq, D) in the FFN-input basis."""
+    B, Hq, D = u.shape
+    Hkv = k_pool.shape[2]
+    o = ref_decode_attention_paged(
+        u.reshape(B, Hkv, Hq // Hkv, D), k_pool, v_pool, block_tables,
+        q_position, sliding_window=sliding_window, ring_blocks=ring_blocks)
     return o.reshape(B, Hq, D)

@@ -1,7 +1,9 @@
-"""Serving launcher: batched greedy generation on the dense cache.
+"""Serving launcher: batched greedy generation on the dense cache or the
+paged pool.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-7b \
-      --smoke --merged-from-skipless --requests 4 --max-new 8
+      --smoke --merged-from-skipless --requests 4 --max-new 8 \
+      [--cache paged --block-size 16 --n-blocks 0]
 
 With ``--merged-from-skipless`` the launcher builds a skipless model, runs
 the paper's QP-removal merge, and serves the merged weights, reporting the
@@ -9,6 +11,8 @@ parameters removed next to the generated tokens.  ``--device`` defaults to
 ``cuda`` (the hand-written kernels); ``--device cpu`` serves through the
 plain PyTorch versions.  Per-request stats (prompt length, time to first
 token, decode tok/s) come from ``Engine.generate``'s RequestResults.
+``--n-blocks 0`` sizes the paged pool like the dense cache
+(slots x max_len / block size pages).
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
-    ap.add_argument("--cache", default="dense", choices=("dense",))
+    ap.add_argument("--cache", default="dense", choices=("dense", "paged"))
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--n-blocks", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -57,7 +63,8 @@ def main(argv=None):
               f"({100 * (n0 - n1) / n0:.1f}% removed)", flush=True)
 
     sc = ServeConfig(n_slots=args.slots, max_len=args.max_len,
-                     temperature=args.temperature)
+                     temperature=args.temperature,
+                     block_size=args.block_size, n_blocks=args.n_blocks)
     impl = "cuda" if args.device.startswith("cuda") else "torch"
     eng = Engine(cfg, params, sc, impl=impl, cache=args.cache,
                  device=args.device)
@@ -72,7 +79,7 @@ def main(argv=None):
     print(f"served {args.requests} requests, {total_tokens} tokens "
           f"in {dt:.2f}s ({total_tokens / dt:.1f} tok/s); "
           f"TTFT mean {np.mean(ttfts):.3f}s / max {np.max(ttfts):.3f}s "
-          f"on {eng.device}", flush=True)
+          f"on {eng.device}, {args.cache} cache; {eng.stats}", flush=True)
     for i, o in enumerate(outs[:4]):
         rate = "n/a" if o.decode_tok_s is None else f"{o.decode_tok_s:.1f}"
         print(f"  req{i}: {list(o[:12])}{'…' if len(o) > 12 else ''} "

@@ -1,6 +1,7 @@
-"""Attention cores: GQA, causal & sliding-window, prefill & decode.
+"""Attention cores: GQA, causal & sliding-window, prefill & decode, over
+the dense cache or a paged pool.
 
-Counterpart of ``repro.models.attention``'s dense cores.  Projections live
+Counterpart of ``repro.models.attention``'s dense and paged cores.  Projections live
 in ``models.transformer`` (the paper's merged form changes which exist);
 this module computes attention on projected, RoPE'd q/k/v.
 
@@ -18,6 +19,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.paging import paged_ring_active
+from repro_torch.kernels.ref import ref_paged_gather as _paged_gather
+from repro_torch.kernels.ref import ref_paged_positions as paged_kv_positions
 
 NEG_INF = -1e30
 IMPLS = ("cuda", "torch")
@@ -202,3 +207,73 @@ def decode_attention_core_positions(
     probs = torch.softmax(scores + bias[:, None, None, :], dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(B, Hq, D)
+
+
+# ---------------------------------------------------------------------------
+# paged decode cores (block-table gather over a physical page pool)
+# ---------------------------------------------------------------------------
+#
+# ``paged_kv_positions`` and ``_paged_gather`` are the plain versions'
+# (``kernels.ref``): one definition of the gather and of the ring
+# positions for the oracle and this route.
+
+def decode_attention_core_paged(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — physical page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D)
+    *,
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int
+    sliding_window: int = 0,
+    impl: str = "torch",
+) -> torch.Tensor:
+    """One-token attention against a paged KV pool -> (B, Hq, D).
+
+    ``impl="cuda"`` hands the pool and table to the paged kernel (pages
+    are gathered row by row inside it); ``impl="torch"`` densifies the
+    slot's logical view and defers to the dense positions core.  Ring
+    addressing is derived from the window and the table width
+    (``kernels.paging``)."""
+    _check_impl(impl)
+    if impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.decode_kernel("paged", "generic")(
+            q, k_pool, v_pool, block_tables=block_tables,
+            q_position=q_position, sliding_window=sliding_window)
+    bs = k_pool.shape[1]
+    ring = paged_ring_active(sliding_window, bs, block_tables.shape[1])
+    return decode_attention_core_positions(
+        q, _paged_gather(k_pool, block_tables),
+        _paged_gather(v_pool, block_tables),
+        kv_positions=paged_kv_positions(block_tables, bs, q_position, ring),
+        q_position=q_position, sliding_window=sliding_window, impl=impl)
+
+
+def decode_attention_core_paged_merged(
+    u: torch.Tensor,  # (B, d_model) — RoPE'd stream (merged query)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — K* page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) — V* page pool
+    *,
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int
+    n_kv_heads: int,
+    sliding_window: int = 0,
+    impl: str = "torch",
+) -> torch.Tensor:
+    """Merged (Q/P-removed) decode attention over a paged KV pool: the
+    stream is the query and the (B, d_model) output is the FFN input."""
+    _check_impl(impl)
+    B, d = u.shape
+    D = k_pool.shape[3]
+    if impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.decode_kernel("paged", "merged")(
+            u, k_pool, v_pool, block_tables=block_tables,
+            q_position=q_position, n_kv_heads=n_kv_heads,
+            sliding_window=sliding_window)
+    out = decode_attention_core_paged(
+        u.reshape(B, d // D, D), k_pool, v_pool, block_tables=block_tables,
+        q_position=q_position, sliding_window=sliding_window, impl=impl)
+    return out.reshape(B, d)

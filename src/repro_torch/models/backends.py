@@ -3,8 +3,9 @@
 Counterpart of ``repro.models.backends``.  Every serving route is a
 registered backend keyed ``(cache_kind, style, impl)``:
 
-  cache_kind  "dense" (per-slot ring buffer, ``DecodeCache``); the paged
-              and int8 caches are later slices of the port
+  cache_kind  "dense" (per-slot ring buffer, ``DecodeCache``) or "paged"
+              (block-table page pool, ``PagedDecodeCache``); the int8 pool
+              is a later slice of the port
   style       "generic" (projects q/k/v as the config dictates, covering
               unmerged models and the kp/vp merged variants) or "merged"
               (the qp fast path: the residual stream IS the query, no Q or
@@ -19,7 +20,8 @@ behind ``models.transformer.forward_step``; prefill —
 ``models.transformer.forward_prefill``.  Registering a route::
 
     def my_step(lp, cfg, u1, k_layer, v_layer, ctx):
-        # u1 (B,1,d) stream; ctx carries "length", "kv_pos", "impl"
+        # u1 (B,1,d) stream; ctx carries "length", "impl" and the cache
+        # kind's own keys ("kv_pos"; paged: "block_tables", "append")
         return cat, k_layer, v_layer
 
     backends.register_backend("dense", "generic", my_step)
@@ -32,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Tuple
 
-CACHE_KINDS = ("dense",)
+CACHE_KINDS = ("dense", "paged")
 STYLES = ("generic", "merged")
 IMPLS = ("cuda", "torch")
 

@@ -1,5 +1,6 @@
 """Dense attention stacks in all paper block styles: setup, the sequence
-forward, prefill into the dense cache, and one-token decode.
+forward, prefill into the dense cache or a paged pool, and one-token
+decode against either.
 
 Counterpart of ``repro.models.transformer`` for plan kind "attn" on the
 dense family (other plan kinds and families raise NotImplementedError; see
@@ -17,14 +18,16 @@ the layer axis the port loops over it.  Serving entry points:
                    ``models.backends`` PREFILL registry (the destination
                    picks the cache_kind axis, ``prefill_style_key`` the
                    style axis)
-  forward_step     one token against the dense cache; the per-layer
-                   attention route is looked up in the AttentionBackend
-                   registry keyed (cache_kind, style, impl)
+  forward_step     one token against the dense cache or a paged pool; the
+                   per-layer attention route is looked up in the
+                   AttentionBackend registry keyed (cache_kind, style,
+                   impl)
 
 Unlike the JAX reference, ``forward_step`` updates the cache IN PLACE (the
-new K/V rows, ``kv_pos``) and returns it with ``length`` advanced: a
-functional copy of a multi-GB cache per token is what donation avoids on
-the TPU.
+new K/V rows, ``kv_pos``; a paged pool's pages) and returns it with
+``length`` advanced, and a paged prefill writes the prompt's pages into
+the pools in place: a functional copy of a multi-GB cache per token is
+what donation avoids on the TPU.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import paging
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backends
 from repro_torch.models import ffn as ffn_mod
@@ -383,6 +387,74 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
+# paged decode cache: pools of physical pages behind per-slot block tables
+# (the serving layer allocates and frees pages on the host,
+# ``serving.paged_kv_cache``; this module only consumes the device view)
+# ---------------------------------------------------------------------------
+
+class PagedDecodeCache(NamedTuple):
+    """Device view of the paged KV cache (attention-only stacks).
+
+    ``k``/``v`` are pools of physical pages shared by every serving slot;
+    ``block_tables[b, j]`` maps slot b's logical block j to a physical
+    page (-1 = unmapped).  Sliding-window configs bound the table at
+    ``ceil(window/bs)+1`` RING slots (absolute block j lives at slot
+    j % ring and out-of-window pages are recycled in place); readers
+    rebuild each slot's absolute positions from ``length``
+    (``kernels.paging``).  Page content beyond a slot's ``length`` may be
+    stale (freed, reused or recycled pages are not scrubbed): the causal
+    mask hides it, and decode always writes position ``length`` before
+    attending.  ``forward_step`` writes the pools in place."""
+    k: torch.Tensor  # (L, n_blocks, block_size, Hkv, Dh) — physical pages
+    v: torch.Tensor
+    block_tables: torch.Tensor  # (B, MB) int32 page ids, -1 unmapped
+    length: torch.Tensor  # (B,) int32 — tokens so far (= next position)
+
+
+def paged_table_blocks(cfg: ModelConfig, block_size: int, max_len: int) -> int:
+    """Block-table width for one serving slot: ``ceil(max_len/bs)`` slots
+    in absolute addressing, or the ring bound ``ceil(window/bs)+1`` when a
+    sliding window makes that strictly smaller (``kernels.paging``)."""
+    mb = -(-max_len // block_size)
+    r = paging.paged_ring_blocks(cfg.sliding_window, block_size)
+    return r if 0 < r < mb else mb
+
+
+def paged_cache_spec(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     n_slots: int, max_len: int):
+    """Shapes and dtypes of an empty paged cache."""
+    plan = layer_plan(cfg)
+    if plan["kind"] != "attn":
+        raise ValueError(
+            f"paged KV cache supports attention-only stacks, not "
+            f"{plan['kind']!r} (family {cfg.family!r})")
+    mb = paged_table_blocks(cfg, block_size, max_len)
+    pool = ((plan["n"], n_blocks, block_size, cfg.n_kv_heads, cfg.d_head),
+            dtype_of(cfg.dtype))
+    return {"k": pool, "v": pool,
+            "block_tables": ((n_slots, mb), torch.int32),
+            "length": ((n_slots,), torch.int32)}
+
+
+def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     n_slots: int, max_len: int,
+                     device="cuda") -> PagedDecodeCache:
+    """An empty paged cache.  The pools are zeros, never uninitialised
+    memory: the plain route gathers page 0 for unmapped entries and masks
+    it, and a NaN there would survive the mask (NaN * 0)."""
+    spec = paged_cache_spec(cfg, n_blocks, block_size, n_slots, max_len)
+    dev = resolve_device(device)
+
+    def full(name, fill):
+        shape, dt = spec[name]
+        return torch.full(shape, fill, dtype=dt, device=dev)
+
+    return PagedDecodeCache(k=full("k", 0), v=full("v", 0),
+                            block_tables=full("block_tables", -1),
+                            length=full("length", 0))
+
+
+# ---------------------------------------------------------------------------
 # prefill: full-sequence forward that also fills the cache
 # ---------------------------------------------------------------------------
 
@@ -406,6 +478,25 @@ class DensePrefillDest(NamedTuple):
     ring)."""
     cache_len: int
     full_cache: bool = False
+
+
+class PagedPrefillDest(NamedTuple):
+    """Destination of a direct-to-page paged prefill: the prompt's KV is
+    written straight into the mapped physical blocks of the pools, in
+    place — no worst-case-length intermediate cache.
+
+    ``k_pool``/``v_pool`` are (L, NB, bs, Hkv, Dh) page pools;
+    ``block_ids`` is a (ceil(S/bs),) int tensor mapping this request's
+    logical (absolute) block j to its physical page, with -1 for blocks
+    that must NOT be written: prefix-shared pages already holding the
+    prefix (possibly extended by another live request's decoded tokens),
+    bucket-padding blocks past the prompt, and, under a sliding window,
+    prompt blocks wholly out of every future query's window (a windowed
+    request's table is a ring of ceil(window/bs)+1 recycled slots and only
+    the live window's blocks are mapped — ``kernels.paging``)."""
+    k_pool: Any
+    v_pool: Any
+    block_ids: Any
 
 
 def prefill_style_key(cfg: ModelConfig) -> str:
@@ -465,6 +556,31 @@ def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs,
                                     kv_pos=kvp.contiguous(), length=length)
 
 
+def _finish_paged(cfg: ModelConfig, logits, kvs, dest: PagedPrefillDest, ctx,
+                  B: int, S: int):
+    """Write the collected prompt KV direct-to-page, in place, and gather
+    the last real position's logits.  JAX drops the -1 destinations with
+    ``mode="drop"``; torch has no such mode (an out-of-range index raises
+    or corrupts), so only the blocks with a destination >= 0 are selected
+    and written: shared-prefix pages, bucket-padding blocks and
+    out-of-window blocks are never touched."""
+    k_pool, v_pool, block_ids = dest
+    last_logits, _ = _last_logits_and_length(logits, ctx.get("true_len"), B, S)
+    ks, vs = kvs  # (L, 1, S, Hkv, Dh)
+    L, bs = k_pool.shape[0], k_pool.shape[2]
+    nbk = block_ids.shape[0]
+    keep = torch.nonzero(block_ids >= 0).flatten()  # one sync per prefill
+    dst = block_ids[keep].long()
+
+    def blocks(x):  # (L, 1, S, Hkv, Dh) -> the kept (L, n, bs, Hkv, Dh)
+        x = torch.nn.functional.pad(x[:, 0], (0, 0, 0, 0, 0, nbk * bs - S))
+        return x.reshape(L, nbk, bs, *x.shape[2:])[:, keep]
+
+    k_pool[:, dst] = blocks(ks).to(k_pool.dtype)
+    v_pool[:, dst] = blocks(vs).to(v_pool.dtype)
+    return last_logits, (k_pool, v_pool)
+
+
 def _prefill_dense_generic(params, cfg: ModelConfig, inputs, dest, ctx):
     """Registered prefill backend ("dense", "generic"): projects q/k/v as
     the config dictates (kp/vp merged variants pass through)."""
@@ -485,31 +601,77 @@ def _prefill_dense_merged(params, cfg: ModelConfig, inputs, dest, ctx):
     return _finish_dense(params, cfg, inputs, logits, kvs, dest, ctx, B, S)
 
 
+def _prefill_paged_generic(params, cfg: ModelConfig, inputs, dest, ctx):
+    """Registered prefill backend ("paged", "generic"): generic projection
+    path, prompt KV written direct-to-page into the mapped pool blocks."""
+    B, S = inputs.shape[0], inputs.shape[1]
+    logits, _, kvs = _prefill_seq(params, cfg, inputs, ctx,
+                                  merged_core=False, cache_kind="paged")
+    return _finish_paged(cfg, logits, kvs, dest, ctx, B, S)
+
+
+def _prefill_paged_merged(params, cfg: ModelConfig, inputs, dest, ctx):
+    """Registered prefill backend ("paged", "merged"): stream-as-query
+    attention AND direct-to-page KV writes."""
+    B, S = inputs.shape[0], inputs.shape[1]
+    logits, _, kvs = _prefill_seq(params, cfg, inputs, ctx,
+                                  merged_core=True, cache_kind="paged")
+    return _finish_paged(cfg, logits, kvs, dest, ctx, B, S)
+
+
 backends.register_prefill_backend("dense", "generic", _prefill_dense_generic)
 backends.register_prefill_backend("dense", "merged", _prefill_dense_merged,
+                                  fast_path=True)
+backends.register_prefill_backend("paged", "generic", _prefill_paged_generic)
+backends.register_prefill_backend("paged", "merged", _prefill_paged_merged,
                                   fast_path=True)
 
 
 def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
                     impl: str = "torch", true_len=None):
     """Cache-aware prefill: the single dispatcher over the PREFILL
-    registry.  ``dest`` is a ``DensePrefillDest(cache_len, full_cache)``;
-    returns (last_token_logits (B, V), ``DecodeCache``).
+    registry.  ``dest`` names the destination and selects the cache_kind
+    axis of the registry key:
+
+    * ``DensePrefillDest(cache_len, full_cache)`` returns
+      (last_token_logits (B, V), ``DecodeCache``);
+    * ``PagedPrefillDest(k_pool, v_pool, block_ids)`` writes the prompt's
+      KV into the mapped pages of the pools in place and returns
+      (last_token_logits (B, V), (k_pool, v_pool)).
 
     ``true_len`` (B,) int supports bucketed prompts: ``inputs`` may be
     right-padded, the logits are gathered at ``true_len - 1`` and the
-    cache marks padded positions empty (kv_pos = -1) with ``length =
-    true_len``.  Invalid destinations raise ValueError; unknown (cache_kind,
-    style, impl) combos raise the registry's KeyError."""
-    if not isinstance(dest, DensePrefillDest):
+    cache marks padded positions empty (dense: kv_pos = -1; paged: in-page
+    positions past the request's length, hidden by the causal mask) with
+    ``length = true_len``.  Invalid requests (paged on a non-attention
+    stack, paged batch > 1, too few mapped blocks, a non-positive dense
+    cache_len) raise ValueError; unknown (cache_kind, style, impl) combos
+    raise the registry's KeyError."""
+    B, S = int(inputs.shape[0]), int(inputs.shape[1])
+    if isinstance(dest, PagedPrefillDest):
+        kind = "paged"
+        plan = layer_plan(cfg)
+        if plan["kind"] != "attn":
+            raise ValueError(f"paged prefill supports attention-only stacks, "
+                             f"not {plan['kind']!r} (family {cfg.family!r})")
+        if B != 1:
+            raise ValueError(f"paged prefill inserts one request at a time, "
+                             f"got batch size {B}")
+        nbk, bs = int(dest.block_ids.shape[0]), int(dest.k_pool.shape[2])
+        if nbk * bs < S:
+            raise ValueError(f"PagedPrefillDest.block_ids maps {nbk} blocks "
+                             f"of {bs} tokens: too few for a {S}-token prompt")
+    elif isinstance(dest, DensePrefillDest):
+        kind = "dense"
+        if dest.cache_len <= 0:
+            raise ValueError("dense prefill needs DensePrefillDest.cache_len "
+                             f"> 0, got {dest.cache_len!r}")
+    else:
         raise ValueError(
-            f"unknown prefill destination {type(dest).__name__!r}; the port "
-            "serves DensePrefillDest (paged caches: ROADMAP.md)")
-    if dest.cache_len <= 0:
-        raise ValueError("dense prefill needs DensePrefillDest.cache_len > 0,"
-                         f" got {dest.cache_len!r}")
-    backend = backends.get_prefill_backend("dense", prefill_style_key(cfg),
-                                           impl)
+            f"unknown prefill destination {type(dest).__name__!r}; expected "
+            "DensePrefillDest or PagedPrefillDest (the int8 pool: "
+            "ROADMAP.md)")
+    backend = backends.get_prefill_backend(kind, prefill_style_key(cfg), impl)
     ctx = {"impl": impl, "true_len": true_len}
     return backend.run(params, cfg, inputs, dest, ctx)
 
@@ -568,8 +730,77 @@ def _attn_step_dense_merged(lp, cfg: ModelConfig, u1, k_layer, v_layer, ctx):
     return out.reshape(B, 1, cfg.attn_dim), k_layer, v_layer
 
 
+def paged_append_slots(cfg: ModelConfig, block_tables, length,
+                       block_size: int):
+    """Where this step's new K/V rows go in every layer's pool: ``rows``,
+    the batch rows whose page is mapped, and ``dst``, their flat row
+    page * bs + offset in a layer pool's (NB*bs, Hkv, Dh) view (page =
+    table[length // bs], the table index wrapping for ring-addressed
+    windowed tables; ``kernels.paging``).  Idle batch rows (table all -1)
+    are left out: torch has no ``mode="drop"``.  Computed once per step
+    (one host sync), not once per layer."""
+    MB = block_tables.shape[1]
+    ring = paging.paged_ring_active(cfg.sliding_window, block_size, MB)
+    lb = length.long() // block_size
+    lb = lb % ring if ring else lb.clamp(max=MB - 1)
+    blk = block_tables.long().gather(1, lb[:, None])[:, 0]
+    rows = torch.nonzero(blk >= 0).flatten()
+    return rows, blk[rows] * block_size + length[rows].long() % block_size
+
+
+def _rope_and_insert_paged(cfg: ModelConfig, q, k_new, v_new, k_pool, v_pool,
+                           length, append):
+    """RoPE the step's q/k at position ``length`` and write the new k/v
+    rows of the mapped slots (``append`` = ``paged_append_slots``) into
+    the layer's pools, IN PLACE.  Returns (q, k_pool, v_pool)."""
+    pos = length[:, None]
+    q = _rope(cfg, q, pos)
+    k_new = _rope(cfg, k_new, pos)
+    rows, dst = append
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        flat = pool.view(-1, *pool.shape[2:])  # (NB*bs, Hkv, Dh)
+        flat.index_copy_(0, dst, new[rows, 0].to(pool.dtype))
+    return q, k_pool, v_pool
+
+
+def _attn_step_paged(lp, cfg: ModelConfig, u1, k_pool, v_pool, ctx):
+    """Registered backend ("paged", "generic"): decode step against a
+    paged pool.  u1 (B,1,d); k_pool/v_pool (NB,bs,Hkv,Dh)."""
+    B, length = u1.shape[0], ctx["length"]
+    merged = _is_merged(cfg.block_style)
+    q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, merged)
+    q, k_pool, v_pool = _rope_and_insert_paged(cfg, q, k_new, v_new, k_pool,
+                                               v_pool, length, ctx["append"])
+    out = attn_mod.decode_attention_core_paged(
+        q[:, 0], k_pool, v_pool, block_tables=ctx["block_tables"],
+        q_position=length, sliding_window=cfg.sliding_window,
+        impl=ctx["impl"])
+    return out.reshape(B, 1, cfg.attn_dim), k_pool, v_pool
+
+
+def _attn_step_paged_merged(lp, cfg: ModelConfig, u1, k_pool, v_pool, ctx):
+    """Registered backend ("paged", "merged"): the Q/P-removed fast path
+    against a paged pool — per token the attention side reads K*/V*
+    weights and the slot's mapped pages, no Q/P weights and no dense
+    worst-case-length cache."""
+    B, length = u1.shape[0], ctx["length"]
+    # variant "qp": _project_qkv returns the stream itself as q
+    q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, True)
+    q, k_pool, v_pool = _rope_and_insert_paged(cfg, q, k_new, v_new, k_pool,
+                                               v_pool, length, ctx["append"])
+    out = attn_mod.decode_attention_core_paged_merged(
+        q.reshape(B, cfg.attn_dim), k_pool, v_pool,
+        block_tables=ctx["block_tables"], q_position=length,
+        n_kv_heads=cfg.n_kv_heads, sliding_window=cfg.sliding_window,
+        impl=ctx["impl"])
+    return out.reshape(B, 1, cfg.attn_dim), k_pool, v_pool
+
+
 backends.register_backend("dense", "generic", _attn_step_dense)
 backends.register_backend("dense", "merged", _attn_step_dense_merged,
+                          fast_path=True)
+backends.register_backend("paged", "generic", _attn_step_paged)
+backends.register_backend("paged", "merged", _attn_step_paged_merged,
                           fast_path=True)
 
 
@@ -597,31 +828,41 @@ def serving_style_key(cfg: ModelConfig) -> str:
     return "generic"
 
 
-def forward_step(params, cfg: ModelConfig, token, cache: DecodeCache, *,
+def forward_step(params, cfg: ModelConfig, token, cache, *,
                  impl: str = "torch"):
     """One decode step: token (B,) int -> (logits (B, V), cache).
 
-    The config selects the style axis (``serving_style_key``), so merged
-    "qp" models take the fast path: per-token attention reads only K*/V*
-    weights and the merged ``b_out`` bias is applied in-stream after the
-    FFN.  Unknown (cache_kind, style, impl) combos raise KeyError from the
-    registry before any compute.  The cache is updated in place."""
-    if not isinstance(cache, DecodeCache):
-        raise ValueError(f"forward_step serves a DecodeCache, got "
-                         f"{type(cache).__name__} (paged caches: ROADMAP.md)")
+    ``cache`` is a ``DecodeCache`` or a ``PagedDecodeCache``: its type
+    selects the cache_kind axis of the backend registry key and the config
+    the style axis (``serving_style_key``), so merged "qp" models take the
+    fast path: per-token attention reads only K*/V* weights and the merged
+    ``b_out`` bias is applied in-stream after the FFN.  Unknown
+    (cache_kind, style, impl) combos raise KeyError from the registry
+    before any compute.  The cache is updated in place."""
+    paged = isinstance(cache, PagedDecodeCache)
+    if not paged and not isinstance(cache, DecodeCache):
+        raise ValueError(f"forward_step serves a DecodeCache or a "
+                         f"PagedDecodeCache, got {type(cache).__name__} (the "
+                         "int8 pool: ROADMAP.md)")
     _require_dense(cfg)
-    backend = backends.get_backend("dense", serving_style_key(cfg), impl)
+    backend = backends.get_backend("paged" if paged else "dense",
+                                   serving_style_key(cfg), impl)
     # embed through the same front end as the sequence path (skipless
     # scale, merged embed_bias / input_proj)
     h = embed_inputs(params, cfg, token[:, None])
-    # mark the new token's slot valid BEFORE attention so it attends to
-    # itself (ring slot = length % Sc under a sliding window)
-    length, kv_pos = cache.length, cache.kv_pos
-    Sc = kv_pos.shape[1]
-    rows = torch.arange(kv_pos.shape[0], device=kv_pos.device)
-    kv_pos[rows, (length % Sc).long()] = length
-    ctx = {"length": length, "kv_pos": kv_pos, "impl": impl,
-           "backend": backend}
+    length = cache.length
+    ctx = {"length": length, "impl": impl, "backend": backend}
+    if paged:
+        ctx["block_tables"] = cache.block_tables
+        ctx["append"] = paged_append_slots(cfg, cache.block_tables, length,
+                                           cache.k.shape[2])
+    else:
+        # mark the new token's slot valid BEFORE attention so it attends
+        # to itself (ring slot = length % Sc under a sliding window)
+        kv_pos = cache.kv_pos
+        rows = torch.arange(kv_pos.shape[0], device=kv_pos.device)
+        kv_pos[rows, (length % kv_pos.shape[1]).long()] = length
+        ctx["kv_pos"] = kv_pos
     for i in range(cfg.n_layers):
         h = apply_block_step(layer_params(params, i), cfg, h, cache.k[i],
                              cache.v[i], ctx)

@@ -1,7 +1,8 @@
 from repro_torch.serving.adapters import (DenseCacheAdapter, KVCacheAdapter,
-                                          make_adapter)
+                                          PagedCacheAdapter, make_adapter)
 from repro_torch.serving.engine import (Engine, Request, RequestResult,
                                         ServeConfig)
 
-__all__ = ["DenseCacheAdapter", "Engine", "KVCacheAdapter", "Request",
-           "RequestResult", "ServeConfig", "make_adapter"]
+__all__ = ["DenseCacheAdapter", "Engine", "KVCacheAdapter",
+           "PagedCacheAdapter", "Request", "RequestResult", "ServeConfig",
+           "make_adapter"]

@@ -1,19 +1,24 @@
 """KVCacheAdapter: the cache side of the serving API seam.
 
-Counterpart of ``repro.serving.adapters`` for the dense cache.  The engine
-speaks to its cache through one interface, so cache layouts stay out of
-the scheduling code; a new layout is a new adapter plus its registered
-attention backends (``models.backends``).  The paged and int8 pools are
-later slices of the port (ROADMAP.md).
+Counterpart of ``repro.serving.adapters`` for the dense cache and the
+paged pool.  The engine speaks to its cache through one interface, so
+cache layouts stay out of the scheduling code; a new layout is a new
+adapter plus its registered attention backends (``models.backends``).
+The int8 pool and the chunked-prefill part of the interface are later
+slices of the port (ROADMAP.md).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import DensePrefillDest, forward_prefill, init_cache
+from repro_torch.models import (DensePrefillDest, PagedPrefillDest,
+                                forward_prefill, init_cache)
 from repro_torch.serving import kv_cache as kvc
+from repro_torch.serving import paged_kv_cache as pkv
 
 
 class KVCacheAdapter:
@@ -38,15 +43,26 @@ class KVCacheAdapter:
         """Absorb the cache returned by the decode step."""
         raise NotImplementedError
 
-    def admit(self, slot: int, tokens: np.ndarray) -> bool:
-        """Admission control: False defers the request (a pool that is out
-        of pages); the dense cache always admits."""
+    def admit(self, slot: int, tokens: np.ndarray) -> Optional[int]:
+        """Admission control: the number of prefix-shared pages (0 for
+        the dense cache, which always admits), or None to defer the
+        request (a pool that is out of pages)."""
         raise NotImplementedError
 
     def prefill(self, params, slot: int, padded_row, true_n: int):
         """Prefill ``padded_row`` (1, S) and install its KV for ``slot``;
         returns the last real position's logits (1, V)."""
         raise NotImplementedError
+
+    def ensure_appendable(self, slot: int) -> bool:
+        """Make room for ``slot``'s next token; False when out of
+        resources (the engine preempts).  The dense cache always has
+        room."""
+        return True
+
+    def advance(self, slot: int) -> None:
+        """Host bookkeeping after a decode step wrote ``slot``'s token
+        (the dense cache advances its device lengths in the step)."""
 
     def release(self, slot: int) -> None:
         raise NotImplementedError
@@ -79,7 +95,7 @@ class DenseCacheAdapter(KVCacheAdapter):
         self._cache = new
 
     def admit(self, slot, tokens):
-        return True
+        return 0
 
     def prefill(self, params, slot, padded_row, true_n):
         tl = torch.full((1,), true_n, dtype=torch.int32,
@@ -92,11 +108,80 @@ class DenseCacheAdapter(KVCacheAdapter):
         self._cache = kvc.clear_slot(self._cache, slot)
 
 
+class PagedCacheAdapter(KVCacheAdapter):
+    """Block-pool cache: slots map variable numbers of fixed-size physical
+    pages (free-list allocation, prefix sharing, copy-on-write, admission
+    control — ``serving.paged_kv_cache``).  Attention-only stacks.
+
+    ``block_size``/``n_blocks`` default to the ServeConfig's values at
+    ``init`` (n_blocks 0 means dense-equivalent memory: n_slots·max_len/bs
+    pages).  Prefill writes the prompt's KV straight into its mapped pages
+    (``forward_prefill`` with a ``PagedPrefillDest``), in place: no
+    max_len-sized intermediate buffer, no second scatter pass."""
+
+    kind = "paged"
+
+    def __init__(self, block_size: Optional[int] = None,
+                 n_blocks: Optional[int] = None,
+                 prefix_retention: bool = False):
+        self._block_size, self._n_blocks = block_size, n_blocks
+        self._prefix_retention = prefix_retention
+
+    def init(self, cfg, sc, device):
+        self.cfg, self.sc = cfg, sc
+        bs = self._block_size or sc.block_size
+        n_blocks = self._n_blocks or sc.n_blocks \
+            or sc.n_slots * (sc.max_len // bs)
+        self.pm = pkv.PagedCacheManager(
+            cfg, n_slots=sc.n_slots, max_len=sc.max_len, block_size=bs,
+            n_blocks=n_blocks, prefix_retention=self._prefix_retention,
+            device=device)
+
+    def build_prefill(self, impl):
+        cfg = self.cfg
+
+        def run(params, tokens, true_len, block_ids):
+            return forward_prefill(
+                params, cfg, tokens,
+                PagedPrefillDest(self.pm.k, self.pm.v, block_ids),
+                impl=impl, true_len=true_len)
+
+        self._prefill = run
+
+    def device_cache(self):
+        return self.pm.device_cache()
+
+    def update(self, new):
+        pass  # the step wrote the pools in place; tables live on the host
+
+    def admit(self, slot, tokens):
+        return self.pm.admit(slot, tokens)
+
+    def prefill(self, params, slot, padded_row, true_n):
+        dev = padded_row.device
+        bids = self.pm.prefill_block_ids(slot, padded_row.shape[1])
+        tl = torch.full((1,), true_n, dtype=torch.int32, device=dev)
+        logits, _ = self._prefill(params, padded_row, tl,
+                                  torch.from_numpy(bids).to(dev))
+        return logits
+
+    def ensure_appendable(self, slot):
+        return self.pm.ensure_appendable(slot)
+
+    def advance(self, slot):
+        self.pm.advance(slot)
+
+    def release(self, slot):
+        self.pm.release(slot)
+
+
 def make_adapter(kind: str) -> KVCacheAdapter:
     """Adapter for a cache-kind name."""
     if kind == "dense":
         return DenseCacheAdapter()
+    if kind == "paged":
+        return PagedCacheAdapter()
     raise ValueError(
-        f"unknown cache kind {kind!r}; the port serves 'dense' (the paged "
-        "and int8 pools are queued in ROADMAP.md) or a KVCacheAdapter "
+        f"unknown cache kind {kind!r}; the port serves 'dense' and 'paged' "
+        "(the int8 pool is queued in ROADMAP.md) or a KVCacheAdapter "
         "instance")

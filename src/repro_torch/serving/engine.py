@@ -1,10 +1,11 @@
 """Serving engine: prefill + batched greedy decode over a fixed set of slots.
 
-Counterpart of ``repro.serving.engine`` for the dense cache.  The engine
-drives exactly two seams:
+Counterpart of ``repro.serving.engine`` for the dense cache and the paged
+pool.  The engine drives exactly two seams:
 
   * a ``KVCacheAdapter`` (``serving.adapters``) owning the cache: device
-    state, admission and the prefill-insert path;
+    state, admission, the prefill-insert path and room for each next
+    token (paged: map, copy-on-write or recycle the page it falls in);
   * the ``models.backends`` registries keyed (cache_kind, style, impl):
     decode is ONE function, ``models.forward_step``, which looks up its
     per-layer attention route in the AttentionBackend registry, and the
@@ -20,10 +21,18 @@ drives exactly two seams:
 ``device="cuda"`` without a card raises RuntimeError.
 
 Prompt lengths are bucketed (padded to the next power of two, exact logits
-and cache via ``true_len``) except for sliding-window configs, whose dense
-ring cache would drop real positions under a padded tail: those prompts
-reach prefill at their own length.  Sampling is greedy; temperature
-sampling, paged caches, preemption and observer hooks are later slices
+and cache via ``true_len``) except for sliding-window configs on the dense
+cache, whose window-sized ring would drop real positions under a padded
+tail: those prompts reach prefill at their own length (the paged pool
+stores absolute positions, so it buckets windowed configs too).
+
+On the paged pool a request that does not fit is deferred (``submit``
+returns False and ``generate`` retries it after others finish), and when
+a decode step finds the pool exhausted the youngest request is preempted:
+its pages are released and it is resubmitted later, re-prefilling its
+prompt and the tokens it had generated (exact for greedy decoding).
+Sampling is greedy; temperature sampling (and with it the resumed PRNG
+state of a preempted request) and observer hooks are later slices
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -50,6 +59,8 @@ class ServeConfig:
     max_len: int = 512
     temperature: float = 0.0  # 0 => greedy (the only mode ported yet)
     eos_token: int = -1  # -1 => run to max_new_tokens
+    block_size: int = 16  # paged: tokens per physical page
+    n_blocks: int = 0  # paged pool size; 0 => dense-equivalent memory
 
 
 # eq=False: requests are identities, not values (the generated __eq__
@@ -59,8 +70,9 @@ class Request:
     prompt: np.ndarray  # (S,) int32
     max_new_tokens: int = 32
     out_tokens: Optional[List[int]] = None
-    slot: int = -1  # >=0 active; -1 idle/finished
+    slot: int = -1  # >=0 active; -1 idle/finished; -2 preempted
     remaining: int = 0
+    rid: int = -1  # submission index (preemption takes the youngest)
     # serving telemetry (host wall clock, seconds)
     t_arrival: Optional[float] = None
     t_first: Optional[float] = None
@@ -141,20 +153,39 @@ class Engine:
 
         self.free_slots = list(range(sc.n_slots))
         self.active: Dict[int, Request] = {}
+        self.preempted: List[Request] = []
+        self._rid = 0
         self._peak_active = 0
         self._n_steps = 0
+        self._n_preempted = 0
+        self._n_deferred = 0
         # bucketing needs paddable positions: a dense sliding-window cache
         # is a window-sized ring that would drop real positions when a
-        # padded tail pushes them out
-        self._bucketing = not cfg.sliding_window
+        # padded tail pushes them out (the paged pool stores absolute
+        # positions)
+        self._bucketing = self.paged or not cfg.sliding_window
         self.kv.init(cfg, sc, self.device)
         self.kv.build_prefill(impl)
         self._last_token = np.zeros((sc.n_slots,), np.int32)
 
     @property
     def stats(self) -> Dict[str, int]:
-        """Scheduler counters: peak concurrent slots and decode steps run."""
-        return {"peak_active": self._peak_active, "n_steps": self._n_steps}
+        """Scheduler counters: peak concurrent slots, decode steps run,
+        requests preempted mid-decode and admissions deferred."""
+        return {"peak_active": self._peak_active, "n_steps": self._n_steps,
+                "n_preempted": self._n_preempted,
+                "n_deferred": self._n_deferred}
+
+    @property
+    def paged(self) -> bool:
+        """True for a block-pool cache: absolute positions, admission
+        control and preemption."""
+        return self.kv.kind != "dense"
+
+    @property
+    def pm(self):
+        """The paged adapter's host-side ``PagedCacheManager``."""
+        return self.kv.pm
 
     def host_to_device(self, x, dtype=None) -> torch.Tensor:
         """The ONE host->device ingestion seam: always copies, so a caller
@@ -190,37 +221,54 @@ class Engine:
 
     def submit(self, req: Request) -> bool:
         """Prefill a request into a free slot.  Returns False when no slot
-        is free or the adapter defers it."""
+        is free or the adapter defers it (paged: pool exhausted); the
+        caller retries after other requests finish.
+
+        A request with ``out_tokens`` already set is a RESUME (preempted
+        earlier): its prompt and generated tokens but the last re-prefill,
+        and decoding continues from its last token."""
         if req.t_arrival is None:
             req.t_arrival = time.perf_counter()
         if not self.free_slots:
             return False
         # fail FAST on a request that cannot finish: decode past max_len
-        # would wrap a window-free cache over live positions (a dense
-        # sliding-window ring legitimately outlives max_len)
-        if not self.cfg.sliding_window and \
+        # would walk off a paged table or wrap a window-free dense cache
+        # over live positions (a dense sliding-window ring legitimately
+        # outlives max_len)
+        if (self.paged or not self.cfg.sliding_window) and \
                 len(req.prompt) + req.max_new_tokens > self.sc.max_len:
             raise ValueError(
                 f"prompt ({len(req.prompt)}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds max_len ({self.sc.max_len})")
+        resume = bool(req.out_tokens)
         toks = np.asarray(req.prompt, np.int32)
+        if resume and len(req.out_tokens) > 1:
+            toks = np.concatenate(
+                [toks, np.asarray(req.out_tokens[:-1], np.int32)])
         slot = self.free_slots[0]
-        if not self.kv.admit(slot, toks):
+        if self.kv.admit(slot, toks) is None:
+            self._n_deferred += 1
             return False
         self.free_slots.pop(0)
         padded, n = self._bucket_pad(toks)
         logits = self.kv.prefill(self.params, slot,
                                  self.host_to_device(padded, np.int32)[None],
                                  n)
+        if req.rid < 0:
+            req.rid = self._rid
+            self._rid += 1
         req.slot = slot
-        tok = int(self._sample(logits)[0])
-        req.out_tokens = [tok]
-        req.remaining = req.max_new_tokens - 1
-        req.t_first = req.t_last = time.perf_counter()
+        if resume:
+            tok = req.out_tokens[-1]
+        else:
+            tok = int(self._sample(logits)[0])
+            req.out_tokens = [tok]
+            req.remaining = req.max_new_tokens - 1
+            req.t_first = req.t_last = time.perf_counter()
         self.active[slot] = req
         self._last_token[slot] = tok
         self._peak_active = max(self._peak_active, len(self.active))
-        if req.remaining <= 0 or tok == self.sc.eos_token:
+        if not resume and (req.remaining <= 0 or tok == self.sc.eos_token):
             # the prefill token already satisfied the budget (or is EOS):
             # finish now — a decode step would overshoot by one
             self._finish(slot)
@@ -236,6 +284,7 @@ class Engine:
         slot -> token."""
         if not self.active:
             return {}
+        self._make_appendable()
         tokens = self.host_to_device(self._last_token, np.int32)
         logits, new_cache = forward_step(self.params, self.cfg, tokens,
                                          self.kv.device_cache(),
@@ -252,28 +301,55 @@ class Engine:
             req.t_last = now
             self._last_token[slot] = tok
             emitted[slot] = tok
+            self.kv.advance(slot)
             if req.remaining <= 0 or tok == self.sc.eos_token:
                 self._finish(slot)
         return emitted
 
+    def _make_appendable(self) -> None:
+        """Guarantee every active slot can write its next token (paged:
+        map, copy-on-write or recycle the page it falls in), preempting
+        the youngest request while the adapter is out of room.  The dense
+        cache always has room."""
+        while True:
+            blocked = [s for s in sorted(self.active)
+                       if not self.kv.ensure_appendable(s)]
+            if not blocked:
+                return
+            if len(self.active) == 1:
+                raise RuntimeError("paged pool too small for a single "
+                                   "request; raise ServeConfig.n_blocks")
+            self._preempt(max(self.active, key=lambda s: self.active[s].rid))
+
+    def _preempt(self, slot: int) -> None:
+        req = self.active.pop(slot)
+        self.kv.release(slot)
+        self.free_slots.append(slot)
+        req.slot = -2
+        self.preempted.append(req)
+        self._n_preempted += 1
+
     def generate(self, prompts: Sequence[np.ndarray],
                  max_new_tokens: int = 32) -> List[RequestResult]:
-        """Keep the slots full until every prompt is done; one
-        :class:`RequestResult` per prompt, in order."""
+        """Keep the slots full until every prompt is done (resumes of
+        preempted requests first); one :class:`RequestResult` per prompt,
+        in order."""
         t_arrival = time.perf_counter()
         pending = [Request(prompt=np.asarray(p, np.int32),
                            max_new_tokens=max_new_tokens,
                            t_arrival=t_arrival) for p in prompts]
         queue = list(pending)
-        while queue or self.active:
-            while self.free_slots and queue:
-                if not self.submit(queue[0]):
+        while queue or self.active or self.preempted:
+            while self.free_slots:
+                waiting = self.preempted or queue
+                if not waiting or not self.submit(waiting[0]):
                     break
-                queue.pop(0)
+                waiting.pop(0)
             if not self.active:
-                if queue:
+                if queue or self.preempted:
                     raise RuntimeError("serving stalled: the cache cannot "
-                                       "admit any pending request")
+                                       "admit any pending request (raise "
+                                       "n_blocks or max_len)")
                 break
             self.step()
         return [_result_of(r) for r in pending]

@@ -1,0 +1,420 @@
+"""Paged KV cache: a block pool + free-list allocator + per-slot block tables.
+
+Counterpart of ``repro.serving.paged_kv_cache`` (vLLM-style serving
+memory).  The dense ``DecodeCache`` sizes every slot for the worst-case
+sequence; here physical memory is a pool of fixed (block_size, Hkv, Dh)
+pages per layer and each request maps only the pages its sequence
+occupies.
+
+Division of labor:
+  * DEVICE — the page pools, (L, NB, bs, Hkv, Dh) tensors on the engine's
+    device, updated IN PLACE: the prefill program writes a prompt's KV
+    straight into its mapped pages (``models.forward_prefill`` with a
+    ``PagedPrefillDest``), the decode step appends each token's row
+    (``models.forward_step``), and ``copy_block`` implements
+    copy-on-write.  Nothing here reallocates.
+  * HOST — ``BlockAllocator`` (free list + per-page refcounts) and
+    ``PagedCacheManager`` (block tables, admission, prefix sharing,
+    copy-on-write policy, ring recycling).  Tables and lengths are numpy
+    int32 arrays, copied to the device once per step
+    (``device_cache``).
+
+Prefix sharing: requests with identical prompt prefixes map the same
+physical pages, registered in a radix tree over block-aligned token runs
+(``serving.radix_tree``).  Full prompt blocks are immutable once written;
+the trailing PARTIAL block is registered under the entire prompt and may
+later be extended by its owner's decoded tokens, which is safe because a
+sharer's causal mask hides positions beyond its own length and any append
+into a page with refcount > 1 first copies it (copy-on-write).  Sharing
+is exact, so the greedy streams are the same with it as without it.
+Retention of released prefixes (the reference's default) and the chunked-
+prefill methods are later slices of the port (ROADMAP.md): the registry
+here dies with its pages' last sharer.
+
+Sliding-window ring-of-pages: with a sliding window a request's block
+table is a bounded RING of ``ceil(window/bs)+1`` slots (absolute block b
+at slot b % ring — ``kernels.paging``):
+
+  * ``admit`` maps (and prefix-shares) only the LIVE window's blocks of
+    the prompt, and ``prefill_block_ids`` marks the dead ones -1 so the
+    direct-to-page write drops them;
+  * on entering a new absolute block, ``ensure_appendable`` RECYCLES the
+    ring slot's stale page in place (every offset of the recycled page
+    reconstructs to a position beyond the query until decode overwrites
+    it).  A stale page that is still prefix-SHARED is detached instead
+    (the ring variant of copy-on-write: release our reference and take a
+    fresh page), so a sharer's window rolling forward never corrupts a
+    slower peer;
+  * recycling a solely-owned page drops its registry entries.  Prompts
+    longer than the window register nothing: a prefix chain must start
+    at block 0, which such a prompt no longer maps.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import (PagedDecodeCache,
+                                            init_paged_cache, layer_plan,
+                                            paged_table_blocks)
+from repro_torch.serving.radix_tree import RadixPrefixTree
+
+
+def copy_block(k_pool: torch.Tensor, v_pool: torch.Tensor, src: int,
+               dst: int) -> None:
+    """Copy-on-write: duplicate physical page ``src`` into ``dst`` in
+    every layer of the (L, NB, bs, Hkv, Dh) pools, in place."""
+    k_pool[:, dst].copy_(k_pool[:, src])
+    v_pool[:, dst].copy_(v_pool[:, src])
+
+
+# ---------------------------------------------------------------------------
+# host-side free-list allocator
+# ---------------------------------------------------------------------------
+
+class BlockAllocator:
+    """Free list + refcounts over ``n_blocks`` physical pages.
+
+    Refcount > 1 means the page is prefix-shared; writers must
+    copy-on-write (the manager enforces this, the allocator only counts).
+    """
+
+    def __init__(self, n_blocks: int):
+        self.n_blocks = n_blocks
+        self._free: List[int] = list(range(n_blocks))
+        self.ref = np.zeros((n_blocks,), np.int32)
+        # counters the engine, the tests and chip_smoke.py read
+        self.peak_used = 0
+        self.n_cow = 0
+        self.n_shared_hits = 0
+        self.n_recycled = 0  # windowed ring: stale pages reused in place
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        return self.n_blocks - len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Pop ``n`` pages (refcount 1 each); None if the pool is exhausted."""
+        if n > len(self._free):
+            return None
+        ids, self._free = self._free[:n], self._free[n:]
+        for i in ids:
+            self.ref[i] = 1
+        self.peak_used = max(self.peak_used, self.n_used)
+        return ids
+
+    def fork(self, ids: List[int]) -> None:
+        """Share pages with another request (refcount += 1)."""
+        for i in ids:
+            if self.ref[i] <= 0:
+                raise RuntimeError(f"fork of free page {i}")
+            self.ref[i] += 1
+        self.n_shared_hits += len(ids)
+
+    def release(self, ids: List[int]) -> List[int]:
+        """Drop one reference per page; returns the pages that became free."""
+        freed = []
+        for i in ids:
+            if self.ref[i] <= 0:
+                raise RuntimeError(f"release of free page {i}")
+            self.ref[i] -= 1
+            if self.ref[i] == 0:
+                self._free.append(i)
+                freed.append(i)
+        return freed
+
+
+class RequestPageHwm:
+    """Running max / count / last of per-request page high-water marks
+    (three ints, O(1) in requests served)."""
+
+    __slots__ = ("max", "count", "last")
+
+    def __init__(self):
+        self.max = 0
+        self.count = 0
+        self.last = 0
+
+    def record(self, hwm: int) -> None:
+        if hwm > self.max:
+            self.max = hwm
+        self.last = hwm
+        self.count += 1
+
+    def __bool__(self) -> bool:
+        return self.count > 0
+
+    def __repr__(self):
+        return (f"RequestPageHwm(max={self.max}, last={self.last}, "
+                f"count={self.count})")
+
+
+# ---------------------------------------------------------------------------
+# manager: tables + admission + prefix sharing + copy-on-write
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _SlotInfo:
+    blocks: List[int]  # physical pages: logical order (absolute mode) or
+    #                    ring-slot order with -1 unmapped (ring mode)
+    abs_blocks: Optional[List[int]] = None  # ring mode: absolute block
+    #                    currently held per ring slot (-1 = never entered)
+    first_owned: int = 0  # first absolute block NOT prefix-shared (the
+    #                       prefill write starts here)
+    hwm: int = 0  # most pages this request ever mapped at once
+
+
+class PagedCacheManager:
+    """Owns the device pools and every host-side paging decision.
+
+    The engine calls, per request lifecycle:
+      ``admit(slot, tokens)``        admission control + prefix sharing
+      ``prefill_block_ids(slot, …)`` per-logical-block destinations for
+                                     the direct-to-page prefill write
+      ``ensure_appendable(slot)``    map/recycle/CoW the page ``length``
+                                     falls in
+      ``advance(slot)`` / ``release(slot)``
+    and per decode step ``device_cache()``.
+
+    The pools ``k``/``v`` are (L, NB, bs, Hkv, Dh) tensors on ``device``,
+    zero-filled at construction and written in place by the prefill and
+    decode programs.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, n_slots: int, max_len: int,
+                 block_size: int, n_blocks: int,
+                 prefix_retention: bool = False, device="cuda"):
+        if prefix_retention:
+            raise NotImplementedError(
+                "prefix retention is not ported yet (ROADMAP.md, slice 5: "
+                "the prefix cache); pass prefix_retention=False")
+        if layer_plan(cfg)["kind"] != "attn":
+            raise ValueError("paged serving supports attention-only stacks")
+        if max_len % block_size:
+            raise ValueError(f"max_len {max_len} must be a multiple of the "
+                             f"block size {block_size}")
+        self.cfg = cfg
+        self.bs = block_size
+        self.max_blocks = max_len // block_size  # admission bound
+        # table width: the ring bound when a sliding window makes it
+        # strictly smaller than the absolute table (kernels.paging derives
+        # ring addressing from this width: one rule for writer and readers)
+        self.table_blocks = paged_table_blocks(cfg, block_size, max_len)
+        self.ring = self.table_blocks if self.table_blocks < self.max_blocks \
+            else 0
+        self.n_slots = n_slots
+        cache = init_paged_cache(cfg, n_blocks, block_size, n_slots, max_len,
+                                 device=device)
+        self.k, self.v = cache.k, cache.v
+        self.tables = np.full((n_slots, self.table_blocks), -1, np.int32)
+        self.lengths = np.zeros((n_slots,), np.int32)
+        self.allocator = BlockAllocator(n_blocks)
+        self._slots: Dict[int, _SlotInfo] = {}
+        self.request_page_hwm = RequestPageHwm()
+        self.tree = RadixPrefixTree(block_size)
+
+    @property
+    def ring_bound(self) -> int:
+        """Most pages one request may ever hold: ``ceil(window/bs)+1``
+        under a sliding window, else the full table."""
+        return self.ring or self.max_blocks
+
+    # -- device view ----------------------------------------------------
+
+    def device_cache(self) -> PagedDecodeCache:
+        """The pools and a COPY of the host tables and lengths on the
+        pools' device: the manager mutates its numpy arrays between steps,
+        and ``torch.from_numpy(...).to("cpu")`` would share their memory."""
+        dev = self.k.device
+        return PagedDecodeCache(
+            k=self.k, v=self.v,
+            block_tables=torch.from_numpy(self.tables.copy()).to(dev),
+            length=torch.from_numpy(self.lengths.copy()).to(dev))
+
+    @property
+    def pool_bytes(self) -> int:
+        return (self.k.numel() + self.v.numel()) * self.k.element_size()
+
+    # -- prefix sharing (radix tree) -------------------------------------
+
+    def _drop_page(self, bid: int) -> None:
+        """Page ``bid``'s bytes are being rewritten (ring recycle) or it
+        was freed: its registry entries, and the subtree they anchor, die
+        with it."""
+        orphans = self.tree.drop_page(bid)
+        if orphans:
+            self.allocator.release(orphans)
+
+    # -- request lifecycle ----------------------------------------------
+
+    def blocks_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.bs)
+
+    def _first_live_block(self, n_tokens: int) -> int:
+        """First absolute block any future query can still attend: the
+        next decode query sits at position ``n_tokens`` and reaches back
+        to ``n_tokens - window + 1``; earlier blocks are never mapped (0
+        without a window)."""
+        if not self.ring:
+            return 0
+        return max(0, n_tokens - self.cfg.sliding_window + 1) // self.bs
+
+    def admit(self, slot: int, tokens: np.ndarray) -> Optional[int]:
+        """Try to map ``tokens`` into ``slot``.  Returns the number of
+        prefix-SHARED pages, or None when the pool is exhausted (admission
+        control: the caller retries after other requests finish).  A
+        prompt longer than ``max_len`` raises ValueError.
+
+        Ring mode maps only the live window's blocks; a prompt longer than
+        the window shares and registers nothing."""
+        nb = self.blocks_for(len(tokens))
+        if nb > self.max_blocks:
+            raise ValueError(
+                f"prompt of {len(tokens)} tokens exceeds max_len "
+                f"({self.max_blocks * self.bs})")
+        b_min = self._first_live_block(len(tokens))
+        shared, covered = self.tree.match(tokens) if b_min == 0 else ([], 0)
+        fresh = self.allocator.alloc(nb - b_min - len(shared))
+        if fresh is None:
+            return None
+        self.allocator.fork(shared)
+        self.tree.hit_tokens += covered
+        chain = shared + fresh  # absolute blocks b_min..nb-1, in order
+        if self.ring:
+            pages = [-1] * self.ring
+            absb = [-1] * self.ring
+            for i, bid in enumerate(chain):
+                pages[(b_min + i) % self.ring] = bid
+                absb[(b_min + i) % self.ring] = b_min + i
+            info = _SlotInfo(blocks=pages, abs_blocks=absb,
+                             first_owned=b_min + len(shared), hwm=len(chain))
+        else:
+            info = _SlotInfo(blocks=chain, first_owned=len(shared),
+                             hwm=len(chain))
+        self._slots[slot] = info
+        self.tables[slot, :] = -1
+        self.tables[slot, :len(info.blocks)] = info.blocks
+        self.lengths[slot] = len(tokens)
+        if b_min == 0:
+            self.tree.insert(tokens, chain)
+        return len(shared)
+
+    def prefill_block_ids(self, slot: int, padded_len: int) -> np.ndarray:
+        """Physical destination per logical (absolute) block of a (bucket-
+        padded) prefill.  Entries are -1 (the write drops them) for
+        prefix-SHARED pages, bucket-padding blocks past the prompt and,
+        under a sliding window, prompt blocks already out of every future
+        query's window (never mapped)."""
+        info = self._slots[slot]
+        nb = self.blocks_for(int(self.lengths[slot]))
+        nbk = -(-padded_len // self.bs)
+        if nbk < nb:
+            raise ValueError(f"padded length {padded_len} is shorter than "
+                             f"the prompt ({self.lengths[slot]} tokens)")
+        ids = np.full((nbk,), -1, np.int32)
+        if self.ring:
+            for b in range(info.first_owned, nb):
+                ids[b] = info.blocks[b % self.ring]
+        else:
+            ids[info.first_owned:nb] = info.blocks[info.first_owned:nb]
+        return ids
+
+    def _cow(self, slot: int, info: _SlotInfo, idx: int, *,
+             copy: bool) -> bool:
+        """Detach table entry ``idx`` from its shared page onto a fresh
+        one.  ``copy`` copies the bytes on the device (mid-block append:
+        earlier offsets are live shared content); a windowed recycle skips
+        the copy (every offset of the new block is rewritten before any
+        query can attend it)."""
+        bid = info.blocks[idx]
+        fresh = self.allocator.alloc(1)
+        if fresh is None:
+            return False
+        if copy:
+            copy_block(self.k, self.v, bid, fresh[0])
+        self.allocator.release([bid])
+        info.blocks[idx] = fresh[0]
+        self.tables[slot, idx] = fresh[0]
+        self.allocator.n_cow += 1
+        return True
+
+    def _ensure_ring_block(self, slot: int, info: _SlotInfo, b: int) -> bool:
+        """Make absolute block ``b``'s ring slot safely writable: map it if
+        never entered, CoW if shared at the same block, and RECYCLE the
+        slot's out-of-window page when the window rolled past it (in place
+        when solely owned; detached via ``_cow`` when a prefix-sharing
+        peer still holds it).  Returns False on pool exhaustion."""
+        rs = b % self.ring
+        bid = info.blocks[rs]
+        if bid < 0:  # ring slot never entered: map a fresh page
+            fresh = self.allocator.alloc(1)
+            if fresh is None:
+                return False
+            info.blocks[rs] = fresh[0]
+            info.abs_blocks[rs] = b
+            self.tables[slot, rs] = fresh[0]
+            info.hwm = max(info.hwm, sum(1 for p in info.blocks if p >= 0))
+            return True
+        if info.abs_blocks[rs] == b:  # current block: append in place
+            if self.allocator.ref[bid] > 1:
+                return self._cow(slot, info, rs, copy=True)
+            return True
+        # window rolled past the slot's old block: recycle
+        if self.allocator.ref[bid] > 1:
+            # a prefix-sharing peer still holds the old bytes: detach,
+            # never rewrite in place
+            if not self._cow(slot, info, rs, copy=False):
+                return False
+        else:
+            self._drop_page(bid)  # bytes no longer hold the prefix
+        self.allocator.n_recycled += 1
+        info.abs_blocks[rs] = b
+        return True
+
+    def ensure_appendable(self, slot: int) -> bool:
+        """Make the page that position ``lengths[slot]`` falls into safely
+        writable: map it if unmapped, copy-on-write if prefix-shared, and
+        under a sliding window recycle the ring slot's out-of-window page.
+        Returns False when the pool is exhausted (the caller preempts)."""
+        info = self._slots[slot]
+        li = int(self.lengths[slot]) // self.bs  # absolute block of write
+        if li >= self.max_blocks:
+            raise ValueError(f"slot {slot} hit max_len; request too long")
+        if self.ring:
+            return self._ensure_ring_block(slot, info, li)
+        if li >= len(info.blocks):
+            fresh = self.allocator.alloc(1)
+            if fresh is None:
+                return False
+            info.blocks.append(fresh[0])
+            self.tables[slot, li] = fresh[0]
+            info.hwm = max(info.hwm, len(info.blocks))
+            return True
+        if self.allocator.ref[info.blocks[li]] > 1:
+            # shared page: copy before writing
+            return self._cow(slot, info, li, copy=True)
+        return True
+
+    def advance(self, slot: int) -> None:
+        self.lengths[slot] += 1
+
+    def release(self, slot: int) -> None:
+        """Return a finished or preempted request's pages (shared pages
+        stay resident for their other holders)."""
+        info = self._slots.pop(slot, None)
+        if info is None:
+            return
+        self.request_page_hwm.record(info.hwm)
+        live = [p for p in info.blocks if p >= 0]
+        for bid in self.allocator.release(live):
+            self._drop_page(bid)
+        self.tables[slot, :] = -1
+        self.lengths[slot] = 0

@@ -171,3 +171,132 @@ def test_engine_on_the_card_matches_the_cpu_engine():
         want[flash] = cfg.n_layers * len(prompts)
         want[decode] = cfg.n_layers * eng.stats["n_steps"]
         assert launch_counts() == want, kind
+
+
+def _paged_case(rng, B, Hkv, G, D, NB, bs, MB, q_pos, ring, dtype, dev):
+    """Pages from a seeded permutation for every table slot the queries
+    entered (row 1's first block shares row 0's page, row 2 has a -1
+    hole); pages no table maps, and rows of mapped pages past a query's
+    position, are NaN — a kernel that loaded them would return NaN."""
+    bt = np.full((B, MB), -1, np.int32)
+    perm = iter(rng.permutation(NB).tolist())
+    for b, qp in enumerate(q_pos):
+        lb = qp // bs
+        for j in range(MB):
+            if (lb - (lb + ring - j) % ring >= 0) if ring else j <= lb:
+                bt[b, j] = next(perm)
+    bt[1, 0] = bt[0, 0]
+    bt[2, rng.integers(0, MB)] = -1
+    u = rng.standard_normal((B, Hkv * G, D), np.float32)
+    kp, vp = (rng.standard_normal((NB, bs, Hkv, D), np.float32)
+              for _ in range(2))
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    bt_t, qp_t = t(bt), t(np.asarray(q_pos, np.int32))
+    pos = ref.ref_paged_positions(bt_t, bs, qp_t, ring).cpu().numpy()
+    poisoned = []
+    for pool in (kp, vp):
+        bad = pool.copy()
+        live = np.zeros((NB, bs), bool)
+        for b in range(B):
+            for j in range(MB):
+                if bt[b, j] >= 0:
+                    p = pos[b, j * bs:(j + 1) * bs]
+                    live[bt[b, j]] |= (p >= 0) & (p <= q_pos[b])
+        bad[~live] = np.nan
+        pool[~live] = 0.0
+        poisoned.append(t(bad).to(dtype))
+    clean = [t(p).to(dtype) for p in (kp, vp)]
+    return t(u).to(dtype), clean, poisoned, bt_t, qp_t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 64)])
+@pytest.mark.parametrize("window,bs,MB,q_pos", [
+    (0, 16, 32, (15, 36, 264)),  # absolute, MB*bs = 512
+    (37, 16, 32, (15, 99, 480)),  # absolute with a window
+    (64, 16, 5, (37, 130, 1000)),  # ring R = 5, rows 1 and 2 wrapped
+    (10, 4, 4, (5, 19, 66)),  # ring R = 4 of small pages
+])
+def test_paged_decode_kernels_match_plain(dtype, G, D, window, bs, MB,
+                                          q_pos):
+    """Both paged kernels against their plain versions on permuted,
+    shared and holed tables, absolute and wrapped rings; unmapped pages
+    and future rows are NaN in the kernels' pools, so agreement also
+    shows that the kernels never load them."""
+    dev = _cuda()
+    from repro_torch.kernels.paging import paged_ring_active
+    rng = np.random.default_rng(G * 100 + D + window)
+    B, Hkv, NB = 3, 2, 140
+    ring = paged_ring_active(window, bs, MB)
+    u, (kp, vp), (kbad, vbad), bt, qp = _paged_case(
+        rng, B, Hkv, G, D, NB, bs, MB, q_pos, ring, dtype, dev)
+    got = dk.decode_attention_paged_merged_bsd(
+        u, kbad, vbad, bt, qp, sliding_window=window, ring_blocks=ring)
+    want = ref.ref_decode_attention_paged_merged(
+        u, kp, vp, bt, qp, sliding_window=window, ring_blocks=ring)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+    qg = u.reshape(B, Hkv, G, D)
+    got = dk.decode_attention_paged_bhsd(qg, kbad, vbad, bt, qp,
+                                         sliding_window=window,
+                                         ring_blocks=ring)
+    want = ref.ref_decode_attention_paged(qg, kp, vp, bt, qp,
+                                          sliding_window=window,
+                                          ring_blocks=ring)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+
+
+def test_paged_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    u = torch.randn(2, 8, 128, device=dev)
+    kp = torch.randn(6, 16, 2, 128, device=dev)
+    bt = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    qp = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="ring_blocks"):
+        dk.decode_attention_paged_merged_bsd(u, kp, kp, bt, qp, ring_blocks=2)
+    with pytest.raises(ValueError, match="int32"):
+        dk.decode_attention_paged_merged_bsd(u, kp, kp, bt.long(), qp)
+    with pytest.raises(ValueError, match="pools"):
+        dk.decode_attention_paged_bhsd(u.reshape(2, 4, 2, 128), kp, kp, bt,
+                                       qp)
+    # an idle row (table all -1) is exactly zero
+    out = dk.decode_attention_paged_merged_bsd(u, kp, kp, bt - 1, qp)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_paged_engine_on_the_card_matches_the_cpu_engine():
+    """The paged engine through the CUDA kernels emits the CPU engine's
+    streams, through a pool small enough to defer and preempt and a window
+    that rings the table, and launches only the paged decode kernels."""
+    dev = _cuda()
+    from repro_torch.core.merge import merge_skipless
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = reduce_config(get_config("mistral-7b")).with_(
+        block_style="skipless", d_model=256, n_heads=4, n_kv_heads=2,
+        d_head=64, sliding_window=24)
+    params = init_params(cfg, seed=0, device="cpu")
+    mparams, mcfg = merge_skipless(params, cfg, "qp")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 19, 40)]
+    sc = ServeConfig(n_slots=3, max_len=64, block_size=8, n_blocks=7)
+    names = {"generic": ("flash_attention_bhsd", "decode_attention_paged_bhsd"),
+             "merged": ("flash_attention_merged_bsd",
+                        "decode_attention_paged_merged_bsd")}
+    for c, p, kind in ((cfg, params, "generic"), (mcfg, mparams, "merged")):
+        cpu = Engine(c, p, sc, impl="torch", cache="paged",
+                     device="cpu").generate(prompts, max_new_tokens=12)
+        reset_launch_counts()
+        eng = Engine(c, tree_map(lambda t: t.to(dev), p), sc, impl="cuda",
+                     cache="paged", device=dev)
+        gpu = eng.generate(prompts, max_new_tokens=12)
+        assert [list(o) for o in gpu] == [list(o) for o in cpu], kind
+        assert eng.pm.ring and eng.stats["n_deferred"] and \
+            eng.stats["n_preempted"], eng.stats
+        flash, decode = names[kind]
+        want = {k: 0 for k in launch_counts()}
+        want[flash] = cfg.n_layers * (len(prompts) + eng.stats["n_preempted"])
+        want[decode] = cfg.n_layers * eng.stats["n_steps"]
+        assert launch_counts() == want, kind

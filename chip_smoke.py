@@ -5,18 +5,23 @@ NVIDIA card.  Run from the repository root:
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the six attention kernels from ``src/repro_torch/kernels/csrc``
+2. builds the nine attention kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and prints the build time;
-3. kernel phase: holds each kernel against its plain PyTorch version at the
+3. quantize check: the int8 quantization (``kernels.quant``: pages, a
+   masked sequence, decode appends that enter fresh pages and grow
+   scales) gives the same ints and scales on the card as on the CPU;
+4. kernel phase: holds each kernel against its plain PyTorch version at the
    main path's shapes (Hq=32, Hkv=8, D=128) in bfloat16 and float32 —
-   dense caches, and page pools behind permuted block tables with -1
-   holes, a shared page and a wrapped ring — and times kernel, plain
-   version and, as a yardstick the port never calls,
+   dense caches, page pools behind permuted block tables with -1 holes, a
+   shared page and a wrapped ring, the same tables over int8 pools whose
+   unmapped pages have NaN scales, and int8 prompt K*/V* — and times
+   kernel, plain version and, as a yardstick the port never calls,
    ``scaled_dot_product_attention`` (for the paged kernels: on the cache
-   already gathered, the gather not timed), beside the least time the card
-   could take (bound).  Times come from CUDA graphs of 30 calls (``cuda_ms``),
-   three timed replays each;
-4. path phase: builds a skipless Mistral-7B at full width on the card from
+   already gathered, the gather not timed; for the int8 kernels: on the
+   K/V already dequantized, the dequant not timed), beside the least time
+   the card could take (bound).  Times come from CUDA graphs of 30 calls
+   (``cuda_ms``), three timed replays each;
+5. path phase: builds a skipless Mistral-7B at full width on the card from
    a seeded generator, merges it exactly (``merge_skipless(..., "qp")``)
    and serves 4 prompts (16, 37, 100, 250 tokens; 16 new tokens each),
    merged and source, in float32:
@@ -30,15 +35,27 @@ NVIDIA card.  Run from the repository root:
      recycling).  A random skipless GLU stack amplifies float32 rounding
      roughly 2x per layer and has no well-scaled regime at depth
      (``tools/skipless_depth.py``), so this is the depth at which float32
-     can hold two mathematically identical models token-identical;
+     can hold two mathematically identical models token-identical.
+     ``Engine(cache="paged_q8")`` then serves both models on the int8 pool:
+     the same deferral and preemption, a copy-on-write that moves a page's
+     scale rows with its ints, and a ring recycle whose page scale is reset
+     at offset 0 are asserted; how far its streams agree with the fp
+     pool's and merged with source, how many pool ints the two models'
+     250-token prefills store differently, and the q8 prefill's logit
+     error against the fp pool's are printed (int8 rounding boundaries
+     fall differently under float drift, so these are findings, not
+     gates);
    - at the full 32 layers the launch counters must show that each engine
      ran only its own kernels (32 flash launches per prompt, 32 decode
      launches per step): merged dense the merged dense pair, source the
-     generic pair, and on the paged pool the paged decode kernels; the
-     merged model then serves in bfloat16 on both caches, and tok/s, TTFT
-     and a profile of its dense decode steps are printed beside the card's
+     generic pair, on the paged pool the paged decode kernels, and on the
+     int8 pool the q8 decode kernels with the q8 flash kernel (merged) or
+     the fp flash kernel (source); the merged model then serves in
+     bfloat16 on all three caches, and tok/s, TTFT, a profile of its
+     decode steps on each cache, and the peak concurrent streams of the
+     fp and int8 pools at one byte budget are printed beside the card's
      name;
-5. prints one JSON line of per-kernel numbers, then, as the last line,
+6. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Everything printed to stdout is also written to ``build/chip_smoke.log``
@@ -88,6 +105,15 @@ KERNELS = {
     "decode_attention_paged_merged_bsd": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:336"),
+    "flash_attention_merged_q8_bsd": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:271"),
+    "decode_attention_paged_q8_bhsd": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:432"),
+    "decode_attention_paged_q8_merged_bsd": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:510"),
 }
 
 
@@ -407,17 +433,24 @@ def paged_tables():
              np.asarray(RING_QPOS, np.int32))]
 
 
-def paged_phase(rng, rows):
+def paged_phase(rng, rows, q8):
+    """Rows 6 and 7 (``q8`` False) or 8 and 9 (``q8`` True): the paged
+    decode kernels on ``paged_tables``, over float pools or over int8
+    pools quantized from seeded float pages whose unmapped pages' scale
+    rows are NaN in the kernels' inputs (the plain versions get the clean
+    scales: a kernel that read such a scale would disagree)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as dk, ref
+    from repro_torch.kernels import decode_attention as dk, quant, ref
     from repro_torch.kernels.paging import paged_ring_active
 
     G = Hq // Hkv
     dev = torch.device("cuda")
+    kind = "paged_q8" if q8 else "paged"
     for dtype in (torch.bfloat16, torch.float32):
         el = torch.tensor([], dtype=dtype).element_size()
+        kv_el = 1 if q8 else el
         for label, window, bt_np, qp_np in paged_tables():
             B, MB = bt_np.shape
             bt = torch.from_numpy(bt_np).to(dev)
@@ -428,22 +461,43 @@ def paged_phase(rng, rows):
             if window:
                 ok &= qp[:, None] - kvp < window
             n_att = int(ok.sum())
-            n_sets = n_sets_for(2 * NB_POOL * PAGE * Hkv * D * el)
+            n_sets = n_sets_for(2 * NB_POOL * PAGE * Hkv * D * kv_el)
+            unmapped = torch.ones(NB_POOL, dtype=torch.bool, device=dev)
+            unmapped[bt[bt >= 0].long()] = False
 
-            def rand(*shape):
+            def rand(*shape, dt=dtype):
                 return torch.from_numpy(rng.standard_normal(
-                    shape, np.float32)).to(dev, dtype)
+                    shape, np.float32)).to(dev, dt)
+
+            def pool():
+                """(pool the kernel reads, as the plain version reads it,
+                as dense rows of ``dtype`` for the yardstick)"""
+                if not q8:
+                    p = rand(NB_POOL, PAGE, Hkv, D)
+                    return (p,), (p,), p
+                ints, sc = quant.q8_quantize_pages(
+                    rand(NB_POOL, PAGE, Hkv, D, dt=torch.float32))
+                nan = torch.where(unmapped[:, None], float("nan"), sc)
+                return ((ints, nan), (ints, sc),
+                        ref.ref_q8_dequant_pool(ints, sc).to(dtype))
 
             us = [rand(B, Hq, D) for _ in range(n_sets)]
-            kps = [rand(NB_POOL, PAGE, Hkv, D) for _ in range(n_sets)]
-            vps = [rand(NB_POOL, PAGE, Hkv, D) for _ in range(n_sets)]
-            # the yardstick's dense K/V, gathered here, outside its timing
-            khs = [ref.ref_paged_gather(k, bt).transpose(1, 2).contiguous()
-                   for k in kps]
-            vhs = [ref.ref_paged_gather(v, bt).transpose(1, 2).contiguous()
-                   for v in vps]
-            nbytes = (2 * n_att * Hkv * D * el + 2 * B * Hq * D * el
-                      + B * MB * 4 + B * 4)
+            kps = [pool() for _ in range(n_sets)]
+            vps = [pool() for _ in range(n_sets)]
+            # the yardstick's dense K/V, gathered (and dequantized) here,
+            # outside its timing
+            khs, vhs = ([ref.ref_paged_gather(p[2], bt).transpose(1, 2)
+                         .contiguous() for p in pools] for pools in (kps, vps))
+            # each pool row some slot attends to is read once, though two
+            # slots may map its page (the shared page); int8 rows are one
+            # byte each, plus both scales of every (page, kv head) with an
+            # attendable row
+            row = (bt.long().repeat_interleave(PAGE, dim=1) * PAGE
+                   + torch.arange(MB * PAGE, device=dev) % PAGE)[ok].unique()
+            n_rows = int(row.numel())
+            n_pages = int((row // PAGE).unique().numel()) if q8 else 0
+            nbytes = (2 * n_rows * Hkv * D * kv_el + 2 * n_pages * Hkv * 4
+                      + 2 * B * Hq * D * el + B * MB * 4 + B * 4)
             bound = bound_ms(nbytes, 4 * D * Hq * n_att, dtype)
             mask = ok[:, None, None, :]
 
@@ -452,48 +506,162 @@ def paged_phase(rng, rows):
                     us[i].reshape(B, Hq, 1, D), khs[i], vhs[i],
                     attn_mask=mask, enable_gqa=True)
 
-            for name in ("decode_attention_paged_merged_bsd",
-                         "decode_attention_paged_bhsd"):
-                if name == "decode_attention_paged_merged_bsd":
-                    def kern(i):
-                        return dk.decode_attention_paged_merged_bsd(
-                            us[i], kps[i], vps[i], bt, qp,
-                            sliding_window=window, ring_blocks=ring)
+            def args(i, which):  # which 0: the kernel's, 1: the plain's
+                k, v = kps[i][which], vps[i][which]
+                return (k[0], v[0], *k[1:], *v[1:], bt, qp)
 
-                    def plain(i):
-                        return ref.ref_decode_attention_paged_merged(
-                            us[i], kps[i], vps[i], bt, qp,
-                            sliding_window=window, ring_blocks=ring)
-                else:
-                    def kern(i):
-                        return dk.decode_attention_paged_bhsd(
-                            us[i].reshape(B, Hkv, G, D), kps[i], vps[i], bt,
-                            qp, sliding_window=window,
-                            ring_blocks=ring).reshape(B, Hq, D)
+            kw = dict(sliding_window=window, ring_blocks=ring)
+            infix = "_q8" if q8 else ""
+            for merged in (True, False):
+                name = f"decode_attention_paged{infix}_" + \
+                    ("merged_bsd" if merged else "bhsd")
+                fn = getattr(dk, name)
+                oracle = getattr(ref, f"ref_decode_attention_paged{infix}"
+                                 + ("_merged" if merged else ""))
 
-                    def plain(i):
-                        return ref.ref_decode_attention_paged(
-                            us[i].reshape(B, Hkv, G, D), kps[i], vps[i], bt,
-                            qp, sliding_window=window,
-                            ring_blocks=ring).reshape(B, Hq, D)
+                def query(i, merged=merged):
+                    return us[i] if merged else us[i].reshape(B, Hkv, G, D)
+
+                def kern(i, fn=fn, query=query):
+                    return fn(query(i), *args(i, 0), **kw).reshape(B, Hq, D)
+
+                def plain(i, oracle=oracle, query=query):
+                    return oracle(query(i), *args(i, 1),
+                                  **kw).reshape(B, Hq, D)
+
                 rows.append(kernel_row(
-                    name, dtype, f"B={B} bs={PAGE} {label}", kern, plain,
-                    sdpa, n_sets, bound,
+                    name, dtype, f"B={B} bs={PAGE} {kind} {label}", kern,
+                    plain, sdpa, n_sets, bound,
                     timed=(window == 0 and dtype == torch.bfloat16)))
             del us, kps, vps, khs, vhs
+
+
+def quant_check(rng):
+    """The int8 quantization is plain torch on every route: on the same
+    seeded float32 K/V at Mistral's shape (Hkv 8, D 128, pages of 16) the
+    card's ints and scales equal the CPU's — whole pages, a sequence with
+    a ``valid`` mask (padding past true_len zeroed before the absmax), and
+    decode appends that enter fresh pages, grow scales and keep them."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import quant
+
+    dev = torch.device("cuda")
+    n = 0
+
+    def same(a, b, what):
+        nonlocal n
+        for x, y in zip(a, b):
+            if not torch.equal(x, y.cpu()):
+                raise AssertionError(f"quantize {what}: card != CPU")
+            n += x.numel()
+
+    def f32(*shape, amp=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32) * amp)
+
+    for amp in (1e-3, 1.0, 300.0):
+        x = f32(2, NB_POOL, PAGE, Hkv, D, amp=amp)
+        same(quant.q8_quantize_pages(x), quant.q8_quantize_pages(x.to(dev)),
+             f"pages x{amp}")
+    kv = f32(2, 256, Hkv, D)
+    kv[:, 250:] *= 50.0  # loud padding past row 0's true length
+    valid = torch.arange(256)[None, :] < torch.tensor([[250], [256]])
+    same(quant.q8_quantize_seq(kv, PAGE, valid),
+         quant.q8_quantize_seq(kv.to(dev), PAGE, valid.to(dev)), "seq")
+    pool = torch.zeros((NB_POOL, PAGE, Hkv, D), dtype=torch.int8)
+    scale = torch.zeros((NB_POOL, Hkv))
+    gpool, gscale = pool.to(dev), scale.to(dev)
+    for t in range(40):  # two rows; row 1 enters a fresh page every 16
+        tok = f32(2, Hkv, D, amp=1.0 + (t * 7) % 5)
+        page = torch.tensor([3, 10 + t // PAGE])
+        off = torch.tensor([t % PAGE, t % PAGE])
+        quant.q8_append_token(pool, scale, tok, page, off)
+        quant.q8_append_token(gpool, gscale, tok.to(dev), page.to(dev),
+                              off.to(dev))
+        same((pool, scale), (gpool, gscale), f"append {t}")
+    log(f"quantize: card == CPU bit for bit ({n:,d} ints and scales: "
+        f"pages, a masked sequence, 40 appends)")
+
+
+def q8_flash_phase(rng, rows):
+    """Row 3: the merged q8 flash kernel over int8 K*/V* quantized from
+    seeded floats at the pool's granularity (pages of 16), page-aligned
+    prompt lengths, causal, and a window-64 row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk, quant, ref
+
+    B = 1
+    dev = torch.device("cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        el = torch.tensor([], dtype=dtype).element_size()
+        for S, window in ((16, 0), (256, 0), (512, 0), (256, 64)):
+            nbytes = (B * S * 2 * Hq * D * el + B * S * 2 * Hkv * D
+                      + 2 * B * (S // PAGE) * Hkv * 4)  # u, out, k, v, scales
+            n_sets = n_sets_for(nbytes)
+
+            def q8_seq():
+                return quant.q8_quantize_seq(torch.from_numpy(
+                    rng.standard_normal((B, S, Hkv, D), np.float32)).to(dev),
+                    PAGE)
+
+            us = [torch.from_numpy(rng.standard_normal(
+                (B, S, Hq, D), np.float32)).to(dev, dtype)
+                for _ in range(n_sets)]
+            ks = [q8_seq() for _ in range(n_sets)]
+            vs = [q8_seq() for _ in range(n_sets)]
+            qh = [u.transpose(1, 2).contiguous() for u in us]
+            kh, vh = ([quant.q8_dequant_seq(t, sc, dtype).transpose(1, 2)
+                       .contiguous() for t, sc in seqs] for seqs in (ks, vs))
+            i_ = torch.arange(S, device=dev)
+            ok = i_[None, :] <= i_[:, None]
+            if window:
+                ok &= i_[:, None] - i_[None, :] < window
+            bound = bound_ms(nbytes, 4 * D * Hq * B * int(ok.sum()), dtype)
+
+            def sdpa(i):
+                if window:
+                    return F.scaled_dot_product_attention(
+                        qh[i], kh[i], vh[i], attn_mask=ok, enable_gqa=True)
+                return F.scaled_dot_product_attention(
+                    qh[i], kh[i], vh[i], is_causal=True, enable_gqa=True)
+
+            def kern(i):
+                return fk.flash_attention_merged_q8_bsd(
+                    us[i], ks[i][0], vs[i][0], ks[i][1], vs[i][1],
+                    sliding_window=window)
+
+            def plain(i):
+                return ref.ref_flash_attention_merged_q8(
+                    us[i], ks[i][0], vs[i][0], ks[i][1], vs[i][1],
+                    sliding_window=window)
+
+            rows.append(kernel_row(
+                "flash_attention_merged_q8_bsd", dtype,
+                f"B={B} Sq=Sk={S} int8 sg={PAGE} causal window={window}",
+                kern, plain, sdpa, n_sets, bound,
+                timed=(S == 256 and window == 0 and dtype == torch.bfloat16)))
+            del us, ks, vs, qh, kh, vh
 
 
 # ---------------------------------------------------------------------------
 # path phase
 # ---------------------------------------------------------------------------
 
-def serve(cfg, params, prompts, max_new, cache="dense", **serve_kw):
+def serve(cfg, params, prompts, max_new, cache="dense", probe=None,
+          **serve_kw):
+    """Serve ``prompts`` on a fresh 4-slot engine; ``probe(eng)`` may wrap
+    the engine's manager before the run.  Returns (engine, results, the
+    launch counts of exactly this run, wall seconds)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import Engine, ServeConfig
     import torch
 
     eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=512, **serve_kw),
                  impl="cuda", cache=cache, device="cuda")
+    if probe is not None:
+        probe(eng)
     torch.cuda.synchronize()
     reset_launch_counts()  # counts cover exactly this serve
     t0 = time.perf_counter()
@@ -506,9 +674,14 @@ def serve(cfg, params, prompts, max_new, cache="dense", **serve_kw):
 def check_counts(tag, counts, eng, n_layers, n_prompts, merged):
     """Each prefill (a resume after preemption is one more) launches the
     engine's flash kernel once per layer, each decode step its decode
-    kernel once per layer, and no other kernel runs."""
-    flash_k = "flash_attention_merged_bsd" if merged else "flash_attention_bhsd"
-    dec_k = ("decode_attention_paged_" if eng.paged else "decode_attention_") \
+    kernel once per layer, and no other kernel runs.  On the int8 pool the
+    merged prefill runs the q8 flash kernel and the source's the fp one
+    (it dequantizes upstream, as the reference routes it)."""
+    q8 = eng.kv.kind == "paged_q8"
+    flash_k = "flash_attention_" + (("merged_q8_bsd" if q8 else "merged_bsd")
+                                    if merged else "bhsd")
+    dec_k = {"dense": "decode_attention_", "paged": "decode_attention_paged_",
+             "paged_q8": "decode_attention_paged_q8_"}[eng.kv.kind] \
         + ("merged_bsd" if merged else "bhsd")
     want = {k: 0 for k in KERNELS}
     want[flash_k] = n_layers * (n_prompts + eng.stats["n_preempted"])
@@ -646,6 +819,196 @@ def window_checks(tag, cfg, params, prompts, max_new):
     return recycled
 
 
+def agreement(a, b):
+    """Per prompt, the tokens two streams share before they first differ."""
+    out = []
+    for x, y in zip(a, b):
+        n = 0
+        while n < min(len(x), len(y)) and x[n] == y[n]:
+            n += 1
+        out.append(n)
+    return out
+
+
+def cow_probe(moved):
+    """Wraps the manager's copy-on-write: after each copy, record whether
+    the destination page's ints AND scale rows equal the source's."""
+    import torch
+
+    def probe(eng):
+        pm, copy = eng.pm, eng.pm._copy_block_device
+
+        def checked(src, dst):
+            copy(src, dst)
+            moved.append(all(torch.equal(t[:, dst], t[:, src]) for t in
+                             (pm.k, pm.v, pm.k_scale, pm.v_scale)))
+        pm._copy_block_device = checked
+    return probe
+
+
+def ring_probe(resets):
+    """Wraps the manager so that, for each page recycled into the ring, the
+    decode write at its offset 0 is checked to have reset the page's
+    scale: some (layer, kv head) scale row must come out SMALLER than the
+    stale one, which the monotone merge of a live page never does."""
+    def probe(eng):
+        pm = eng.pm
+        ensure, advance, pending = pm.ensure_appendable, pm.advance, {}
+
+        def ensure_checked(slot):
+            rs = (int(pm.lengths[slot]) // pm.bs) % pm.ring
+            r0, page = pm.allocator.n_recycled, int(pm.tables[slot, rs])
+            ok = ensure(slot)
+            if ok and pm.allocator.n_recycled > r0 and \
+                    int(pm.tables[slot, rs]) == page:  # recycled in place
+                pending[slot] = (page, pm.k_scale[:, page].clone(),
+                                 pm.v_scale[:, page].clone())
+            return ok
+
+        def advance_checked(slot):
+            if slot in pending:  # the step wrote offset 0 of the page
+                page, k_old, v_old = pending.pop(slot)
+                resets.append(bool((pm.k_scale[:, page] < k_old).any() or
+                                   (pm.v_scale[:, page] < v_old).any()))
+            advance(slot)
+        pm.ensure_appendable, pm.advance = ensure_checked, advance_checked
+    return probe
+
+
+def q8_checks(tag, cfg, params, prompts, max_new, fp_streams):
+    """The int8 pool at 4 layers, float32, on one model: the dense-sized
+    pool; an 18-page pool (deferral, preemption and resume asserted);
+    a repeated prompt (shared pages and a copy-on-write that moved the
+    scale rows asserted); the window cut to 64 (a ring recycle whose page
+    scale was reset at offset 0 asserted).  Returns (events, streams on
+    the dense-sized pool)."""
+    n = len(prompts)
+    merged = cfg.block_style == "skipless_merged"
+
+    def complete(what, outs, n_req):
+        """Every request was served to its last token."""
+        lens = [len(o) for o in outs]
+        if len(lens) != n_req or any(m != max_new for m in lens):
+            raise AssertionError(f"{tag} paged_q8 {what}: stream lengths "
+                                 f"{lens}, want {n_req} x {max_new}")
+
+    eng, out, counts, _ = serve(cfg, params, prompts, max_new,
+                                cache="paged_q8")
+    complete("dense-sized pool", out, n)
+    check_counts(f"{tag} paged_q8 float32", counts, eng, cfg.n_layers, n,
+                 merged)
+    need = max(-(-(len(p) + max_new - 1) // 16) for p in prompts)
+    order = [0, 3, 1, 2]
+    eng, small, counts, _ = serve(cfg, params, [prompts[i] for i in order],
+                                  max_new, cache="paged_q8",
+                                  n_blocks=need + 1)
+    complete(f"{need + 1}-page pool", small, n)
+    check_counts(f"{tag} paged_q8 float32, {need + 1}-page pool", counts,
+                 eng, cfg.n_layers, n, merged)
+    ev = {"pool_pages": need + 1, "deferred": eng.stats["n_deferred"],
+          "preempted_and_resumed": eng.stats["n_preempted"]}
+    moved, resets = [], []
+    eng, rep, _, _ = serve(cfg, params, [prompts[i] for i in (1, 1, 2)],
+                           max_new, cache="paged_q8", probe=cow_probe(moved))
+    complete("repeated prompt", rep, 3)
+    ev.update(shared_pages=eng.pm.allocator.n_shared_hits,
+              copy_on_write=len(moved), cow_moved_scale_rows=sum(moved))
+    eng, win, _, _ = serve(cfg.with_(sliding_window=64), params, prompts,
+                           max_new, cache="paged_q8", probe=ring_probe(resets))
+    complete("window 64", win, n)
+    ev.update(ring_recycled_w64=eng.pm.allocator.n_recycled,
+              recycled_scale_reset=sum(resets))
+    if not (ev["deferred"] and ev["preempted_and_resumed"] and
+            ev["shared_pages"] and moved and all(moved) and eng.pm.ring and
+            resets and all(resets)):
+        raise AssertionError(f"{tag} paged_q8 events {ev}, cow moved "
+                             f"{moved}, scale resets {resets}")
+    ev["agree_with_fp_paged"] = agreement(out, fp_streams)
+    log(f"  {tag} paged_q8: events {ev} (tokens agreeing with the fp pool "
+        f"before the first difference, per prompt: "
+        f"{ev['agree_with_fp_paged']} of {max_new})")
+    return ev, out
+
+
+def q8_prefill_findings(cfg, params, mcfg, mparams, prompt):
+    """The 250-token prompt prefilled into a fresh int8 pool by the source
+    and the merged model, and into an fp pool by the merged one: the
+    int8 entries the two pools hold differently, and the q8 prefill's max
+    |logit| error against the fp pool's as a share of the fp max |logit|."""
+    import torch
+    from repro_torch.models import (PagedPrefillDest, PagedQ8PrefillDest,
+                                    forward_prefill, init_paged_cache,
+                                    init_paged_q8_cache)
+
+    S = -(-len(prompt) // PAGE) * PAGE
+    x = torch.zeros((1, S), dtype=torch.long, device="cuda")
+    x[0, :len(prompt)] = torch.as_tensor(prompt)
+    tl = torch.tensor([len(prompt)], device="cuda")
+    bids = torch.arange(S // PAGE, dtype=torch.int32, device="cuda")
+    pools, logits = [], []
+    for c, p in ((cfg, params), (mcfg, mparams)):
+        q = init_paged_q8_cache(c, S // PAGE, PAGE, 1, S, device="cuda")
+        lg, _ = forward_prefill(p, c, x, PagedQ8PrefillDest(
+            q.k, q.v, q.k_scale, q.v_scale, bids), impl="cuda", true_len=tl)
+        pools.append(q)
+        logits.append(lg)
+    fp = init_paged_cache(mcfg, S // PAGE, PAGE, 1, S, device="cuda")
+    lg_fp, _ = forward_prefill(mparams, mcfg, x, PagedPrefillDest(
+        fp.k, fp.v, bids), impl="cuda", true_len=tl)
+    a, b = pools
+    n_diff = int((a.k != b.k).sum() + (a.v != b.v).sum())
+    out = {"int8_entries_differing_merged_vs_source": n_diff,
+           "int8_entries": 2 * a.k.numel(),
+           "q8_vs_fp_prefill_max_logit_err_share": float(
+               (logits[1] - lg_fp).abs().max() / lg_fp.abs().max())}
+    log(f"  250-token prefill into the int8 pool: {n_diff:,d} of "
+        f"{out['int8_entries']:,d} int8 entries differ between merged and "
+        f"source; merged q8 vs fp pool prefill logits: max |err| = "
+        f"{out['q8_vs_fp_prefill_max_logit_err_share']:.3g} of the max "
+        f"|fp logit|")
+    return out
+
+
+def equal_budget(cfg, params):
+    """The peak concurrent streams of the fp (here bfloat16) pool and the
+    int8 pool given the same device bytes, on one shared traffic: 16
+    requests alternating 40- and 24-token prompts (one repeated), 8 new
+    tokens each, 16 slots, max_len 64 (``benchmarks/bench_paged_serving.py``
+    ``_serve_quant``'s traffic, at this page size); the fp pool has the
+    dense cache's 4 x 64 tokens of pages."""
+    import numpy as np
+    from repro_torch.serving import (Engine, PagedCacheAdapter,
+                                     PagedQ8CacheAdapter, ServeConfig)
+
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in [40, 24] * 8]
+    prompts[1] = prompts[0].copy()
+    sc = ServeConfig(n_slots=16, max_len=64)
+
+    def engine(adapter, n_blocks):
+        return Engine(cfg, params, sc, impl="cuda", device="cuda",
+                      cache=adapter(block_size=PAGE, n_blocks=n_blocks))
+
+    n_fp = 4 * 64 // PAGE
+    budget = engine(PagedCacheAdapter, n_fp).pm.pool_bytes
+    n_q8 = budget // (engine(PagedQ8CacheAdapter, 2).pm.pool_bytes // 2)
+    out = {"budget_bytes": budget}
+    for name, adapter, nb in (("fp", PagedCacheAdapter, n_fp),
+                              ("q8", PagedQ8CacheAdapter, n_q8)):
+        eng = engine(adapter, nb)
+        eng.generate(prompts, max_new_tokens=8)
+        out[name] = {"pages": nb, "pool_bytes": eng.pm.pool_bytes,
+                     "peak_streams": eng.stats["peak_active"],
+                     "deferred": eng.stats["n_deferred"],
+                     "preempted": eng.stats["n_preempted"]}
+    if out["q8"]["pool_bytes"] > budget:
+        raise AssertionError(f"q8 pool over the byte budget: {out}")
+    log(f"  equal budget ({budget:,d} bytes), {cfg.dtype}, 16 requests: fp "
+        f"pool {out['fp']} / int8 pool {out['q8']}")
+    return out
+
+
 def path_phase(summary):
     import numpy as np
     import torch
@@ -695,6 +1058,19 @@ def path_phase(summary):
         for tag, c, p in (("source", cfg, params), ("merged", mcfg, mparams)):
             summary["paged_events"][tag]["ring_recycled_w64"] = \
                 window_checks(tag, c, p, prompts, max_new)
+        # the int8 pool: its events asserted; how far its streams agree,
+        # and its bits, printed as findings
+        q8, q8_out = {}, {}
+        for tag, c, p, fp in (("source", cfg, params, src_out),
+                              ("merged", mcfg, mparams, mrg_out)):
+            q8[tag], q8_out[tag] = q8_checks(tag, c, p, prompts, max_new, fp)
+        q8["merged_vs_source_agree"] = agreement(q8_out["merged"],
+                                                 q8_out["source"])
+        log(f"  paged_q8 merged vs source: tokens agreeing before the first "
+            f"difference, per prompt: {q8['merged_vs_source_agree']} of "
+            f"{max_new}")
+        q8.update(q8_prefill_findings(cfg, params, mcfg, mparams, prompts[3]))
+        summary["q8_4_layers"] = q8
         del src, mrg, params, mparams
         torch.cuda.empty_cache()
 
@@ -704,7 +1080,7 @@ def path_phase(summary):
         cfg, params, mcfg, mparams = build(32, calibrate=False)
         L = cfg.n_layers
         launches = {k: 0 for k in KERNELS}
-        for cache in ("dense", "paged"):
+        for cache in ("dense", "paged", "paged_q8"):
             for tag, c, p, merged in (("source (generic)", cfg, params, False),
                                       ("merged", mcfg, mparams, True)):
                 eng, _, counts, _ = serve(c, p, prompts, max_new, cache=cache)
@@ -729,7 +1105,7 @@ def path_phase(summary):
         bparams = tree_map(lambda t: t.to(torch.bfloat16), mparams)
         del mparams
         torch.cuda.empty_cache()
-        for cache in ("dense", "paged"):
+        for cache in ("dense", "paged", "paged_q8"):
             serve(bcfg, bparams, prompts, max_new, cache=cache)  # warm-up
             eng, outs, counts, wall = serve(bcfg, bparams, prompts, max_new,
                                             cache=cache)
@@ -737,25 +1113,28 @@ def path_phase(summary):
                          merged=True)
             if not all(0 <= t < bcfg.vocab_size for o in outs for t in o):
                 raise AssertionError("bfloat16 serve emitted out-of-vocab ids")
-            key = "merged_bf16" if cache == "dense" else "merged_bf16_paged"
+            key = "merged_bf16" + ("" if cache == "dense" else "_" + cache)
             summary[key] = report(f"merged bfloat16, {cache} cache ({L} "
                                   "layers)", outs, wall)
-        summary["decode_profile_bf16"] = profile_decode(bcfg, bparams,
-                                                        prompts)
+        summary["decode_profile_bf16"] = {
+            cache: profile_decode(bcfg, bparams, prompts, cache)
+            for cache in ("dense", "paged", "paged_q8")}
+        summary["equal_budget_bf16"] = equal_budget(bcfg, bparams)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
 
-def profile_decode(cfg, params, prompts, steps=5):
+def profile_decode(cfg, params, prompts, cache, steps=5):
     """torch.profiler over ``steps`` batched decode steps of the 4-slot
-    engine (prompts prefilled first): device time by kernel name and the
-    device busy share of the wall time."""
+    engine on ``cache`` (prompts prefilled first): device time by kernel
+    name, kernel launches per step and the device busy share of the wall
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Engine, Request, ServeConfig
 
     eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=512),
-                 impl="cuda", device="cuda")
+                 impl="cuda", cache=cache, device="cuda")
     for p in prompts:
         eng.submit(Request(prompt=p, max_new_tokens=steps + 2))
     eng.step()
@@ -784,7 +1163,8 @@ def profile_decode(cfg, params, prompts, steps=5):
            "kernels_per_step": sum(r[2] for r in rows) // steps,
            "top": [[k[:90], us / steps / 1e3, n // steps]
                    for us, k, n in rows[:8]]}
-    log(f"  decode profile, {cfg.dtype} ({cfg.n_layers} layers, 4 slots, "
+    log(f"  decode profile, {cache} cache, {cfg.dtype} ({cfg.n_layers} "
+        f"layers, 4 slots, "
         f"{steps} steps): {out['wall_ms_per_step']:.2f} ms/step wall, "
         f"{out['device_ms_per_step']:.2f} ms/step of kernels "
         f"({100 * out['device_busy_share']:.0f}% busy), "
@@ -860,15 +1240,19 @@ def run() -> int:
     rows = []
     decode_phase(rng, rows)
     flash_phase(rng, rows)
-    paged_phase(rng, rows)
+    paged_phase(rng, rows, q8=False)
+    quant_check(rng)
+    paged_phase(rng, rows, q8=True)
+    q8_flash_phase(rng, rows)
     log(f"kernel phase ({card}; times in ms, L2 cold, per call from a CUDA "
         f"graph of 30 calls: median [three replays], then the eager timer "
         f"of earlier runs; bound = the larger of the bytes at 3.35 TB/s and "
         f"the flops at the dtype's peak; sdpa on the paged rows: SDPA on "
-        f"gathered cache; gather not timed):")
+        f"gathered cache; gather not timed; sdpa on the int8 rows: SDPA on "
+        f"dequantized cache; dequant not timed):")
     for r in rows:
         runs = ", ".join(f"{t:.4f}" for t in r["ms_runs"])
-        log(f"  {r['name']:33s} {r['dtype']:15s} {r['case']:44s} err "
+        log(f"  {r['name']:36s} {r['dtype']:15s} {r['case']:50s} err "
             f"{r['max_abs_err']:.2e} (tol {r['tol']:.1e})  kernel "
             f"{r['ms']:.4f} [{runs}] eager {r['eager_ms']:.4f}  plain "
             f"{r['plain_ms']:.4f}  sdpa {r['library_ms']:.4f}  bound "

@@ -1,5 +1,7 @@
-"""Hand-written CUDA kernels for the dense attention path, with their plain
-PyTorch versions (``ref``) and the model-layout wrappers (``ops``).
+"""Hand-written CUDA kernels for attention over the dense cache, the paged
+pool and the int8 paged pool, with their plain PyTorch versions (``ref``),
+the model-layout wrappers (``ops``) and the int8 pool's quantization
+(``quant``, plain torch on every route).
 
 Importing this package builds nothing and needs no card: a kernel is built
 from ``csrc/`` at its first launch (``_build``).

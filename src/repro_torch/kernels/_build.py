@@ -37,9 +37,12 @@ SIGNATURES = {
         "decode_attention_launch": [_I, _I] + [_P] * 8 + [_I] * 12 + [_P],
         "decode_attention_paged_launch": [_I, _I] + [_P] * 8 + [_I] * 11
         + [_P],
+        "decode_attention_paged_q8_launch": [_I, _I] + [_P] * 10
+        + [_I] * 11 + [_P],
     },
     "flash_attention": {
         "flash_attention_launch": [_I, _I] + [_P] * 4 + [_I] * 13 + [_P],
+        "flash_attention_q8_launch": [_I, _I] + [_P] * 6 + [_I] * 14 + [_P],
     },
 }
 
@@ -146,6 +149,14 @@ def on_cuda(name: str, *tensors) -> bool:
     return dev.type == "cuda"
 
 
+def _check_layout(name: str, tensors) -> None:
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{name}: operand too large for int32 offsets")
+
+
 def check_operands(name: str, data, ints=()) -> int:
     """Checks dtype, contiguity and int32 addressability of the float
     operands ``data`` (one dtype, float32 or bfloat16) and the int32
@@ -154,11 +165,7 @@ def check_operands(name: str, data, ints=()) -> int:
     if any(t.dtype != dt for t in data) or str(dt) not in DTYPE_CODES:
         raise ValueError(f"{name}: float operands must share float32 or "
                          f"bfloat16, got {[t.dtype for t in data]}")
-    for t in (*data, *ints):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-        if t.numel() >= 2 ** 31:
-            raise ValueError(f"{name}: operand too large for int32 offsets")
+    _check_layout(name, (*data, *ints))
     for t in ints:
         if str(t.dtype) != "torch.int32":
             raise ValueError(f"{name}: position and table operands must be "
@@ -167,6 +174,23 @@ def check_operands(name: str, data, ints=()) -> int:
         raise ValueError(f"{name}: head dim {data[0].shape[-1]} not in "
                          f"{HEAD_DIMS}")
     return DTYPE_CODES[str(dt)]
+
+
+def check_q8_operands(name: str, q, pools, scales, ints=()) -> int:
+    """``check_operands`` for an int8 operation: the query ``q`` (float32
+    or bfloat16, whose code is returned), int8 ``pools`` of its head dim
+    and their float32 ``scales``."""
+    code = check_operands(name, (q,), ints)
+    if any(str(t.dtype) != "torch.int8" for t in pools) or \
+            any(str(t.dtype) != "torch.float32" for t in scales):
+        raise ValueError(f"{name}: K/V must be int8 and their scales "
+                         f"float32, got {[t.dtype for t in pools]}, "
+                         f"{[t.dtype for t in scales]}")
+    _check_layout(name, (*pools, *scales))
+    if any(t.shape[-1] != q.shape[-1] for t in pools):
+        raise ValueError(f"{name}: K/V head dim differs from the query's "
+                         f"{q.shape[-1]}")
+    return code
 
 
 def check_launch(name: str, err: int) -> None:

@@ -1,7 +1,7 @@
-// One-token GQA decode attention against a position-tagged KV cache or a
-// paged KV pool.
+// One-token GQA decode attention against a position-tagged KV cache, a
+// paged KV pool, or an int8 paged pool.
 //
-// Replaces four TPU kernels of src/repro/kernels/decode_attention.py:
+// Replaces six TPU kernels of src/repro/kernels/decode_attention.py:
 //   * decode_attention_bhsd (generic: grouped query (B, Hkv, G, D),
 //     head-major cache (B, Hkv, S, D));
 //   * decode_attention_merged_bsd (the paper's merged fast path: the RoPE'd
@@ -10,11 +10,15 @@
 //   * decode_attention_paged_bhsd and decode_attention_paged_merged_bsd
 //     (the same two queries over a pool of pages (NB, bs, Hkv, D) behind a
 //     block table (B, MB): logical key s of slot b lives on page
-//     bt[b, s / bs] at row s % bs).
-// One CUDA body serves all four, specialised at compile time by the
-// ``Paged`` flag: the dense layouts differ only in strides, and the paged
-// layout only in how a key's row address and position are found
-// (``kv_row``).
+//     bt[b, s / bs] at row s % bs);
+//   * decode_attention_paged_q8_bhsd and decode_attention_paged_q8_merged_bsd
+//     (the paged pair over int8 pages with one float32 scale per (page, kv
+//     head), scales (NB, Hkv)).
+// One CUDA body serves all six, specialised at compile time by the
+// ``Paged`` flag and the K/V element type ``KV`` (the query's type, or
+// int8_t for the q8 pool): the dense layouts differ only in strides, the
+// paged layout only in how a key's row address and position are found
+// (``kv_row``), and the q8 pool only in the dequant where a row is loaded.
 //
 // Semantics kept from the TPU kernels: a key is attendable iff its
 // position p satisfies p >= 0, p <= q_pos and (window == 0 or
@@ -27,11 +31,14 @@
 // ring slots, src/repro/kernels/paging.py) puts slot j at absolute block
 // b = lb - ((lb + ring - j) % ring), lb = q_pos / bs, masked when b < 0.
 // Offsets of the current block beyond q_pos are hidden by the causal mask.
+// The q8 pool is dequantized as float(int8) * scale[page, h] in float32,
+// as the TPU kernels do.
 //
 // What bounds it on an H100: bytes.  Each step reads every attendable K/V
-// row once (2 * rows * Hkv * D elements) and does 4 * G * D flops per row
-// and kv head, far below the ~295 flop/byte ridge.  What the design does
-// about it:
+// row once (2 * rows * Hkv * D elements: 2 or 4 bytes each, 1 byte on the
+// q8 pool plus two 4-byte scales per attended page and head) and does
+// 4 * G * D flops per row and kv head, far below the ~295 flop/byte ridge.
+// What the design does about it:
 //   * one block per (batch, kv head, kv split) loads each K/V row ONCE for
 //     all G query heads that share that kv head;
 //   * the kv axis (S, or MB * bs for a table) is split over blocks
@@ -41,14 +48,20 @@
 //     card would leave most SMs idle;
 //   * keys that are masked (empty, future, out of window) or that lie on an
 //     unmapped table entry (-1) are never loaded: only the position array
-//     or the table entry is read for them.  (The TPU kernel loads page
-//     max(bt, 0) for an unmapped entry and masks it.)  Pages are gathered
-//     row by row in the native (..., Hkv, D) layout, each warp reading one
-//     128- or 256-byte head row.
+//     or the table entry is read for them, and on the q8 pool neither is
+//     the page's scale.  (The TPU kernels load page max(bt, 0) and its
+//     scale for an unmapped entry and mask it.)  Pages are gathered row by
+//     row in the native (..., Hkv, D) layout, each warp reading one head
+//     row (128 or 256 bytes; 64 or 128 on the q8 pool);
+//   * the q8 pool's rows go from device memory straight into registers and
+//     are dequantized there: no float copy of the pool exists.
 // Plain FMA arithmetic in float32, whatever the input type (bf16 or f32).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -61,6 +74,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
@@ -75,6 +89,8 @@ struct DecodeArgs {
   const void* v;  // same strides as k
   const int* kv_pos;  // dense: (B, S) positions, -1 empty
   const int* bt;  // paged: (B, MB) block table, -1 unmapped
+  const float* k_scale;  // paged q8: (NB, Hkv) scale of each page and head
+  const float* v_scale;
   const int* q_pos;  // (B,)
   void* out;  // same strides as q
   float* ws_acc;  // (B, Hkv, n_split, G, D) unnormalised partial outputs
@@ -85,16 +101,17 @@ struct DecodeArgs {
 };
 
 // Offset of key s's K/V head row for (b, h), or -1 when the key is masked
-// (empty slot or unmapped entry, future position, out of window).  Uniform
-// across a warp: every lane reads the same position or table entry.
+// (empty slot or unmapped entry, future position, out of window); ``page``
+// is set to the key's physical page (paged only).  Uniform across a warp:
+// every lane reads the same position or table entry.
 template <bool Paged>
 __device__ __forceinline__ long long kv_row(const DecodeArgs& a, int b, int h,
-                                            int s, int qp) {
+                                            int s, int qp, int& page) {
   int pos;
   long long row;
   if (Paged) {
     const int j = s / a.bs, r = s - j * a.bs;
-    const int page = a.bt[b * a.MB + j];
+    page = a.bt[b * a.MB + j];
     if (page < 0) return -1;
     int blk = j;
     if (a.ring > 0) {
@@ -115,8 +132,9 @@ __device__ __forceinline__ long long kv_row(const DecodeArgs& a, int b, int h,
 
 // Pass 1: one block per (split, kv head, batch) runs the online softmax over
 // its kv range and leaves (m, l, acc) for the G query heads in the workspace.
-template <typename T, int D, bool Paged>
+template <typename T, typename KV, int D, bool Paged>
 __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   constexpr int EPL = D / 32;  // elements per lane in the score pass
   constexpr int KP = NT / D;  // key partitions in the P.V pass
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -126,12 +144,13 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
 
   __shared__ float s_p[MAX_G][TK];  // scores, then probabilities
   __shared__ long long s_row[TK];  // kv_row of each key, -1 masked
+  __shared__ float s_vs[Q8 ? TK : 1];  // q8: V scale of each key's page
   __shared__ float s_m[MAX_G], s_l[MAX_G], s_alpha[MAX_G];
   __shared__ float s_red[KP][MAX_G][D];
 
   const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const KV* k = static_cast<const KV*>(a.k);
+  const KV* v = static_cast<const KV*>(a.v);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   const int qp = a.q_pos[b];
 
@@ -159,16 +178,25 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
     // scores: one warp per key, lanes split D, butterfly sum
     for (int j = warp; j < TK; j += NWARP) {
       const int s = t0 + j;
-      const long long row = s < s1 ? kv_row<Paged>(a, b, h, s, qp) : -1;
+      int page = 0;
+      const long long row = s < s1 ? kv_row<Paged>(a, b, h, s, qp, page) : -1;
       const bool ok = row >= 0;
       float dot[MAX_G];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) dot[g] = 0.f;
+      float vsc = 1.f;
       if (ok) {  // uniform across the warp
-        const T* kr = k + row + lane * EPL;
+        const KV* kr = k + row + lane * EPL;
         float kf[EPL];
+        if constexpr (Q8) {  // the scales of mapped, attendable pages only
+          const float ksc = a.k_scale[page * a.Hkv + h];
+          vsc = a.v_scale[page * a.Hkv + h];
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) kf[e] = to_f(kr[e]);
+          for (int e = 0; e < EPL; ++e) kf[e] = to_f(kr[e]) * ksc;
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) kf[e] = to_f(kr[e]);
+        }
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g) {
 #pragma unroll
@@ -185,6 +213,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
       }
       if (lane == 0) {
         s_row[j] = row;
+        if constexpr (Q8) s_vs[j] = vsc;
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g)
           if (g < G) s_p[g][j] = ok ? dot[g] : NEG;
@@ -226,7 +255,8 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
       if (g < G) acc[g] *= s_alpha[g];
     for (int j = kpart; j < TK; j += KP) {
       if (s_row[j] < 0) continue;  // p == 0: the row is never loaded
-      const float vv = to_f(v[s_row[j] + d]);
+      float vv = to_f(v[s_row[j] + d]);
+      if constexpr (Q8) vv *= s_vs[j];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g)
         if (g < G) acc[g] += s_p[g][j] * vv;
@@ -280,25 +310,31 @@ __global__ void __launch_bounds__(D) decode_combine_kernel(DecodeArgs a) {
   out[b * a.q_sb + h * a.q_sh + g * D + d] = from_f<T>(o / (L == 0.f ? 1.f : L));
 }
 
-template <typename T, int D, bool Paged>
+template <typename T, typename KV, int D, bool Paged>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
-  decode_split_kernel<T, D, Paged><<<dim3(a.n_split, a.Hkv, a.B), NT, 0, stream>>>(a);
+  decode_split_kernel<T, KV, D, Paged><<<dim3(a.n_split, a.Hkv, a.B), NT, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<T, D><<<dim3(a.G, a.Hkv, a.B), D, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool Paged>
+// K/V element type: the query's, or int8 on the q8 pool
+template <typename T, bool Q8>
+using KVOf = typename std::conditional<Q8, int8_t, T>::type;
+
+template <bool Paged, bool Q8>
 int dispatch(int dtype, int D, const DecodeArgs& a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using F = float;
+  using H = __nv_bfloat16;
   cudaError_t err;
   if (dtype == 0)
-    err = D == 64 ? launch<float, 64, Paged>(a, st)
-                  : launch<float, 128, Paged>(a, st);
+    err = D == 64 ? launch<F, KVOf<F, Q8>, 64, Paged>(a, st)
+                  : launch<F, KVOf<F, Q8>, 128, Paged>(a, st);
   else
-    err = D == 64 ? launch<__nv_bfloat16, 64, Paged>(a, st)
-                  : launch<__nv_bfloat16, 128, Paged>(a, st);
+    err = D == 64 ? launch<H, KVOf<H, Q8>, 64, Paged>(a, st)
+                  : launch<H, KVOf<H, Q8>, 128, Paged>(a, st);
   return static_cast<int>(err);
 }
 
@@ -340,22 +376,29 @@ extern "C" int decode_attention_launch(
   a.k_sb = k_sb;
   a.k_sh = k_sh;
   a.k_ss = k_ss;
-  return dispatch<false>(dtype, D, a, stream);
+  return dispatch<false, false>(dtype, D, a, stream);
 }
 
+namespace {
+
 // Paged: pools (NB, bs, Hkv, D) contiguous, block table (B, MB) int32;
-// ring is 0 (absolute addressing) or the table's ring size.
-extern "C" int decode_attention_paged_launch(
-    int dtype, int D, const void* q, const void* k_pool, const void* v_pool,
-    const void* block_tables, const void* q_pos, void* out, void* ws_acc,
-    void* ws_ml, int B, int Hkv, int G, int MB, int bs, int ring, int q_sb,
-    int q_sh, int window, int n_split, int chunk, void* stream) {
+// ring is 0 (absolute addressing) or the table's ring size.  The q8 pool
+// adds its (NB, Hkv) float32 scales.
+template <bool Q8>
+int paged(int dtype, int D, const void* q, const void* k_pool,
+          const void* v_pool, const void* k_scale, const void* v_scale,
+          const void* block_tables, const void* q_pos, void* out,
+          void* ws_acc, void* ws_ml, int B, int Hkv, int G, int MB, int bs,
+          int ring, int q_sb, int q_sh, int window, int n_split, int chunk,
+          void* stream) {
   if (bad_common(dtype, D, G) || MB < 1 || bs < 1 || ring < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a = {};
   a.q = q;
   a.k = k_pool;
   a.v = v_pool;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
   a.bt = static_cast<const int*>(block_tables);
   a.q_pos = static_cast<const int*>(q_pos);
   a.out = out;
@@ -376,5 +419,29 @@ extern "C" int decode_attention_paged_launch(
   a.k_ss = static_cast<long long>(Hkv) * D;
   a.k_sh = D;
   a.k_sb = a.k_ss * bs;
-  return dispatch<true>(dtype, D, a, stream);
+  return dispatch<true, Q8>(dtype, D, a, stream);
+}
+
+}  // namespace
+
+extern "C" int decode_attention_paged_launch(
+    int dtype, int D, const void* q, const void* k_pool, const void* v_pool,
+    const void* block_tables, const void* q_pos, void* out, void* ws_acc,
+    void* ws_ml, int B, int Hkv, int G, int MB, int bs, int ring, int q_sb,
+    int q_sh, int window, int n_split, int chunk, void* stream) {
+  return paged<false>(dtype, D, q, k_pool, v_pool, nullptr, nullptr,
+                      block_tables, q_pos, out, ws_acc, ws_ml, B, Hkv, G, MB,
+                      bs, ring, q_sb, q_sh, window, n_split, chunk, stream);
+}
+
+// q8: int8 pools, float32 scales (NB, Hkv); dtype is the query's.
+extern "C" int decode_attention_paged_q8_launch(
+    int dtype, int D, const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* q_pos, void* out, void* ws_acc, void* ws_ml, int B, int Hkv,
+    int G, int MB, int bs, int ring, int q_sb, int q_sh, int window,
+    int n_split, int chunk, void* stream) {
+  return paged<true>(dtype, D, q, k_pool, v_pool, k_scale, v_scale,
+                     block_tables, q_pos, out, ws_acc, ws_ml, B, Hkv, G, MB,
+                     bs, ring, q_sb, q_sh, window, n_split, chunk, stream);
 }

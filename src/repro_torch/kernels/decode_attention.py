@@ -13,7 +13,12 @@ pairs:
     — the same two queries over a page pool (NB, bs, Hkv, D) behind a
     block table (B, MB) int32 (-1 unmapped), with absolute or ring
     addressing (``ring_blocks``, ``kernels.paging``); key positions are
-    rebuilt in the kernel from the table and ``q_position``.
+    rebuilt in the kernel from the table and ``q_position``;
+  * ``decode_attention_paged_q8_bhsd`` /
+    ``decode_attention_paged_q8_merged_bsd`` — the paged pair over int8
+    pages with float32 scales (NB, Hkv) (``kernels.quant``), dequantized
+    in the kernel as each row is loaded; the output takes the query's
+    dtype.
 
 A tensor on the CPU runs the plain version (``kernels.ref``); a tensor on
 a CUDA device launches the kernel (built at first use) on the current
@@ -28,11 +33,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (ref_decode_attention,
                                      ref_decode_attention_merged,
                                      ref_decode_attention_paged,
-                                     ref_decode_attention_paged_merged)
+                                     ref_decode_attention_paged_merged,
+                                     ref_decode_attention_paged_q8,
+                                     ref_decode_attention_paged_q8_merged)
 
 launches = {"decode_attention_bhsd": 0, "decode_attention_merged_bsd": 0,
             "decode_attention_paged_bhsd": 0,
-            "decode_attention_paged_merged_bsd": 0}
+            "decode_attention_paged_merged_bsd": 0,
+            "decode_attention_paged_q8_bhsd": 0,
+            "decode_attention_paged_q8_merged_bsd": 0}
 
 MAX_G = 8  # query heads per kv head the kernel takes
 _TILE = 64  # keys per tile in the kernel
@@ -48,11 +57,15 @@ def kv_split(B: int, Hkv: int, S: int):
     return -(-max(S, 1) // chunk), chunk
 
 
-def _checks(name, q, data, ints, *, G, index, index_shape):
+def _checks(name, q, data, ints, *, G, index, index_shape, scales=()):
     """Operand checks shared by the dense and paged launches; returns
-    the dtype code.  ``index`` is the position or table operand."""
+    the dtype code.  ``index`` is the position or table operand; with
+    ``scales`` the K/V operands in ``data[1:]`` are an int8 pool."""
     B = q.shape[0]
-    code = _build.check_operands(name, data, ints)
+    if scales:
+        code = _build.check_q8_operands(name, q, data[1:], scales, ints)
+    else:
+        code = _build.check_operands(name, data, ints)
     if not 1 <= G <= MAX_G:
         raise ValueError(f"{name}: {G} query heads per kv head; the kernel "
                          f"takes 1..{MAX_G}")
@@ -94,7 +107,10 @@ def _launch(name, q, k, v, kv_positions, q_position, *, q_strides,
 
 
 def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
-                  q_strides, Hkv, G, sliding_window, ring_blocks):
+                  q_strides, Hkv, G, sliding_window, ring_blocks,
+                  scales=()):
+    """Launch the paged body: fp pools, or int8 pools with their
+    ``scales`` (k_scale, v_scale), each (NB, Hkv)."""
     B, D = q.shape[0], q.shape[-1]
     NB, bs = k_pool.shape[0], k_pool.shape[1]
     MB = block_tables.shape[1] if block_tables.dim() == 2 else -1
@@ -102,20 +118,29 @@ def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
         raise ValueError(f"{name}: pools must be (NB, bs, Hkv, D) with Hkv="
                          f"{Hkv}, D={D}, got {tuple(k_pool.shape)}, "
                          f"{tuple(v_pool.shape)}")
+    if any(tuple(s.shape) != (NB, Hkv) for s in scales):
+        raise ValueError(f"{name}: scales must be (NB, Hkv) = {(NB, Hkv)}, "
+                         f"got {[tuple(s.shape) for s in scales]}")
     if ring_blocks not in (0, MB):
         raise ValueError(f"{name}: ring_blocks {ring_blocks} must be 0 "
                          f"(absolute) or the table width {MB}")
     code = _checks(name, q, (q, k_pool, v_pool), (block_tables, q_position),
-                   G=G, index=block_tables, index_shape=(B, MB))
+                   G=G, index=block_tables, index_shape=(B, MB),
+                   scales=scales)
     n_split, chunk = kv_split(B, Hkv, MB * bs)
     out, ws_acc, ws_ml = _workspace(q, B, Hkv, n_split, G, D)
     lib = _build.library("decode_attention")
-    err = lib.decode_attention_paged_launch(
-        code, D, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), q_position.data_ptr(), out.data_ptr(),
-        ws_acc.data_ptr(), ws_ml.data_ptr(), B, Hkv, G, MB, bs,
-        int(ring_blocks), *q_strides, int(sliding_window), n_split, chunk,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    pools = [k_pool.data_ptr(), v_pool.data_ptr()]
+    if scales:
+        fn = lib.decode_attention_paged_q8_launch
+        pools += [s.data_ptr() for s in scales]
+    else:
+        fn = lib.decode_attention_paged_launch
+    err = fn(code, D, q.data_ptr(), *pools, block_tables.data_ptr(),
+             q_position.data_ptr(), out.data_ptr(), ws_acc.data_ptr(),
+             ws_ml.data_ptr(), B, Hkv, G, MB, bs, int(ring_blocks),
+             *q_strides, int(sliding_window), n_split, chunk,
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(name, err)
     launches[name] += 1
     return out
@@ -223,3 +248,61 @@ def decode_attention_paged_merged_bsd(
                          q_strides=(Hq * D, G * D), Hkv=Hkv, G=G,
                          sliding_window=sliding_window,
                          ring_blocks=ring_blocks)
+
+
+def decode_attention_paged_q8_bhsd(
+    q: torch.Tensor,  # (B, Hkv, G, D) — grouped query heads
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8
+    k_scale: torch.Tensor,  # (NB, Hkv) float32 per-(page, head) scales
+    v_scale: torch.Tensor,  # (NB, Hkv) float32
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids; -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+) -> torch.Tensor:
+    """Generic paged decode over an int8 pool -> (B, Hkv, G, D) in q's
+    dtype."""
+    name = "decode_attention_paged_q8_bhsd"
+    if not _build.on_cuda(name, q, k_pool, v_pool, k_scale, v_scale,
+                          block_tables, q_position):
+        return ref_decode_attention_paged_q8(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, q_position,
+            sliding_window=sliding_window, ring_blocks=ring_blocks)
+    B, Hkv, G, D = q.shape
+    return _launch_paged(name, q, k_pool, v_pool, block_tables, q_position,
+                         q_strides=(Hkv * G * D, G * D), Hkv=Hkv, G=G,
+                         sliding_window=sliding_window,
+                         ring_blocks=ring_blocks, scales=(k_scale, v_scale))
+
+
+def decode_attention_paged_q8_merged_bsd(
+    u: torch.Tensor,  # (B, Hq, D) — RoPE'd residual stream viewed as heads
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 K* page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 V* page pool
+    k_scale: torch.Tensor,  # (NB, Hkv) float32 per-(page, head) scales
+    v_scale: torch.Tensor,  # (NB, Hkv) float32
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids; -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+) -> torch.Tensor:
+    """Merged paged decode over an int8 pool (stream-as-query) ->
+    (B, Hq, D) in u's dtype."""
+    name = "decode_attention_paged_q8_merged_bsd"
+    if not _build.on_cuda(name, u, k_pool, v_pool, k_scale, v_scale,
+                          block_tables, q_position):
+        return ref_decode_attention_paged_q8_merged(
+            u, k_pool, v_pool, k_scale, v_scale, block_tables, q_position,
+            sliding_window=sliding_window, ring_blocks=ring_blocks)
+    B, Hq, D = u.shape
+    Hkv = k_pool.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv heads")
+    G = Hq // Hkv
+    return _launch_paged(name, u, k_pool, v_pool, block_tables, q_position,
+                         q_strides=(Hq * D, G * D), Hkv=Hkv, G=G,
+                         sliding_window=sliding_window,
+                         ring_blocks=ring_blocks, scales=(k_scale, v_scale))

@@ -1,14 +1,18 @@
 """Causal / sliding-window GQA flash attention: wrappers of
 ``csrc/flash_attention.cu``.
 
-Counterparts of ``repro.kernels.flash_attention``'s fp pair:
+Counterparts of ``repro.kernels.flash_attention``'s three kernels:
 
   * ``flash_attention_bhsd`` — generic: head-major q (B, Hq, Sq, D) and
     k/v (B, Hkv, Sk, D);
   * ``flash_attention_merged_bsd`` — the paper's merged (Q/P-removed)
     prefill fast path: the RoPE'd residual stream viewed (B, Sq, Hq, D) is
     the query, K*/V* tiles are read in their native (B, Sk, Hkv, D) layout
-    and the output lands as (B, Sq, Hq, D), a view of the FFN-input stream.
+    and the output lands as (B, Sq, Hq, D), a view of the FFN-input stream;
+  * ``flash_attention_merged_q8_bsd`` — the merged prefill over int8
+    K*/V* (B, Sk, Hkv, D) with float32 scales (B, Sk // sg, Hkv), one per
+    page of ``sg`` rows and kv head (``kernels.quant``), dequantized in the
+    kernel as each tile is loaded; the output takes the stream's dtype.
 
 Positions are arange, as in the TPU kernel.  Any Sq / Sk runs: the kernel
 masks ragged tails itself.  A tensor on the CPU runs the plain version
@@ -21,23 +25,41 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ref_attention, ref_flash_attention_merged
+from repro_torch.kernels.ref import (ref_attention, ref_flash_attention_merged,
+                                     ref_flash_attention_merged_q8)
 
-launches = {"flash_attention_bhsd": 0, "flash_attention_merged_bsd": 0}
+launches = {"flash_attention_bhsd": 0, "flash_attention_merged_bsd": 0,
+            "flash_attention_merged_q8_bsd": 0}
 
 
 def _launch(name, q, k, v, *, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
-            causal, sliding_window):
+            causal, sliding_window, scales=()):
+    """Launch the flash body: fp K/V, or int8 K/V with their ``scales``
+    (k_scale, v_scale), each (B, Sk // sg, Hkv)."""
     D = q.shape[-1]
-    code = _build.check_operands(name, (q, k, v))
+    if scales:
+        code = _build.check_q8_operands(name, q, (k, v), scales)
+        n_sg = scales[0].shape[1]
+        if any(tuple(s.shape) != (B, n_sg, Hkv) for s in scales) or \
+                n_sg < 1 or Sk % n_sg:
+            raise ValueError(f"{name}: scales must be (B, Sk // sg, Hkv) "
+                             f"with sg | Sk={Sk}, got "
+                             f"{[tuple(s.shape) for s in scales]}")
+    else:
+        code = _build.check_operands(name, (q, k, v))
     if Hq % Hkv:
         raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv heads")
     out = torch.empty_like(q)
     lib = _build.library("flash_attention")
-    err = lib.flash_attention_launch(
-        code, D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, Sq, Sk, *q_strides, *k_strides, int(bool(causal)),
-        int(sliding_window), torch.cuda.current_stream(q.device).cuda_stream)
+    args = (code, D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(s.data_ptr() for s in scales), out.data_ptr(), B, Hq, Hkv, Sq,
+            Sk, *q_strides, *k_strides, int(bool(causal)),
+            int(sliding_window))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if scales:
+        err = lib.flash_attention_q8_launch(*args, Sk // n_sg, stream)
+    else:
+        err = lib.flash_attention_launch(*args, stream)
     _build.check_launch(name, err)
     launches[name] += 1
     return out
@@ -89,3 +111,32 @@ def flash_attention_merged_bsd(
                    q_strides=(Sq * Hq * D, Hq * D, D),
                    k_strides=(Sk * Hkv * D, Hkv * D, D),
                    causal=causal, sliding_window=sliding_window)
+
+
+def flash_attention_merged_q8_bsd(
+    u: torch.Tensor,  # (B, Sq, Hq, D) — RoPE'd stream viewed as heads
+    k: torch.Tensor,  # (B, Sk, Hkv, D) int8 — K* at pool quantization
+    v: torch.Tensor,  # (B, Sk, Hkv, D) int8 — V*
+    k_scale: torch.Tensor,  # (B, Sk // sg, Hkv) float32 per-(page, head)
+    v_scale: torch.Tensor,  # (B, Sk // sg, Hkv) float32
+    *,
+    causal: bool = True,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Merged flash prefill over int8 K*/V* (stream-as-query) ->
+    (B, Sq, Hq, D) in u's dtype."""
+    name = "flash_attention_merged_q8_bsd"
+    if not _build.on_cuda(name, u, k, v, k_scale, v_scale):
+        return ref_flash_attention_merged_q8(u, k, v, k_scale, v_scale,
+                                             causal=causal,
+                                             sliding_window=sliding_window)
+    B, Sq, Hq, D = u.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Sk, Hkv, D) or k.shape != v.shape:
+        raise ValueError(f"{name}: k/v must be (B, Sk, Hkv, D), got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return _launch(name, u, k, v, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk,
+                   q_strides=(Sq * Hq * D, Hq * D, D),
+                   k_strides=(Sk * Hkv * D, Hkv * D, D),
+                   causal=causal, sliding_window=sliding_window,
+                   scales=(k_scale, v_scale))

@@ -1,8 +1,8 @@
 """Wrappers exposing the kernels in model-layer layouts, and the table of
 which (phase, cache_kind, style) has a kernel.
 
-Counterparts of ``repro.kernels.ops``' dense and paged rows.  The
-generic dense wrappers
+Counterparts of ``repro.kernels.ops``' dense, paged and paged_q8 rows.
+The generic dense wrappers
 keep the reference's head-major transposes (``.contiguous()`` copies of
 q/k/v, and of the whole cache at decode): they are part of what the
 merged layout removes, so the generic/merged comparison measures it.  The
@@ -22,7 +22,9 @@ kernel or raises.
 The paged wrappers hand the pools (NB, bs, Hkv, D) and the block table to
 the kernel as they are (generic and merged alike: the pool is never
 transposed) and derive ring addressing from the window and the table
-width (``kernels.paging``), so callers never pass a ring flag.
+width (``kernels.paging``), so callers never pass a ring flag.  The q8
+wrappers take the int8 pools (or the int8 prompt K*/V*) with their float32
+scales as keywords, as the reference does.
 """
 from __future__ import annotations
 
@@ -30,9 +32,11 @@ import torch
 
 from repro_torch.kernels.decode_attention import (
     decode_attention_bhsd, decode_attention_merged_bsd,
-    decode_attention_paged_bhsd, decode_attention_paged_merged_bsd)
-from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
-                                                 flash_attention_merged_bsd)
+    decode_attention_paged_bhsd, decode_attention_paged_merged_bsd,
+    decode_attention_paged_q8_bhsd, decode_attention_paged_q8_merged_bsd)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bhsd, flash_attention_merged_bsd,
+    flash_attention_merged_q8_bsd)
 from repro_torch.kernels.paging import paged_ring_active
 
 
@@ -183,6 +187,97 @@ def decode_attention_paged_merged(
 
 
 # ---------------------------------------------------------------------------
+# int8 (paged_q8) wrappers: int8 pools + per-(page, head) float32 scales
+# ---------------------------------------------------------------------------
+
+def decode_attention_paged_q8(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8
+    *,
+    k_scale: torch.Tensor,  # (NB, Hkv) float32
+    v_scale: torch.Tensor,  # (NB, Hkv) float32
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Generic decode attention over an int8 paged pool -> (B, Hq, D): the
+    table gather and ring rule of ``decode_attention_paged``, each page
+    dequantized in the kernel from its (page, head) scale."""
+    B, Hq, D = q.shape
+    Hkv = k_pool.shape[2]
+    ring = paged_ring_active(sliding_window, k_pool.shape[1],
+                             block_tables.shape[1])
+    out = decode_attention_paged_q8_bhsd(
+        q.reshape(B, Hkv, Hq // Hkv, D).contiguous(), k_pool.contiguous(),
+        v_pool.contiguous(), k_scale.float().contiguous(),
+        v_scale.float().contiguous(),
+        block_tables.to(torch.int32).contiguous(),
+        q_position.to(torch.int32).contiguous(),
+        sliding_window=sliding_window, ring_blocks=ring)
+    return out.reshape(B, Hq, D)
+
+
+def decode_attention_paged_q8_merged(
+    u: torch.Tensor,  # (B, d_model) — RoPE'd stream = merged query
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 K* page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 V* page pool
+    *,
+    k_scale: torch.Tensor,  # (NB, Hkv) float32
+    v_scale: torch.Tensor,  # (NB, Hkv) float32
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    n_kv_heads: int,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Merged (Q/P-removed) decode over an int8 paged pool -> (B, d_model)
+    FFN-input stream: one byte per attended pooled element."""
+    B, d = u.shape
+    Hkv, D = k_pool.shape[2], k_pool.shape[3]
+    _merged_heads("decode_attention_paged_q8_merged", d, Hkv, D, n_kv_heads)
+    ring = paged_ring_active(sliding_window, k_pool.shape[1],
+                             block_tables.shape[1])
+    out = decode_attention_paged_q8_merged_bsd(
+        u.reshape(B, d // D, D).contiguous(), k_pool.contiguous(),
+        v_pool.contiguous(), k_scale.float().contiguous(),
+        v_scale.float().contiguous(),
+        block_tables.to(torch.int32).contiguous(),
+        q_position.to(torch.int32).contiguous(),
+        sliding_window=sliding_window, ring_blocks=ring)
+    return out.reshape(B, d)
+
+
+def flash_attention_merged_q8(
+    u: torch.Tensor,  # (B, Sq, d_model) — RoPE'd stream = merged query
+    k: torch.Tensor,  # (B, Sk, Hkv, D) int8 — K* at pool quantization
+    v: torch.Tensor,  # (B, Sk, Hkv, D) int8 — V*
+    *,
+    k_scale: torch.Tensor,  # (B, Sk // sg, Hkv) float32
+    v_scale: torch.Tensor,  # (B, Sk // sg, Hkv) float32
+    n_kv_heads: int,
+    q_positions=None,  # accepted for API parity; the kernel assumes arange
+    kv_positions=None,
+    causal: bool = True,
+    sliding_window: int = 0,
+    kv_valid=None,
+) -> torch.Tensor:
+    """Merged (Q/P-removed) flash prefill over int8 K*/V* -> (B, Sq,
+    d_model) FFN-input stream; each tile is dequantized in the kernel (no
+    float K*/V* buffer exists).  Unlike the TPU tile, the CUDA tile need
+    not be a whole number of pages: each key row finds its own page's
+    scale."""
+    _no_kv_valid(kv_valid)
+    B, Sq, d = u.shape
+    Hkv, D = k.shape[2], k.shape[3]
+    _merged_heads("flash_attention_merged_q8", d, Hkv, D, n_kv_heads)
+    out = flash_attention_merged_q8_bsd(
+        u.reshape(B, Sq, d // D, D), k.contiguous(), v.contiguous(),
+        k_scale.float().contiguous(), v_scale.float().contiguous(),
+        causal=causal, sliding_window=sliding_window)
+    return out.reshape(B, Sq, d)
+
+
+# ---------------------------------------------------------------------------
 # attention-kernel table: the kernel-layer face of the serving registries
 # ---------------------------------------------------------------------------
 
@@ -190,8 +285,11 @@ def decode_attention_paged_merged(
 # minus the impl axis (every wrapper here IS the "cuda" route; on CPU
 # tensors it runs the plain version).  Prefill compute is cache-kind
 # independent (paging moves only where the prompt's KV is written,
-# ``models.transformer``), so both prefill cache kinds map to the same
-# flash wrapper.  The int8 pool is a later slice of the port.
+# ``models.transformer``), so both fp prefill cache kinds map to the same
+# flash wrapper.  On the int8 pool decode dequantizes pool pages in the
+# kernel and merged prefill the int8 prompt tiles; generic q8 prefill
+# dequantizes upstream (``models.transformer``) and runs the fp flash
+# kernel, as the reference routes it.
 ATTENTION_KERNELS = {
     ("decode", "dense", "generic"): decode_attention,
     ("decode", "dense", "merged"): decode_attention_merged,
@@ -201,6 +299,10 @@ ATTENTION_KERNELS = {
     ("prefill", "dense", "merged"): flash_attention_merged,
     ("prefill", "paged", "generic"): flash_attention,
     ("prefill", "paged", "merged"): flash_attention_merged,
+    ("decode", "paged_q8", "generic"): decode_attention_paged_q8,
+    ("decode", "paged_q8", "merged"): decode_attention_paged_q8_merged,
+    ("prefill", "paged_q8", "generic"): flash_attention,
+    ("prefill", "paged_q8", "merged"): flash_attention_merged_q8,
 }
 
 

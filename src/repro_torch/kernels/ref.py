@@ -9,7 +9,8 @@ kernel against them on the same inputs.  Counterparts of
 go to ``NEG`` before the softmax and their probabilities are then zeroed,
 so a row with nothing to attend to is exactly zero.  The paged versions
 gather a slot's pages into a dense view and defer to the dense decode
-version (``ref_decode_attention_paged*``).
+version (``ref_decode_attention_paged*``); the int8 versions dequantize
+in float32 (``ints * scale``) and defer to the fp ones.
 """
 from __future__ import annotations
 
@@ -184,3 +185,74 @@ def ref_decode_attention_paged_merged(
         u.reshape(B, Hkv, Hq // Hkv, D), k_pool, v_pool, block_tables,
         q_position, sliding_window=sliding_window, ring_blocks=ring_blocks)
     return o.reshape(B, Hq, D)
+
+
+# ---------------------------------------------------------------------------
+# int8 (paged_q8) versions: dequantize in float32, defer to the fp versions
+# ---------------------------------------------------------------------------
+
+def ref_q8_dequant_pool(pool: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """(NB, bs, Hkv, D) int8 + (NB, Hkv) float32 -> (NB, bs, Hkv, D)
+    float32."""
+    return pool.float() * scale[:, None, :, None]
+
+
+def ref_decode_attention_paged_q8(
+    q: torch.Tensor,  # (B, Hkv, G, D)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8
+    k_scale: torch.Tensor,  # (NB, Hkv) float32
+    v_scale: torch.Tensor,  # (NB, Hkv) float32
+    block_tables: torch.Tensor,  # (B, MB) int32, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+) -> torch.Tensor:
+    """Generic q8 paged decode: dequantize the whole pool in float32 (what
+    the kernel avoids) and defer to ``ref_decode_attention_paged``."""
+    return ref_decode_attention_paged(
+        q, ref_q8_dequant_pool(k_pool, k_scale),
+        ref_q8_dequant_pool(v_pool, v_scale), block_tables, q_position,
+        sliding_window=sliding_window, ring_blocks=ring_blocks)
+
+
+def ref_decode_attention_paged_q8_merged(
+    u: torch.Tensor,  # (B, Hq, D) — RoPE'd stream viewed as heads
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 K* pages
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 V* pages
+    k_scale: torch.Tensor,  # (NB, Hkv) float32
+    v_scale: torch.Tensor,  # (NB, Hkv) float32
+    block_tables: torch.Tensor,  # (B, MB) int32, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+) -> torch.Tensor:
+    """Merged q8 paged decode -> (B, Hq, D)."""
+    return ref_decode_attention_paged_merged(
+        u, ref_q8_dequant_pool(k_pool, k_scale),
+        ref_q8_dequant_pool(v_pool, v_scale), block_tables, q_position,
+        sliding_window=sliding_window, ring_blocks=ring_blocks)
+
+
+def ref_flash_attention_merged_q8(
+    u: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D) int8
+    v: torch.Tensor,  # (B, Sk, Hkv, D) int8
+    k_scale: torch.Tensor,  # (B, Sk // sg, Hkv) float32, sg = page size
+    v_scale: torch.Tensor,  # (B, Sk // sg, Hkv) float32
+    *,
+    causal: bool = True,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Merged q8 flash prefill: expand each page's scale over its ``sg``
+    rows, dequantize in float32, defer to ``ref_flash_attention_merged``;
+    the output takes ``u``'s dtype."""
+    sg = k.shape[1] // k_scale.shape[1]
+    ks = torch.repeat_interleave(k_scale, sg, dim=1)[..., None]
+    vs = torch.repeat_interleave(v_scale, sg, dim=1)[..., None]
+    return ref_flash_attention_merged(u, k.float() * ks, v.float() * vs,
+                                      causal=causal,
+                                      sliding_window=sliding_window)

@@ -1,9 +1,9 @@
-"""Serving launcher: batched greedy generation on the dense cache or the
-paged pool.
+"""Serving launcher: batched greedy generation on the dense cache, the
+paged pool or the int8 paged pool.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-7b \
       --smoke --merged-from-skipless --requests 4 --max-new 8 \
-      [--cache paged --block-size 16 --n-blocks 0]
+      [--cache paged|paged_q8 --block-size 16 --n-blocks 0]
 
 With ``--merged-from-skipless`` the launcher builds a skipless model, runs
 the paper's QP-removal merge, and serves the merged weights, reporting the
@@ -12,7 +12,9 @@ parameters removed next to the generated tokens.  ``--device`` defaults to
 plain PyTorch versions.  Per-request stats (prompt length, time to first
 token, decode tok/s) come from ``Engine.generate``'s RequestResults.
 ``--n-blocks 0`` sizes the paged pool like the dense cache
-(slots x max_len / block size pages).
+(slots x max_len / block size pages).  The paged pools print their
+occupancy counters, and the int8 pool its resident bytes (int8 pages and
+their scales).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
-    ap.add_argument("--cache", default="dense", choices=("dense", "paged"))
+    ap.add_argument("--cache", default="dense",
+                    choices=("dense", "paged", "paged_q8"))
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--n-blocks", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -80,6 +83,14 @@ def main(argv=None):
           f"in {dt:.2f}s ({total_tokens / dt:.1f} tok/s); "
           f"TTFT mean {np.mean(ttfts):.3f}s / max {np.max(ttfts):.3f}s "
           f"on {eng.device}, {args.cache} cache; {eng.stats}", flush=True)
+    if eng.paged:
+        a = eng.pm.allocator
+        print(f"  paged pool: {a.n_blocks} pages, peak used {a.peak_used}, "
+              f"shared {a.n_shared_hits}, cow {a.n_cow}, recycled "
+              f"{a.n_recycled}", flush=True)
+    if args.cache == "paged_q8":
+        print(f"  q8 pool: {eng.pm.pool_bytes:,d} bytes resident (int8 "
+              f"pages + scales)", flush=True)
     for i, o in enumerate(outs[:4]):
         rate = "n/a" if o.decode_tok_s is None else f"{o.decode_tok_s:.1f}"
         print(f"  req{i}: {list(o[:12])}{'…' if len(o) > 12 else ''} "

@@ -1,15 +1,21 @@
 """Attention cores: GQA, causal & sliding-window, prefill & decode, over
-the dense cache or a paged pool.
+the dense cache, a paged pool or an int8 paged pool.
 
-Counterpart of ``repro.models.attention``'s dense and paged cores.  Projections live
-in ``models.transformer`` (the paper's merged form changes which exist);
-this module computes attention on projected, RoPE'd q/k/v.
+Counterpart of ``repro.models.attention``'s dense, paged and paged_q8
+cores.  Projections live in ``models.transformer`` (the paper's merged
+form changes which exist); this module computes attention on projected,
+RoPE'd q/k/v.
 
 Two implementations, the ``impl`` axis of the backend registries:
   * ``impl="torch"`` — plain PyTorch math (the port of the reference's XLA
     cores, query-chunked so the score buffer is O(chunk × Sk));
   * ``impl="cuda"`` — the hand-written kernels, fetched from
     ``kernels.ops.ATTENTION_KERNELS`` keyed (phase, cache_kind, style).
+
+On the int8 pool the "cuda" route hands the int8 pages (or prompt K/V)
+and their scales to kernels that dequantize in place; the "torch" route
+dequantizes into the query's dtype, as the reference's XLA route does,
+and defers to the fp core.
 
 GQA is computed grouped (q reshaped to (…, n_kv, group, d)): KV heads are
 never materialized repeated.
@@ -20,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import quant
 from repro_torch.kernels.paging import paged_ring_active
 from repro_torch.kernels.ref import ref_paged_gather as _paged_gather
 from repro_torch.kernels.ref import ref_paged_positions as paged_kv_positions
@@ -121,22 +128,33 @@ def attention_core_merged(
     query_chunk: int = 1024,
     impl: str = "torch",
     cache_kind: str = "dense",
+    k_scale: Optional[torch.Tensor] = None,  # (B, Sk//sg, Hkv) f32 (q8)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Merged (Q/P-removed, paper Fig 1b) full-sequence attention, the
     prefill sibling of ``decode_attention_core_merged``: the stream is the
     query (the grouped-head view is free) and the (B, Sq, d_model) result
     is the FFN-input stream.  Numerics equal ``attention_core`` on the
-    head view."""
+    head view.
+
+    ``k_scale``/``v_scale`` switch to the int8 pool's prefill: k/v arrive
+    as int8 at the pool's quantization with per-(page, head) scales; the
+    "cuda" route hands them to the dequantizing flash kernel, the "torch"
+    route dequantizes the sequence into u's dtype and falls through."""
     _check_impl(impl)
     B, Sq, d = u.shape
     D = k.shape[3]
+    kw = {} if k_scale is None else dict(k_scale=k_scale, v_scale=v_scale)
     if impl == "cuda":
         from repro_torch.kernels import ops as kops
 
         return kops.attention_kernel("prefill", cache_kind, "merged")(
             u, k, v, n_kv_heads=n_kv_heads, q_positions=q_positions,
             kv_positions=kv_positions, causal=causal,
-            sliding_window=sliding_window)
+            sliding_window=sliding_window, **kw)
+    if kw:
+        k = quant.q8_dequant_seq(k, k_scale, u.dtype)
+        v = quant.q8_dequant_seq(v, v_scale, u.dtype)
     out = attention_core(
         u.reshape(B, Sq, d // D, D), k, v, q_positions=q_positions,
         kv_positions=kv_positions, causal=causal,
@@ -276,4 +294,88 @@ def decode_attention_core_paged_merged(
     out = decode_attention_core_paged(
         u.reshape(B, d // D, D), k_pool, v_pool, block_tables=block_tables,
         q_position=q_position, sliding_window=sliding_window, impl=impl)
+    return out.reshape(B, d)
+
+
+# ---------------------------------------------------------------------------
+# int8 (paged_q8) decode cores: int8 pools + per-(page, head) scales
+# ---------------------------------------------------------------------------
+
+def _paged_gather_q8(pool: torch.Tensor, scale: torch.Tensor,
+                     block_tables: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Densify and dequantize a slot's logical view of an int8 pool:
+    (NB, bs, Hkv, D) int8 + (NB, Hkv) float32 scales + (B, MB) tables ->
+    (B, MB*bs, Hkv, D) ``out_dtype`` (dequantized in float32).  Unmapped
+    blocks gather page 0, masked by their -1 positions as in
+    ``_paged_gather``."""
+    B, MB = block_tables.shape
+    bt = block_tables.long().clamp(min=0)
+    g = pool[bt].float() * scale[bt][:, :, None, :, None]
+    return g.reshape(B, MB * pool.shape[1], *pool.shape[2:]).to(out_dtype)
+
+
+def decode_attention_core_paged_q8(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8
+    k_scale: torch.Tensor,  # (NB, Hkv) float32 per-(page, head) scales
+    v_scale: torch.Tensor,  # (NB, Hkv) float32
+    *,
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int
+    sliding_window: int = 0,
+    impl: str = "torch",
+) -> torch.Tensor:
+    """One-token attention against an int8 paged pool -> (B, Hq, D).
+
+    ``impl="cuda"`` hands pools and scales to the dequantizing paged
+    kernel (no float view of the pool exists); ``impl="torch"`` densifies
+    the slot's view dequantized page by page into q's dtype and defers to
+    the dense positions core, as ``decode_attention_core_paged`` does."""
+    _check_impl(impl)
+    if impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.decode_kernel("paged_q8", "generic")(
+            q, k_pool, v_pool, k_scale=k_scale, v_scale=v_scale,
+            block_tables=block_tables, q_position=q_position,
+            sliding_window=sliding_window)
+    bs = k_pool.shape[1]
+    ring = paged_ring_active(sliding_window, bs, block_tables.shape[1])
+    return decode_attention_core_positions(
+        q, _paged_gather_q8(k_pool, k_scale, block_tables, q.dtype),
+        _paged_gather_q8(v_pool, v_scale, block_tables, q.dtype),
+        kv_positions=paged_kv_positions(block_tables, bs, q_position, ring),
+        q_position=q_position, sliding_window=sliding_window, impl=impl)
+
+
+def decode_attention_core_paged_q8_merged(
+    u: torch.Tensor,  # (B, d_model) — RoPE'd stream (merged query)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 K* page pool
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 V* page pool
+    k_scale: torch.Tensor,  # (NB, Hkv) float32
+    v_scale: torch.Tensor,  # (NB, Hkv) float32
+    *,
+    block_tables: torch.Tensor,  # (B, MB) int32 page ids, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int
+    n_kv_heads: int,
+    sliding_window: int = 0,
+    impl: str = "torch",
+) -> torch.Tensor:
+    """Merged (Q/P-removed) decode attention over an int8 paged pool: the
+    stream is the query and the (B, d_model) output is the FFN input."""
+    _check_impl(impl)
+    B, d = u.shape
+    D = k_pool.shape[3]
+    if impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.decode_kernel("paged_q8", "merged")(
+            u, k_pool, v_pool, k_scale=k_scale, v_scale=v_scale,
+            block_tables=block_tables, q_position=q_position,
+            n_kv_heads=n_kv_heads, sliding_window=sliding_window)
+    out = decode_attention_core_paged_q8(
+        u.reshape(B, d // D, D), k_pool, v_pool, k_scale, v_scale,
+        block_tables=block_tables, q_position=q_position,
+        sliding_window=sliding_window, impl=impl)
     return out.reshape(B, d)

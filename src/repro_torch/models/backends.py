@@ -3,9 +3,10 @@
 Counterpart of ``repro.models.backends``.  Every serving route is a
 registered backend keyed ``(cache_kind, style, impl)``:
 
-  cache_kind  "dense" (per-slot ring buffer, ``DecodeCache``) or "paged"
-              (block-table page pool, ``PagedDecodeCache``); the int8 pool
-              is a later slice of the port
+  cache_kind  "dense" (per-slot ring buffer, ``DecodeCache``), "paged"
+              (block-table page pool, ``PagedDecodeCache``) or "paged_q8"
+              (the same pool as int8 pages with per-(page, kv-head)
+              scales, ``PagedQ8DecodeCache``)
   style       "generic" (projects q/k/v as the config dictates, covering
               unmerged models and the kp/vp merged variants) or "merged"
               (the qp fast path: the residual stream IS the query, no Q or
@@ -21,7 +22,8 @@ behind ``models.transformer.forward_step``; prefill —
 
     def my_step(lp, cfg, u1, k_layer, v_layer, ctx):
         # u1 (B,1,d) stream; ctx carries "length", "impl" and the cache
-        # kind's own keys ("kv_pos"; paged: "block_tables", "append")
+        # kind's own keys ("kv_pos"; paged and paged_q8: "block_tables",
+        # "append"; paged_q8 k_layer/v_layer are (pool, scale) pairs)
         return cat, k_layer, v_layer
 
     backends.register_backend("dense", "generic", my_step)
@@ -34,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Tuple
 
-CACHE_KINDS = ("dense", "paged")
+CACHE_KINDS = ("dense", "paged", "paged_q8")
 STYLES = ("generic", "merged")
 IMPLS = ("cuda", "torch")
 

@@ -1,6 +1,6 @@
 """Dense attention stacks in all paper block styles: setup, the sequence
-forward, prefill into the dense cache or a paged pool, and one-token
-decode against either.
+forward, prefill into the dense cache, a paged pool or an int8 paged
+pool, and one-token decode against any of them.
 
 Counterpart of ``repro.models.transformer`` for plan kind "attn" on the
 dense family (other plan kinds and families raise NotImplementedError; see
@@ -27,7 +27,9 @@ Unlike the JAX reference, ``forward_step`` updates the cache IN PLACE (the
 new K/V rows, ``kv_pos``; a paged pool's pages) and returns it with
 ``length`` advanced, and a paged prefill writes the prompt's pages into
 the pools in place: a functional copy of a multi-GB cache per token is
-what donation avoids on the TPU.
+what donation avoids on the TPU.  The int8 pool (``paged_q8``) is written
+the same way, ints and per-(page, kv-head) scales together
+(``kernels.quant``).
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import paging
+from repro_torch.kernels import paging, quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backends
 from repro_torch.models import ffn as ffn_mod
@@ -225,14 +227,44 @@ def _rope(cfg: ModelConfig, x, positions):
 
 def _self_attention_seq(lp, cfg: ModelConfig, u, positions, merged: bool,
                         impl: str, merged_core: bool = False,
-                        cache_kind: str = "dense"):
+                        cache_kind: str = "dense", q8_block: int = 0,
+                        q8_true_len=None):
     """``merged_core`` selects the stream-as-query core (merged qp layouts:
     q is an identity view of u, so every tensor stays in its native
-    layout — the prefill twin of the merged decode fast path)."""
+    layout — the prefill twin of the merged decode fast path).
+
+    ``q8_block`` > 0 (the int8 pool's prefill) quantizes K/V at pool
+    granularity, one scale per ``q8_block`` tokens and kv head, positions
+    >= ``q8_true_len`` zeroed first, and attends over the QUANTIZED view
+    (dequantized in the kernel on the merged route, upstream otherwise), so
+    the prompt's logits see exactly the bits ``_finish_paged_q8`` stores.
+    What is collected is then those bits, (k ints, k scales, v ints,
+    v scales), not the float K/V: the finish step writes them as they
+    are."""
     q, k, v = _project_qkv(lp, cfg, u, u, merged)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
     B, S = u.shape[0], u.shape[1]
+    if q8_block:
+        valid = None if q8_true_len is None else \
+            positions < q8_true_len[:, None]
+        kq, ksc = quant.q8_quantize_seq(k, q8_block, valid)
+        vq, vsc = quant.q8_quantize_seq(v, q8_block, valid)
+        if merged_core:
+            out = attn_mod.attention_core_merged(
+                q.reshape(B, S, cfg.attn_dim), kq, vq, q_positions=positions,
+                kv_positions=positions, n_kv_heads=cfg.n_kv_heads,
+                causal=cfg.causal, sliding_window=cfg.sliding_window,
+                impl=impl, query_chunk=cfg.query_chunk or S,
+                cache_kind=cache_kind, k_scale=ksc, v_scale=vsc)
+            return out, (kq, ksc, vq, vsc)
+        out = attn_mod.attention_core(
+            q, quant.q8_dequant_seq(kq, ksc, k.dtype),
+            quant.q8_dequant_seq(vq, vsc, v.dtype), q_positions=positions,
+            kv_positions=positions, causal=cfg.causal,
+            sliding_window=cfg.sliding_window, impl=impl,
+            query_chunk=cfg.query_chunk or S)
+        return out.reshape(B, S, cfg.attn_dim), (kq, ksc, vq, vsc)
     if merged_core:
         out = attn_mod.attention_core_merged(
             q.reshape(B, S, cfg.attn_dim), k, v, q_positions=positions,
@@ -278,7 +310,9 @@ def _apply_style(p, cfg: ModelConfig, u, mixer_fn):
 
 
 def apply_block_seq(p, cfg: ModelConfig, u, ctx):
-    """One attention block over a sequence -> (out_stream, (k, v))."""
+    """One attention block over a sequence -> (out_stream, (k, v)), or
+    (out_stream, (k ints, k scales, v ints, v scales)) under
+    ``ctx["q8_block"]``."""
     merged = _is_merged(cfg.block_style)
     kv = []
 
@@ -286,7 +320,9 @@ def apply_block_seq(p, cfg: ModelConfig, u, ctx):
         cat, kv_ = _self_attention_seq(
             p["attn"], cfg, x, ctx["positions"], merged, ctx["impl"],
             merged_core=ctx.get("merged_core", False),
-            cache_kind=ctx.get("cache_kind", "dense"))
+            cache_kind=ctx.get("cache_kind", "dense"),
+            q8_block=ctx.get("q8_block", 0),
+            q8_true_len=ctx.get("q8_true_len"))
         kv.append(kv_)
         return cat if merged else _attn_out_proj(p["attn"], cat)
 
@@ -327,12 +363,18 @@ def _logits(params, cfg: ModelConfig, h):
 
 def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
                 impl: str = "torch", collect_kv: bool = False,
-                merged_core: bool = False, cache_kind: str = "dense"):
+                merged_core: bool = False, cache_kind: str = "dense",
+                q8_block: int = 0, q8_true_len=None):
     """Full-sequence forward over int tokens (B,S) -> (logits, aux, kvs).
 
     ``kvs`` is (k, v), each (L, B, S, Hkv, Dh), when ``collect_kv``.
     ``merged_core`` routes self-attention through the stream-as-query
-    merged core (prefill backends set it for merged qp layouts)."""
+    merged core (prefill backends set it for merged qp layouts).
+    ``q8_block``/``q8_true_len`` (the int8 pool's prefill) make every
+    layer attend over its pool-granularity QUANTIZED K/V, and ``kvs`` is
+    then those bits: (k ints, k scales, v ints, v scales), the ints
+    (L, B, S, Hkv, Dh) int8 and the scales (L, B, S // q8_block, Hkv)
+    float32 (``_self_attention_seq``)."""
     _require_dense(cfg)
     B, S = inputs.shape[0], inputs.shape[1]
     if positions is None:
@@ -340,14 +382,15 @@ def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
                                  device=inputs.device).expand(B, S)
     h = embed_inputs(params, cfg, inputs)
     ctx = {"positions": positions, "impl": impl, "merged_core": merged_core,
-           "cache_kind": cache_kind}
-    ks, vs = [], []
+           "cache_kind": cache_kind, "q8_block": q8_block,
+           "q8_true_len": q8_true_len}
+    kv_layers = []
     for i in range(cfg.n_layers):
-        h, (k, v) = apply_block_seq(layer_params(params, i), cfg, h, ctx)
+        h, kv = apply_block_seq(layer_params(params, i), cfg, h, ctx)
         if collect_kv:
-            ks.append(k)
-            vs.append(v)
-    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+            kv_layers.append(kv)
+    kvs = tuple(torch.stack(t) for t in zip(*kv_layers)) \
+        if collect_kv else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, cfg, h), aux, kvs
 
@@ -454,6 +497,51 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                             length=full("length", 0))
 
 
+class PagedQ8DecodeCache(NamedTuple):
+    """Device view of the int8 paged KV cache: the ``PagedDecodeCache``
+    contract with int8 pools and per-(page, kv-head) float32 scales
+    (``kernels.quant``).  A page's scale rows are part of the page:
+    copy-on-write copies them with the ints
+    (``serving.paged_kv_cache.copy_block_q8``), and a recycled page's stale
+    scale is hidden like its stale ints (decode resets the scale when it
+    enters the page at offset 0).  ``forward_step`` writes pools and
+    scales in place."""
+    k: torch.Tensor  # (L, n_blocks, block_size, Hkv, Dh) int8 pages
+    v: torch.Tensor
+    k_scale: torch.Tensor  # (L, n_blocks, Hkv) float32
+    v_scale: torch.Tensor
+    block_tables: torch.Tensor  # (B, MB) int32 page ids, -1 unmapped
+    length: torch.Tensor  # (B,) int32 — tokens so far (= next position)
+
+
+def paged_q8_cache_spec(cfg: ModelConfig, n_blocks: int, block_size: int,
+                        n_slots: int, max_len: int):
+    """Shapes and dtypes of an empty int8 paged cache."""
+    spec = paged_cache_spec(cfg, n_blocks, block_size, n_slots, max_len)
+    pool = (spec["k"][0], torch.int8)
+    scale = ((spec["k"][0][0], n_blocks, cfg.n_kv_heads), torch.float32)
+    return {"k": pool, "v": pool, "k_scale": scale, "v_scale": scale,
+            "block_tables": spec["block_tables"], "length": spec["length"]}
+
+
+def init_paged_q8_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                        n_slots: int, max_len: int,
+                        device="cuda") -> PagedQ8DecodeCache:
+    """An empty int8 paged cache: zero ints and zero scales (an unmapped
+    page gathered by the plain route dequantizes to finite zeros)."""
+    spec = paged_q8_cache_spec(cfg, n_blocks, block_size, n_slots, max_len)
+    dev = resolve_device(device)
+
+    def full(name, fill):
+        shape, dt = spec[name]
+        return torch.full(shape, fill, dtype=dt, device=dev)
+
+    return PagedQ8DecodeCache(
+        k=full("k", 0), v=full("v", 0), k_scale=full("k_scale", 0),
+        v_scale=full("v_scale", 0), block_tables=full("block_tables", -1),
+        length=full("length", 0))
+
+
 # ---------------------------------------------------------------------------
 # prefill: full-sequence forward that also fills the cache
 # ---------------------------------------------------------------------------
@@ -496,6 +584,20 @@ class PagedPrefillDest(NamedTuple):
     the live window's blocks are mapped — ``kernels.paging``)."""
     k_pool: Any
     v_pool: Any
+    block_ids: Any
+
+
+class PagedQ8PrefillDest(NamedTuple):
+    """Destination of a direct-to-page prefill into the int8 pool: the
+    ``PagedPrefillDest`` contract over int8 pools (L, NB, bs, Hkv, Dh) and
+    their (L, NB, Hkv) float32 scales.  The prefill quantizes the prompt's
+    KV at pool granularity and writes ints AND scales of the mapped blocks
+    only, in place: no float pool exists.  The (padded) prompt length must
+    be a multiple of the page size: pages are quantized whole."""
+    k_pool: Any
+    v_pool: Any
+    k_scale: Any
+    v_scale: Any
     block_ids: Any
 
 
@@ -581,6 +683,37 @@ def _finish_paged(cfg: ModelConfig, logits, kvs, dest: PagedPrefillDest, ctx,
     return last_logits, (k_pool, v_pool)
 
 
+def _finish_paged_q8(cfg: ModelConfig, logits, kvs, dest: PagedQ8PrefillDest,
+                     ctx, B: int, S: int):
+    """Write the prompt's int8 K/V and scales, as the prefill attention
+    quantized and attended over them (``_self_attention_seq``), into the
+    mapped blocks of the pools in place, and gather the last real
+    position's logits.  So the pool holds exactly the bits the prompt's
+    logits saw.  A mapped block past the prompt (S is a whole number of
+    pages) gets what quantizing zeros gives: ints 0, scale ``Q8_EPS``."""
+    k_pool, v_pool, k_scale, v_scale, block_ids = dest
+    last_logits, _ = _last_logits_and_length(logits, ctx.get("true_len"),
+                                             B, S)
+    L, bs = k_pool.shape[0], k_pool.shape[2]
+    nbk, npb = block_ids.shape[0], S // bs
+    keep = torch.nonzero(block_ids >= 0).flatten()  # one sync per prefill
+    dst = block_ids[keep].long()
+    kq, ksc, vq, vsc = kvs  # (L, 1, S, Hkv, Dh) int8, (L, 1, S/bs, Hkv)
+
+    def blocks(ints, sc):  # -> the kept (L, n, bs, Hkv, Dh), (L, n, Hkv)
+        ints = ints[:, 0].reshape(L, npb, bs, *ints.shape[3:])
+        ints = torch.nn.functional.pad(ints, (0, 0, 0, 0, 0, 0, 0,
+                                              nbk - npb))
+        sc = torch.nn.functional.pad(sc[:, 0], (0, 0, 0, nbk - npb),
+                                     value=quant.Q8_EPS)
+        return ints[:, keep], sc[:, keep]
+
+    for pool, scale, ints, sc in ((k_pool, k_scale, kq, ksc),
+                                  (v_pool, v_scale, vq, vsc)):
+        pool[:, dst], scale[:, dst] = blocks(ints, sc)
+    return last_logits, (k_pool, v_pool, k_scale, v_scale)
+
+
 def _prefill_dense_generic(params, cfg: ModelConfig, inputs, dest, ctx):
     """Registered prefill backend ("dense", "generic"): projects q/k/v as
     the config dictates (kp/vp merged variants pass through)."""
@@ -619,12 +752,52 @@ def _prefill_paged_merged(params, cfg: ModelConfig, inputs, dest, ctx):
     return _finish_paged(cfg, logits, kvs, dest, ctx, B, S)
 
 
+def _prefill_seq_q8(params, cfg: ModelConfig, inputs,
+                    dest: PagedQ8PrefillDest, ctx, *, merged_core: bool):
+    """``_prefill_seq`` for the int8 pool: the pool's page size and the
+    prompt's true length go into the stack so that every layer attends
+    over its K/V quantized at pool granularity."""
+    true_len = ctx.get("true_len")
+    q8_true_len = None if true_len is None else torch.as_tensor(
+        true_len, dtype=torch.int32, device=inputs.device).reshape(
+            inputs.shape[0])
+    return forward_seq(params, cfg, inputs, impl=ctx.get("impl", "torch"),
+                       collect_kv=True, merged_core=merged_core,
+                       cache_kind="paged_q8",
+                       q8_block=int(dest.k_pool.shape[2]),
+                       q8_true_len=q8_true_len)
+
+
+def _prefill_paged_q8_generic(params, cfg: ModelConfig, inputs, dest, ctx):
+    """Registered prefill backend ("paged_q8", "generic"): the generic
+    projection path attending over the dequantized int8 K/V, the prompt's
+    KV quantized and written direct-to-page as ints and scales."""
+    B, S = inputs.shape[0], inputs.shape[1]
+    logits, _, kvs = _prefill_seq_q8(params, cfg, inputs, dest, ctx,
+                                     merged_core=False)
+    return _finish_paged_q8(cfg, logits, kvs, dest, ctx, B, S)
+
+
+def _prefill_paged_q8_merged(params, cfg: ModelConfig, inputs, dest, ctx):
+    """Registered prefill backend ("paged_q8", "merged"): stream-as-query
+    attention over the int8 K*/V*, dequantized inside the kernel, and
+    int8 direct-to-page writes."""
+    B, S = inputs.shape[0], inputs.shape[1]
+    logits, _, kvs = _prefill_seq_q8(params, cfg, inputs, dest, ctx,
+                                     merged_core=True)
+    return _finish_paged_q8(cfg, logits, kvs, dest, ctx, B, S)
+
+
 backends.register_prefill_backend("dense", "generic", _prefill_dense_generic)
 backends.register_prefill_backend("dense", "merged", _prefill_dense_merged,
                                   fast_path=True)
 backends.register_prefill_backend("paged", "generic", _prefill_paged_generic)
 backends.register_prefill_backend("paged", "merged", _prefill_paged_merged,
                                   fast_path=True)
+backends.register_prefill_backend("paged_q8", "generic",
+                                  _prefill_paged_q8_generic)
+backends.register_prefill_backend("paged_q8", "merged",
+                                  _prefill_paged_q8_merged, fast_path=True)
 
 
 def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
@@ -637,19 +810,25 @@ def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
       (last_token_logits (B, V), ``DecodeCache``);
     * ``PagedPrefillDest(k_pool, v_pool, block_ids)`` writes the prompt's
       KV into the mapped pages of the pools in place and returns
-      (last_token_logits (B, V), (k_pool, v_pool)).
+      (last_token_logits (B, V), (k_pool, v_pool));
+    * ``PagedQ8PrefillDest(k_pool, v_pool, k_scale, v_scale, block_ids)``
+      quantizes it into the int8 pools and their scales, in place, and
+      returns (last_token_logits (B, V), (k_pool, v_pool, k_scale,
+      v_scale)).
 
     ``true_len`` (B,) int supports bucketed prompts: ``inputs`` may be
     right-padded, the logits are gathered at ``true_len - 1`` and the
     cache marks padded positions empty (dense: kv_pos = -1; paged: in-page
     positions past the request's length, hidden by the causal mask) with
     ``length = true_len``.  Invalid requests (paged on a non-attention
-    stack, paged batch > 1, too few mapped blocks, a non-positive dense
-    cache_len) raise ValueError; unknown (cache_kind, style, impl) combos
-    raise the registry's KeyError."""
+    stack, paged batch > 1, too few mapped blocks, an int8 prompt that is
+    not a whole number of pages, a non-positive dense cache_len) raise
+    ValueError; unknown (cache_kind, style, impl) combos raise the
+    registry's KeyError."""
     B, S = int(inputs.shape[0]), int(inputs.shape[1])
-    if isinstance(dest, PagedPrefillDest):
-        kind = "paged"
+    if isinstance(dest, (PagedPrefillDest, PagedQ8PrefillDest)):
+        quantized = isinstance(dest, PagedQ8PrefillDest)
+        kind = "paged_q8" if quantized else "paged"
         plan = layer_plan(cfg)
         if plan["kind"] != "attn":
             raise ValueError(f"paged prefill supports attention-only stacks, "
@@ -659,8 +838,14 @@ def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
                              f"got batch size {B}")
         nbk, bs = int(dest.block_ids.shape[0]), int(dest.k_pool.shape[2])
         if nbk * bs < S:
-            raise ValueError(f"PagedPrefillDest.block_ids maps {nbk} blocks "
-                             f"of {bs} tokens: too few for a {S}-token prompt")
+            raise ValueError(f"{type(dest).__name__}.block_ids maps {nbk} "
+                             f"blocks of {bs} tokens: too few for a {S}-token "
+                             "prompt")
+        if quantized and S % bs:
+            # the prefill quantizes whole pages: the bucket must tile them
+            raise ValueError(f"paged_q8 prefill needs the (padded) prompt "
+                             f"length to be a multiple of the page size: "
+                             f"{S} % {bs} != 0")
     elif isinstance(dest, DensePrefillDest):
         kind = "dense"
         if dest.cache_len <= 0:
@@ -669,8 +854,7 @@ def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
     else:
         raise ValueError(
             f"unknown prefill destination {type(dest).__name__!r}; expected "
-            "DensePrefillDest or PagedPrefillDest (the int8 pool: "
-            "ROADMAP.md)")
+            "DensePrefillDest, PagedPrefillDest or PagedQ8PrefillDest")
     backend = backends.get_prefill_backend(kind, prefill_style_key(cfg), impl)
     ctx = {"impl": impl, "true_len": true_len}
     return backend.run(params, cfg, inputs, dest, ctx)
@@ -730,22 +914,31 @@ def _attn_step_dense_merged(lp, cfg: ModelConfig, u1, k_layer, v_layer, ctx):
     return out.reshape(B, 1, cfg.attn_dim), k_layer, v_layer
 
 
+class AppendSlots(NamedTuple):
+    """Where one decode step writes its new K/V rows
+    (``paged_append_slots``)."""
+    rows: torch.Tensor  # (n,) batch rows whose page is mapped
+    dst: torch.Tensor  # (n,) page * bs + off: row in a (NB*bs, Hkv, Dh) view
+    page: torch.Tensor  # (n,) physical page
+    off: torch.Tensor  # (n,) in-page offset
+
+
 def paged_append_slots(cfg: ModelConfig, block_tables, length,
-                       block_size: int):
-    """Where this step's new K/V rows go in every layer's pool: ``rows``,
-    the batch rows whose page is mapped, and ``dst``, their flat row
-    page * bs + offset in a layer pool's (NB*bs, Hkv, Dh) view (page =
-    table[length // bs], the table index wrapping for ring-addressed
-    windowed tables; ``kernels.paging``).  Idle batch rows (table all -1)
-    are left out: torch has no ``mode="drop"``.  Computed once per step
-    (one host sync), not once per layer."""
+                       block_size: int) -> AppendSlots:
+    """Where this step's new K/V rows go in every layer's pool: the batch
+    rows whose page is mapped, with their page (table[length // bs], the
+    table index wrapping for ring-addressed windowed tables;
+    ``kernels.paging``), in-page offset and flat row.  Idle batch rows
+    (table all -1) are left out: torch has no ``mode="drop"``.  Computed
+    once per step (one host sync), not once per layer."""
     MB = block_tables.shape[1]
     ring = paging.paged_ring_active(cfg.sliding_window, block_size, MB)
     lb = length.long() // block_size
     lb = lb % ring if ring else lb.clamp(max=MB - 1)
     blk = block_tables.long().gather(1, lb[:, None])[:, 0]
     rows = torch.nonzero(blk >= 0).flatten()
-    return rows, blk[rows] * block_size + length[rows].long() % block_size
+    page, off = blk[rows], length[rows].long() % block_size
+    return AppendSlots(rows, page * block_size + off, page, off)
 
 
 def _rope_and_insert_paged(cfg: ModelConfig, q, k_new, v_new, k_pool, v_pool,
@@ -756,10 +949,9 @@ def _rope_and_insert_paged(cfg: ModelConfig, q, k_new, v_new, k_pool, v_pool,
     pos = length[:, None]
     q = _rope(cfg, q, pos)
     k_new = _rope(cfg, k_new, pos)
-    rows, dst = append
     for pool, new in ((k_pool, k_new), (v_pool, v_new)):
         flat = pool.view(-1, *pool.shape[2:])  # (NB*bs, Hkv, Dh)
-        flat.index_copy_(0, dst, new[rows, 0].to(pool.dtype))
+        flat.index_copy_(0, append.dst, new[append.rows, 0].to(pool.dtype))
     return q, k_pool, v_pool
 
 
@@ -796,16 +988,72 @@ def _attn_step_paged_merged(lp, cfg: ModelConfig, u1, k_pool, v_pool, ctx):
     return out.reshape(B, 1, cfg.attn_dim), k_pool, v_pool
 
 
+def _rope_and_insert_paged_q8(cfg: ModelConfig, q, k_new, v_new, k_store,
+                              v_store, length, append):
+    """``_rope_and_insert_paged`` over the int8 pool: RoPE, then quantize
+    the new token into each mapped row's page under the page's monotone
+    scale merge (``quant.q8_append_token``), ints and scale row in place.
+    The same torch ops on every route, so pool bits do not depend on
+    ``impl``.  Returns q."""
+    pos = length[:, None]
+    q = _rope(cfg, q, pos)
+    k_new = _rope(cfg, k_new, pos)
+    for (pool, scale), new in ((k_store, k_new), (v_store, v_new)):
+        quant.q8_append_token(pool, scale, new[append.rows, 0], append.page,
+                              append.off)
+    return q
+
+
+def _attn_step_paged_q8(lp, cfg: ModelConfig, u1, k_store, v_store, ctx):
+    """Registered backend ("paged_q8", "generic"): decode step against the
+    int8 pool.  The stores are (pool, scale) pairs, (NB,bs,Hkv,Dh) int8
+    and (NB,Hkv) float32; ``apply_block_step`` passes them through."""
+    B, length = u1.shape[0], ctx["length"]
+    merged = _is_merged(cfg.block_style)
+    q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, merged)
+    q = _rope_and_insert_paged_q8(cfg, q, k_new, v_new, k_store, v_store,
+                                  length, ctx["append"])
+    out = attn_mod.decode_attention_core_paged_q8(
+        q[:, 0], k_store[0], v_store[0], k_store[1], v_store[1],
+        block_tables=ctx["block_tables"], q_position=length,
+        sliding_window=cfg.sliding_window, impl=ctx["impl"])
+    return out.reshape(B, 1, cfg.attn_dim), k_store, v_store
+
+
+def _attn_step_paged_q8_merged(lp, cfg: ModelConfig, u1, k_store, v_store,
+                               ctx):
+    """Registered backend ("paged_q8", "merged"): the Q/P-removed fast path
+    against the int8 pool — per token the attention side reads K*/V*
+    weights and one byte per attended pooled element (the kernel
+    dequantizes as it loads; no float view of the pool exists)."""
+    B, length = u1.shape[0], ctx["length"]
+    # variant "qp": _project_qkv returns the stream itself as q
+    q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, True)
+    q = _rope_and_insert_paged_q8(cfg, q, k_new, v_new, k_store, v_store,
+                                  length, ctx["append"])
+    out = attn_mod.decode_attention_core_paged_q8_merged(
+        q.reshape(B, cfg.attn_dim), k_store[0], v_store[0], k_store[1],
+        v_store[1], block_tables=ctx["block_tables"], q_position=length,
+        n_kv_heads=cfg.n_kv_heads, sliding_window=cfg.sliding_window,
+        impl=ctx["impl"])
+    return out.reshape(B, 1, cfg.attn_dim), k_store, v_store
+
+
 backends.register_backend("dense", "generic", _attn_step_dense)
 backends.register_backend("dense", "merged", _attn_step_dense_merged,
                           fast_path=True)
 backends.register_backend("paged", "generic", _attn_step_paged)
 backends.register_backend("paged", "merged", _attn_step_paged_merged,
                           fast_path=True)
+backends.register_backend("paged_q8", "generic", _attn_step_paged_q8)
+backends.register_backend("paged_q8", "merged", _attn_step_paged_q8_merged,
+                          fast_path=True)
 
 
 def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx):
-    """One block, one token (the cache rows are written in place)."""
+    """One block, one token (the cache rows are written in place).  On the
+    int8 pool ``k_layer``/``v_layer`` are (pool, scale) pairs, passed
+    through to the backend step as they are."""
     merged = _is_merged(cfg.block_style)
 
     def mixer_fn(x):
@@ -832,21 +1080,23 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
                  impl: str = "torch"):
     """One decode step: token (B,) int -> (logits (B, V), cache).
 
-    ``cache`` is a ``DecodeCache`` or a ``PagedDecodeCache``: its type
-    selects the cache_kind axis of the backend registry key and the config
-    the style axis (``serving_style_key``), so merged "qp" models take the
-    fast path: per-token attention reads only K*/V* weights and the merged
-    ``b_out`` bias is applied in-stream after the FFN.  Unknown
-    (cache_kind, style, impl) combos raise KeyError from the registry
-    before any compute.  The cache is updated in place."""
-    paged = isinstance(cache, PagedDecodeCache)
+    ``cache`` is a ``DecodeCache``, a ``PagedDecodeCache`` or a
+    ``PagedQ8DecodeCache``: its type selects the cache_kind axis of the
+    backend registry key and the config the style axis
+    (``serving_style_key``), so merged "qp" models take the fast path:
+    per-token attention reads only K*/V* weights and the merged ``b_out``
+    bias is applied in-stream after the FFN.  Unknown (cache_kind, style,
+    impl) combos raise KeyError from the registry before any compute.  The
+    cache is updated in place."""
+    paged_q8 = isinstance(cache, PagedQ8DecodeCache)
+    paged = paged_q8 or isinstance(cache, PagedDecodeCache)
     if not paged and not isinstance(cache, DecodeCache):
-        raise ValueError(f"forward_step serves a DecodeCache or a "
-                         f"PagedDecodeCache, got {type(cache).__name__} (the "
-                         "int8 pool: ROADMAP.md)")
+        raise ValueError(f"forward_step serves a DecodeCache, a "
+                         f"PagedDecodeCache or a PagedQ8DecodeCache, got "
+                         f"{type(cache).__name__}")
     _require_dense(cfg)
-    backend = backends.get_backend("paged" if paged else "dense",
-                                   serving_style_key(cfg), impl)
+    kind = "paged_q8" if paged_q8 else ("paged" if paged else "dense")
+    backend = backends.get_backend(kind, serving_style_key(cfg), impl)
     # embed through the same front end as the sequence path (skipless
     # scale, merged embed_bias / input_proj)
     h = embed_inputs(params, cfg, token[:, None])
@@ -864,7 +1114,11 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
         kv_pos[rows, (length % kv_pos.shape[1]).long()] = length
         ctx["kv_pos"] = kv_pos
     for i in range(cfg.n_layers):
-        h = apply_block_step(layer_params(params, i), cfg, h, cache.k[i],
-                             cache.v[i], ctx)
+        if paged_q8:
+            k_i, v_i = (cache.k[i], cache.k_scale[i]), \
+                (cache.v[i], cache.v_scale[i])
+        else:
+            k_i, v_i = cache.k[i], cache.v[i]
+        h = apply_block_step(layer_params(params, i), cfg, h, k_i, v_i, ctx)
     logits = _logits(params, cfg, h)[:, 0, :]
     return logits, cache._replace(length=length + 1)

@@ -1,11 +1,11 @@
 """KVCacheAdapter: the cache side of the serving API seam.
 
-Counterpart of ``repro.serving.adapters`` for the dense cache and the
-paged pool.  The engine speaks to its cache through one interface, so
-cache layouts stay out of the scheduling code; a new layout is a new
-adapter plus its registered attention backends (``models.backends``).
-The int8 pool and the chunked-prefill part of the interface are later
-slices of the port (ROADMAP.md).
+Counterpart of ``repro.serving.adapters`` for the dense cache, the paged
+pool and the int8 paged pool.  The engine speaks to its cache through one
+interface, so cache layouts stay out of the scheduling code; a new layout
+is a new adapter plus its registered attention backends
+(``models.backends``).  The chunked-prefill part of the interface and the
+observer gauges are later slices of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (DensePrefillDest, PagedPrefillDest,
-                                forward_prefill, init_cache)
+                                PagedQ8PrefillDest, forward_prefill,
+                                init_cache)
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving import paged_kv_cache as pkv
 
@@ -26,6 +27,12 @@ class KVCacheAdapter:
     cache_kind axis of the backend-registry key."""
 
     kind: str = "?"
+
+    #: prompts handed to prefill are padded to a multiple of this (the
+    #: engine's ``_bucket_pad`` rounds its bucket up); the int8 pool sets
+    #: its page size: pages are quantized whole, so no prefill may end
+    #: mid-page
+    bucket_align: int = 1
 
     def init(self, cfg: ModelConfig, sc, device: torch.device) -> None:
         """Allocate the device cache for (cfg, ServeConfig) on ``device``."""
@@ -120,6 +127,7 @@ class PagedCacheAdapter(KVCacheAdapter):
     max_len-sized intermediate buffer, no second scatter pass."""
 
     kind = "paged"
+    manager_cls = pkv.PagedCacheManager
 
     def __init__(self, block_size: Optional[int] = None,
                  n_blocks: Optional[int] = None,
@@ -132,7 +140,7 @@ class PagedCacheAdapter(KVCacheAdapter):
         bs = self._block_size or sc.block_size
         n_blocks = self._n_blocks or sc.n_blocks \
             or sc.n_slots * (sc.max_len // bs)
-        self.pm = pkv.PagedCacheManager(
+        self.pm = self.manager_cls(
             cfg, n_slots=sc.n_slots, max_len=sc.max_len, block_size=bs,
             n_blocks=n_blocks, prefix_retention=self._prefix_retention,
             device=device)
@@ -141,12 +149,14 @@ class PagedCacheAdapter(KVCacheAdapter):
         cfg = self.cfg
 
         def run(params, tokens, true_len, block_ids):
-            return forward_prefill(
-                params, cfg, tokens,
-                PagedPrefillDest(self.pm.k, self.pm.v, block_ids),
-                impl=impl, true_len=true_len)
+            return forward_prefill(params, cfg, tokens, self._dest(block_ids),
+                                   impl=impl, true_len=true_len)
 
         self._prefill = run
+
+    def _dest(self, block_ids):
+        """The prefill destination: the mapped pages of the pools."""
+        return PagedPrefillDest(self.pm.k, self.pm.v, block_ids)
 
     def device_cache(self):
         return self.pm.device_cache()
@@ -175,13 +185,38 @@ class PagedCacheAdapter(KVCacheAdapter):
         self.pm.release(slot)
 
 
+class PagedQ8CacheAdapter(PagedCacheAdapter):
+    """The block-pool cache with int8 pages and per-(page, kv-head)
+    float32 scales (``pkv.PagedQ8CacheManager``).  Everything on the host
+    (allocator, tables, copy-on-write, ring recycling, prefix sharing) is
+    the paged adapter's: a page id means the same thing, and its scale
+    rows travel with it.  What differs is on the device: the prefill
+    writes ints and scales (``PagedQ8PrefillDest``), the decode step reads
+    a ``PagedQ8DecodeCache`` through the registered ``paged_q8``
+    backends, and prompts are padded to whole pages (``bucket_align``).
+    The pools take a quarter of float32 pools' bytes (half of bfloat16's)
+    plus 8 bytes of scales per page, kv head and layer."""
+
+    kind = "paged_q8"
+    manager_cls = pkv.PagedQ8CacheManager
+
+    @property
+    def bucket_align(self) -> int:
+        return self.pm.bs
+
+    def _dest(self, block_ids):
+        return PagedQ8PrefillDest(self.pm.k, self.pm.v, self.pm.k_scale,
+                                  self.pm.v_scale, block_ids)
+
+
 def make_adapter(kind: str) -> KVCacheAdapter:
     """Adapter for a cache-kind name."""
     if kind == "dense":
         return DenseCacheAdapter()
     if kind == "paged":
         return PagedCacheAdapter()
+    if kind == "paged_q8":
+        return PagedQ8CacheAdapter()
     raise ValueError(
-        f"unknown cache kind {kind!r}; the port serves 'dense' and 'paged' "
-        "(the int8 pool is queued in ROADMAP.md) or a KVCacheAdapter "
-        "instance")
+        f"unknown cache kind {kind!r}; expected 'dense', 'paged', "
+        "'paged_q8' or a KVCacheAdapter instance")

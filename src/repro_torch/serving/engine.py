@@ -1,7 +1,7 @@
 """Serving engine: prefill + batched greedy decode over a fixed set of slots.
 
-Counterpart of ``repro.serving.engine`` for the dense cache and the paged
-pool.  The engine drives exactly two seams:
+Counterpart of ``repro.serving.engine`` for the dense cache, the paged
+pool and the int8 paged pool.  The engine drives exactly two seams:
 
   * a ``KVCacheAdapter`` (``serving.adapters``) owning the cache: device
     state, admission, the prefill-insert path and room for each next
@@ -24,7 +24,9 @@ Prompt lengths are bucketed (padded to the next power of two, exact logits
 and cache via ``true_len``) except for sliding-window configs on the dense
 cache, whose window-sized ring would drop real positions under a padded
 tail: those prompts reach prefill at their own length (the paged pool
-stores absolute positions, so it buckets windowed configs too).
+stores absolute positions, so it buckets windowed configs too).  Every
+prompt is padded up to the adapter's ``bucket_align``, bucketed or not:
+the int8 pool quantizes whole pages.
 
 On the paged pool a request that does not fit is deferred (``submit``
 returns False and ``generate`` retries it after others finish), and when
@@ -207,14 +209,18 @@ class Engine:
         return self.prefill_backend.fast_path
 
     def _bucket_pad(self, toks: np.ndarray) -> Tuple[np.ndarray, int]:
-        """Right-pad to the next power-of-two bucket (>= 8); the true
-        length rides along so logits and cache are exact."""
+        """Right-pad to the next power-of-two bucket (>= 8), then up to a
+        multiple of the adapter's ``bucket_align`` (unbucketed prompts
+        too); the true length rides along so logits and cache are
+        exact."""
         n = b = len(toks)
         if self._bucketing and n < self.sc.max_len:
             b = 8
             while b < n:
                 b *= 2
             b = min(b, self.sc.max_len)
+        align = self.kv.bucket_align
+        b = -(-b // align) * align
         if b == n:
             return toks, n
         return np.concatenate([toks, np.zeros((b - n,), np.int32)]), n

@@ -12,7 +12,10 @@ Division of labor:
     straight into its mapped pages (``models.forward_prefill`` with a
     ``PagedPrefillDest``), the decode step appends each token's row
     (``models.forward_step``), and ``copy_block`` implements
-    copy-on-write.  Nothing here reallocates.
+    copy-on-write.  Nothing here reallocates.  The int8 pool
+    (``PagedQ8CacheManager``) adds per-(page, kv-head) scale arrays that
+    travel with their page; it differs from the fp manager only in the
+    pool hooks (``_init_pools``, ``_copy_block_device``).
   * HOST — ``BlockAllocator`` (free list + per-page refcounts) and
     ``PagedCacheManager`` (block tables, admission, prefix sharing,
     copy-on-write policy, ring recycling).  Tables and lengths are numpy
@@ -59,7 +62,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import (PagedDecodeCache,
-                                            init_paged_cache, layer_plan,
+                                            init_paged_cache,
+                                            init_paged_q8_cache, layer_plan,
                                             paged_table_blocks)
 from repro_torch.serving.radix_tree import RadixPrefixTree
 
@@ -70,6 +74,17 @@ def copy_block(k_pool: torch.Tensor, v_pool: torch.Tensor, src: int,
     every layer of the (L, NB, bs, Hkv, Dh) pools, in place."""
     k_pool[:, dst].copy_(k_pool[:, src])
     v_pool[:, dst].copy_(v_pool[:, src])
+
+
+def copy_block_q8(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                  k_scale: torch.Tensor, v_scale: torch.Tensor, src: int,
+                  dst: int) -> None:
+    """Copy-on-write on the int8 pool: a page's ints and its (L, Hkv)
+    scale rows are one unit, copied together in place (a copy without its
+    scales would dequantize under the wrong scale)."""
+    copy_block(k_pool, v_pool, src, dst)
+    k_scale[:, dst].copy_(k_scale[:, src])
+    v_scale[:, dst].copy_(v_scale[:, src])
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +201,10 @@ class PagedCacheManager:
 
     The pools ``k``/``v`` are (L, NB, bs, Hkv, Dh) tensors on ``device``,
     zero-filled at construction and written in place by the prefill and
-    decode programs.
+    decode programs.  Every host-side decision here moves whole pages and
+    never looks inside one; what a page is on the device lives behind two
+    hooks, ``_init_pools`` and ``_copy_block_device``, which a new pool
+    layout overrides (``PagedQ8CacheManager``).
     """
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int, max_len: int,
@@ -211,9 +229,7 @@ class PagedCacheManager:
         self.ring = self.table_blocks if self.table_blocks < self.max_blocks \
             else 0
         self.n_slots = n_slots
-        cache = init_paged_cache(cfg, n_blocks, block_size, n_slots, max_len,
-                                 device=device)
-        self.k, self.v = cache.k, cache.v
+        self._init_pools(cfg, n_blocks, block_size, n_slots, max_len, device)
         self.tables = np.full((n_slots, self.table_blocks), -1, np.int32)
         self.lengths = np.zeros((n_slots,), np.int32)
         self.allocator = BlockAllocator(n_blocks)
@@ -227,21 +243,47 @@ class PagedCacheManager:
         under a sliding window, else the full table."""
         return self.ring or self.max_blocks
 
+    # -- pool representation hooks ---------------------------------------
+
+    def _init_pools(self, cfg: ModelConfig, n_blocks: int, block_size: int,
+                    n_slots: int, max_len: int, device) -> None:
+        """Allocate the device cache whose pools this manager owns
+        (``self._pools``; its tables and lengths are replaced by every
+        ``device_cache``)."""
+        self._pools = init_paged_cache(cfg, n_blocks, block_size, n_slots,
+                                       max_len, device=device)
+
+    def _copy_block_device(self, src: int, dst: int) -> None:
+        """Copy-on-write of page ``src`` into ``dst`` on the device."""
+        copy_block(self.k, self.v, src, dst)
+
     # -- device view ----------------------------------------------------
 
+    @property
+    def k(self) -> torch.Tensor:
+        return self._pools.k
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self._pools.v
+
     def device_cache(self) -> PagedDecodeCache:
-        """The pools and a COPY of the host tables and lengths on the
-        pools' device: the manager mutates its numpy arrays between steps,
-        and ``torch.from_numpy(...).to("cpu")`` would share their memory."""
+        """The pools (a ``PagedDecodeCache``, or a ``PagedQ8DecodeCache``
+        from the int8 manager) with a COPY of the host tables and lengths
+        on the pools' device: the manager mutates its numpy arrays between
+        steps, and ``torch.from_numpy(...).to("cpu")`` would share their
+        memory."""
         dev = self.k.device
-        return PagedDecodeCache(
-            k=self.k, v=self.v,
+        return self._pools._replace(
             block_tables=torch.from_numpy(self.tables.copy()).to(dev),
             length=torch.from_numpy(self.lengths.copy()).to(dev))
 
     @property
     def pool_bytes(self) -> int:
-        return (self.k.numel() + self.v.numel()) * self.k.element_size()
+        """Resident bytes of the pools (and of their scales, if any)."""
+        return sum(t.numel() * t.element_size()
+                   for name, t in self._pools._asdict().items()
+                   if name not in ("block_tables", "length"))
 
     # -- prefix sharing (radix tree) -------------------------------------
 
@@ -339,7 +381,7 @@ class PagedCacheManager:
         if fresh is None:
             return False
         if copy:
-            copy_block(self.k, self.v, bid, fresh[0])
+            self._copy_block_device(bid, fresh[0])
         self.allocator.release([bid])
         info.blocks[idx] = fresh[0]
         self.tables[slot, idx] = fresh[0]
@@ -418,3 +460,41 @@ class PagedCacheManager:
             self._drop_page(bid)
         self.tables[slot, :] = -1
         self.lengths[slot] = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 pool: int8 pages + per-(page, kv-head) float32 scales
+# ---------------------------------------------------------------------------
+
+class PagedQ8CacheManager(PagedCacheManager):
+    """``PagedCacheManager`` over int8 pools with per-(page, kv-head)
+    float32 scale arrays (``kernels.quant`` layout).
+
+    Every host-side decision (admission, prefix sharing, copy-on-write,
+    ring recycling, the registry) is inherited: those move pages, and a q8
+    page is (int8 ints, scale row) instead of float rows.  Only the pool
+    hooks differ, so the scales travel with their page:
+
+      * ``_init_pools`` allocates int8 pools and zero scales;
+      * ``_copy_block_device`` copies ints AND scale rows
+        (``copy_block_q8``), so a detached page dequantizes as its source;
+      * a recycled or freshly mapped page keeps its stale scale, like its
+        stale ints: decode resets the scale when it enters the page at
+        offset 0 (``kernels.quant.q8_append_token``).
+    """
+
+    def _init_pools(self, cfg: ModelConfig, n_blocks: int, block_size: int,
+                    n_slots: int, max_len: int, device) -> None:
+        self._pools = init_paged_q8_cache(cfg, n_blocks, block_size, n_slots,
+                                          max_len, device=device)
+
+    def _copy_block_device(self, src: int, dst: int) -> None:
+        copy_block_q8(self.k, self.v, self.k_scale, self.v_scale, src, dst)
+
+    @property
+    def k_scale(self) -> torch.Tensor:
+        return self._pools.k_scale
+
+    @property
+    def v_scale(self) -> torch.Tensor:
+        return self._pools.v_scale

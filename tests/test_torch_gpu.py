@@ -300,3 +300,182 @@ def test_paged_engine_on_the_card_matches_the_cpu_engine():
         want[flash] = cfg.n_layers * (len(prompts) + eng.stats["n_preempted"])
         want[decode] = cfg.n_layers * eng.stats["n_steps"]
         assert launch_counts() == want, kind
+
+
+# ---------------------------------------------------------------------------
+# int8 (paged_q8) kernels
+# ---------------------------------------------------------------------------
+
+def _q8_pools(kp, vp, bt, dev):
+    """Quantize the float pools page by page (``kernels.quant``): returns
+    (k, v, k_scale, v_scale), and the two scales with NaN in the rows of
+    every page no table entry maps (a kernel that read an unmapped page's
+    scale would return NaN)."""
+    from repro_torch.kernels import quant
+    (k, ks), (v, vs) = (quant.q8_quantize_pages(torch.from_numpy(p).to(dev))
+                        for p in (kp, vp))
+    unmapped = torch.ones(kp.shape[0], dtype=torch.bool, device=dev)
+    unmapped[bt[bt >= 0].long()] = False
+    bad = [torch.where(unmapped[:, None], float("nan"), s) for s in (ks, vs)]
+    return (k, v, ks, vs), bad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 64)])
+@pytest.mark.parametrize("window,bs,MB,q_pos", [
+    (0, 16, 32, (15, 36, 264)),  # absolute, MB*bs = 512
+    (37, 16, 32, (15, 99, 480)),  # absolute with a window
+    (64, 16, 5, (37, 130, 1000)),  # ring R = 5, rows 1 and 2 wrapped
+    (10, 4, 4, (5, 19, 66)),  # ring R = 4 of small pages
+])
+def test_paged_q8_decode_kernels_match_plain(dtype, G, D, window, bs, MB,
+                                             q_pos):
+    """Both q8 paged kernels against their plain versions on permuted,
+    shared and holed tables, absolute and wrapped rings, on int8 pools
+    quantized from seeded pages; the scale rows of unmapped pages are NaN
+    in the kernels' inputs, so agreement also shows the kernels never read
+    them."""
+    dev = _cuda()
+    from repro_torch.kernels.paging import paged_ring_active
+    rng = np.random.default_rng(G * 100 + D + window + 7)
+    B, Hkv, NB = 3, 2, 140
+    ring = paged_ring_active(window, bs, MB)
+    u, _, _, bt, qp = _paged_case(rng, B, Hkv, G, D, NB, bs, MB, q_pos, ring,
+                                  dtype, dev)
+    kp, vp = (rng.standard_normal((NB, bs, Hkv, D), np.float32)
+              for _ in range(2))
+    (k8, v8, ks, vs), (kbad, vbad) = _q8_pools(kp, vp, bt, dev)
+    kw = dict(sliding_window=window, ring_blocks=ring)
+    got = dk.decode_attention_paged_q8_merged_bsd(u, k8, v8, kbad, vbad, bt,
+                                                  qp, **kw)
+    want = ref.ref_decode_attention_paged_q8_merged(u, k8, v8, ks, vs, bt,
+                                                    qp, **kw)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+    qg = u.reshape(B, Hkv, G, D)
+    got = dk.decode_attention_paged_q8_bhsd(qg, k8, v8, kbad, vbad, bt, qp,
+                                            **kw)
+    want = ref.ref_decode_attention_paged_q8(qg, k8, v8, ks, vs, bt, qp,
+                                             **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,sg", [(16, 16), (48, 8), (144, 16)])
+@pytest.mark.parametrize("window", [0, 17])
+def test_flash_q8_kernel_matches_plain(dtype, D, S, sg, window):
+    dev = _cuda()
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import quant
+    rng = np.random.default_rng(D + S + sg + window)
+    B, Hq, Hkv = 2, 8, 2
+    u = torch.from_numpy(rng.standard_normal((B, S, Hq, D),
+                                             np.float32)).to(dev, dtype)
+    kv = [torch.from_numpy(rng.standard_normal((B, S, Hkv, D),
+                                               np.float32)).to(dev)
+          for _ in range(2)]
+    (k8, ks), (v8, vs) = (quant.q8_quantize_seq(x, sg) for x in kv)
+    got = fk.flash_attention_merged_q8_bsd(u, k8, v8, ks, vs,
+                                           sliding_window=window)
+    want = ref.ref_flash_attention_merged_q8(u, k8, v8, ks, vs,
+                                             sliding_window=window)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+
+
+def test_q8_quantize_on_the_card_equals_the_cpu():
+    """Quantize-on-write is plain torch on every route: the card's ints
+    and scales equal the CPU's on the same input (pages, a masked
+    sequence, appends that enter fresh pages and grow scales)."""
+    dev = _cuda()
+    from repro_torch.kernels import quant
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((3, 16, 8, 128), np.float32))
+    for d in (x, x * 1e-3, x * 300):
+        a, b = quant.q8_quantize_pages(d), quant.q8_quantize_pages(d.to(dev))
+        assert torch.equal(a[0], b[0].cpu()) and torch.equal(a[1],
+                                                              b[1].cpu())
+    pool = torch.zeros((6, 16, 8, 128), dtype=torch.int8)
+    scale = torch.zeros((6, 8))
+    gpool, gscale = pool.to(dev), scale.to(dev)
+    for t in range(20):
+        tok = torch.from_numpy(rng.standard_normal((2, 8, 128), np.float32)
+                               * (1 + t % 5))
+        page = torch.tensor([1, 4 + t // 16])
+        off = torch.tensor([t % 16, t % 16])
+        quant.q8_append_token(pool, scale, tok, page, off)
+        quant.q8_append_token(gpool, gscale, tok.to(dev), page.to(dev),
+                              off.to(dev))
+        assert torch.equal(pool, gpool.cpu()) and torch.equal(scale,
+                                                              gscale.cpu())
+
+
+def test_q8_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    from repro_torch.kernels import flash_attention as fk
+    u = torch.randn(2, 8, 128, device=dev)
+    k8 = torch.zeros((6, 16, 2, 128), dtype=torch.int8, device=dev)
+    sc = torch.ones((6, 2), device=dev)
+    bt = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    qp = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        dk.decode_attention_paged_q8_merged_bsd(u, k8.float(), k8.float(),
+                                                sc, sc, bt, qp)
+    with pytest.raises(ValueError, match="int8"):
+        dk.decode_attention_paged_q8_merged_bsd(u, k8, k8, sc.half(),
+                                                sc.half(), bt, qp)
+    with pytest.raises(ValueError, match="scales"):
+        dk.decode_attention_paged_q8_merged_bsd(u, k8, k8, sc[:5], sc[:5],
+                                                bt, qp)
+    ks = torch.ones((1, 3, 2), device=dev)
+    k = torch.zeros((1, 40, 2, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="sg"):  # 3 pages do not tile 40
+        fk.flash_attention_merged_q8_bsd(u[:1, None].expand(1, 40, 8, 128)
+                                         .contiguous(), k, k, ks, ks)
+    # an idle row (table all -1) is exactly zero
+    out = dk.decode_attention_paged_q8_merged_bsd(u, k8, k8, sc, sc, bt - 1,
+                                                  qp)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_paged_q8_engine_on_the_card_matches_the_cpu_engine():
+    """The int8 paged engine through the CUDA kernels emits the CPU
+    engine's streams through a pool small enough to defer and preempt and
+    a window that rings the table, and launches only the q8 kernels (the
+    fp flash kernel for the source model's prefill)."""
+    dev = _cuda()
+    from repro_torch.core.merge import merge_skipless
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = reduce_config(get_config("mistral-7b")).with_(
+        block_style="skipless", d_model=256, n_heads=4, n_kv_heads=2,
+        d_head=64, sliding_window=24)
+    params = init_params(cfg, seed=0, device="cpu")
+    mparams, mcfg = merge_skipless(params, cfg, "qp")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 19, 40)]
+    sc = ServeConfig(n_slots=3, max_len=64, block_size=8, n_blocks=7)
+    names = {"generic": ("flash_attention_bhsd",
+                         "decode_attention_paged_q8_bhsd"),
+             "merged": ("flash_attention_merged_q8_bsd",
+                        "decode_attention_paged_q8_merged_bsd")}
+    for c, p, kind in ((cfg, params, "generic"), (mcfg, mparams, "merged")):
+        cpu = Engine(c, p, sc, impl="torch", cache="paged_q8",
+                     device="cpu").generate(prompts, max_new_tokens=12)
+        reset_launch_counts()
+        eng = Engine(c, tree_map(lambda t: t.to(dev), p), sc, impl="cuda",
+                     cache="paged_q8", device=dev)
+        gpu = eng.generate(prompts, max_new_tokens=12)
+        assert [list(o) for o in gpu] == [list(o) for o in cpu], kind
+        assert eng.pm.ring and eng.stats["n_deferred"] and \
+            eng.stats["n_preempted"], eng.stats
+        flash, decode = names[kind]
+        want = {k: 0 for k in launch_counts()}
+        want[flash] = cfg.n_layers * (len(prompts) + eng.stats["n_preempted"])
+        want[decode] = cfg.n_layers * eng.stats["n_steps"]
+        assert launch_counts() == want, kind

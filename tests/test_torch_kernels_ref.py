@@ -207,16 +207,17 @@ def test_sequence_cores_match_the_xla_cores(cases, G, chunk, impl):
 def test_kernel_table_and_unknown_combos():
     assert set(tops.ATTENTION_KERNELS) == {
         (ph, ck, st) for ph in ("prefill", "decode")
-        for ck in ("dense", "paged") for st in ("generic", "merged")}
+        for ck in ("dense", "paged", "paged_q8")
+        for st in ("generic", "merged")}
     assert tops.decode_kernel("dense", "merged") is tops.decode_attention_merged
     assert tops.decode_kernel("paged", "merged") is \
         tops.decode_attention_paged_merged
     assert tops.attention_kernel("prefill", "paged", "merged") is \
         tops.flash_attention_merged
     with pytest.raises(KeyError, match="available"):
-        tops.attention_kernel("decode", "paged_q8", "merged")
+        tops.attention_kernel("decode", "paged_q4", "merged")
     with pytest.raises(KeyError, match="available"):
-        tops.decode_kernel("paged_q8", "generic")
+        tops.decode_kernel("paged_q4", "generic")
     with pytest.raises(ValueError, match="kv_valid"):
         tops.flash_attention(torch.zeros(1, 2, 2, 16), torch.zeros(1, 2, 1, 16),
                              torch.zeros(1, 2, 1, 16),

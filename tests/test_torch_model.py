@@ -245,9 +245,9 @@ def test_unsupported_inputs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.init_params(tc.with_(family="moe", n_experts=4), device="cpu")
     with pytest.raises(KeyError, match="registered"):
-        tm.backends.get_backend("paged_q8", "merged", "cuda")
+        tm.backends.get_backend("paged_q4", "merged", "cuda")
     assert tm.backends.registered_backends() == [
-        (k, s, i) for k in ("dense", "paged") for s in ("generic", "merged")
-        for i in ("cuda", "torch")]
+        (k, s, i) for k in ("dense", "paged", "paged_q8")
+        for s in ("generic", "merged") for i in ("cuda", "torch")]
     assert tm.cache_spec(tc.with_(sliding_window=8), 2, 32)["k"][0] == \
         (tc.n_layers, 2, 8, tc.n_kv_heads, tc.d_head)

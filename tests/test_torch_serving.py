@@ -130,7 +130,7 @@ def test_unported_options_and_bad_requests_raise(grids):
         Engine(cfg, p, ServeConfig(temperature=0.7), impl="torch",
                device="cpu")
     with pytest.raises(ValueError, match="'dense'"):
-        make_adapter("paged_q8")
+        make_adapter("paged_q4")
     eng = Engine(cfg.with_(sliding_window=0), p,
                  ServeConfig(n_slots=1, max_len=8), impl="torch",
                  device="cpu")

@@ -5,26 +5,30 @@ NVIDIA card.  Run from the repository root:
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the nine attention kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, in parallel) and prints the build time;
+2. builds the ten kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+   per source, in parallel) and prints the build time;
 3. quantize check: the int8 quantization (``kernels.quant``: pages, a
    masked sequence, decode appends that enter fresh pages and grow
    scales) gives the same ints and scales on the card as on the CPU;
 4. kernel phase: holds each kernel against its plain PyTorch version at the
-   main path's shapes (Hq=32, Hkv=8, D=128) in bfloat16 and float32 —
-   dense caches, page pools behind permuted block tables with -1 holes, a
-   shared page and a wrapped ring, the same tables over int8 pools whose
-   unmapped pages have NaN scales, and int8 prompt K*/V* — and times
-   kernel, plain version and, as a yardstick the port never calls,
+   main paths' shapes in bfloat16 and float32 — the attention kernels at
+   Mistral-7B's (Hq=32, Hkv=8, D=128): dense caches, page pools behind
+   permuted block tables with -1 holes, a shared page and a wrapped ring,
+   the same tables over int8 pools whose unmapped pages have NaN scales,
+   and int8 prompt K*/V*; the generic flash and decode kernels also at
+   Hymba-1.5B's (Hq=25, Hkv=5, D=64); the SSD scan at Hymba's (H 50, P 64,
+   N 16) and Mamba2-2.7B's (H 80, P 64, N 128) — and times kernel, plain
+   version and, as a yardstick the port never calls,
    ``scaled_dot_product_attention`` (for the paged kernels: on the cache
    already gathered, the gather not timed; for the int8 kernels: on the
-   K/V already dequantized, the dequant not timed), beside the least time
-   the card could take (bound).  Times come from CUDA graphs of 30 calls
-   (``cuda_ms``), three timed replays each;
-5. path phase: builds a skipless Mistral-7B at full width on the card from
-   a seeded generator, merges it exactly (``merge_skipless(..., "qp")``)
-   and serves 4 prompts (16, 37, 100, 250 tokens; 16 new tokens each),
-   merged and source, in float32:
+   K/V already dequantized, the dequant not timed; the SSD scan has no
+   such call), beside the least time the card could take (bound).  Times
+   come from CUDA graphs of 30 calls (``cuda_ms``), three timed replays
+   each;
+5. path phase, Mistral-7B: builds a skipless Mistral-7B at full width on
+   the card from a seeded generator, merges it exactly
+   (``merge_skipless(..., "qp")``) and serves 4 prompts (16, 37, 100, 250
+   tokens; 16 new tokens each), merged and source, in float32:
    - at 4 layers, calibrated so activations stay O(1) (see ``build``), the
      greedy streams through ``Engine(cache="dense")`` must be identical,
      the merged prefill logits must agree with the plain PyTorch forward,
@@ -55,7 +59,20 @@ NVIDIA card.  Run from the repository root:
      decode steps on each cache, and the peak concurrent streams of the
      fp and int8 pools at one byte budget are printed beside the card's
      name;
-6. prints one JSON line of per-kernel numbers, then, as the last line,
+6. path phase, Hymba-1.5B (``hybrid_path``): skipless at full width and
+   its qp merge (Q removed, P kept) on the dense cache, prompts of 16, 37,
+   250 and 512 tokens (512: SSM state carried across two 256-token
+   chunks), 16 new tokens each: at 4 calibrated layers in float32 merged
+   == source and the kernels' prefill logits against the plain forward;
+   at 32 layers the launch counts (per prompt 32 flash and 32 SSD
+   launches, per decode step 32 decode launches, nothing else), and bf16
+   merged and source tok/s, TTFT, and decode and 512-token prefill
+   profiles of the merged model;
+7. path phase, Mamba2-2.7B (``mamba2_path``): 64 layers at full width,
+   standard style, the same prompts: kernels vs plain prefill logits in
+   float32, the launch counts (64 SSD launches per prompt, nothing else),
+   bf16 tok/s, TTFT, and decode and 512-token prefill profiles;
+8. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Everything printed to stdout is also written to ``build/chip_smoke.log``
@@ -83,7 +100,9 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12,  # dense tensor-core bf16
 TOL_F32 = 5e-5
 BF16_EPS = 2.0 ** -7  # spacing of bfloat16 numbers in [1, 2)
 TOL_BF16_MAX = 2e-2  # flash rows: O(1) outputs, one ulp near 2 is 7.8e-3
-Hq, Hkv, D = 32, 8, 128  # Mistral-7B's attention shape
+Hq, Hkv, D = MISTRAL_ATTN = (32, 8, 128)  # Mistral-7B's attention shape
+HYMBA_ATTN = (25, 5, 64)  # Hymba-1.5B's (Hq, Hkv, D)
+SSD_TOL_REL = 3e-5  # SSD rows: max |err| <= this x the plain version's max
 L2_BYTES = 50e6
 
 KERNELS = {
@@ -114,6 +133,9 @@ KERNELS = {
     "decode_attention_paged_q8_merged_bsd": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:510"),
+    "ssd_chunk_scan": (
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:73"),
 }
 
 
@@ -190,24 +212,32 @@ def eager_ms(fn, n_sets: int, iters: int = 30) -> float:
 
 
 def kernel_row(name, dtype, case, kern, plain, library, n_sets, bound,
-               timed) -> dict:
+               timed, tol_fn=None) -> dict:
     """One kernel-phase row: the kernel against its plain version on input
-    set 0 (raises beyond ``tolerance``), then the kernel, plain and library
-    times."""
+    set 0 (raises beyond ``tolerance``, or ``tol_fn(want, dtype)``; a
+    kernel with several outputs returns a tuple, each held to its own
+    tolerance), then the kernel, plain and library times (``library``
+    None: no single PyTorch call computes the function)."""
     import torch
     got, want = kern(0), plain(0)
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    tol = tolerance(want, dtype)
-    if not err <= tol:
-        raise AssertionError(f"{name} {dtype} {case}: max abs err {err} > "
-                             f"{tol}")
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    err, tol = 0.0, 0.0
+    for g, w in zip(got, want):
+        e = float((g.float() - w.float()).abs().max())
+        t = (tol_fn or tolerance)(w, dtype)
+        if not e <= t:
+            raise AssertionError(f"{name} {dtype} {case}: max abs err {e} > "
+                                 f"{t}")
+        err, tol = max(err, e), max(tol, t)
     ms, runs = cuda_ms(kern, n_sets)
     return dict(name=name, dtype=str(dtype), case=case, max_abs_err=err,
                 tol=tol, **bound, ms=ms, ms_runs=runs,
                 eager_ms=eager_ms(kern, n_sets),
                 plain_ms=cuda_ms(plain, n_sets)[0],
-                library_ms=cuda_ms(library, n_sets)[0], timed=timed)
+                library_ms=None if library is None
+                else cuda_ms(library, n_sets)[0], timed=timed)
 
 
 def tolerance(want, dtype) -> float:
@@ -251,17 +281,24 @@ def ring_positions(rng, S, q_pos, hole_frac):
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def decode_phase(rng, rows):
+def decode_phase(rng, rows, hymba=False):
+    """Rows 4 and 5 at Mistral-7B's attention shape; with ``hymba`` row 4
+    (the hybrid's decode kernel) at Hymba-1.5B's (Hq 25, Hkv 5, D 64),
+    untimed in the JSON line."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk, ref
 
+    Hq, Hkv, D = HYMBA_ATTN if hymba else MISTRAL_ATTN
     B, S = 4, 512
     G = Hq // Hkv
     dev = torch.device("cuda")
     cases = [("window 64, empty slots", 64, [40, 300, 511, 1000], 0.1),
              ("no window, full ring", 0, [511, 600, 777, 1000], 0.0)]
+    names = ("decode_attention_bhsd",) if hymba else \
+        ("decode_attention_merged_bsd", "decode_attention_bhsd")
+    geom = f" Hq={Hq} Hkv={Hkv} D={D}" if hymba else ""
     for dtype in (torch.bfloat16, torch.float32):
         for label, window, q_pos, holes in cases:
             kvp_np = ring_positions(rng, S, q_pos, holes)
@@ -295,8 +332,7 @@ def decode_phase(rng, rows):
                     us[i].reshape(B, Hq, 1, D), khs[i], vhs[i],
                     attn_mask=mask, enable_gqa=True)
 
-            for name in ("decode_attention_merged_bsd",
-                         "decode_attention_bhsd"):
+            for name in names:
                 if name == "decode_attention_merged_bsd":
                     def kern(i):
                         return dk.decode_attention_merged_bsd(
@@ -318,24 +354,32 @@ def decode_phase(rng, rows):
                             us[i].reshape(B, Hkv, G, D), khs[i], vhs[i],
                             kvp, qp, sliding_window=window).reshape(B, Hq, D)
                 rows.append(kernel_row(
-                    name, dtype, f"B={B} S={S} {label}", kern, plain, sdpa,
-                    n_sets, bound, timed=(label.startswith("no window")
-                                          and dtype == torch.bfloat16)))
+                    name, dtype, f"B={B} S={S} {label}{geom}", kern, plain,
+                    sdpa, n_sets, bound, timed=(
+                        label.startswith("no window") and not hymba
+                        and dtype == torch.bfloat16)))
             del us, ks, vs, khs, vhs
 
 
-def flash_phase(rng, rows):
+def flash_phase(rng, rows, hymba=False):
+    """Rows 1 and 2 at Mistral-7B's attention shape; with ``hymba`` row 1
+    (the hybrid's prefill kernel) at Hymba-1.5B's (Hq 25, Hkv 5, D 64;
+    its window of 1024 exceeds every prompt), untimed in the JSON line."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk, ref
 
+    Hq, Hkv, D = HYMBA_ATTN if hymba else MISTRAL_ATTN
     B = 1
     dev = torch.device("cuda")
+    names = ("flash_attention_bhsd",) if hymba else \
+        ("flash_attention_merged_bsd", "flash_attention_bhsd")
+    geom = f" Hq={Hq} Hkv={Hkv} D={D}" if hymba else ""
     for dtype in (torch.bfloat16, torch.float32):
         el = torch.tensor([], dtype=dtype).element_size()
         for S in (16, 37, 250, 512):
-            for window in (0, 64):
+            for window in ((0,) if hymba else (0, 64)):
                 nbytes = B * S * (2 * Hq + 2 * Hkv) * D * el  # q, k, v, out
                 n_sets = n_sets_for(nbytes)
 
@@ -365,8 +409,7 @@ def flash_phase(rng, rows):
                     return F.scaled_dot_product_attention(
                         qh[i], kh[i], vh[i], is_causal=True, enable_gqa=True)
 
-                for name in ("flash_attention_merged_bsd",
-                             "flash_attention_bhsd"):
+                for name in names:
                     if name == "flash_attention_merged_bsd":
                         def kern(i):
                             return fk.flash_attention_merged_bsd(
@@ -385,9 +428,9 @@ def flash_phase(rng, rows):
                                 qh[i], kh[i], vh[i], sliding_window=window)
                     rows.append(kernel_row(
                         name, dtype,
-                        f"B={B} Sq=Sk={S} causal window={window}", kern,
-                        plain, sdpa, n_sets, bound,
-                        timed=(S == 250 and window == 0
+                        f"B={B} Sq=Sk={S} causal window={window}{geom}",
+                        kern, plain, sdpa, n_sets, bound,
+                        timed=(S == 250 and window == 0 and not hymba
                                and dtype == torch.bfloat16)))
                 del us, ks, vs, qh, kh, vh
 
@@ -645,12 +688,87 @@ def q8_flash_phase(rng, rows):
             del us, ks, vs, qh, kh, vh
 
 
+SSD_CHUNK = 256  # the reference's chunk (both configs' ssm_chunk)
+SSD_KERNEL_ROWS = 64  # the CUDA kernel's own chunk (LC in csrc/ssd_scan.cu)
+
+
+def ssd_tolerance(want, dtype) -> float:
+    """SSD rows: the outputs are float32 whatever the input type (both
+    sides read the same bf16 values and compute in float32), so one rule:
+    3e-5 of the plain version's largest |value|, for float32 sums of up to
+    64 N products taken in another order and decay sums over the kernel's
+    64-row chunks rather than the reference's 256."""
+    return SSD_TOL_REL * float(want.float().abs().max())
+
+
+def ssd_phase(rng, rows):
+    """Row 10: the SSD kernel against the plain chunked scan
+    (``ref.ref_ssd_chunked``, chunk 256 as the configs set it) at
+    Hymba-1.5B's geometry (H 50, P 64, N 16; S 250, 512, 2048) and
+    Mamba2-2.7B's (H 80, P 64, N 128; S 256, 2048), batch 1, B and C
+    broadcast from one group by a zero head stride as the model passes
+    them, dt = softplus(normal) and A = -exp(0.5 normal) as the reference's
+    kernel test draws them.  No single PyTorch call computes the scan: the
+    library column is empty.  Bound: bytes read once (x, B and C of the one
+    group, dt, a) and written once (y, final state), flops of the kernel's
+    own 64-row chunks, fewer than the reference's 256 needs (2 l² N +
+    2 l² P + 4 l N P per chunk of l rows and head)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, ssd_scan as sk
+
+    dev = torch.device("cuda")
+    B, P = 1, 64
+    cases = [("hymba", 50, 16, S) for S in (250, 512, 2048)] + \
+        [("mamba2", 80, 128, S) for S in (256, 2048)]
+    for dtype in (torch.bfloat16, torch.float32):
+        el = torch.tensor([], dtype=dtype).element_size()
+        for label, H, N, S in cases:
+            L = SSD_CHUNK if S % SSD_CHUNK == 0 else S
+            nbytes = (B * S * H * P * el + 2 * B * S * N * el
+                      + 2 * B * S * H * 4 + B * S * H * P * 4 + B * H * P * N * 4)
+            flops = B * H * sum(
+                2 * l * l * (N + P) + 4 * l * N * P
+                for l in (min(SSD_KERNEL_ROWS, S - s0)
+                          for s0 in range(0, S, SSD_KERNEL_ROWS)))
+            bound = bound_ms(nbytes, flops, dtype)
+            n_sets = n_sets_for(nbytes)
+
+            def rand(*shape, dt=dtype):
+                return torch.from_numpy(rng.standard_normal(
+                    shape, np.float32)).to(dev, dt)
+
+            A = -torch.exp(0.5 * rand(H, dt=torch.float32))
+            sets = []
+            for _ in range(n_sets):
+                dt = F.softplus(rand(B, S, H, dt=torch.float32))
+                bm, cm = (rand(B, S, 1, N).expand(B, S, H, N)
+                          for _ in range(2))
+                sets.append((rand(B, S, H, P), dt, dt * A, bm, cm))
+
+            def kern(i):
+                return sk.ssd_chunk_scan(*sets[i], chunk=SSD_CHUNK)
+
+            def plain(i):
+                return ref.ref_ssd_chunked(*sets[i], chunk=SSD_CHUNK)
+
+            rows.append(kernel_row(
+                "ssd_chunk_scan", dtype,
+                f"{label} B={B} S={S} H={H} P={P} N={N} chunk {L}", kern,
+                plain, None, n_sets, bound,
+                timed=(label == "hymba" and S == 250
+                       and dtype == torch.bfloat16),
+                tol_fn=ssd_tolerance))
+            del sets
+
+
 # ---------------------------------------------------------------------------
 # path phase
 # ---------------------------------------------------------------------------
 
 def serve(cfg, params, prompts, max_new, cache="dense", probe=None,
-          **serve_kw):
+          max_len=512, **serve_kw):
     """Serve ``prompts`` on a fresh 4-slot engine; ``probe(eng)`` may wrap
     the engine's manager before the run.  Returns (engine, results, the
     launch counts of exactly this run, wall seconds)."""
@@ -658,7 +776,8 @@ def serve(cfg, params, prompts, max_new, cache="dense", probe=None,
     from repro_torch.serving import Engine, ServeConfig
     import torch
 
-    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=512, **serve_kw),
+    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=max_len,
+                                          **serve_kw),
                  impl="cuda", cache=cache, device="cuda")
     if probe is not None:
         probe(eng)
@@ -676,7 +795,11 @@ def check_counts(tag, counts, eng, n_layers, n_prompts, merged):
     engine's flash kernel once per layer, each decode step its decode
     kernel once per layer, and no other kernel runs.  On the int8 pool the
     merged prefill runs the q8 flash kernel and the source's the fp one
-    (it dequantizes upstream, as the reference routes it)."""
+    (it dequantizes upstream, as the reference routes it).  A stack with
+    SSM layers also launches the SSD scan once per layer and prefill (the
+    decode step's SSM update is plain torch); an attention-free one
+    launches nothing else."""
+    cfg = eng.cfg
     q8 = eng.kv.kind == "paged_q8"
     flash_k = "flash_attention_" + (("merged_q8_bsd" if q8 else "merged_bsd")
                                     if merged else "bhsd")
@@ -684,11 +807,16 @@ def check_counts(tag, counts, eng, n_layers, n_prompts, merged):
              "paged_q8": "decode_attention_paged_q8_"}[eng.kv.kind] \
         + ("merged_bsd" if merged else "bhsd")
     want = {k: 0 for k in KERNELS}
-    want[flash_k] = n_layers * (n_prompts + eng.stats["n_preempted"])
-    want[dec_k] = n_layers * eng.stats["n_steps"]
+    prefills = n_prompts + eng.stats["n_preempted"]
+    if cfg.has_attention:
+        want[flash_k] = n_layers * prefills
+        want[dec_k] = n_layers * eng.stats["n_steps"]
+    if cfg.ssm_state:
+        want["ssd_chunk_scan"] = n_layers * prefills
     if counts != want:
         raise AssertionError(f"{tag}: launch counts {counts} != {want}")
-    log(f"  {tag}: launches {counts} ({eng.stats['n_steps']} decode steps)")
+    log(f"  {tag}: launches { {k: v for k, v in counts.items() if v} } "
+        f"({eng.stats['n_steps']} decode steps)")
 
 
 def streams(outs):
@@ -716,9 +844,10 @@ def first_mismatch(cfg, params, prompts, a, b):
 EQ_LAYERS = 4  # depth of the float32 merged-vs-source identity check
 
 
-def build(n_layers, calibrate):
-    """A skipless Mistral-7B of ``n_layers`` at full width on the card, and
-    its exact qp merge.
+def build(n_layers, calibrate, arch="mistral-7b"):
+    """A skipless ``arch`` (Mistral-7B, or Hymba-1.5B) of ``n_layers`` at
+    full width on the card, and its exact qp merge (on the hybrid: Q
+    removed, P kept).
 
     A random skipless GLU stack maps its signal scale roughly as
     s -> c * s**2, an unstable fixed point: uncalibrated, the signal
@@ -736,8 +865,8 @@ def build(n_layers, calibrate):
     from repro_torch.models.transformer import (apply_block_seq,
                                                 embed_inputs, layer_params)
 
-    cfg = get_config("mistral-7b").with_(block_style="skipless",
-                                         dtype="float32", n_layers=n_layers)
+    cfg = get_config(arch).with_(block_style="skipless", dtype="float32",
+                                 n_layers=n_layers)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     calib = torch.as_tensor(np.random.default_rng(1).integers(
@@ -746,15 +875,17 @@ def build(n_layers, calibrate):
     with torch.no_grad():
         h = embed_inputs(params, cfg, calib)
         for i in range(n_layers if calibrate else 0):
-            out, _ = apply_block_seq(layer_params(params, i), cfg, h,
-                                     {"positions": pos, "impl": "cuda"})
+            out, _, _ = apply_block_seq(layer_params(params, i), cfg, h,
+                                        {"positions": pos, "impl": "cuda"})
             r = out.pow(2).mean().sqrt()
             params["layers"]["ffn"]["w_down"][i] /= r
             h = out / r
     torch.cuda.synchronize()
+    ssm = (f", SSM {cfg.ssm_n_heads}x{cfg.ssm_head_dim}x{cfg.ssm_state}"
+           if cfg.ssm_state else "")
     log(f"init {cfg.name} skipless ({n_layers} layers, d_model {cfg.d_model},"
-        f" d_ff {cfg.d_ff}, GQA {cfg.n_heads}/{cfg.n_kv_heads}, vocab "
-        f"{cfg.vocab_size}) on the card"
+        f" d_ff {cfg.d_ff}, GQA {cfg.n_heads}/{cfg.n_kv_heads}{ssm}, window "
+        f"{cfg.sliding_window}, vocab {cfg.vocab_size}) on the card"
         f"{', calibrated' if calibrate else ''}: "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1013,7 +1144,6 @@ def path_phase(summary):
     import numpy as np
     import torch
     from repro_torch._tree import tree_map
-    from repro_torch.models import DensePrefillDest, forward_prefill
 
     rng = np.random.default_rng(0)
     lens = (16, 37, 100, 250)
@@ -1036,19 +1166,7 @@ def path_phase(summary):
         log(f"  greedy streams identical (merged vs source, float32, "
             f"{EQ_LAYERS} layers): {[list(o[:6]) for o in mrg_out]} …")
         # the kernels' path against the plain PyTorch forward on one prompt
-        x = torch.as_tensor(prompts[1], device="cuda")[None]
-        lg_k, _ = forward_prefill(mparams, mcfg, x, DensePrefillDest(512),
-                                  impl="cuda")
-        lg_p, _ = forward_prefill(mparams, mcfg, x, DensePrefillDest(512),
-                                  impl="torch")
-        scale = float(lg_p.abs().max())
-        diff = float((lg_k - lg_p).abs().max())
-        if not (torch.isfinite(lg_k).all() and lg_k.shape == lg_p.shape
-                and 0 < scale and diff <= 1e-4 * scale):
-            raise AssertionError(f"merged prefill logits vs plain forward: "
-                                 f"max diff {diff} (scale {scale})")
-        log(f"  merged prefill logits vs plain PyTorch forward (37 tokens):"
-            f" max |diff| {diff:.3g} at logit scale {scale:.3g}")
+        kernels_vs_plain("merged", mcfg, mparams, prompts[1], 1e-4)
         # the paged pool: the same streams, through its deferral,
         # preemption, sharing and ring paths
         summary["paged_events"] = {
@@ -1088,12 +1206,8 @@ def path_phase(summary):
                              merged)
                 launches = {k: launches[k] + counts[k] for k in KERNELS}
         summary["launches"] = launches
-        lg, _ = forward_prefill(mparams, mcfg, x, DensePrefillDest(512),
-                                impl="cuda")
-        if not torch.isfinite(lg).all():
-            raise AssertionError(f"{L}-layer merged logits are not finite")
-        log(f"  {L} layers, uncalibrated: logits finite, max |logit| "
-            f"{float(lg.abs().max()):.3g}")
+        kernels_vs_plain(f"merged {L} layers, uncalibrated", mcfg, mparams,
+                         prompts[1])
         for tag, c, p in (("source", cfg, params),
                           ("merged", mcfg, mparams)):
             eng, outs, _, wall = serve(c, p, prompts, max_new)
@@ -1123,27 +1237,191 @@ def path_phase(summary):
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
 
-def profile_decode(cfg, params, prompts, cache, steps=5):
-    """torch.profiler over ``steps`` batched decode steps of the 4-slot
-    engine on ``cache`` (prompts prefilled first): device time by kernel
-    name, kernel launches per step and the device busy share of the wall
-    time."""
+SSM_LENS = (16, 37, 250, 512)  # 512: state carried across two 256-row chunks
+SSM_MAX_LEN = 1024  # Hymba's window: the ring holds all a query may attend
+
+
+def ssm_prompts(vocab):
+    import numpy as np
+    rng = np.random.default_rng(3)
+    return [rng.integers(0, vocab, n) for n in SSM_LENS]
+
+
+def kernels_vs_plain(tag, cfg, params, prompt, rel=None):
+    """The kernels' prefill logits against the plain PyTorch forward on
+    one prompt: finite, same shape and, unless ``rel`` is None (a finding
+    only), max |diff| <= ``rel`` x max |logit|.  Returns the ratio."""
+    import torch
+    from repro_torch.models import DensePrefillDest, forward_prefill
+    x = torch.as_tensor(prompt, device="cuda")[None]
+    dest = DensePrefillDest(len(prompt))
+    lg_k, _ = forward_prefill(params, cfg, x, dest, impl="cuda")
+    lg_p, _ = forward_prefill(params, cfg, x, dest, impl="torch")
+    scale = float(lg_p.abs().max())
+    diff = float((lg_k - lg_p).abs().max())
+    if not (torch.isfinite(lg_k).all() and lg_k.shape == lg_p.shape
+            and (rel is None or 0 < scale and diff <= rel * scale)):
+        raise AssertionError(f"{tag} prefill logits vs plain forward: max "
+                             f"diff {diff} (scale {scale})")
+    log(f"  {tag} prefill logits vs plain PyTorch forward ({len(prompt)} "
+        f"tokens): max |diff| {diff:.3g} at logit scale {scale:.3g}"
+        f"{'' if rel is None else f' (gate {rel:g} of the scale)'}")
+    return diff / scale if scale else None
+
+
+def hybrid_path(summary):
+    """Hymba-1.5B at full width (d 1600, GQA 25/5 of d_head 64, d_ff 5504,
+    SSM 50 x 64 x 16, window 1024), skipless from seed 0, and its qp merge
+    (Q removed, P kept), on the dense cache (max_len 1024 = the window):
+    at 4 calibrated layers in float32 the merged and source streams must
+    be identical and the kernels' prefill logits must agree with the plain
+    forward; at 32 layers the launch counters must show per prompt 32
+    flash and 32 SSD launches and per decode step 32 decode launches and
+    nothing else, and bf16 merged and source tok/s, TTFT and the merged
+    model's decode and 512-token prefill profiles are printed."""
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.core import removed_weight_count
+
+    n = len(SSM_LENS)
+    max_new = 16
+    with torch.no_grad():
+        cfg, params, mcfg, mparams = build(EQ_LAYERS, True, "hymba-1.5b")
+        prompts = ssm_prompts(cfg.vocab_size)
+        outs = {}
+        for tag, c, p in (("source", cfg, params), ("merged", mcfg, mparams)):
+            eng, outs[tag], counts, _ = serve(c, p, prompts, max_new,
+                                              max_len=SSM_MAX_LEN)
+            check_counts(f"hymba {tag} float32", counts, eng, EQ_LAYERS, n,
+                         merged=False)
+        if streams(outs["source"]) != streams(outs["merged"]):
+            bad = first_mismatch(cfg, params, prompts, outs["source"],
+                                 outs["merged"])
+            raise AssertionError(
+                f"hymba merged and source greedy streams differ: prompt "
+                f"{bad[0]}, position {bad[1]}, source top-2 margin "
+                f"{bad[2]:.3g}")
+        log(f"  hymba greedy streams identical (merged vs source, float32, "
+            f"{EQ_LAYERS} layers, prompts {SSM_LENS}): "
+            f"{[list(o[:6]) for o in outs['merged']]} …")
+        # the SSD kernel's y is ~5e-6 of its scale off the plain scan's
+        # (kernel phase) and a skipless stack amplifies ~2x per layer
+        summary["hymba_4_layers"] = {"plain_vs_kernels_rel": kernels_vs_plain(
+            "hymba merged", mcfg, mparams, prompts[1], 1e-3)}
+        del params, mparams, eng
+        torch.cuda.empty_cache()
+
+        cfg, params, mcfg, mparams = build(32, False, "hymba-1.5b")
+        L = cfg.n_layers
+        removed = removed_weight_count(params, mparams)
+        outs = {}
+        for tag, c, p in (("source", cfg, params), ("merged", mcfg, mparams)):
+            eng, outs[tag], counts, _ = serve(c, p, prompts, max_new,
+                                              max_len=SSM_MAX_LEN)
+            check_counts(f"hymba {tag} float32 ({L} layers)", counts, eng, L,
+                         n, merged=False)
+            summary["launches"] = {k: summary["launches"][k] + counts[k]
+                                   for k in KERNELS}
+        agree = agreement(outs["merged"], outs["source"])
+        lg = kernels_vs_plain(f"hymba merged {L} layers", mcfg, mparams,
+                              prompts[1])
+        log(f"  hymba {L} layers float32: merged vs source tokens agreeing "
+            f"before the first difference, per prompt: {agree} of {max_new}")
+        out = {"weights_removed": removed, "merged_vs_source_agree_f32": agree,
+               "plain_vs_kernels_rel_f32": lg}
+        del eng, p
+        bf = {}
+        for tag, c, p in (("source", cfg, params), ("merged", mcfg, mparams)):
+            bcfg = c.with_(dtype="bfloat16", param_dtype="bfloat16")
+            bparams = tree_map(lambda t: t.to(torch.bfloat16), p)
+            serve(bcfg, bparams, prompts, max_new, max_len=SSM_MAX_LEN)
+            eng, res, counts, wall = serve(bcfg, bparams, prompts, max_new,
+                                           max_len=SSM_MAX_LEN)
+            check_counts(f"hymba {tag} bfloat16", counts, eng, L, n, False)
+            out[f"{tag}_bf16"] = report(
+                f"hymba {tag} bfloat16, dense cache ({L} layers)", res, wall)
+            bf[tag] = (bcfg, bparams)
+            del eng
+        log(f"  hymba qp merge removed {removed:,d} weights (Q only)")
+        del params, mparams, p
+        out["decode_profile_merged_bf16"] = profile_decode(
+            *bf["merged"], prompts, "dense", max_len=SSM_MAX_LEN)
+        out["prefill_profile_merged_bf16"] = profile_prefill(
+            *bf["merged"], prompts[3])
+        del bf
+        torch.cuda.empty_cache()
+    summary["hymba"] = out
+
+
+def mamba2_path(summary):
+    """Mamba2-2.7B at full width (64 layers, d 2560, SSM 80 x 64 x 128,
+    vocab 50280), standard style from seed 0, on the dense cache: the
+    kernels' float32 prefill logits against the plain forward, the launch
+    counters (64 SSD launches per prompt and nothing else), bf16 tok/s and
+    TTFT, and decode and 512-token prefill profiles."""
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_params
+
+    n = len(SSM_LENS)
+    max_new = 16
+    with torch.no_grad():
+        cfg = get_config("mamba2-2.7b").with_(dtype="float32")
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        L = cfg.n_layers
+        log(f"init {cfg.name} standard ({L} layers, d_model {cfg.d_model}, "
+            f"SSM {cfg.ssm_n_heads}x{cfg.ssm_head_dim}x{cfg.ssm_state}, "
+            f"{count_params(params):,d} weights) on the card: "
+            f"{time.perf_counter() - t0:.1f} s")
+        prompts = ssm_prompts(cfg.vocab_size)
+        # a pre-norm residual stack: the kernel's ~5e-6 relative error per
+        # layer adds up over 64 layers, far below 1e-3
+        out = {"plain_vs_kernels_rel_f32": kernels_vs_plain(
+            "mamba2", cfg, params, prompts[1], 1e-3)}
+        eng, _, counts, _ = serve(cfg, params, prompts, max_new,
+                                  max_len=SSM_MAX_LEN)
+        check_counts(f"mamba2 float32 ({L} layers)", counts, eng, L, n,
+                     merged=False)
+        summary["launches"] = {k: summary["launches"][k] + counts[k]
+                               for k in KERNELS}
+        del eng
+        bcfg = cfg.with_(dtype="bfloat16", param_dtype="bfloat16")
+        bparams = tree_map(lambda t: t.to(torch.bfloat16), params)
+        del params
+        torch.cuda.empty_cache()
+        serve(bcfg, bparams, prompts, max_new, max_len=SSM_MAX_LEN)
+        eng, res, counts, wall = serve(bcfg, bparams, prompts, max_new,
+                                       max_len=SSM_MAX_LEN)
+        check_counts("mamba2 bfloat16", counts, eng, L, n, merged=False)
+        out["bf16"] = report(f"mamba2 bfloat16, dense cache ({L} layers)",
+                             res, wall)
+        del eng
+        out["decode_profile_bf16"] = profile_decode(
+            bcfg, bparams, prompts, "dense", max_len=SSM_MAX_LEN)
+        out["prefill_profile_bf16"] = profile_prefill(bcfg, bparams,
+                                                      prompts[3])
+        del bparams
+        torch.cuda.empty_cache()
+    summary["mamba2"] = out
+
+
+def profiled(what, fn, steps):
+    """torch.profiler over ``steps`` calls of ``fn``: device time by kernel
+    name, kernel launches per call and the device busy share of the wall
+    time, logged under ``what``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving import Engine, Request, ServeConfig
 
-    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=512),
-                 impl="cuda", cache=cache, device="cuda")
-    for p in prompts:
-        eng.submit(Request(prompt=p, max_new_tokens=steps + 2))
-    eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -1163,17 +1441,47 @@ def profile_decode(cfg, params, prompts, cache, steps=5):
            "kernels_per_step": sum(r[2] for r in rows) // steps,
            "top": [[k[:90], us / steps / 1e3, n // steps]
                    for us, k, n in rows[:8]]}
-    log(f"  decode profile, {cache} cache, {cfg.dtype} ({cfg.n_layers} "
-        f"layers, 4 slots, "
-        f"{steps} steps): {out['wall_ms_per_step']:.2f} ms/step wall, "
-        f"{out['device_ms_per_step']:.2f} ms/step of kernels "
+    log(f"  {what} ({steps} calls): {out['wall_ms_per_step']:.2f} ms/call "
+        f"wall, {out['device_ms_per_step']:.2f} ms/call of kernels "
         f"({100 * out['device_busy_share']:.0f}% busy), "
-        f"{out['kernels_per_step']} kernel launches/step")
+        f"{out['kernels_per_step']} kernel launches/call")
     for k, ms, n in out["top"]:
-        log(f"    {ms:8.3f} ms/step  {n:4d} calls/step  {k[:90]}")
+        log(f"    {ms:8.3f} ms/call  {n:4d} calls/call  {k[:90]}")
     if not rows:
         log("    (the profiler recorded no device time)")
     return out
+
+
+def profile_decode(cfg, params, prompts, cache, steps=5, max_len=512):
+    """``profiled`` over ``steps`` batched decode steps of the 4-slot
+    engine on ``cache``, the prompts prefilled first."""
+    from repro_torch.serving import Engine, Request, ServeConfig
+
+    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=max_len),
+                 impl="cuda", cache=cache, device="cuda")
+    for p in prompts:
+        eng.submit(Request(prompt=p, max_new_tokens=steps + 2))
+    eng.step()
+    return profiled(f"decode profile, {cfg.name}, {cache} cache, {cfg.dtype} "
+                    f"({cfg.n_layers} layers, 4 slots)", eng.step, steps)
+
+
+def profile_prefill(cfg, params, prompt, steps=3):
+    """``profiled`` over ``steps`` dense prefills of one prompt (after one
+    unprofiled warm-up)."""
+    import torch
+    from repro_torch.models import DensePrefillDest, forward_prefill
+
+    x = torch.as_tensor(prompt, device="cuda")[None]
+
+    def run():
+        forward_prefill(params, cfg, x, DensePrefillDest(SSM_MAX_LEN),
+                        impl="cuda")
+
+    run()
+    return profiled(f"prefill profile, {cfg.name}, {cfg.dtype} "
+                    f"({cfg.n_layers} layers, {len(prompt)} tokens)", run,
+                    steps)
 
 
 def report(tag, outs, wall):
@@ -1244,23 +1552,30 @@ def run() -> int:
     quant_check(rng)
     paged_phase(rng, rows, q8=True)
     q8_flash_phase(rng, rows)
+    decode_phase(rng, rows, hymba=True)
+    flash_phase(rng, rows, hymba=True)
+    ssd_phase(rng, rows)
     log(f"kernel phase ({card}; times in ms, L2 cold, per call from a CUDA "
         f"graph of 30 calls: median [three replays], then the eager timer "
         f"of earlier runs; bound = the larger of the bytes at 3.35 TB/s and "
         f"the flops at the dtype's peak; sdpa on the paged rows: SDPA on "
         f"gathered cache; gather not timed; sdpa on the int8 rows: SDPA on "
-        f"dequantized cache; dequant not timed):")
+        f"dequantized cache; dequant not timed; the SSD rows have no "
+        f"library call):")
     for r in rows:
         runs = ", ".join(f"{t:.4f}" for t in r["ms_runs"])
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {r['name']:36s} {r['dtype']:15s} {r['case']:50s} err "
             f"{r['max_abs_err']:.2e} (tol {r['tol']:.1e})  kernel "
             f"{r['ms']:.4f} [{runs}] eager {r['eager_ms']:.4f}  plain "
-            f"{r['plain_ms']:.4f}  sdpa {r['library_ms']:.4f}  bound "
+            f"{r['plain_ms']:.4f}  sdpa {lib}  bound "
             f"{r['bound_ms']:.5f} ({r['bound_by']}; bytes "
             f"{r['bytes_ms']:.5f}, flops {r['ops_ms']:.5f})")
 
     summary = {}
     path_phase(summary)
+    hybrid_path(summary)
+    mamba2_path(summary)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

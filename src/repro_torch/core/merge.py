@@ -1,6 +1,6 @@
 """Exact weight-removal transforms for skipless transformers (the paper).
 
-Counterpart of ``repro.core.merge`` for dense serial stacks.
+Counterpart of ``repro.core.merge`` for dense and hybrid serial stacks.
 ``merge_skipless(params, cfg, variant)`` maps a ``block_style="skipless"``
 (Fig 1a) parameter tree to a mathematically identical
 ``block_style="skipless_merged"`` tree (Fig 1b/c/d per Table 1):
@@ -14,7 +14,11 @@ Removing projection T_i of block i rewrites the block-i input basis
 ``u* = u T_i (+ b_T)``: every producer of u (the previous block's w_down,
 or the embedding table for i = 0) is right-multiplied by T_i, and every
 other consumer in block i (the remaining attention projections) is
-left-multiplied by T_i⁻¹.  With QKV biases, consumers get
+left-multiplied by T_i⁻¹.  A hybrid block (attention heads beside SSM
+heads, ``repro.models.mamba2``) gets the Q-removal half only: its FFN
+reads the fused attention+SSM stream, so P stays, and the SSM ``in_proj``
+is one more consumer of u.  Pure SSM stacks have no Q/K/V/P: they raise
+ValueError.  With QKV biases, consumers get
 ``b'_c = b_c − b_T (T⁻¹ W_c)`` and the previous block's output gains
 ``b_out = b_T`` (the embedding gains ``embed_bias``).
 
@@ -50,19 +54,23 @@ def condition_numbers(params, cfg: ModelConfig, variant: str = "qp") -> np.ndarr
 
 def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
                    variant: str = "qp") -> Tuple[Dict[str, Any], ModelConfig]:
-    """Exact (Fig 1) merge of a serial skipless dense model.  Returns
-    (merged_params, merged_cfg); tensors the merge does not change are
-    shared with ``params``."""
+    """Exact (Fig 1) merge of a serial skipless dense or hybrid model.
+    Returns (merged_params, merged_cfg); tensors the merge does not change
+    are shared with ``params``."""
     if cfg.block_style != "skipless":
         raise ValueError("merge_skipless expects block_style='skipless'")
     if cfg.parallel_block:
         raise ValueError(
             "exact merging applies to the serial layout (paper Fig 1/2; "
             "the parallel Fig 3 forms are trainable architectures)")
-    if layer_plan(cfg)["kind"] != "attn" or cfg.n_experts or \
-            cfg.family != "dense":
+    kind = layer_plan(cfg)["kind"]
+    if kind == "ssm":
+        raise ValueError("pure SSM stacks have no Q/K/V/P to merge")
+    if kind not in ("attn", "hybrid") or cfg.n_experts or \
+            cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"merge of family {cfg.family!r} is not ported yet (ROADMAP.md)")
+    hybrid = kind == "hybrid"
     mcfg = cfg.with_(block_style="skipless_merged", merged_variant=variant)
     mcfg.validate_style()
 
@@ -72,6 +80,8 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
     t = variant[0]
     consumers = [n for n in ("q", "k", "v") if n != t]
     has_bias = ("b" + t) in attn
+    if hybrid and has_bias:
+        raise NotImplementedError("hybrid merge with QKV biases")
     ffn = layers["ffn"]
     glu = "w_gate" in ffn
     f_in = ("w_gate", "w_up") if glu else ("w_in",)
@@ -84,11 +94,18 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
             new_attn["b" + n] = torch.empty_like(attn["w" + n][:, 0, :])
     new_ffn = {k: v for k, v in ffn.items()}
     ad = attn["wp"].shape[1]
-    for name in f_in:
-        w = ffn[name]
-        new_ffn[name] = w.new_empty((L, ad, w.shape[2]))
+    if hybrid:  # P stays; the SSM in_proj is one more consumer of u
+        new_attn["wp"] = attn["wp"]
+        ssm = layers["ssm"]
+        new_ssm = dict(ssm, in_proj=torch.empty_like(ssm["in_proj"]))
+    else:
+        for name in f_in:
+            w = ffn[name]
+            new_ffn[name] = w.new_empty((L, ad, w.shape[2]))
     new_ffn[f_out] = torch.empty_like(ffn[f_out])
     new_layers: Dict[str, Any] = {"attn": new_attn, "ffn": new_ffn}
+    if hybrid:
+        new_layers["ssm"] = new_ssm
     if has_bias:
         new_layers["b_out"] = torch.empty_like(attn["b" + t])
 
@@ -107,11 +124,16 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
                     b0 = b0 - bT @ w2
                 new_attn["b" + n][i] = b0.to(new_attn["b" + n].dtype)
             del w2
-        # P-fold into the FFN input matrices; w_down absorbs the next T
-        P = attn["wp"][i].to(_F64)
-        for name in f_in:
-            new_ffn[name][i] = (P @ ffn[name][i].to(_F64)).to(ffn[name].dtype)
-        del P
+        if hybrid:
+            new_ssm["in_proj"][i] = (Tinv @ ssm["in_proj"][i].to(_F64)).to(
+                ssm["in_proj"].dtype)
+        else:  # P-fold into the FFN input matrices
+            P = attn["wp"][i].to(_F64)
+            for name in f_in:
+                new_ffn[name][i] = (P @ ffn[name][i].to(_F64)).to(
+                    ffn[name].dtype)
+            del P
+        # w_down absorbs the next T
         T_next = attn["w" + t][i + 1].to(_F64) if i + 1 < L else None
         w_down = ffn[f_out][i].to(_F64)
         if T_next is not None:

@@ -1,16 +1,17 @@
 """Hand-written CUDA kernels for attention over the dense cache, the paged
-pool and the int8 paged pool, with their plain PyTorch versions (``ref``),
-the model-layout wrappers (``ops``) and the int8 pool's quantization
-(``quant``, plain torch on every route).
+pool and the int8 paged pool, and for the Mamba2 SSD scan, with their
+plain PyTorch versions (``ref``), the model-layout wrappers (``ops``) and
+the int8 pool's quantization (``quant``, plain torch on every route).
 
 Importing this package builds nothing and needs no card: a kernel is built
 from ``csrc/`` at its first launch (``_build``).
 """
 from typing import Dict
 
-from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
 
-_COUNTERS = (decode_attention.launches, flash_attention.launches)
+_COUNTERS = (decode_attention.launches, flash_attention.launches,
+             ssd_scan.launches)
 
 
 def launch_counts() -> Dict[str, int]:

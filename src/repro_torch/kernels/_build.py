@@ -25,13 +25,14 @@ from typing import Dict, List
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("decode_attention", "flash_attention")
+SOURCES = ("decode_attention", "flash_attention", "ssd_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # the C signatures of the launch functions, as ctypes argtypes: pointers
-# and the stream are c_void_p, everything else c_int
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# and the stream are c_void_p, strides of the SSD scan c_longlong,
+# everything else c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "decode_attention": {
         "decode_attention_launch": [_I, _I] + [_P] * 8 + [_I] * 12 + [_P],
@@ -43,6 +44,9 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": [_I, _I] + [_P] * 4 + [_I] * 13 + [_P],
         "flash_attention_q8_launch": [_I, _I] + [_P] * 6 + [_I] * 14 + [_P],
+    },
+    "ssd_scan": {
+        "ssd_scan_launch": [_I, _I] + [_P] * 7 + [_I] * 4 + [_LL] * 9 + [_P],
     },
 }
 

@@ -1,7 +1,8 @@
 """Wrappers exposing the kernels in model-layer layouts, and the table of
 which (phase, cache_kind, style) has a kernel.
 
-Counterparts of ``repro.kernels.ops``' dense, paged and paged_q8 rows.
+Counterparts of ``repro.kernels.ops``' dense, paged and paged_q8 rows and
+of its SSD scan (``ssd_scan``).
 The generic dense wrappers
 keep the reference's head-major transposes (``.contiguous()`` copies of
 q/k/v, and of the whole cache at decode): they are part of what the
@@ -38,6 +39,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bhsd, flash_attention_merged_bsd,
     flash_attention_merged_q8_bsd)
 from repro_torch.kernels.paging import paged_ring_active
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
 
 def _no_kv_valid(kv_valid) -> None:
@@ -275,6 +277,44 @@ def flash_attention_merged_q8(
         k_scale.float().contiguous(), v_scale.float().contiguous(),
         causal=causal, sliding_window=sliding_window)
     return out.reshape(B, Sq, d)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD scan
+# ---------------------------------------------------------------------------
+
+def ssd_apply(scan, x, dt, A, Bm, Cm, *, chunk, D=None, **scan_kw):
+    """The SSD scan's pre- and post-processing, shared by both routes of
+    ``models.mamba2.ssd_chunked``: a = dt·A in float32, ``scan(x, dt, a,
+    Bm, Cm, chunk=min(chunk, S), **scan_kw)`` -> (y, final state float32),
+    then the D skip added in float32 and y cast back to x's dtype."""
+    dt = dt.float().contiguous()
+    y, fin = scan(x, dt, dt * A.float(), Bm, Cm,
+                  chunk=min(chunk, x.shape[1]), **scan_kw)
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), fin
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) post-softplus
+    A: torch.Tensor,  # (H,) negative
+    Bm: torch.Tensor,  # (B, S, H, N)
+    Cm: torch.Tensor,  # (B, S, H, N)
+    *,
+    chunk: int,
+    D=None,  # (H,) skip weight
+    init_state=None,
+):
+    """The SSD scan from a zero state -> (y (B,S,H,P) in x's dtype, final
+    state (B,H,P,N) float32), through ``ssd_apply`` around the kernel.
+    An initial state (mid-sequence continuation) is not what the kernel
+    computes: it raises, as the reference asserts."""
+    if init_state is not None:
+        raise ValueError("the ssd kernel starts from a zero state; use "
+                         "impl='torch' for mid-sequence continuation")
+    return ssd_apply(ssd_chunk_scan, x, dt, A, Bm, Cm, chunk=chunk, D=D)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the dense and paged attention kernels.
+"""Plain PyTorch versions of the attention kernels and the SSD scan.
 
 Each function is the transparent O(S²) form of what its CUDA kernel
 computes, in float32, returned in the input dtype.  The kernel wrappers
@@ -10,7 +10,10 @@ go to ``NEG`` before the softmax and their probabilities are then zeroed,
 so a row with nothing to attend to is exactly zero.  The paged versions
 gather a slot's pages into a dense view and defer to the dense decode
 version (``ref_decode_attention_paged*``); the int8 versions dequantize
-in float32 (``ints * scale``) and defer to the fp ones.
+in float32 (``ints * scale``) and defer to the fp ones.  The SSD scan has
+two: the sequential recurrence ``ref_ssd`` (the ground truth) and the
+chunked scan ``ref_ssd_chunked`` (what the CUDA kernel computes, tiled as
+the reference's XLA path tiles it).
 """
 from __future__ import annotations
 
@@ -256,3 +259,72 @@ def ref_flash_attention_merged_q8(
     return ref_flash_attention_merged(u, k.float() * ks, v.float() * vs,
                                       causal=causal,
                                       sliding_window=sliding_window)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD scan: the sequential oracle and the chunked plain version
+# ---------------------------------------------------------------------------
+
+def ref_ssd(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) post-softplus
+    a: torch.Tensor,  # (B, S, H) = dt * A
+    Bm: torch.Tensor,  # (B, S, H, N)
+    Cm: torch.Tensor,  # (B, S, H, N)
+):
+    """Sequential (step-by-step) SSD recurrence from a zero state — the
+    ground truth.  Returns (y (B,S,H,P) fp32, final_state (B,H,P,N))."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    x, dt, a, Bm, Cm = (t.float() for t in (x, dt, a, Bm, Cm))
+    state = x.new_zeros((B, H, P, N))
+    ys = []
+    for t in range(S):
+        dBx = torch.einsum("bh,bhn,bhp->bhpn", dt[:, t], Bm[:, t], x[:, t])
+        state = state * torch.exp(a[:, t])[..., None, None] + dBx
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cm[:, t], state))
+    return torch.stack(ys, dim=1), state
+
+
+def ref_ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) post-softplus
+    a: torch.Tensor,  # (B, S, H) = dt * A, <= 0
+    Bm: torch.Tensor,  # (B, S, H, N)
+    Cm: torch.Tensor,  # (B, S, H, N)
+    *,
+    chunk: int,
+    init_state=None,  # (B, H, P, N) or None (zeros)
+):
+    """The chunked SSD scan of ``repro.models.mamba2.ssd_chunked``'s XLA
+    path: chunks of L = ``chunk`` rows if that divides S, else one chunk
+    of S; within a chunk the masked, decay-weighted (L, L) products, across
+    chunks the carried (P, N) state.  Returns (y (B,S,H,P) fp32,
+    final_state (B,H,P,N) fp32), without the D skip."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    L = chunk if S % chunk == 0 else S
+    state = (x.new_zeros((B, H, P, N), dtype=torch.float32)
+             if init_state is None else init_state.float())
+    mask = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for c0 in range(0, S, L):
+        sl = slice(c0, c0 + L)
+        xc, dtc, ac = x[:, sl].float(), dt[:, sl].float(), a[:, sl].float()
+        Bc, Cc = Bm[:, sl].float(), Cm[:, sl].float()
+        a_cum = torch.cumsum(ac, dim=1)  # (B, L, H)
+        a_sum = a_cum[:, -1, :]  # (B, H)
+        decay_out = torch.exp(a_cum)
+        decay_end = torch.exp(a_sum[:, None, :] - a_cum)
+        cb = torch.einsum("blhn,bmhn->blmh", Cc, Bc)
+        seg = a_cum[:, :, None, :] - a_cum[:, None, :, :]  # (B, L, M, H)
+        kern = torch.where(mask[None, :, :, None], torch.exp(seg), 0.0) \
+            * cb * dtc[:, None, :, :]
+        y = torch.einsum("blmh,bmhp->blhp", kern, xc)
+        y = y + torch.einsum("blhn,bhpn->blhp", Cc, state) \
+            * decay_out[..., None]
+        dbx = torch.einsum("blhn,blhp->bhpn",
+                           Bc * (decay_end * dtc)[..., None], xc)
+        state = state * torch.exp(a_sum)[:, :, None, None] + dbx
+        ys.append(y)
+    return torch.cat(ys, dim=1), state

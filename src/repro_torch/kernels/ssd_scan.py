@@ -1,0 +1,89 @@
+"""Mamba2 SSD chunked scan: the wrapper of ``csrc/ssd_scan.cu``.
+
+Counterpart of ``repro.kernels.ssd_scan.ssd_scan_pallas``: from a zero
+state, y (B, S, H, P) float32 and the final state (B, H, P, N) float32 of
+the recurrence ``S_t = exp(a_t) S_{t-1} + dt_t x_t B_tᵀ``, ``y_t = S_t C_t``.
+Inputs are pre-activated as the TPU kernel takes them: dt is post-softplus
+and a = dt·A, both float32; x, Bm and Cm share float32 or bfloat16.  The
+D skip, the gate and the norm live in ``kernels.ops.ssd_scan`` and
+``models.mamba2``.
+
+``chunk`` is the caller's chunk (the reference tiles by it: ``chunk`` rows
+if that divides S, else one chunk of S).  The CUDA kernel tiles by its own
+64 rows whatever ``chunk`` says, the same recurrence up to rounding; the
+plain version (``kernels.ref.ref_ssd_chunked``) tiles as the reference
+does.  B and C may come broadcast from their groups with a zero head
+stride: the kernel takes strides, so the repeat is never materialised.
+
+A tensor on the CPU runs the plain version; a tensor on a CUDA device
+launches the kernel (built at first use) on the current stream, or raises
+— there is no fallback.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import ref_ssd_chunked
+
+launches = {"ssd_chunk_scan": 0}
+
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_STATE = 128
+
+
+def _max_offset(t: torch.Tensor) -> int:
+    return sum((n - 1) * s for n, s in zip(t.shape, t.stride()) if n)
+
+
+def ssd_chunk_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) float32, post-softplus
+    a: torch.Tensor,  # (B, S, H) float32, = dt * A (<= 0)
+    Bm: torch.Tensor,  # (B, S, H, N)
+    Cm: torch.Tensor,  # (B, S, H, N), Bm's strides
+    *,
+    chunk: int,
+):
+    """Returns (y (B,S,H,P) float32, final_state (B,H,P,N) float32)."""
+    name = "ssd_chunk_scan"
+    if not _build.on_cuda(name, x, dt, a, Bm, Cm):
+        return ref_ssd_chunked(x, dt, a, Bm, Cm, chunk=chunk)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if tuple(dt.shape) != (B, S, H) or dt.shape != a.shape:
+        raise ValueError(f"{name}: dt and a must be (B, S, H) = "
+                         f"{(B, S, H)}, got {tuple(dt.shape)}, "
+                         f"{tuple(a.shape)}")
+    if tuple(Bm.shape) != (B, S, H, N) or Bm.shape != Cm.shape or \
+            Bm.stride() != Cm.stride():
+        raise ValueError(f"{name}: Bm and Cm must be (B, S, H, N) with one "
+                         f"set of strides, got {tuple(Bm.shape)} "
+                         f"{Bm.stride()}, {tuple(Cm.shape)} {Cm.stride()}")
+    if x.dtype != Bm.dtype or Bm.dtype != Cm.dtype or \
+            str(x.dtype) not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: x, Bm and Cm must share float32 or "
+                         f"bfloat16, got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"{name}: dt and a must be float32, got {dt.dtype}, "
+                         f"{a.dtype}")
+    if P not in HEAD_DIMS or not 1 <= N <= MAX_STATE:
+        raise ValueError(f"{name}: head dim {P} not in {HEAD_DIMS} or state "
+                         f"{N} not in [1, {MAX_STATE}]")
+    if x.stride(-1) != 1 or Bm.stride(-1) != 1 or not dt.is_contiguous() \
+            or not a.is_contiguous():
+        raise ValueError(f"{name}: x, Bm and Cm need a contiguous last dim "
+                         "and dt, a contiguous tensors")
+    if any(_max_offset(t) >= 2 ** 31 for t in (x, dt, Bm)):
+        raise ValueError(f"{name}: operand too large for the kernel")
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    fin = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    lib = _build.library("ssd_scan")
+    err = lib.ssd_scan_launch(
+        _build.DTYPE_CODES[str(x.dtype)], P, x.data_ptr(), dt.data_ptr(),
+        a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+        fin.data_ptr(), B, S, H, N, *x.stride()[:3], *dt.stride(),
+        *Bm.stride()[:3], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(name, err)
+    launches[name] += 1
+    return y, fin

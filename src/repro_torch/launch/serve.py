@@ -5,9 +5,13 @@ paged pool or the int8 paged pool.
       --smoke --merged-from-skipless --requests 4 --max-new 8 \
       [--cache paged|paged_q8 --block-size 16 --n-blocks 0]
 
-With ``--merged-from-skipless`` the launcher builds a skipless model, runs
-the paper's QP-removal merge, and serves the merged weights, reporting the
-parameters removed next to the generated tokens.  ``--device`` defaults to
+``--arch`` is one of the port's configs: mistral-7b, hymba-1.5b (hybrid:
+attention beside SSM heads) or mamba2-2.7b (attention-free, standard
+style; dense cache only, as for the hybrid).  With
+``--merged-from-skipless`` the launcher builds a skipless model, runs the
+paper's qp merge (QP removal; on the hybrid Q removal, P stays), and
+serves the merged weights, reporting the parameters removed next to the
+generated tokens.  ``--device`` defaults to
 ``cuda`` (the hand-written kernels); ``--device cpu`` serves through the
 plain PyTorch versions.  Per-request stats (prompt length, time to first
 token, decode tok/s) come from ``Engine.generate``'s RequestResults.
@@ -62,7 +66,8 @@ def main(argv=None):
     if args.merged_from_skipless:
         params, cfg = merge_skipless(params, cfg, "qp")
         n1 = count_params(params)
-        print(f"QP removal: {n0:,d} -> {n1:,d} params "
+        what = "Q" if cfg.family == "hybrid" else "QP"
+        print(f"{what} removal: {n0:,d} -> {n1:,d} params "
               f"({100 * (n0 - n1) / n0:.1f}% removed)", flush=True)
 
     sc = ServeConfig(n_slots=args.slots, max_len=args.max_len,

@@ -1,10 +1,13 @@
-"""Dense attention stacks in all paper block styles: setup, the sequence
-forward, prefill into the dense cache, a paged pool or an int8 paged
-pool, and one-token decode against any of them.
+"""Dense attention, Mamba2 (SSM) and hybrid stacks in all paper block
+styles: setup, the sequence forward, prefill into the dense cache, a paged
+pool or an int8 paged pool, and one-token decode against any of them.
 
-Counterpart of ``repro.models.transformer`` for plan kind "attn" on the
-dense family (other plan kinds and families raise NotImplementedError; see
-ROADMAP.md).  Block styles (paper mapping):
+Counterpart of ``repro.models.transformer`` for the plan kinds "attn"
+(dense family), "ssm" (mamba2 mixer blocks) and "hybrid" (attention heads
+in parallel with SSM heads, mean-fused, then the FFN); MoE, VLM and audio
+raise NotImplementedError (see ROADMAP.md).  The paged pools serve
+attention-only stacks: SSM state has no pages.  Block styles (paper
+mapping):
   standard         pre-norm residual blocks
   skipless         Fig 1(a): no skips / no norms, full Q,K,V,P
   skipless_merged  Fig 1(b): Q and P removed (``core.merge``)
@@ -29,11 +32,14 @@ new K/V rows, ``kv_pos``; a paged pool's pages) and returns it with
 the pools in place: a functional copy of a multi-GB cache per token is
 what donation avoids on the TPU.  The int8 pool (``paged_q8``) is written
 the same way, ints and per-(page, kv-head) scales together
-(``kernels.quant``).
+(``kernels.quant``), and the decode step writes each layer's SSM state
+and conv tail in place too.  The dense prefill collects the SSM states
+from its one pass over the prompt (the reference runs the SSM layers a
+second time for them; the blocks are the same, so are the states).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -44,6 +50,7 @@ from repro_torch.kernels import paging, quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backends
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (
     apply_embedding,
     apply_rmsnorm,
@@ -56,8 +63,8 @@ from repro_torch.models.layers import (
     orthogonal_init,
 )
 
-_NOT_PORTED = ("not ported yet: the port's first slice serves dense "
-               "attention stacks (see ROADMAP.md, 'Modules to port')")
+_NOT_PORTED = ("not ported yet: the port serves dense attention, SSM and "
+               "hybrid stacks (see ROADMAP.md, 'Modules to port')")
 
 
 def _init_fn_for(cfg: ModelConfig):
@@ -88,9 +95,10 @@ def layer_plan(cfg: ModelConfig) -> Dict[str, Any]:
     return {"kind": "attn", "n": cfg.n_layers}
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if layer_plan(cfg)["kind"] != "attn" or cfg.n_experts or \
-            cfg.conv_pos_width or cfg.family not in ("dense",):
+def _require_ported(cfg: ModelConfig) -> None:
+    if layer_plan(cfg)["kind"] not in ("attn", "ssm", "hybrid") or \
+            cfg.n_experts or cfg.conv_pos_width or \
+            cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}) is {_NOT_PORTED}")
 
@@ -133,14 +141,24 @@ def _is_merged(style: str) -> bool:
 
 
 def init_block(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
-    """One attention block's params (plan kind "attn")."""
+    """One block's params for the config's plan kind."""
     style = cfg.block_style
     merged = _is_merged(style)
-    p: Dict[str, Any] = {"attn": _init_attn_proj(gen, cfg, dtype, merged)}
+    kind = layer_plan(cfg)["kind"]
+    p: Dict[str, Any] = {}
+    if kind in ("attn", "hybrid"):
+        p["attn"] = _init_attn_proj(gen, cfg, dtype, merged)
+    if kind == "hybrid" and "wp" not in p["attn"]:
+        # the hybrid's merged style removes Q only: P stays, since the FFN
+        # reads the fused attention+SSM stream
+        p["attn"]["wp"] = dense_init(gen, cfg.attn_dim, cfg.d_model, dtype)
+    if kind in ("ssm", "hybrid"):
+        p["ssm"] = m2.init_mamba2(gen, cfg, dtype)
     if cfg.has_ffn:
-        # merged serial: FFN input dim is attn_dim (P folded in)
-        ffn_in = cfg.attn_dim if (merged and not cfg.parallel_block) \
-            else cfg.d_model
+        # merged serial attention stacks: FFN input dim is attn_dim (P
+        # folded in)
+        ffn_in = cfg.attn_dim if (merged and not cfg.parallel_block
+                                  and kind == "attn") else cfg.d_model
         p["ffn"] = ffn_mod.init_ffn(gen, ffn_in, cfg.d_ff, cfg.d_model,
                                     cfg.ffn_type, dtype,
                                     init_fn=_init_fn_for(cfg),
@@ -158,7 +176,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     ``torch.Generator`` there.  The layer stack is filled one layer at a
     time into preallocated (L, …) tensors, so the peak is one copy of the
     model (plus one layer)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(dev).manual_seed(seed)
     dtype = dtype_of(cfg.param_dtype)
@@ -310,24 +328,39 @@ def _apply_style(p, cfg: ModelConfig, u, mixer_fn):
 
 
 def apply_block_seq(p, cfg: ModelConfig, u, ctx):
-    """One attention block over a sequence -> (out_stream, (k, v)), or
-    (out_stream, (k ints, k scales, v ints, v scales)) under
-    ``ctx["q8_block"]``."""
+    """One block over a sequence -> (out_stream, kv, state).  ``kv`` is
+    (k, v), or (k ints, k scales, v ints, v scales) under
+    ``ctx["q8_block"]``, for blocks with attention, else None; ``state``
+    is the SSM mixer's ``SSMState`` after the last position (final scan
+    state and conv tail) for blocks with one, else None."""
     merged = _is_merged(cfg.block_style)
-    kv = []
+    kind = layer_plan(cfg)["kind"]
+    kv, st = [None], [None]
+
+    def ssm_fn(x):
+        out, st[0] = m2.apply_mamba2_seq(p["ssm"], x, cfg, return_state=True,
+                                         impl=ctx["impl"])
+        return out
+
+    if kind == "ssm":
+        if cfg.block_style != "standard":  # skipless: no skip, no norm
+            return ssm_fn(u), None, st[0]
+        x = apply_rmsnorm(p["norm1"], u) if "norm1" in p else u
+        return u + ssm_fn(x), None, st[0]
 
     def mixer_fn(x):
-        cat, kv_ = _self_attention_seq(
+        cat, kv[0] = _self_attention_seq(
             p["attn"], cfg, x, ctx["positions"], merged, ctx["impl"],
             merged_core=ctx.get("merged_core", False),
             cache_kind=ctx.get("cache_kind", "dense"),
             q8_block=ctx.get("q8_block", 0),
             q8_true_len=ctx.get("q8_true_len"))
-        kv.append(kv_)
+        if kind == "hybrid":  # P stays: mean-fuse with the SSM heads
+            return 0.5 * (_attn_out_proj(p["attn"], cat) + ssm_fn(x))
         return cat if merged else _attn_out_proj(p["attn"], cat)
 
     out = _apply_style(p, cfg, u, mixer_fn)
-    return out, kv[0]
+    return out, kv[0], st[0]
 
 
 # ---------------------------------------------------------------------------
@@ -361,21 +394,15 @@ def _logits(params, cfg: ModelConfig, h):
     return apply_unembedding(table, h)
 
 
-def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
-                impl: str = "torch", collect_kv: bool = False,
-                merged_core: bool = False, cache_kind: str = "dense",
-                q8_block: int = 0, q8_true_len=None):
-    """Full-sequence forward over int tokens (B,S) -> (logits, aux, kvs).
-
-    ``kvs`` is (k, v), each (L, B, S, Hkv, Dh), when ``collect_kv``.
-    ``merged_core`` routes self-attention through the stream-as-query
-    merged core (prefill backends set it for merged qp layouts).
-    ``q8_block``/``q8_true_len`` (the int8 pool's prefill) make every
-    layer attend over its pool-granularity QUANTIZED K/V, and ``kvs`` is
-    then those bits: (k ints, k scales, v ints, v scales), the ints
-    (L, B, S, Hkv, Dh) int8 and the scales (L, B, S // q8_block, Hkv)
-    float32 (``_self_attention_seq``)."""
-    _require_dense(cfg)
+def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
+               impl: str = "torch", collect: bool = False,
+               merged_core: bool = False, cache_kind: str = "dense",
+               q8_block: int = 0, q8_true_len=None):
+    """Embed, every block, the logits -> (logits, kvs, states).  With
+    ``collect``: ``kvs`` stacks the attention layers' K/V (None without
+    attention) and ``states`` the SSM layers' ``SSMState``s, (L, B, …)
+    each (None without SSM layers)."""
+    _require_ported(cfg)
     B, S = inputs.shape[0], inputs.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -384,15 +411,41 @@ def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
     ctx = {"positions": positions, "impl": impl, "merged_core": merged_core,
            "cache_kind": cache_kind, "q8_block": q8_block,
            "q8_true_len": q8_true_len}
-    kv_layers = []
+    kv_layers, st_layers = [], []
     for i in range(cfg.n_layers):
-        h, kv = apply_block_seq(layer_params(params, i), cfg, h, ctx)
-        if collect_kv:
+        h, kv, st = apply_block_seq(layer_params(params, i), cfg, h, ctx)
+        if collect and kv is not None:
             kv_layers.append(kv)
+        if collect and st is not None:
+            st_layers.append(st)
     kvs = tuple(torch.stack(t) for t in zip(*kv_layers)) \
-        if collect_kv else None
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return _logits(params, cfg, h), aux, kvs
+        if kv_layers else None
+    states = m2.SSMState(*(torch.stack(t) for t in zip(*st_layers))) \
+        if st_layers else None
+    return _logits(params, cfg, h), kvs, states
+
+
+def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
+                impl: str = "torch", collect_kv: bool = False,
+                merged_core: bool = False, cache_kind: str = "dense",
+                q8_block: int = 0, q8_true_len=None):
+    """Full-sequence forward over int tokens (B,S) -> (logits, aux, kvs).
+
+    ``kvs`` is (k, v), each (L, B, S, Hkv, Dh), when ``collect_kv`` on a
+    stack with attention (None otherwise).
+    ``merged_core`` routes self-attention through the stream-as-query
+    merged core (prefill backends set it for merged qp layouts).
+    ``q8_block``/``q8_true_len`` (the int8 pool's prefill) make every
+    layer attend over its pool-granularity QUANTIZED K/V, and ``kvs`` is
+    then those bits: (k ints, k scales, v ints, v scales), the ints
+    (L, B, S, Hkv, Dh) int8 and the scales (L, B, S // q8_block, Hkv)
+    float32 (``_self_attention_seq``)."""
+    logits, kvs, _ = _run_stack(
+        params, cfg, inputs, positions=positions, impl=impl,
+        collect=collect_kv, merged_core=merged_core, cache_kind=cache_kind,
+        q8_block=q8_block, q8_true_len=q8_true_len)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux, kvs
 
 
 # ---------------------------------------------------------------------------
@@ -400,33 +453,51 @@ def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
 # ---------------------------------------------------------------------------
 
 class DecodeCache(NamedTuple):
-    k: torch.Tensor  # (L, B, Sc, Hkv, Dh) — Sc = window or max_len
-    v: torch.Tensor
-    kv_pos: torch.Tensor  # (B, Sc) int32, -1 = empty (shared across layers)
+    k: Optional[torch.Tensor]  # (L, B, Sc, Hkv, Dh), Sc = window or max_len
+    v: Optional[torch.Tensor]  # (k, v and kv_pos are None for ssm stacks)
+    kv_pos: Optional[torch.Tensor]  # (B, Sc) int32, -1 = empty (all layers)
     length: torch.Tensor  # (B,) int32 — tokens so far (= next position)
+    ssm: Optional[m2.SSMState] = None  # stacked (L, …) for ssm / hybrid
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
-    """Shapes and dtypes of an empty cache."""
-    Sc = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    kv = ((cfg.n_layers, batch, Sc, cfg.n_kv_heads, cfg.d_head),
-          dtype_of(cfg.dtype))
-    return {"k": kv, "v": kv, "kv_pos": ((batch, Sc), torch.int32),
-            "length": ((batch,), torch.int32)}
+    """Shapes and dtypes of an empty cache: k, v and kv_pos for stacks
+    with attention, ssm (a dict of the state and the conv tail) for stacks
+    with SSM layers."""
+    n, kind = cfg.n_layers, layer_plan(cfg)["kind"]
+    spec: Dict[str, Any] = {}
+    if kind in ("attn", "hybrid"):
+        Sc = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+            else max_len
+        kv = ((n, batch, Sc, cfg.n_kv_heads, cfg.d_head), dtype_of(cfg.dtype))
+        spec.update(k=kv, v=kv, kv_pos=((batch, Sc), torch.int32))
+    spec["length"] = ((batch,), torch.int32)
+    if cfg.ssm_state:
+        spec["ssm"] = {
+            "ssm": ((n, batch, cfg.ssm_n_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state), torch.float32),
+            "conv": ((n, batch, cfg.ssm_conv_width - 1,
+                      m2.conv_channels(cfg)), torch.float32)}
+    return spec
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> DecodeCache:
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     spec = cache_spec(cfg, batch, max_len)
 
-    def full(name, fill):
-        shape, dt = spec[name]
+    def full(name, fill, sub=spec):
+        if name not in sub:
+            return None
+        shape, dt = sub[name]
         return torch.full(shape, fill, dtype=dt, device=dev)
 
-    return DecodeCache(k=full("k", 0), v=full("v", 0), kv_pos=full("kv_pos", -1),
-                       length=full("length", 0))
+    ssm = None if "ssm" not in spec else m2.SSMState(
+        ssm=full("ssm", 0, spec["ssm"]), conv=full("conv", 0, spec["ssm"]))
+    return DecodeCache(k=full("k", 0), v=full("v", 0),
+                       kv_pos=full("kv_pos", -1), length=full("length", 0),
+                       ssm=ssm)
 
 
 # ---------------------------------------------------------------------------
@@ -605,7 +676,8 @@ def prefill_style_key(cfg: ModelConfig) -> str:
     """Style axis of the PREFILL registry key: "merged" iff every layer can
     run the stream-as-query core (qp variant of the merged styles on
     attention stacks); kp/vp stay "generic" (their eliminated projection
-    is an identity inside ``_project_qkv``)."""
+    is an identity inside ``_project_qkv``), and so do ssm and hybrid
+    stacks (the hybrid keeps P)."""
     if layer_plan(cfg)["kind"] != "attn":
         return "generic"
     if cfg.block_style in ("skipless_merged", "residual_qpfree") \
@@ -616,20 +688,27 @@ def prefill_style_key(cfg: ModelConfig) -> str:
 
 def _prefill_seq(params, cfg: ModelConfig, inputs, ctx, *,
                  merged_core: bool, cache_kind: str):
-    """The full-sequence pass every prefill backend starts with."""
-    return forward_seq(params, cfg, inputs, impl=ctx.get("impl", "torch"),
-                       collect_kv=True, merged_core=merged_core,
-                       cache_kind=cache_kind)
+    """The full-sequence pass every prefill backend starts with ->
+    (logits, kvs, SSM states) (``_run_stack``)."""
+    return _run_stack(params, cfg, inputs, impl=ctx.get("impl", "torch"),
+                      collect=True, merged_core=merged_core,
+                      cache_kind=cache_kind)
 
 
-def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs,
+def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs, states,
                   dest: DensePrefillDest, ctx, B: int, S: int):
     """Place the collected prompt KV into a fresh ``DecodeCache`` (ring-
-    phased under a sliding window) and gather the last real logits."""
+    phased under a sliding window) beside the SSM layers' states after the
+    last position, and gather the last real logits.  SSM state is not
+    position-masked: a right-padded prompt would carry its padding into
+    it, so the engine never buckets stacks with SSM layers."""
     true_len = ctx.get("true_len")
+    last_logits, length = _last_logits_and_length(logits, true_len, B, S)
+    if kvs is None:  # attention-free: the SSM states are the whole cache
+        return last_logits, DecodeCache(k=None, v=None, kv_pos=None,
+                                        length=length, ssm=states)
     cache_cfg = cfg.with_(sliding_window=0) if dest.full_cache else cfg
-    cache = init_cache(cache_cfg, B, dest.cache_len, device=inputs.device)
-    Sc = cache.k.shape[2]
+    (_, _, Sc, _, _), kv_dtype = cache_spec(cache_cfg, B, dest.cache_len)["k"]
 
     def place(kv_stacked):
         # (L, B, S, Hkv, Dh) -> the last Sc positions ROLLED into ring
@@ -644,10 +723,9 @@ def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs,
         out[:, :, :S] = kv_stacked
         return out
 
-    last_logits, length = _last_logits_and_length(logits, true_len, B, S)
     ks, vs = kvs
-    k = place(ks).to(cache.k.dtype)
-    v = place(vs).to(cache.v.dtype)
+    k = place(ks).to(kv_dtype)
+    v = place(vs).to(kv_dtype)
     pos = torch.arange(Sc, dtype=torch.int32, device=inputs.device)[None, :] \
         + max(S - Sc, 0)
     limit = S if true_len is None else length[:, None]
@@ -655,7 +733,8 @@ def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs,
     if S >= Sc and (S - Sc) % Sc:  # match place()'s ring phase
         kvp = torch.roll(kvp, (S - Sc) % Sc, dims=1)
     return last_logits, DecodeCache(k=k.contiguous(), v=v.contiguous(),
-                                    kv_pos=kvp.contiguous(), length=length)
+                                    kv_pos=kvp.contiguous(), length=length,
+                                    ssm=states)
 
 
 def _finish_paged(cfg: ModelConfig, logits, kvs, dest: PagedPrefillDest, ctx,
@@ -718,9 +797,10 @@ def _prefill_dense_generic(params, cfg: ModelConfig, inputs, dest, ctx):
     """Registered prefill backend ("dense", "generic"): projects q/k/v as
     the config dictates (kp/vp merged variants pass through)."""
     B, S = inputs.shape[0], inputs.shape[1]
-    logits, _, kvs = _prefill_seq(params, cfg, inputs, ctx,
-                                  merged_core=False, cache_kind="dense")
-    return _finish_dense(params, cfg, inputs, logits, kvs, dest, ctx, B, S)
+    logits, kvs, states = _prefill_seq(params, cfg, inputs, ctx,
+                                       merged_core=False, cache_kind="dense")
+    return _finish_dense(params, cfg, inputs, logits, kvs, states, dest, ctx,
+                         B, S)
 
 
 def _prefill_dense_merged(params, cfg: ModelConfig, inputs, dest, ctx):
@@ -729,16 +809,17 @@ def _prefill_dense_merged(params, cfg: ModelConfig, inputs, dest, ctx):
     Q or P weights and makes no head-major transposes; the filled cache is
     the same layout as the generic backend's."""
     B, S = inputs.shape[0], inputs.shape[1]
-    logits, _, kvs = _prefill_seq(params, cfg, inputs, ctx,
-                                  merged_core=True, cache_kind="dense")
-    return _finish_dense(params, cfg, inputs, logits, kvs, dest, ctx, B, S)
+    logits, kvs, states = _prefill_seq(params, cfg, inputs, ctx,
+                                       merged_core=True, cache_kind="dense")
+    return _finish_dense(params, cfg, inputs, logits, kvs, states, dest, ctx,
+                         B, S)
 
 
 def _prefill_paged_generic(params, cfg: ModelConfig, inputs, dest, ctx):
     """Registered prefill backend ("paged", "generic"): generic projection
     path, prompt KV written direct-to-page into the mapped pool blocks."""
     B, S = inputs.shape[0], inputs.shape[1]
-    logits, _, kvs = _prefill_seq(params, cfg, inputs, ctx,
+    logits, kvs, _ = _prefill_seq(params, cfg, inputs, ctx,
                                   merged_core=False, cache_kind="paged")
     return _finish_paged(cfg, logits, kvs, dest, ctx, B, S)
 
@@ -747,7 +828,7 @@ def _prefill_paged_merged(params, cfg: ModelConfig, inputs, dest, ctx):
     """Registered prefill backend ("paged", "merged"): stream-as-query
     attention AND direct-to-page KV writes."""
     B, S = inputs.shape[0], inputs.shape[1]
-    logits, _, kvs = _prefill_seq(params, cfg, inputs, ctx,
+    logits, kvs, _ = _prefill_seq(params, cfg, inputs, ctx,
                                   merged_core=True, cache_kind="paged")
     return _finish_paged(cfg, logits, kvs, dest, ctx, B, S)
 
@@ -1050,15 +1131,32 @@ backends.register_backend("paged_q8", "merged", _attn_step_paged_q8_merged,
                           fast_path=True)
 
 
-def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx):
-    """One block, one token (the cache rows are written in place).  On the
-    int8 pool ``k_layer``/``v_layer`` are (pool, scale) pairs, passed
-    through to the backend step as they are."""
+def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx,
+                     state: Optional[m2.SSMState] = None):
+    """One block, one token (the cache rows, and the layer's SSM ``state``
+    views, are written in place).  On the int8 pool ``k_layer``/``v_layer``
+    are (pool, scale) pairs, passed through to the backend step as they
+    are."""
     merged = _is_merged(cfg.block_style)
+    kind = layer_plan(cfg)["kind"]
+
+    def ssm_fn(x):
+        out, new = m2.apply_mamba2_step(p["ssm"], x[:, 0], cfg, state)
+        state.ssm.copy_(new.ssm)
+        state.conv.copy_(new.conv)
+        return out[:, None]
+
+    if kind == "ssm":
+        if cfg.block_style != "standard":  # skipless: no skip, no norm
+            return ssm_fn(u1)
+        x = apply_rmsnorm(p["norm1"], u1) if "norm1" in p else u1
+        return u1 + ssm_fn(x)
 
     def mixer_fn(x):
         cat, _, _ = ctx["backend"].step(p["attn"], cfg, x, k_layer, v_layer,
                                         ctx)
+        if kind == "hybrid":  # P stays: mean-fuse with the SSM heads
+            return 0.5 * (_attn_out_proj(p["attn"], cat) + ssm_fn(x))
         return cat if merged else _attn_out_proj(p["attn"], cat)
 
     return _apply_style(p, cfg, u1, mixer_fn)
@@ -1067,7 +1165,9 @@ def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx):
 def serving_style_key(cfg: ModelConfig) -> str:
     """Style axis of the decode registry key: "merged" iff the per-token
     step can skip every eliminated projection (qp variant of the merged
-    styles); kp/vp decode token-identically through "generic"."""
+    styles on attention stacks); kp/vp decode token-identically through
+    "generic", and so do ssm and hybrid stacks (the hybrid's merge keeps
+    P, so the fast path's contract does not hold)."""
     if layer_plan(cfg)["kind"] not in ("attn", "vlm"):
         return "generic"
     if cfg.block_style in ("skipless_merged", "residual_qpfree") \
@@ -1086,15 +1186,21 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
     (``serving_style_key``), so merged "qp" models take the fast path:
     per-token attention reads only K*/V* weights and the merged ``b_out``
     bias is applied in-stream after the FFN.  Unknown (cache_kind, style,
-    impl) combos raise KeyError from the registry before any compute.  The
-    cache is updated in place."""
+    impl) combos raise KeyError from the registry before any compute, and
+    a paged cache on a stack with SSM layers raises ValueError.  The cache
+    is updated in place: K/V rows, positions, and on ssm / hybrid stacks
+    every layer's SSM state and conv tail."""
     paged_q8 = isinstance(cache, PagedQ8DecodeCache)
     paged = paged_q8 or isinstance(cache, PagedDecodeCache)
     if not paged and not isinstance(cache, DecodeCache):
         raise ValueError(f"forward_step serves a DecodeCache, a "
                          f"PagedDecodeCache or a PagedQ8DecodeCache, got "
                          f"{type(cache).__name__}")
-    _require_dense(cfg)
+    _require_ported(cfg)
+    plan = layer_plan(cfg)
+    if paged and plan["kind"] != "attn":
+        raise ValueError(f"paged decode supports attention-only stacks, not "
+                         f"{plan['kind']!r} (family {cfg.family!r})")
     kind = "paged_q8" if paged_q8 else ("paged" if paged else "dense")
     backend = backends.get_backend(kind, serving_style_key(cfg), impl)
     # embed through the same front end as the sequence path (skipless
@@ -1106,19 +1212,24 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
         ctx["block_tables"] = cache.block_tables
         ctx["append"] = paged_append_slots(cfg, cache.block_tables, length,
                                            cache.k.shape[2])
-    else:
+    elif cache.kv_pos is not None:
         # mark the new token's slot valid BEFORE attention so it attends
         # to itself (ring slot = length % Sc under a sliding window)
         kv_pos = cache.kv_pos
         rows = torch.arange(kv_pos.shape[0], device=kv_pos.device)
         kv_pos[rows, (length % kv_pos.shape[1]).long()] = length
         ctx["kv_pos"] = kv_pos
+    ssm = None if paged else cache.ssm
     for i in range(cfg.n_layers):
         if paged_q8:
             k_i, v_i = (cache.k[i], cache.k_scale[i]), \
                 (cache.v[i], cache.v_scale[i])
-        else:
+        elif cache.k is not None:
             k_i, v_i = cache.k[i], cache.v[i]
-        h = apply_block_step(layer_params(params, i), cfg, h, k_i, v_i, ctx)
+        else:
+            k_i = v_i = None
+        st = None if ssm is None else m2.SSMState(ssm.ssm[i], ssm.conv[i])
+        h = apply_block_step(layer_params(params, i), cfg, h, k_i, v_i, ctx,
+                             st)
     logits = _logits(params, cfg, h)[:, 0, :]
     return logits, cache._replace(length=length + 1)

@@ -77,7 +77,9 @@ class KVCacheAdapter:
 
 class DenseCacheAdapter(KVCacheAdapter):
     """Worst-case-length slot cache: every slot owns a ``max_len`` (or
-    window) stretch of one batched ``DecodeCache``."""
+    window) stretch of one batched ``DecodeCache``, and, on stacks with SSM
+    layers, its scan state and conv tail.  Serves attention, ssm and
+    hybrid stacks."""
 
     kind = "dense"
 
@@ -118,7 +120,9 @@ class DenseCacheAdapter(KVCacheAdapter):
 class PagedCacheAdapter(KVCacheAdapter):
     """Block-pool cache: slots map variable numbers of fixed-size physical
     pages (free-list allocation, prefix sharing, copy-on-write, admission
-    control — ``serving.paged_kv_cache``).  Attention-only stacks.
+    control — ``serving.paged_kv_cache``).  Attention-only stacks: the
+    manager refuses ssm and hybrid configs at construction (ValueError),
+    as the reference does (SSM state has no pages).
 
     ``block_size``/``n_blocks`` default to the ServeConfig's values at
     ``init`` (n_blocks 0 means dense-equivalent memory: n_slots·max_len/bs

@@ -21,12 +21,14 @@ pool and the int8 paged pool.  The engine drives exactly two seams:
 ``device="cuda"`` without a card raises RuntimeError.
 
 Prompt lengths are bucketed (padded to the next power of two, exact logits
-and cache via ``true_len``) except for sliding-window configs on the dense
-cache, whose window-sized ring would drop real positions under a padded
-tail: those prompts reach prefill at their own length (the paged pool
-stores absolute positions, so it buckets windowed configs too).  Every
-prompt is padded up to the adapter's ``bucket_align``, bucketed or not:
-the int8 pool quantizes whole pages.
+and cache via ``true_len``) except for stacks with SSM layers, whose
+prefill state is not position-masked (a padded tail would run through the
+scan), and for sliding-window configs on the dense cache, whose
+window-sized ring would drop real positions under a padded tail: those
+prompts reach prefill at their own length (the paged pool stores absolute
+positions, so it buckets windowed configs too; it serves attention-only
+stacks).  Every prompt is padded up to the adapter's ``bucket_align``,
+bucketed or not: the int8 pool quantizes whole pages.
 
 On the paged pool a request that does not fit is deferred (``submit``
 returns False and ``generate`` retries it after others finish), and when
@@ -161,11 +163,13 @@ class Engine:
         self._n_steps = 0
         self._n_preempted = 0
         self._n_deferred = 0
-        # bucketing needs paddable positions: a dense sliding-window cache
-        # is a window-sized ring that would drop real positions when a
-        # padded tail pushes them out (the paged pool stores absolute
-        # positions)
-        self._bucketing = self.paged or not cfg.sliding_window
+        # bucketing needs paddable positions: causal attention masks a
+        # padded tail, but SSM prefill state is not position-masked, and a
+        # dense sliding-window cache is a window-sized ring that would drop
+        # real positions when a padded tail pushes them out (the paged
+        # pool stores absolute positions)
+        self._bucketing = not cfg.ssm_state and (
+            self.paged or not cfg.sliding_window)
         self.kv.init(cfg, sc, self.device)
         self.kv.build_prefill(impl)
         self._last_token = np.zeros((sc.n_slots,), np.int32)

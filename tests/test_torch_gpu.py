@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+the attention kernels and the SSD scan, and the engines that run them.
 
 Every test here carries the ``gpu`` marker and decides inside the test
 whether a card is present (never at import: the suite runs under several
@@ -479,3 +480,103 @@ def test_paged_q8_engine_on_the_card_matches_the_cpu_engine():
         want[flash] = cfg.n_layers * (len(prompts) + eng.stats["n_preempted"])
         want[decode] = cfg.n_layers * eng.stats["n_steps"]
         assert launch_counts() == want, kind
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan (Mamba2 / Hymba prefill)
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(rng, B, S, H, P, N, dtype, dev):
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P),
+                                             np.float32)).to(dev, dtype)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, H), np.float32)).to(dev))
+    A = -torch.exp(0.5 * torch.from_numpy(
+        rng.standard_normal(H, np.float32)).to(dev))
+    bm, cm = (torch.from_numpy(rng.standard_normal(
+        (B, S, 1, N), np.float32)).to(dev, dtype).expand(B, S, H, N)
+        for _ in range(2))
+    return x, dt, dt * A, bm, cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,P,N", [(50, 64, 16), (80, 64, 128), (4, 16, 8)])
+@pytest.mark.parametrize("S", [1, 130])
+def test_ssd_kernel_matches_the_sequential_oracle(dtype, H, P, N, S):
+    """Hymba-1.5B's and Mamba2-2.7B's scan geometries (and the reduced
+    one), B and C broadcast from one group by a zero head stride, a
+    ragged last chunk: y and the final state against ``ref_ssd`` within
+    3e-5 of the oracle's largest |value| (float32 outputs on both sides;
+    sums in another order)."""
+    dev = _cuda()
+    from repro_torch.kernels import ssd_scan as sk
+
+    rng = np.random.default_rng(H + N + S)
+    args = _ssd_inputs(rng, 2, S, H, P, N, dtype, dev)
+    y, fin = sk.ssd_chunk_scan(*args, chunk=256)
+    want_y, want_fin = ref.ref_ssd(*args)
+    for got, want in ((y, want_y), (fin, want_fin)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=3e-5 * float(want.abs().max()))
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _cuda()
+    from repro_torch.kernels import ssd_scan as sk
+
+    rng = np.random.default_rng(0)
+    x, dt, a, bm, cm = _ssd_inputs(rng, 1, 8, 2, 64, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="float32"):
+        sk.ssd_chunk_scan(x, dt.half(), a, bm, cm, chunk=8)
+    with pytest.raises(ValueError, match="share"):
+        sk.ssd_chunk_scan(x.bfloat16(), dt, a, bm, cm, chunk=8)
+    with pytest.raises(ValueError, match="head dim"):
+        sk.ssd_chunk_scan(x[..., :48].contiguous(), dt, a, bm, cm, chunk=8)
+    with pytest.raises(ValueError, match="one set of strides"):
+        sk.ssd_chunk_scan(x, dt, a, bm, cm.contiguous(), chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.ssd_chunk_scan(x.transpose(2, 3).contiguous().transpose(2, 3),
+                          dt, a, bm, cm, chunk=8)
+    with pytest.raises(ValueError, match="several devices"):
+        sk.ssd_chunk_scan(x, dt.cpu(), a, bm, cm, chunk=8)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-2.7b"])
+def test_ssm_engines_on_the_card_match_the_cpu_engine(arch):
+    """Reduced Hymba (head dim 64, which the attention kernels take; its
+    window cut to 24 so the ring wraps), source and qp merge, and reduced
+    Mamba2 serve the CPU engine's greedy streams through the CUDA kernels,
+    and the counters show the flash, decode and SSD launches of each."""
+    dev = _cuda()
+    from repro_torch.core.merge import merge_skipless
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = reduce_config(get_config(arch))
+    models = []
+    if arch == "hymba-1.5b":
+        cfg = cfg.with_(block_style="skipless", d_model=256, n_heads=4,
+                        n_kv_heads=1, d_head=64, sliding_window=24)
+        params = init_params(cfg, seed=0, device="cpu")
+        mparams, mcfg = merge_skipless(params, cfg, "qp")
+        models = [(cfg, params), (mcfg, mparams)]
+    else:
+        models = [(cfg, init_params(cfg, seed=0, device="cpu"))]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 19, 40)]
+    sc = ServeConfig(n_slots=2, max_len=64)
+    for c, p in models:
+        cpu = Engine(c, p, sc, impl="torch", device="cpu").generate(
+            prompts, max_new_tokens=12)
+        reset_launch_counts()
+        eng = Engine(c, tree_map(lambda t: t.to(dev), p), sc, impl="cuda",
+                     device=dev)
+        gpu = eng.generate(prompts, max_new_tokens=12)
+        assert [list(o) for o in gpu] == [list(o) for o in cpu], c.name
+        want = {k: 0 for k in launch_counts()}
+        want["ssd_chunk_scan"] = c.n_layers * len(prompts)
+        if c.has_attention:
+            want["flash_attention_bhsd"] = c.n_layers * len(prompts)
+            want["decode_attention_bhsd"] = c.n_layers * eng.stats["n_steps"]
+        assert launch_counts() == want, c.name

@@ -334,8 +334,11 @@ def test_paged_prefill_refuses_bad_destinations():
     with pytest.raises(ValueError, match="attention-only"):
         tpkv.PagedCacheManager(ssm, n_slots=2, max_len=32, block_size=4,
                                n_blocks=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="attention-only"):
         tm.forward_step(p, ssm, torch.zeros(2, dtype=torch.long), c)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.forward_step(p, tc.with_(family="moe", n_experts=4),
+                        torch.zeros(2, dtype=torch.long), c)
 
 
 def test_paged_cache_spec_matches_the_jax_package():

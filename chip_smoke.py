@@ -15,8 +15,11 @@ NVIDIA card.  Run from the repository root:
    Mistral-7B's (Hq=32, Hkv=8, D=128): dense caches, page pools behind
    permuted block tables with -1 holes, a shared page and a wrapped ring,
    the same tables over int8 pools whose unmapped pages have NaN scales,
-   and int8 prompt K*/V*; the generic flash and decode kernels also at
-   Hymba-1.5B's (Hq=25, Hkv=5, D=64); the SSD scan at Hymba's (H 50, P 64,
+   and int8 prompt K*/V*; the flash kernels also at long prompts in
+   bf16 (2048 and 4096 tokens causal, 2048 with window 512, q8 at 2048)
+   and at 2048 in float32; the generic flash and decode kernels also at
+   Hymba-1.5B's (Hq=25, Hkv=5, D=64; flash also at 2048 with its window of
+   1024); the SSD scan at Hymba's (H 50, P 64,
    N 16) and Mamba2-2.7B's (H 80, P 64, N 128) — and times kernel, plain
    version and, as a yardstick the port never calls,
    ``scaled_dot_product_attention`` (for the paged kernels: on the cache
@@ -56,9 +59,10 @@ NVIDIA card.  Run from the repository root:
      int8 pool the q8 decode kernels with the q8 flash kernel (merged) or
      the fp flash kernel (source); the merged model then serves in
      bfloat16 on all three caches, and tok/s, TTFT, a profile of its
-     decode steps on each cache, and the peak concurrent streams of the
-     fp and int8 pools at one byte budget are printed beside the card's
-     name;
+     decode steps on each cache, profiles of its dense prefill of 250 and
+     2048 tokens (with the flash kernels' share of the device time), and
+     the peak concurrent streams of the fp and int8 pools at one byte
+     budget are printed beside the card's name;
 6. path phase, Hymba-1.5B (``hybrid_path``): skipless at full width and
    its qp merge (Q removed, P kept) on the dense cache, prompts of 16, 37,
    250 and 512 tokens (512: SSM state carried across two 256-token
@@ -361,10 +365,31 @@ def decode_phase(rng, rows, hymba=False):
             del us, ks, vs, khs, vhs
 
 
-def flash_phase(rng, rows, hymba=False):
+def flash_cases(hymba=False):
+    """The flash rows' (dtype, S, window, kernels): the main path's
+    prompt lengths (16-512) in both dtypes, then long prompts in bf16
+    (Mistral: 2048 and 4096 causal and 2048 with window 512; Hymba: 2048
+    with its window of 1024) and one float32 row at 2048."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = ("flash_attention_bhsd",) if hymba else \
+        ("flash_attention_merged_bsd", "flash_attention_bhsd")
+    cases = [(dtype, S, window, names) for dtype in (bf16, f32)
+             for S in (16, 37, 250, 512)
+             for window in ((0,) if hymba else (0, 64))]
+    if hymba:
+        return cases + [(bf16, 2048, 1024, names)]
+    return cases + [(bf16, 2048, 0, names), (bf16, 4096, 0, names),
+                    (bf16, 2048, 512, names),
+                    (f32, 2048, 0, ("flash_attention_merged_bsd",))]
+
+
+def flash_phase(rng, rows, hymba=False, cases=None):
     """Rows 1 and 2 at Mistral-7B's attention shape; with ``hymba`` row 1
     (the hybrid's prefill kernel) at Hymba-1.5B's (Hq 25, Hkv 5, D 64;
-    its window of 1024 exceeds every prompt), untimed in the JSON line."""
+    its window of 1024 exceeds the prompts up to 512, so those rows take
+    window 0), untimed in the JSON line; ``cases`` (default
+    ``flash_cases(hymba)``) picks the rows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -373,66 +398,61 @@ def flash_phase(rng, rows, hymba=False):
     Hq, Hkv, D = HYMBA_ATTN if hymba else MISTRAL_ATTN
     B = 1
     dev = torch.device("cuda")
-    names = ("flash_attention_bhsd",) if hymba else \
-        ("flash_attention_merged_bsd", "flash_attention_bhsd")
     geom = f" Hq={Hq} Hkv={Hkv} D={D}" if hymba else ""
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, S, window, names in cases or flash_cases(hymba):
         el = torch.tensor([], dtype=dtype).element_size()
-        for S in (16, 37, 250, 512):
-            for window in ((0,) if hymba else (0, 64)):
-                nbytes = B * S * (2 * Hq + 2 * Hkv) * D * el  # q, k, v, out
-                n_sets = n_sets_for(nbytes)
+        nbytes = B * S * (2 * Hq + 2 * Hkv) * D * el  # q, k, v, out
+        n_sets = n_sets_for(nbytes)
 
-                def rand(*shape):
-                    return torch.from_numpy(rng.standard_normal(
-                        shape, np.float32)).to(dev, dtype)
+        def rand(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, np.float32)).to(dev, dtype)
 
-                us = [rand(B, S, Hq, D) for _ in range(n_sets)]
-                ks = [rand(B, S, Hkv, D) for _ in range(n_sets)]
-                vs = [rand(B, S, Hkv, D) for _ in range(n_sets)]
-                qh = [u.transpose(1, 2).contiguous() for u in us]
-                kh = [k.transpose(1, 2).contiguous() for k in ks]
-                vh = [v.transpose(1, 2).contiguous() for v in vs]
-                i_ = torch.arange(S, device=dev)
-                ok = i_[None, :] <= i_[:, None]
-                if window:
-                    ok &= i_[:, None] - i_[None, :] < window
-                pairs = int(ok.sum())
-                flops = 4 * D * Hq * B * pairs
-                bound = bound_ms(nbytes, flops, dtype)
+        us = [rand(B, S, Hq, D) for _ in range(n_sets)]
+        ks = [rand(B, S, Hkv, D) for _ in range(n_sets)]
+        vs = [rand(B, S, Hkv, D) for _ in range(n_sets)]
+        qh = [u.transpose(1, 2).contiguous() for u in us]
+        kh = [k.transpose(1, 2).contiguous() for k in ks]
+        vh = [v.transpose(1, 2).contiguous() for v in vs]
+        i_ = torch.arange(S, device=dev)
+        ok = i_[None, :] <= i_[:, None]
+        if window:
+            ok &= i_[:, None] - i_[None, :] < window
+        pairs = int(ok.sum())
+        flops = 4 * D * Hq * B * pairs
+        bound = bound_ms(nbytes, flops, dtype)
 
-                def sdpa(i):
-                    if window:
-                        return F.scaled_dot_product_attention(
-                            qh[i], kh[i], vh[i], attn_mask=ok,
-                            enable_gqa=True)
-                    return F.scaled_dot_product_attention(
-                        qh[i], kh[i], vh[i], is_causal=True, enable_gqa=True)
+        def sdpa(i):
+            if window:
+                return F.scaled_dot_product_attention(
+                    qh[i], kh[i], vh[i], attn_mask=ok, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qh[i], kh[i], vh[i], is_causal=True, enable_gqa=True)
 
-                for name in names:
-                    if name == "flash_attention_merged_bsd":
-                        def kern(i):
-                            return fk.flash_attention_merged_bsd(
-                                us[i], ks[i], vs[i], sliding_window=window)
+        for name in names:
+            if name == "flash_attention_merged_bsd":
+                def kern(i):
+                    return fk.flash_attention_merged_bsd(
+                        us[i], ks[i], vs[i], sliding_window=window)
 
-                        def plain(i):
-                            return ref.ref_flash_attention_merged(
-                                us[i], ks[i], vs[i], sliding_window=window)
-                    else:
-                        def kern(i):
-                            return fk.flash_attention_bhsd(
-                                qh[i], kh[i], vh[i], sliding_window=window)
+                def plain(i):
+                    return ref.ref_flash_attention_merged(
+                        us[i], ks[i], vs[i], sliding_window=window)
+            else:
+                def kern(i):
+                    return fk.flash_attention_bhsd(
+                        qh[i], kh[i], vh[i], sliding_window=window)
 
-                        def plain(i):
-                            return ref.ref_attention(
-                                qh[i], kh[i], vh[i], sliding_window=window)
-                    rows.append(kernel_row(
-                        name, dtype,
-                        f"B={B} Sq=Sk={S} causal window={window}{geom}",
-                        kern, plain, sdpa, n_sets, bound,
-                        timed=(S == 250 and window == 0 and not hymba
-                               and dtype == torch.bfloat16)))
-                del us, ks, vs, qh, kh, vh
+                def plain(i):
+                    return ref.ref_attention(
+                        qh[i], kh[i], vh[i], sliding_window=window)
+            rows.append(kernel_row(
+                name, dtype, f"B={B} Sq=Sk={S} causal window={window}{geom}",
+                kern, plain, sdpa, n_sets, bound,
+                timed=(S == 250 and window == 0 and not hymba
+                       and dtype == torch.bfloat16)))
+        del us, ks, vs, qh, kh, vh, ok
+        torch.cuda.empty_cache()
 
 
 PAGE, NB_POOL = 16, 128  # paged kernel rows: page size, pages in the pool
@@ -626,10 +646,15 @@ def quant_check(rng):
         f"pages, a masked sequence, 40 appends)")
 
 
-def q8_flash_phase(rng, rows):
+Q8_FLASH_CASES = [(dtype, S, window) for dtype in ("bfloat16", "float32")
+                  for S, window in ((16, 0), (256, 0), (512, 0), (256, 64))] \
+    + [("bfloat16", 2048, 0)]
+
+
+def q8_flash_phase(rng, rows, cases=Q8_FLASH_CASES):
     """Row 3: the merged q8 flash kernel over int8 K*/V* quantized from
     seeded floats at the pool's granularity (pages of 16), page-aligned
-    prompt lengths, causal, and a window-64 row."""
+    prompt lengths, causal, and a window-64 row; a 2048-token bf16 row."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -637,55 +662,56 @@ def q8_flash_phase(rng, rows):
 
     B = 1
     dev = torch.device("cuda")
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype_name, S, window in cases:
+        dtype = getattr(torch, dtype_name)
         el = torch.tensor([], dtype=dtype).element_size()
-        for S, window in ((16, 0), (256, 0), (512, 0), (256, 64)):
-            nbytes = (B * S * 2 * Hq * D * el + B * S * 2 * Hkv * D
-                      + 2 * B * (S // PAGE) * Hkv * 4)  # u, out, k, v, scales
-            n_sets = n_sets_for(nbytes)
+        nbytes = (B * S * 2 * Hq * D * el + B * S * 2 * Hkv * D
+                  + 2 * B * (S // PAGE) * Hkv * 4)  # u, out, k, v, scales
+        n_sets = n_sets_for(nbytes)
 
-            def q8_seq():
-                return quant.q8_quantize_seq(torch.from_numpy(
-                    rng.standard_normal((B, S, Hkv, D), np.float32)).to(dev),
-                    PAGE)
+        def q8_seq():
+            return quant.q8_quantize_seq(torch.from_numpy(
+                rng.standard_normal((B, S, Hkv, D), np.float32)).to(dev),
+                PAGE)
 
-            us = [torch.from_numpy(rng.standard_normal(
-                (B, S, Hq, D), np.float32)).to(dev, dtype)
-                for _ in range(n_sets)]
-            ks = [q8_seq() for _ in range(n_sets)]
-            vs = [q8_seq() for _ in range(n_sets)]
-            qh = [u.transpose(1, 2).contiguous() for u in us]
-            kh, vh = ([quant.q8_dequant_seq(t, sc, dtype).transpose(1, 2)
-                       .contiguous() for t, sc in seqs] for seqs in (ks, vs))
-            i_ = torch.arange(S, device=dev)
-            ok = i_[None, :] <= i_[:, None]
+        us = [torch.from_numpy(rng.standard_normal(
+            (B, S, Hq, D), np.float32)).to(dev, dtype)
+            for _ in range(n_sets)]
+        ks = [q8_seq() for _ in range(n_sets)]
+        vs = [q8_seq() for _ in range(n_sets)]
+        qh = [u.transpose(1, 2).contiguous() for u in us]
+        kh, vh = ([quant.q8_dequant_seq(t, sc, dtype).transpose(1, 2)
+                   .contiguous() for t, sc in seqs] for seqs in (ks, vs))
+        i_ = torch.arange(S, device=dev)
+        ok = i_[None, :] <= i_[:, None]
+        if window:
+            ok &= i_[:, None] - i_[None, :] < window
+        bound = bound_ms(nbytes, 4 * D * Hq * B * int(ok.sum()), dtype)
+
+        def sdpa(i):
             if window:
-                ok &= i_[:, None] - i_[None, :] < window
-            bound = bound_ms(nbytes, 4 * D * Hq * B * int(ok.sum()), dtype)
-
-            def sdpa(i):
-                if window:
-                    return F.scaled_dot_product_attention(
-                        qh[i], kh[i], vh[i], attn_mask=ok, enable_gqa=True)
                 return F.scaled_dot_product_attention(
-                    qh[i], kh[i], vh[i], is_causal=True, enable_gqa=True)
+                    qh[i], kh[i], vh[i], attn_mask=ok, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qh[i], kh[i], vh[i], is_causal=True, enable_gqa=True)
 
-            def kern(i):
-                return fk.flash_attention_merged_q8_bsd(
-                    us[i], ks[i][0], vs[i][0], ks[i][1], vs[i][1],
-                    sliding_window=window)
+        def kern(i):
+            return fk.flash_attention_merged_q8_bsd(
+                us[i], ks[i][0], vs[i][0], ks[i][1], vs[i][1],
+                sliding_window=window)
 
-            def plain(i):
-                return ref.ref_flash_attention_merged_q8(
-                    us[i], ks[i][0], vs[i][0], ks[i][1], vs[i][1],
-                    sliding_window=window)
+        def plain(i):
+            return ref.ref_flash_attention_merged_q8(
+                us[i], ks[i][0], vs[i][0], ks[i][1], vs[i][1],
+                sliding_window=window)
 
-            rows.append(kernel_row(
-                "flash_attention_merged_q8_bsd", dtype,
-                f"B={B} Sq=Sk={S} int8 sg={PAGE} causal window={window}",
-                kern, plain, sdpa, n_sets, bound,
-                timed=(S == 256 and window == 0 and dtype == torch.bfloat16)))
-            del us, ks, vs, qh, kh, vh
+        rows.append(kernel_row(
+            "flash_attention_merged_q8_bsd", dtype,
+            f"B={B} Sq=Sk={S} int8 sg={PAGE} causal window={window}",
+            kern, plain, sdpa, n_sets, bound,
+            timed=(S == 256 and window == 0 and dtype == torch.bfloat16)))
+        del us, ks, vs, qh, kh, vh
+        torch.cuda.empty_cache()
 
 
 SSD_CHUNK = 256  # the reference's chunk (both configs' ssm_chunk)
@@ -1233,6 +1259,7 @@ def path_phase(summary):
         summary["decode_profile_bf16"] = {
             cache: profile_decode(bcfg, bparams, prompts, cache)
             for cache in ("dense", "paged", "paged_q8")}
+        summary["prefill_profile_bf16"] = prefill_profiles(bcfg, bparams)
         summary["equal_budget_bf16"] = equal_budget(bcfg, bparams)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
@@ -1435,16 +1462,21 @@ def profiled(what, fn, steps):
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    flash = sum(r[0] for r in rows if "flash" in r[1]) / 1e6
     out = {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
            "device_ms_per_step": busy / steps * 1e3,
            "device_busy_share": busy / wall,
+           "flash_ms_per_step": flash / steps * 1e3,
+           "flash_share_of_device": flash / busy if busy else 0.0,
            "kernels_per_step": sum(r[2] for r in rows) // steps,
            "top": [[k[:90], us / steps / 1e3, n // steps]
                    for us, k, n in rows[:8]]}
     log(f"  {what} ({steps} calls): {out['wall_ms_per_step']:.2f} ms/call "
         f"wall, {out['device_ms_per_step']:.2f} ms/call of kernels "
         f"({100 * out['device_busy_share']:.0f}% busy), "
-        f"{out['kernels_per_step']} kernel launches/call")
+        f"{out['kernels_per_step']} kernel launches/call; flash kernels "
+        f"{out['flash_ms_per_step']:.3f} ms/call, "
+        f"{100 * out['flash_share_of_device']:.1f}% of the kernels' time")
     for k, ms, n in out["top"]:
         log(f"    {ms:8.3f} ms/call  {n:4d} calls/call  {k[:90]}")
     if not rows:
@@ -1466,22 +1498,37 @@ def profile_decode(cfg, params, prompts, cache, steps=5, max_len=512):
                     f"({cfg.n_layers} layers, 4 slots)", eng.step, steps)
 
 
-def profile_prefill(cfg, params, prompt, steps=3):
+def profile_prefill(cfg, params, prompt, steps=3, max_len=None):
     """``profiled`` over ``steps`` dense prefills of one prompt (after one
-    unprofiled warm-up)."""
+    unprofiled warm-up) into a cache of ``max_len`` positions (default
+    ``SSM_MAX_LEN``)."""
     import torch
     from repro_torch.models import DensePrefillDest, forward_prefill
 
     x = torch.as_tensor(prompt, device="cuda")[None]
 
     def run():
-        forward_prefill(params, cfg, x, DensePrefillDest(SSM_MAX_LEN),
-                        impl="cuda")
+        forward_prefill(params, cfg, x,
+                        DensePrefillDest(max_len or SSM_MAX_LEN), impl="cuda")
 
     run()
     return profiled(f"prefill profile, {cfg.name}, {cfg.dtype} "
                     f"({cfg.n_layers} layers, {len(prompt)} tokens)", run,
                     steps)
+
+
+PREFILL_PROFILE_LENS = (250, 2048)
+
+
+def prefill_profiles(cfg, params):
+    """Dense prefill profiles of one seeded prompt of each of
+    ``PREFILL_PROFILE_LENS`` tokens, keyed by length."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    return {str(n): profile_prefill(cfg, params,
+                                    rng.integers(0, cfg.vocab_size, n),
+                                    max_len=n)
+            for n in PREFILL_PROFILE_LENS}
 
 
 def report(tag, outs, wall):
@@ -1570,7 +1617,8 @@ def run() -> int:
             f"{r['ms']:.4f} [{runs}] eager {r['eager_ms']:.4f}  plain "
             f"{r['plain_ms']:.4f}  sdpa {lib}  bound "
             f"{r['bound_ms']:.5f} ({r['bound_by']}; bytes "
-            f"{r['bytes_ms']:.5f}, flops {r['ops_ms']:.5f})")
+            f"{r['bytes_ms']:.5f}, flops {r['ops_ms']:.5f}; kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)")
 
     summary = {}
     path_phase(summary)

@@ -153,23 +153,29 @@ def on_cuda(name: str, *tensors) -> bool:
     return dev.type == "cuda"
 
 
-def _check_layout(name: str, tensors) -> None:
+def _check_layout(name: str, tensors, strided: bool = False) -> None:
+    """Contiguous operands (``strided``: any strides, the last dimension
+    dense) whose elements lie within int32 offsets."""
     for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-        if t.numel() >= 2 ** 31:
+        if not (t.stride(-1) == 1 if strided else t.is_contiguous()):
+            where = " in their last dimension" if strided else ""
+            raise ValueError(f"{name}: operands must be contiguous{where}")
+        span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+        if max(span, t.numel()) >= 2 ** 31:
             raise ValueError(f"{name}: operand too large for int32 offsets")
 
 
-def check_operands(name: str, data, ints=()) -> int:
-    """Checks dtype, contiguity and int32 addressability of the float
-    operands ``data`` (one dtype, float32 or bfloat16) and the int32
-    operands ``ints``; returns the dtype code the launch function takes."""
+def check_operands(name: str, data, ints=(), strided: bool = False) -> int:
+    """Checks dtype, layout (``_check_layout``) and int32 addressability of
+    the float operands ``data`` (one dtype, float32 or bfloat16) and the
+    int32 operands ``ints``; returns the dtype code the launch function
+    takes."""
     dt = data[0].dtype
     if any(t.dtype != dt for t in data) or str(dt) not in DTYPE_CODES:
         raise ValueError(f"{name}: float operands must share float32 or "
                          f"bfloat16, got {[t.dtype for t in data]}")
-    _check_layout(name, (*data, *ints))
+    _check_layout(name, data, strided)
+    _check_layout(name, ints)
     for t in ints:
         if str(t.dtype) != "torch.int32":
             raise ValueError(f"{name}: position and table operands must be "
@@ -195,6 +201,19 @@ def check_q8_operands(name: str, q, pools, scales, ints=()) -> int:
         raise ValueError(f"{name}: K/V head dim differs from the query's "
                          f"{q.shape[-1]}")
     return code
+
+
+def check_aligned(name: str, tensors) -> None:
+    """Operands of a kernel that moves 16-byte chunks (the bf16 flash
+    body): each pointer 16-byte aligned, each stride but the last a whole
+    number of 16 bytes (a dimension of size 1 has no stride to check)."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(
+                n > 1 and st * t.element_size() % 16
+                for n, st in zip(t.shape[:-1], t.stride()[:-1])):
+            raise ValueError(f"{name}: bfloat16 and int8 operands need "
+                             f"16-byte aligned pointers and strides, got "
+                             f"strides {t.stride()} of {t.dtype}")
 
 
 def check_launch(name: str, err: int) -> None:

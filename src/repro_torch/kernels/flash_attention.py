@@ -4,7 +4,8 @@
 Counterparts of ``repro.kernels.flash_attention``'s three kernels:
 
   * ``flash_attention_bhsd`` — generic: head-major q (B, Hq, Sq, D) and
-    k/v (B, Hkv, Sk, D);
+    k/v (B, Hkv, Sk, D); ``flash_attention_bshd`` launches the same
+    kernel on sequence-major (B, S, H, D) views with their own strides;
   * ``flash_attention_merged_bsd`` — the paper's merged (Q/P-removed)
     prefill fast path: the RoPE'd residual stream viewed (B, Sq, Hq, D) is
     the query, K*/V* tiles are read in their native (B, Sk, Hkv, D) layout
@@ -33,9 +34,10 @@ launches = {"flash_attention_bhsd": 0, "flash_attention_merged_bsd": 0,
 
 
 def _launch(name, q, k, v, *, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
-            causal, sliding_window, scales=()):
+            causal, sliding_window, scales=(), strided=False):
     """Launch the flash body: fp K/V, or int8 K/V with their ``scales``
-    (k_scale, v_scale), each (B, Sk // sg, Hkv)."""
+    (k_scale, v_scale), each (B, Sk // sg, Hkv); the output takes q's
+    strides.  ``strided`` operands need only a dense last dimension."""
     D = q.shape[-1]
     if scales:
         code = _build.check_q8_operands(name, q, (k, v), scales)
@@ -46,10 +48,12 @@ def _launch(name, q, k, v, *, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
                              f"with sg | Sk={Sk}, got "
                              f"{[tuple(s.shape) for s in scales]}")
     else:
-        code = _build.check_operands(name, (q, k, v))
+        code = _build.check_operands(name, (q, k, v), strided=strided)
     if Hq % Hkv:
         raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv heads")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q)  # q's strides: q is contiguous or dense
+    if q.dtype == torch.bfloat16:
+        _build.check_aligned(name, (q, k, v, out))
     lib = _build.library("flash_attention")
     args = (code, D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *(s.data_ptr() for s in scales), out.data_ptr(), B, Hq, Hkv, Sq,
@@ -87,6 +91,42 @@ def flash_attention_bhsd(
                    q_strides=(Hq * Sq * D, D, Sq * D),
                    k_strides=(Hkv * Sk * D, D, Sk * D),
                    causal=causal, sliding_window=sliding_window)
+
+
+def flash_attention_bshd(
+    q: torch.Tensor,  # (B, Sq, Hq, D), any strides, D dense
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Generic flash attention on sequence-major views -> (B, Sq, Hq, D):
+    the ``flash_attention_bhsd`` kernel launched on the tensors' own
+    strides (no head-major copies), counted under its key."""
+    name = "flash_attention_bhsd"
+    if not _build.on_cuda(name, q, k, v):
+        return ref_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal,
+                             sliding_window=sliding_window).transpose(1, 2)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+
+    def strides(t):  # (batch, seq, head); a size-1 dim's stride is unused
+        return tuple(st if n > 1 else 0
+                     for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+    if tuple(k.shape) != (B, Sk, Hkv, D) or k.shape != v.shape or \
+            strides(k) != strides(v):
+        raise ValueError(f"{name}: k/v must be (B, Sk, Hkv, D) with one "
+                         f"set of strides, got {tuple(k.shape)} "
+                         f"{k.stride()}, {tuple(v.shape)} {v.stride()}")
+    if torch.empty_like(q).stride() != q.stride():
+        q = q.contiguous()  # the output takes q's strides: q must be dense
+    return _launch(name, q, k, v, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk,
+                   q_strides=strides(q), k_strides=strides(k),
+                   causal=causal, sliding_window=sliding_window,
+                   strided=True)
 
 
 def flash_attention_merged_bsd(

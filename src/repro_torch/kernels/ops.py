@@ -3,10 +3,11 @@ which (phase, cache_kind, style) has a kernel.
 
 Counterparts of ``repro.kernels.ops``' dense, paged and paged_q8 rows and
 of its SSD scan (``ssd_scan``).
-The generic dense wrappers
-keep the reference's head-major transposes (``.contiguous()`` copies of
-q/k/v, and of the whole cache at decode): they are part of what the
-merged layout removes, so the generic/merged comparison measures it.  The
+The generic flash wrapper hands the sequence-major q/k/v to the
+``flash_attention_bhsd`` kernel with their own strides
+(``flash_attention_bshd``: no copies); the generic dense decode wrapper
+keeps the reference's head-major transposes (``.contiguous()`` copies of
+q and of the whole cache), part of what the merged layout removes.  The
 merged wrappers hand the stream and the native cache to the kernel as
 views.  Unlike the TPU wrappers there is no block-size search: the CUDA
 kernels mask ragged tails, so any prompt length runs at full tile size.
@@ -36,7 +37,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_paged_bhsd, decode_attention_paged_merged_bsd,
     decode_attention_paged_q8_bhsd, decode_attention_paged_q8_merged_bsd)
 from repro_torch.kernels.flash_attention import (
-    flash_attention_bhsd, flash_attention_merged_bsd,
+    flash_attention_bshd, flash_attention_merged_bsd,
     flash_attention_merged_q8_bsd)
 from repro_torch.kernels.paging import paged_ring_active
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan
@@ -66,11 +67,8 @@ def flash_attention(
     kv_valid=None,
 ) -> torch.Tensor:
     _no_kv_valid(kv_valid)
-    out = flash_attention_bhsd(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=causal,
-        sliding_window=sliding_window)
-    return out.transpose(1, 2)  # back to (B, Sq, Hq, D)
+    return flash_attention_bshd(q, k, v, causal=causal,
+                                sliding_window=sliding_window)
 
 
 def flash_attention_merged(

@@ -97,17 +97,26 @@ def test_decode_row_with_nothing_to_attend_is_exactly_zero():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("Sq", [1, 37, 130])
-@pytest.mark.parametrize("window", [0, 17])
-def test_flash_kernels_match_plain(dtype, D, Sq, window):
+@pytest.mark.parametrize("Sq", [1, 37, 64, 65, 130, 257, 1000])
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("window", [0, 17, 64])
+@pytest.mark.parametrize("sk_delta", [0, 29, -11])
+def test_flash_kernels_match_plain(dtype, D, Sq, G, window, sk_delta):
+    """Both layouts against the plain version: Sq crossing and straddling
+    the 32- and 64-row q tiles and 64-key kv tiles, GQA groups of 1, 4 and
+    5, windows cutting tiles mid-way, B = 2, and Sk longer or shorter than
+    Sq (keys past the last query are never attended; queries past the last
+    key attend all of them within the window)."""
     dev = _cuda()
-    rng = np.random.default_rng(D + Sq + window)
-    B, Hq, Hkv = 2, 8, 2
+    Sk = max(1, Sq + sk_delta)
+    rng = np.random.default_rng(D + Sq + 7 * G + window + sk_delta)
+    B, Hkv = 2, 2
+    Hq = G * Hkv
     u = torch.from_numpy(rng.standard_normal((B, Sq, Hq, D),
                                              np.float32)).to(dev, dtype)
-    k = torch.from_numpy(rng.standard_normal((B, Sq, Hkv, D),
+    k = torch.from_numpy(rng.standard_normal((B, Sk, Hkv, D),
                                              np.float32)).to(dev, dtype)
-    v = torch.from_numpy(rng.standard_normal((B, Sq, Hkv, D),
+    v = torch.from_numpy(rng.standard_normal((B, Sk, Hkv, D),
                                              np.float32)).to(dev, dtype)
     got = fk.flash_attention_merged_bsd(u, k, v, sliding_window=window)
     want = ref.ref_flash_attention_merged(u, k, v, sliding_window=window)
@@ -118,6 +127,76 @@ def test_flash_kernels_match_plain(dtype, D, Sq, window):
     want = ref.ref_attention(qh, kh, vh, sliding_window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=_tol(want))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("window", [0, 17, 64])
+def test_flash_paired_heads_match_plain(D, window):
+    """Enough blocks that the bf16 body pairs the two query heads of a kv
+    group in one block (64 query heads over 16 kv heads, 5 q tiles, B 2),
+    fp and q8 K/V, against the plain versions."""
+    dev = _cuda()
+    from repro_torch.kernels import quant
+    rng = np.random.default_rng(D + window)
+    B, S, Hq, Hkv = 2, 304, 64, 16
+    dtype = torch.bfloat16
+    u = torch.from_numpy(rng.standard_normal((B, S, Hq, D),
+                                             np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, Hkv, D), np.float32))
+            .to(dev) for _ in range(2))
+    got = fk.flash_attention_merged_bsd(u, k.to(dtype), v.to(dtype),
+                                        sliding_window=window)
+    want = ref.ref_flash_attention_merged(u, k.to(dtype), v.to(dtype),
+                                          sliding_window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+    (k8, ks), (v8, vs) = (quant.q8_quantize_seq(x, 16) for x in (k, v))
+    got = fk.flash_attention_merged_q8_bsd(u, k8, v8, ks, vs,
+                                           sliding_window=window)
+    want = ref.ref_flash_attention_merged_q8(u, k8, v8, ks, vs,
+                                             sliding_window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_generic_flash_equals_contiguous(dtype):
+    """``ops.flash_attention`` launches the generic kernel on the
+    sequence-major views it is given (here q a head-major tensor seen
+    sequence-major, k and v slices of one fused kv tensor: no view is
+    contiguous) with their own strides: the same numbers as the
+    head-major contiguous launch, counted under the same key."""
+    from repro_torch.kernels import ops
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    B, S, Hq, Hkv, D = 2, 130, 8, 2, 128
+    q = torch.from_numpy(rng.standard_normal(
+        (B, Hq, S, D), np.float32)).to(dev, dtype).transpose(1, 2)
+    kv = torch.from_numpy(rng.standard_normal(
+        (B, S, 2 * Hkv * D), np.float32)).to(dev, dtype)
+    k = kv[..., :Hkv * D].unflatten(-1, (Hkv, D))
+    v = kv[..., Hkv * D:].unflatten(-1, (Hkv, D))
+    assert not any(t.is_contiguous() for t in (q, k, v))
+    reset_launch_counts()
+    got = ops.flash_attention(q, k, v, sliding_window=17)
+    assert launch_counts()["flash_attention_bhsd"] == 1
+    want = fk.flash_attention_bhsd(
+        *(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+        sliding_window=17).transpose(1, 2)
+    assert got.shape == (B, S, Hq, D)
+    assert torch.equal(got, want)
+
+
+def test_bf16_flash_rejects_head_dim_96():
+    dev = _cuda()
+    u = torch.zeros((1, 16, 8, 96), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((1, 16, 2, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fk.flash_attention_merged_bsd(u, k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        fk.flash_attention_bhsd(u.transpose(1, 2).contiguous(),
+                                k.transpose(1, 2).contiguous(),
+                                k.transpose(1, 2).contiguous())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -365,14 +444,17 @@ def test_paged_q8_decode_kernels_match_plain(dtype, G, D, window, bs, MB,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("S,sg", [(16, 16), (48, 8), (144, 16)])
-@pytest.mark.parametrize("window", [0, 17])
-def test_flash_q8_kernel_matches_plain(dtype, D, S, sg, window):
+@pytest.mark.parametrize("S,sg", [(16, 16), (48, 8), (72, 8), (144, 16),
+                                  (264, 8), (1008, 16)])
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("window", [0, 17, 64])
+def test_flash_q8_kernel_matches_plain(dtype, D, S, sg, G, window):
     dev = _cuda()
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import quant
-    rng = np.random.default_rng(D + S + sg + window)
-    B, Hq, Hkv = 2, 8, 2
+    rng = np.random.default_rng(D + S + sg + 7 * G + window)
+    B, Hkv = 2, 2
+    Hq = G * Hkv
     u = torch.from_numpy(rng.standard_normal((B, S, Hq, D),
                                              np.float32)).to(dev, dtype)
     kv = [torch.from_numpy(rng.standard_normal((B, S, Hkv, D),
@@ -384,6 +466,39 @@ def test_flash_q8_kernel_matches_plain(dtype, D, S, sg, window):
     want = ref.ref_flash_attention_merged_q8(u, k8, v8, ks, vs,
                                              sliding_window=window)
     assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+
+
+@pytest.mark.parametrize("sg", [8, 16])
+@pytest.mark.parametrize("window", [0, 17])
+def test_flash_q8_never_reads_the_scale_of_an_unattended_page(sg, window):
+    """Sk > Sq, causal: the pages wholly past the last query row are
+    attended by no row.  Their scales are NaN here, and the bf16 body's
+    output equals the plain version's with the true scales (a kernel
+    that read them would turn its rows NaN).  The float32 FMA body, kept
+    as it was, dequantizes every key of a loaded tile, so it is not held
+    to this."""
+    dev = _cuda()
+    dtype = torch.bfloat16
+    from repro_torch.kernels import quant
+    rng = np.random.default_rng(sg + window)
+    B, Sq, Sk, Hq, Hkv, D = 2, 70, 160, 8, 2, 128
+    u = torch.from_numpy(rng.standard_normal((B, Sq, Hq, D),
+                                             np.float32)).to(dev, dtype)
+    kv = [torch.from_numpy(rng.standard_normal((B, Sk, Hkv, D),
+                                               np.float32)).to(dev)
+          for _ in range(2)]
+    (k8, ks), (v8, vs) = (quant.q8_quantize_seq(x, sg) for x in kv)
+    first_unread = -(-Sq // sg)  # pages from here hold keys >= Sq only
+    ks_nan, vs_nan = ks.clone(), vs.clone()
+    ks_nan[:, first_unread:] = float("nan")
+    vs_nan[:, first_unread:] = float("nan")
+    got = fk.flash_attention_merged_q8_bsd(u, k8, v8, ks_nan, vs_nan,
+                                           sliding_window=window)
+    want = ref.ref_flash_attention_merged_q8(u, k8, v8, ks, vs,
+                                             sliding_window=window)
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=_tol(want))
 

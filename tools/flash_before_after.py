@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""The flash kernel rows (bf16, and float32 beside them) and a long merged
+prefill profile, on the port found under ``--src``, so that two trees can
+be compared on one card.
+
+    python3 tools/flash_before_after.py --src build/parent/src --tag parent
+    python3 tools/flash_before_after.py --src src --tag change
+
+Imports ``repro_torch`` from ``--src`` (nothing else of that tree) and the
+phases of this checkout's ``chip_smoke.py``, builds that tree's flash
+kernels, then runs:
+
+* the bf16 flash kernel rows of ``chip_smoke.py`` at 250 tokens and at the
+  long prompts (rows 1 and 2 at Mistral-7B's shape: 2048 and 4096 causal,
+  2048 with window 512; row 1 at Hymba-1.5B's at 2048 with window 1024;
+  row 3 at 2048), and its float32 rows at 250 tokens (rows 1-3) and at
+  2048 (row 2), each held against its plain version as there;
+* ``profile_prefill`` of a merged (skipless_merged) Mistral-7B in bf16,
+  32 layers, random weights from seed 0 (the kernels' work does not
+  depend on the values), at 250 and 2048 tokens.
+
+Prints the card, then one JSON line, and appends it to
+``build/flash_before_after_<tag>.jsonl`` (run each tree twice, in turns
+with the other, to see the spread).  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", required=True,
+                    help="directory holding the repro_torch package to time")
+    ap.add_argument("--tag", required=True, help="name of the tree")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+    sys.path.insert(1, ROOT)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_before_after: needs a CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+
+    card = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _build.build_all(["flash_attention"])
+    build_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(0)
+    rows = []
+    cs.flash_phase(rng, rows, cases=[
+        c for c in cs.flash_cases()
+        if c[1] >= 2048 or (c[1] == 250 and c[2] == 0)])
+    cs.flash_phase(rng, rows, hymba=True, cases=[
+        c for c in cs.flash_cases(hymba=True)
+        if c[0] == torch.bfloat16 and c[1] in (250, 2048)])
+    cs.q8_flash_phase(rng, rows, cases=[
+        c for c in cs.Q8_FLASH_CASES if c[1] in (256, 2048) and c[2] == 0])
+    for r in rows:
+        print(f"  {r['name']:32s} {r['dtype'][6:]:9s} {r['case']:46s} err "
+              f"{r['max_abs_err']:.2e}"
+              f" kernel {r['ms']:.4f} sdpa {r['library_ms']:.4f} bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%)", flush=True)
+
+    cfg = get_config("mistral-7b").with_(
+        block_style="skipless_merged", dtype="bfloat16",
+        param_dtype="bfloat16")
+    with torch.no_grad():
+        params = init_params(cfg, seed=0, device="cuda")
+        profiles = cs.prefill_profiles(cfg, params)
+    out = {"tag": args.tag, "card": card, "build_s": build_s,
+           "rows": [{k: r[k] for k in ("name", "dtype", "case", "max_abs_err",
+                                       "ms", "ms_runs", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by")}
+                    for r in rows],
+           "prefill_profile_bf16": profiles}
+    line = json.dumps(out)
+    print(line, flush=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build",
+                           f"flash_before_after_{args.tag}.jsonl"), "a") as f:
+        f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,10 @@ NVIDIA card.  Run from the repository root:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the ten kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-   per source, in parallel) and prints the build time;
+   per source, in parallel) and prints the build time, each source's
+   ptxas register counts and the decode kernel's occupancy per
+   instantiation (``decode_occupancy``: Mistral's 32 clusters of 8 splits
+   at B=4 must be resident at once);
 3. quantize check: the int8 quantization (``kernels.quant``: pages, a
    masked sequence, decode appends that enter fresh pages and grow
    scales) gives the same ints and scales on the card as on the CPU;
@@ -27,7 +30,9 @@ NVIDIA card.  Run from the repository root:
    K/V already dequantized, the dequant not timed; the SSD scan has no
    such call), beside the least time the card could take (bound).  Times
    come from CUDA graphs of 30 calls (``cuda_ms``), three timed replays
-   each;
+   each.  First, ``torch.profiler`` counts the device kernels per call
+   of each of the six decode wrappers (rows 4-9) on bf16 inputs of the
+   main path's shapes, which must be one;
 5. path phase, Mistral-7B: builds a skipless Mistral-7B at full width on
    the card from a seeded generator, merges it exactly
    (``merge_skipless(..., "qp")``) and serves 4 prompts (16, 37, 100, 250
@@ -215,6 +220,33 @@ def eager_ms(fn, n_sets: int, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_kernels_per_call(fn, calls: int = 3) -> float:
+    """Device kernels ``torch.profiler`` records per call of ``fn(0)``,
+    over ``calls`` calls after a warm-up call.  A profile that recorded
+    fewer kernels than kernel-launch API calls lost a record (it happens
+    now and then after earlier profiles and CUDA graphs in the process)
+    and is taken again, up to three times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(0)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = sum(e.count for e in events
+                      if e.device_type == DeviceType.CUDA)
+        api = sum(e.count for e in events if e.device_type == DeviceType.CPU
+                  and "LaunchKernel" in e.key)
+        if kernels >= api:
+            break
+    return kernels / calls
+
+
 def kernel_row(name, dtype, case, kern, plain, library, n_sets, bound,
                timed, tol_fn=None) -> dict:
     """One kernel-phase row: the kernel against its plain version on input
@@ -363,6 +395,81 @@ def decode_phase(rng, rows, hymba=False):
                         label.startswith("no window") and not hymba
                         and dtype == torch.bfloat16)))
             del us, ks, vs, khs, vhs
+
+
+def decode_occupancy(card):
+    """Residency of each instantiation of the decode kernel (query dtype,
+    head dim, cache kind) for clusters of 8 splits, one tile a split (one
+    ring stage, Mistral's B=4 S=512 plan) and several (two stages):
+    blocks per SM and clusters resident at once, as the CUDA occupancy
+    calls give them.  Mistral's 256 blocks at B=4 (32 clusters) must fit
+    at once, with one ring stage (S=512) or two (longer caches)."""
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+
+    log(f"decode kernel occupancy ({card}; clusters of {dk.MAX_SPLIT} "
+        f"blocks of 128 threads):")
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 128):
+            for kind in ("dense", "paged", "paged_q8"):
+                cells = []
+                for chunk in (64, 512):
+                    bps, clusters, smem = dk.occupancy(
+                        dtype, D, kind, dk.MAX_SPLIT, chunk)
+                    cells.append(f"chunk {chunk}: {bps} blocks/SM, "
+                                 f"{clusters} clusters at once, "
+                                 f"{smem} B dynamic shared memory")
+                    if clusters * dk.MAX_SPLIT < 256:
+                        raise AssertionError(
+                            f"decode {dtype} D={D} {kind} chunk {chunk}: "
+                            f"{clusters} resident clusters cannot hold "
+                            f"B=4 x Hkv=8 x 8 splits at once")
+                log(f"  {str(dtype)[6:]:8s} D={D:3d} {kind:8s} "
+                    + "; ".join(cells))
+
+
+def decode_kernels_per_call(rng) -> dict:
+    """Device kernels per call of each of the six decode wrappers, counted
+    by ``torch.profiler`` (``device_kernels_per_call``) before any other
+    kernel row runs, on bf16 inputs of the main path's shapes: Mistral's
+    dense cache at B=4, S=512 full, and its pools behind the absolute
+    table of ``paged_tables``.  Keyed by wrapper name."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk, quant
+
+    dev = torch.device("cuda")
+    B, S, G = 4, 512, Hq // Hkv
+
+    def rand(*shape, dt=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(
+            shape, np.float32)).to(dev, dt)
+
+    u = rand(B, Hq, D)
+    k, v = rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    q_pos = [511, 600, 777, 1000]
+    kvp = torch.from_numpy(ring_positions(rng, S, q_pos, 0.0)).to(dev)
+    qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    _, _, bt_np, qp_np = paged_tables()[0]
+    bt = torch.from_numpy(bt_np).to(dev)
+    pqp = torch.from_numpy(qp_np).to(dev)
+    kp, vp = rand(NB_POOL, PAGE, Hkv, D), rand(NB_POOL, PAGE, Hkv, D)
+    (k8, ks), (v8, vs) = (quant.q8_quantize_pages(p.float()) for p in (kp, vp))
+    ug = u.reshape(B, Hkv, G, D)
+    calls = {
+        "decode_attention_merged_bsd": (u, k, v, kvp, qp),
+        "decode_attention_bhsd": (ug, kh, vh, kvp, qp),
+        "decode_attention_paged_merged_bsd": (u, kp, vp, bt, pqp),
+        "decode_attention_paged_bhsd": (ug, kp, vp, bt, pqp),
+        "decode_attention_paged_q8_merged_bsd": (u, k8, v8, ks, vs, bt, pqp),
+        "decode_attention_paged_q8_bhsd": (ug, k8, v8, ks, vs, bt, pqp)}
+    out = {name: device_kernels_per_call(
+        lambda i, f=getattr(dk, name), args=args: f(*args))
+        for name, args in calls.items()}
+    log("device kernels per decode wrapper call (torch.profiler, 3 calls, "
+        "bf16): " + ", ".join(f"{n} {c:g}" for n, c in out.items()))
+    return out
 
 
 def flash_cases(hymba=False):
@@ -1463,11 +1570,16 @@ def profiled(what, fn, steps):
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     flash = sum(r[0] for r in rows if "flash" in r[1]) / 1e6
+    decode = [r for r in rows if "decode" in r[1]]
     out = {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
            "device_ms_per_step": busy / steps * 1e3,
            "device_busy_share": busy / wall,
            "flash_ms_per_step": flash / steps * 1e3,
            "flash_share_of_device": flash / busy if busy else 0.0,
+           "decode_kernel_ms_per_step": sum(r[0] for r in decode) / steps
+           / 1e3,
+           "decode_kernels_per_step": sum(r[2] for r in decode) / steps,
+           "kernels_total": sum(r[2] for r in rows),
            "kernels_per_step": sum(r[2] for r in rows) // steps,
            "top": [[k[:90], us / steps / 1e3, n // steps]
                    for us, k, n in rows[:8]]}
@@ -1476,7 +1588,10 @@ def profiled(what, fn, steps):
         f"({100 * out['device_busy_share']:.0f}% busy), "
         f"{out['kernels_per_step']} kernel launches/call; flash kernels "
         f"{out['flash_ms_per_step']:.3f} ms/call, "
-        f"{100 * out['flash_share_of_device']:.1f}% of the kernels' time")
+        f"{100 * out['flash_share_of_device']:.1f}% of the kernels' time; "
+        f"decode attention kernels {out['decode_kernel_ms_per_step']:.3f} "
+        f"ms/call, {out['decode_kernels_per_step']:g} launches/call; "
+        f"{out['kernels_total']} kernel launches in all")
     for k, ms, n in out["top"]:
         log(f"    {ms:8.3f} ms/call  {n:4d} calls/call  {k[:90]}")
     if not rows:
@@ -1587,11 +1702,16 @@ def run() -> int:
         regs = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
                 if "Used" in ln]
         log(f"  {name}: ptxas {'; '.join(sorted(set(regs)))}")
+    decode_occupancy(card)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     rng = np.random.default_rng(0)
+    per_call = decode_kernels_per_call(np.random.default_rng(1))
+    if any(c != 1 for c in per_call.values()):
+        raise AssertionError(f"a decode wrapper call launched other than "
+                             f"one device kernel: {per_call}")
     rows = []
     decode_phase(rng, rows)
     flash_phase(rng, rows)

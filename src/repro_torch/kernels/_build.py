@@ -35,11 +35,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "decode_attention": {
-        "decode_attention_launch": [_I, _I] + [_P] * 8 + [_I] * 12 + [_P],
-        "decode_attention_paged_launch": [_I, _I] + [_P] * 8 + [_I] * 11
+        "decode_attention_launch": [_I, _I] + [_P] * 6 + [_I] * 12 + [_P],
+        "decode_attention_paged_launch": [_I, _I] + [_P] * 6 + [_I] * 11
         + [_P],
-        "decode_attention_paged_q8_launch": [_I, _I] + [_P] * 10
+        "decode_attention_paged_q8_launch": [_I, _I] + [_P] * 8
         + [_I] * 11 + [_P],
+        "decode_attention_occupancy": [_I] * 5 + [_P],
     },
     "flash_attention": {
         "flash_attention_launch": [_I, _I] + [_P] * 4 + [_I] * 13 + [_P],
@@ -205,15 +206,16 @@ def check_q8_operands(name: str, q, pools, scales, ints=()) -> int:
 
 def check_aligned(name: str, tensors) -> None:
     """Operands of a kernel that moves 16-byte chunks (the bf16 flash
-    body): each pointer 16-byte aligned, each stride but the last a whole
-    number of 16 bytes (a dimension of size 1 has no stride to check)."""
+    body, the decode body's K/V): each pointer 16-byte aligned, each
+    stride but the last a whole number of 16 bytes (a dimension of size 1
+    has no stride to check)."""
     for t in tensors:
         if t.data_ptr() % 16 or any(
                 n > 1 and st * t.element_size() % 16
                 for n, st in zip(t.shape[:-1], t.stride()[:-1])):
-            raise ValueError(f"{name}: bfloat16 and int8 operands need "
-                             f"16-byte aligned pointers and strides, got "
-                             f"strides {t.stride()} of {t.dtype}")
+            raise ValueError(f"{name}: operands copied in 16-byte chunks "
+                             f"need 16-byte aligned pointers and strides, "
+                             f"got strides {t.stride()} of {t.dtype}")
 
 
 def check_launch(name: str, err: int) -> None:

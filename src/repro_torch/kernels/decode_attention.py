@@ -22,10 +22,13 @@ pairs:
 
 A tensor on the CPU runs the plain version (``kernels.ref``); a tensor on
 a CUDA device launches the kernel (built at first use) on the current
-stream, or raises — there is no fallback.  ``launches`` counts kernel
-launches per wrapper.  See the CUDA source for the design.
+stream, or raises — there is no fallback.  Each call is one kernel
+launch; ``launches`` counts them per wrapper.  See the CUDA source for the
+design.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -44,17 +47,37 @@ launches = {"decode_attention_bhsd": 0, "decode_attention_merged_bsd": 0,
             "decode_attention_paged_q8_merged_bsd": 0}
 
 MAX_G = 8  # query heads per kv head the kernel takes
-_TILE = 64  # keys per tile in the kernel
+TILE = 64  # keys per tile of the plan (the kernel's: 64, or 32 for float32
+# at D 128, which divides it)
+MAX_SPLIT = 8  # kv splits of one (batch, kv head): one thread-block cluster
 _TARGET_BLOCKS = 2 * 132  # two blocks per H100 SM
 
 
 def kv_split(B: int, Hkv: int, S: int):
     """(n_split, chunk): the kv axis is cut into ``n_split`` ranges of
-    ``chunk`` whole tiles so that about ``_TARGET_BLOCKS`` blocks run."""
-    want = max(1, -(-_TARGET_BLOCKS // max(B * Hkv, 1)))
+    ``chunk`` whole tiles so that about ``_TARGET_BLOCKS`` blocks run, at
+    most ``MAX_SPLIT`` per (batch, kv head): the splits of one (batch, kv
+    head) form a cluster that combines them in the kernel."""
+    want = min(MAX_SPLIT, max(1, -(-_TARGET_BLOCKS // max(B * Hkv, 1))))
     chunk = -(-max(S, 1) // want)
-    chunk = -(-chunk // _TILE) * _TILE
+    chunk = -(-chunk // TILE) * TILE
     return -(-max(S, 1) // chunk), chunk
+
+
+def occupancy(dtype: torch.dtype, D: int, kind: str, n_split: int,
+              chunk: int):
+    """Residency on the card of the kernel that a call with ``n_split``
+    splits of ``chunk`` keys launches, for query ``dtype``, head dim ``D``
+    and ``kind`` "dense", "paged" or "paged_q8": (blocks per SM, clusters
+    resident at once, dynamic shared memory bytes per block)."""
+    res = (ctypes.c_int * 3)()
+    lib = _build.library("decode_attention")
+    err = lib.decode_attention_occupancy(
+        _build.DTYPE_CODES[str(dtype)], D,
+        ("dense", "paged", "paged_q8").index(kind), n_split, chunk,
+        ctypes.addressof(res))
+    _build.check_launch("decode_attention_occupancy", err)
+    return tuple(res)
 
 
 def _checks(name, q, data, ints, *, G, index, index_shape, scales=()):
@@ -78,29 +101,20 @@ def _checks(name, q, data, ints, *, G, index, index_shape, scales=()):
     return code
 
 
-def _workspace(q, B, Hkv, n_split, G, D):
-    out = torch.empty_like(q)
-    ws_acc = torch.empty((B, Hkv, n_split, G, D), dtype=torch.float32,
-                         device=q.device)
-    ws_ml = torch.empty((B, Hkv, n_split, G, 2), dtype=torch.float32,
-                        device=q.device)
-    return out, ws_acc, ws_ml
-
-
 def _launch(name, q, k, v, kv_positions, q_position, *, q_strides,
             k_strides, Hkv, G, S, sliding_window):
     B, D = q.shape[0], q.shape[-1]
     code = _checks(name, q, (q, k, v), (kv_positions, q_position), G=G,
                    index=kv_positions, index_shape=(B, S))
+    _build.check_aligned(name, (k, v))
     n_split, chunk = kv_split(B, Hkv, S)
-    out, ws_acc, ws_ml = _workspace(q, B, Hkv, n_split, G, D)
+    out = torch.empty_like(q)
     lib = _build.library("decode_attention")
     err = lib.decode_attention_launch(
         code, D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_positions.data_ptr(), q_position.data_ptr(), out.data_ptr(),
-        ws_acc.data_ptr(), ws_ml.data_ptr(), B, Hkv, G, S, *q_strides,
-        *k_strides, int(sliding_window), n_split, chunk,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        B, Hkv, G, S, *q_strides, *k_strides, int(sliding_window), n_split,
+        chunk, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(name, err)
     launches[name] += 1
     return out
@@ -127,8 +141,9 @@ def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
     code = _checks(name, q, (q, k_pool, v_pool), (block_tables, q_position),
                    G=G, index=block_tables, index_shape=(B, MB),
                    scales=scales)
+    _build.check_aligned(name, (k_pool, v_pool))
     n_split, chunk = kv_split(B, Hkv, MB * bs)
-    out, ws_acc, ws_ml = _workspace(q, B, Hkv, n_split, G, D)
+    out = torch.empty_like(q)
     lib = _build.library("decode_attention")
     pools = [k_pool.data_ptr(), v_pool.data_ptr()]
     if scales:
@@ -137,8 +152,8 @@ def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
     else:
         fn = lib.decode_attention_paged_launch
     err = fn(code, D, q.data_ptr(), *pools, block_tables.data_ptr(),
-             q_position.data_ptr(), out.data_ptr(), ws_acc.data_ptr(),
-             ws_ml.data_ptr(), B, Hkv, G, MB, bs, int(ring_blocks),
+             q_position.data_ptr(), out.data_ptr(), B, Hkv, G, MB, bs,
+             int(ring_blocks),
              *q_strides, int(sliding_window), n_split, chunk,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(name, err)

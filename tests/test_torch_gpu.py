@@ -695,3 +695,214 @@ def test_ssm_engines_on_the_card_match_the_cpu_engine(arch):
             want["flash_attention_bhsd"] = c.n_layers * len(prompts)
             want["decode_attention_bhsd"] = c.n_layers * eng.stats["n_steps"]
         assert launch_counts() == want, c.name
+
+
+# ---------------------------------------------------------------------------
+# the decode body: long caches, masked splits, one launch per call
+# ---------------------------------------------------------------------------
+
+DECODE_SHAPES = {"mistral": (8, 4, 128), "hymba": (5, 5, 64)}  # Hkv, G, D
+DECODE_KINDS = ("dense", "paged", "paged_q8")
+LONG_BS = 16  # page size of the long tables
+
+
+def _decode_inputs(rng, kind, Hkv, G, D, pos, q_pos, window, dtype, dev):
+    """Inputs of the merged decode wrapper of ``kind`` for the logical
+    positions ``pos`` (B, S) (-1 empty; on the paged kinds a page is mapped
+    iff one of its S / 16 rows holds a position, and a page's rows hold
+    positions j * 16 + r, absolute addressing).  Returns (kernel's args,
+    plain version's args): every K/V row, and on the q8 pool every page
+    scale, that no query may attend is NaN in the kernel's copy only, so
+    agreement shows the kernel never loads it."""
+    B, S = pos.shape
+    ok = (pos >= 0) & (pos <= q_pos[:, None])
+    if window:
+        ok &= q_pos[:, None] - pos < window
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    u = t(rng.standard_normal((B, Hkv * G, D), np.float32)).to(dtype)
+    qp = t(q_pos.astype(np.int32))
+    if kind == "dense":
+        k, v = (rng.standard_normal((B, S, Hkv, D), np.float32)
+                for _ in range(2))
+        bad = [x.copy() for x in (k, v)]
+        for x in bad:
+            x[~ok] = np.nan
+        kvp = t(pos.astype(np.int32))
+        return ((u, *(t(x).to(dtype) for x in bad), kvp, qp),
+                (u, *(t(x).to(dtype) for x in (k, v)), kvp, qp))
+    MB = S // LONG_BS
+    mapped = (pos.reshape(B, MB, LONG_BS) >= 0).any(-1)
+    NB = int(mapped.sum()) + 3
+    bt = np.full((B, MB), -1, np.int32)
+    bt[mapped] = rng.permutation(NB)[:int(mapped.sum())]
+    live = np.zeros((NB, LONG_BS), bool)
+    live[bt[mapped]] = ok.reshape(B, MB, LONG_BS)[mapped]
+    kp, vp = (rng.standard_normal((NB, LONG_BS, Hkv, D), np.float32)
+              for _ in range(2))
+    bt_t = t(bt)
+    if kind == "paged":
+        bad = [x.copy() for x in (kp, vp)]
+        for x in bad:
+            x[~live] = np.nan
+        return ((u, *(t(x).to(dtype) for x in bad), bt_t, qp),
+                (u, *(t(x).to(dtype) for x in (kp, vp)), bt_t, qp))
+    from repro_torch.kernels import quant
+    (k8, ks), (v8, vs) = (quant.q8_quantize_pages(t(x)) for x in (kp, vp))
+    dead = t(~live.any(1))[:, None]
+    ks_bad, vs_bad = (torch.where(dead, float("nan"), s) for s in (ks, vs))
+    return ((u, k8, v8, ks_bad, vs_bad, bt_t, qp),
+            (u, k8, v8, ks, vs, bt_t, qp))
+
+
+def _decode_pair(kind, window, args):
+    """(merged kernel, plain merged) outputs, then (generic kernel, plain
+    generic), of ``kind`` on ``_decode_inputs``'s args (B, Hq, D)."""
+    infix = {"dense": "", "paged": "_paged", "paged_q8": "_paged_q8"}[kind]
+    kw = dict(sliding_window=window)
+    if kind != "dense":
+        kw["ring_blocks"] = 0
+    outs = []
+    for merged in (True, False):
+        name = f"decode_attention{infix}_" + ("merged_bsd" if merged
+                                              else "bhsd")
+        fn, oracle = getattr(dk, name), getattr(
+            ref, f"ref_decode_attention{infix}" + ("_merged" if merged
+                                                   else ""))
+        for f, (u, *rest) in ((fn, args[0]), (oracle, args[1])):
+            B, Hq, D = u.shape
+            Hkv = rest[0].shape[2]
+            if not merged:
+                u = u.reshape(B, Hkv, Hq // Hkv, D)
+                if kind == "dense":
+                    rest = [x.transpose(1, 2).contiguous() for x in rest[:2]] \
+                        + rest[2:]
+            outs.append(f(u, *rest, **kw).reshape(B, Hq, D))
+    return outs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(DECODE_SHAPES))
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+@pytest.mark.parametrize("window", [0, 1500])
+def test_decode_long_cache_reaches_the_cluster_cap(dtype, shape, kind,
+                                                   window):
+    """B = 1, S = 4096 at Mistral-7B's and Hymba-1.5B's shapes: the plan
+    takes the cluster's 8 splits of 512 keys (several double-buffered
+    tiles each), and with q_pos 2900, 5% holes and a window of 1500 the
+    splits of the one cluster straddle attended and masked keys (future,
+    empty, out of window).  Both queries of each kind against the plain
+    versions; masked rows and dead page scales are NaN in the kernels'
+    inputs."""
+    dev = _cuda()
+    Hkv, G, D = DECODE_SHAPES[shape]
+    B, S = 1, 4096
+    assert dk.kv_split(B, Hkv, S) == (dk.MAX_SPLIT, 512)
+    rng = np.random.default_rng(Hkv + D + window + DECODE_KINDS.index(kind))
+    q_pos = np.array([2900])
+    pos = np.where(np.arange(S)[None] <= q_pos[:, None], np.arange(S)[None],
+                   -1)
+    if kind == "dense":
+        pos = np.where(rng.random(pos.shape) < 0.05, -1, pos)
+    else:  # a hole: one unmapped page
+        pos[0, 16 * 40:16 * 41] = -1
+    args = _decode_inputs(rng, kind, Hkv, G, D, pos, q_pos, window, dtype,
+                          dev)
+    outs = _decode_pair(kind, window, args)
+    for got, want in zip(outs[::2], outs[1::2]):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=_tol(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_whole_splits_masked(dtype, kind):
+    """S = 4096, B = 3 at Mistral-7B's shape (8 splits of 512 keys): row 0
+    attends nothing (exactly 0), row 1 has an early q_pos (100: seven of
+    its eight splits attend nothing), row 2 attends only keys of split 5."""
+    dev = _cuda()
+    Hkv, G, D = DECODE_SHAPES["mistral"]
+    B, S = 3, 4096
+    n_split, chunk = dk.kv_split(B, Hkv, S)
+    assert (n_split, chunk) == (8, 512)
+    rng = np.random.default_rng(17 + DECODE_KINDS.index(kind))
+    s = np.arange(S)
+    pos = np.full((B, S), -1)
+    pos[1] = np.where(s <= 100, s, -1)
+    lo, hi = 5 * chunk + 32, 5 * chunk + 160  # whole pages of split 5
+    pos[2, lo:hi] = s[lo:hi]
+    q_pos = np.array([7, 100, 4000])
+    args = _decode_inputs(rng, kind, Hkv, G, D, pos, q_pos, 0, dtype, dev)
+    outs = _decode_pair(kind, 0, args)
+    for got, want in zip(outs[::2], outs[1::2]):
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        assert bool(got[1:].float().abs().amax(-1).gt(0).all())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=_tol(want))
+
+
+def _device_kernels(fn, calls):
+    """Device kernels ``torch.profiler`` records over ``calls`` calls,
+    after a warm-up call (it builds the library).  A profile that recorded
+    fewer kernels than kernel-launch API calls lost a record and is taken
+    again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = sum(e.count for e in events
+                      if e.device_type == DeviceType.CUDA)
+        api = sum(e.count for e in events if e.device_type == DeviceType.CPU
+                  and "LaunchKernel" in e.key)
+        if kernels >= api:
+            break
+    return kernels
+
+
+@pytest.mark.parametrize("name", sorted(dk.launches))
+def test_each_decode_wrapper_call_is_one_device_kernel(name):
+    """Each of the six decode wrappers launches exactly one device kernel
+    per call (the splits combine inside it), and counts it once."""
+    dev = _cuda()
+    kind = "paged_q8" if "_q8" in name else \
+        "paged" if "_paged" in name else "dense"
+    Hkv, G, D = DECODE_SHAPES["mistral"]
+    rng = np.random.default_rng(5)
+    B, S = 4, 512
+    q_pos = np.array([15, 100, 300, 511])
+    pos = np.where(np.arange(S)[None] <= q_pos[:, None], np.arange(S)[None],
+                   -1)
+    (u, *rest), _ = _decode_inputs(rng, kind, Hkv, G, D, pos, q_pos, 0,
+                                   torch.bfloat16, dev)
+    if not name.endswith("merged_bsd"):
+        u = u.reshape(B, Hkv, G, D)
+        if kind == "dense":
+            rest = [x.transpose(1, 2).contiguous() for x in rest[:2]] \
+                + rest[2:]
+    fn = getattr(dk, name)
+    before = dk.launches[name]
+    fn(u, *rest)
+    assert dk.launches[name] - before == 1
+    assert _device_kernels(lambda: fn(u, *rest), calls=3) == 3
+
+
+def test_decode_wrappers_reject_unaligned_kv():
+    """The decode body copies K/V rows in 16-byte chunks: a K/V operand
+    whose pointer is not 16-byte aligned is refused, not read."""
+    dev = _cuda()
+    B, S, Hkv, D = 2, 16, 2, 128
+    u = torch.randn(B, 4 * Hkv, D, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(B * S * Hkv * D + 1, device=dev,
+                    dtype=torch.bfloat16)[1:].view(B, S, Hkv, D)
+    kvp = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    qp = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    assert k.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        dk.decode_attention_merged_bsd(u, k, k, kvp, qp)

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """The flash kernel rows (bf16, and float32 beside them) and a long merged
-prefill profile, on the port found under ``--src``, so that two trees can
-be compared on one card.
+prefill profile, or (``--mode decode``) the decode kernel rows and the
+decode step profiles, on the port found under ``--src``, so that two trees
+can be compared on one card.
 
     python3 tools/flash_before_after.py --src build/parent/src --tag parent
     python3 tools/flash_before_after.py --src src --tag change
+    python3 tools/flash_before_after.py --mode decode --src src --tag change
 
 Imports ``repro_torch`` from ``--src`` (nothing else of that tree) and the
-phases of this checkout's ``chip_smoke.py``, builds that tree's flash
-kernels, then runs:
+phases of this checkout's ``chip_smoke.py``, builds that tree's kernels of
+the mode, then runs, in the flash mode:
 
 * the bf16 flash kernel rows of ``chip_smoke.py`` at 250 tokens and at the
   long prompts (rows 1 and 2 at Mistral-7B's shape: 2048 and 4096 causal,
@@ -17,10 +19,19 @@ kernels, then runs:
   2048 (row 2), each held against its plain version as there;
 * ``profile_prefill`` of a merged (skipless_merged) Mistral-7B in bf16,
   32 layers, random weights from seed 0 (the kernels' work does not
-  depend on the values), at 250 and 2048 tokens.
+  depend on the values), at 250 and 2048 tokens;
+
+and in the decode mode:
+
+* ``chip_smoke.py``'s decode kernel rows 4-9 in bf16 and float32 (rows 4
+  and 5 at Mistral-7B's shape, row 4 also at Hymba-1.5B's, rows 6-9 on the
+  paged tables and int8 pools), each held against its plain version as
+  there, with the device kernels per call of each bf16 wrapper;
+* ``profile_decode`` of the same merged Mistral-7B on the dense, paged
+  and int8 paged caches (4 slots, the path phase's prompts).
 
 Prints the card, then one JSON line, and appends it to
-``build/flash_before_after_<tag>.jsonl`` (run each tree twice, in turns
+``build/<mode>_before_after_<tag>.jsonl`` (run each tree twice, in turns
 with the other, to see the spread).  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -40,6 +51,8 @@ def main() -> int:
     ap.add_argument("--src", required=True,
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", required=True, help="name of the tree")
+    ap.add_argument("--mode", choices=("flash", "decode"), default="flash",
+                    help="which kernel family to time")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, ROOT)
@@ -59,11 +72,62 @@ def main() -> int:
         timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["flash_attention"])
+    _build.build_all([f"{args.mode}_attention"])
     build_s = time.perf_counter() - t0
 
     rng = np.random.default_rng(0)
     rows = []
+    per_call = {}
+    if args.mode == "decode":
+        per_call = cs.decode_kernels_per_call(np.random.default_rng(1))
+        cs.decode_phase(rng, rows)
+        cs.paged_phase(rng, rows, q8=False)
+        cs.paged_phase(rng, rows, q8=True)
+        cs.decode_phase(rng, rows, hymba=True)
+    else:
+        flash_rows(cs, rng, rows)
+    for r in rows:
+        print(f"  {r['name']:36s} {r['dtype'][6:]:9s} {r['case'][:56]:56s} "
+              f"err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} sdpa "
+              f"{r['library_ms']:.4f} bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}%)",
+              flush=True)
+
+    cfg = get_config("mistral-7b").with_(
+        block_style="skipless_merged", dtype="bfloat16",
+        param_dtype="bfloat16")
+    with torch.no_grad():
+        params = init_params(cfg, seed=0, device="cuda")
+        if args.mode == "decode":
+            prng = np.random.default_rng(0)
+            prompts = [prng.integers(0, cfg.vocab_size, n)
+                       for n in (16, 37, 100, 250)]
+            profiles = {"decode_profile_bf16": {
+                cache: cs.profile_decode(cfg, params, prompts, cache)
+                for cache in ("dense", "paged", "paged_q8")}}
+        else:
+            profiles = {"prefill_profile_bf16": cs.prefill_profiles(
+                cfg, params)}
+    out = {"tag": args.tag, "mode": args.mode, "card": card,
+           "build_s": build_s,
+           "rows": [{k: r[k] for k in (
+               "name", "dtype", "case", "max_abs_err", "ms", "ms_runs",
+               "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                    for r in rows], **profiles}
+    if per_call:
+        out["kernels_per_call"] = per_call
+    line = json.dumps(out)
+    print(line, flush=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", f"{args.mode}_before_after_"
+                           f"{args.tag}.jsonl"), "a") as f:
+        f.write(line + "\n")
+    return 0
+
+
+def flash_rows(cs, rng, rows):
+    """The flash mode's kernel rows (see the module docstring)."""
+    import torch
     cs.flash_phase(rng, rows, cases=[
         c for c in cs.flash_cases()
         if c[1] >= 2048 or (c[1] == 250 and c[2] == 0)])
@@ -72,32 +136,6 @@ def main() -> int:
         if c[0] == torch.bfloat16 and c[1] in (250, 2048)])
     cs.q8_flash_phase(rng, rows, cases=[
         c for c in cs.Q8_FLASH_CASES if c[1] in (256, 2048) and c[2] == 0])
-    for r in rows:
-        print(f"  {r['name']:32s} {r['dtype'][6:]:9s} {r['case']:46s} err "
-              f"{r['max_abs_err']:.2e}"
-              f" kernel {r['ms']:.4f} sdpa {r['library_ms']:.4f} bound "
-              f"{r['bound_ms']:.5f} ({r['bound_by']}, "
-              f"{100 * r['bound_ms'] / r['ms']:.1f}%)", flush=True)
-
-    cfg = get_config("mistral-7b").with_(
-        block_style="skipless_merged", dtype="bfloat16",
-        param_dtype="bfloat16")
-    with torch.no_grad():
-        params = init_params(cfg, seed=0, device="cuda")
-        profiles = cs.prefill_profiles(cfg, params)
-    out = {"tag": args.tag, "card": card, "build_s": build_s,
-           "rows": [{k: r[k] for k in ("name", "dtype", "case", "max_abs_err",
-                                       "ms", "ms_runs", "plain_ms",
-                                       "library_ms", "bound_ms", "bound_by")}
-                    for r in rows],
-           "prefill_profile_bf16": profiles}
-    line = json.dumps(out)
-    print(line, flush=True)
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with open(os.path.join(ROOT, "build",
-                           f"flash_before_after_{args.tag}.jsonl"), "a") as f:
-        f.write(line + "\n")
-    return 0
 
 
 if __name__ == "__main__":

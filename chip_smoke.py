@@ -23,7 +23,10 @@ NVIDIA card.  Run from the repository root:
    and at 2048 in float32; the generic flash and decode kernels also at
    Hymba-1.5B's (Hq=25, Hkv=5, D=64; flash also at 2048 with its window of
    1024); the SSD scan at Hymba's (H 50, P 64,
-   N 16) and Mamba2-2.7B's (H 80, P 64, N 128) — and times kernel, plain
+   N 16; 250, 512 and 2048 tokens) and Mamba2-2.7B's (H 80, P 64, N 128;
+   256, 512 and 2048), after printing its occupancy per instantiation
+   (``ssd_occupancy``: a whole wave of clusters must cover every SM) —
+   and times kernel, plain
    version and, as a yardstick the port never calls,
    ``scaled_dot_product_attention`` (for the paged kernels: on the cache
    already gathered, the gather not timed; for the int8 kernels: on the
@@ -31,8 +34,8 @@ NVIDIA card.  Run from the repository root:
    such call), beside the least time the card could take (bound).  Times
    come from CUDA graphs of 30 calls (``cuda_ms``), three timed replays
    each.  First, ``torch.profiler`` counts the device kernels per call
-   of each of the six decode wrappers (rows 4-9) on bf16 inputs of the
-   main path's shapes, which must be one;
+   of each of the six decode wrappers (rows 4-9) and of the SSD scan (row
+   10) on bf16 inputs of the main path's shapes, which must be one;
 5. path phase, Mistral-7B: builds a skipless Mistral-7B at full width on
    the card from a seeded generator, merges it exactly
    (``merge_skipless(..., "qp")``) and serves 4 prompts (16, 37, 100, 250
@@ -80,7 +83,8 @@ NVIDIA card.  Run from the repository root:
 7. path phase, Mamba2-2.7B (``mamba2_path``): 64 layers at full width,
    standard style, the same prompts: kernels vs plain prefill logits in
    float32, the launch counts (64 SSD launches per prompt, nothing else),
-   bf16 tok/s, TTFT, and decode and 512-token prefill profiles;
+   bf16 tok/s, TTFT, and decode and 512-token prefill profiles (each
+   profile also gives the SSD kernel's device ms);
 8. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -823,6 +827,66 @@ def q8_flash_phase(rng, rows, cases=Q8_FLASH_CASES):
 
 SSD_CHUNK = 256  # the reference's chunk (both configs' ssm_chunk)
 SSD_KERNEL_ROWS = 64  # the CUDA kernel's own chunk (LC in csrc/ssd_scan.cu)
+SSD_SHAPES = {"hymba": (50, 64, 16), "mamba2": (80, 64, 128)}  # H, P, N
+N_SMS = 132  # an H100 SXM's SMs
+
+
+def ssd_occupancy():
+    """Residency of each SSD instantiation (input dtype, Hymba's and
+    Mamba2's P and N) for one-tile spans (512 tokens: 8 spans of 64 rows)
+    and multi-tile spans (2048: 8 of 256), as the CUDA occupancy calls
+    give them.  The main path's grid is B x H clusters of n_span blocks:
+    the clusters resident at once must hold at least one block on every
+    SM, so that a whole wave of them fills the card."""
+    import torch
+    from repro_torch.kernels import ssd_scan as sk
+
+    log("SSD kernel occupancy (clusters of n_span blocks of 256 "
+        "threads):")
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, (H, P, N) in SSD_SHAPES.items():
+            cells = []
+            for S in (512, 2048):
+                bps, clusters, smem, n_span, span = sk.occupancy(
+                    dtype, P, N, S)
+                cells.append(f"S {S} ({n_span} spans of {span}): {bps} "
+                             f"blocks/SM, {clusters} clusters at once, "
+                             f"{smem} B dynamic shared memory")
+                if clusters * n_span < N_SMS:
+                    raise AssertionError(
+                        f"ssd {dtype} {label} S={S}: {clusters} resident "
+                        f"clusters of {n_span} blocks leave SMs idle")
+            log(f"  {str(dtype)[6:]:8s} {label:6s} P={P} N={N:3d} "
+                + "; ".join(cells))
+
+
+def ssd_kernels_per_call(rng) -> float:
+    """Device kernels per ``ssd_chunk_scan`` call (``torch.profiler``), on
+    bf16 inputs of Mamba2-2.7B's geometry at 512 tokens, B and C broadcast
+    from one group as the model passes them."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_scan as sk
+
+    dev = torch.device("cuda")
+    H, P, N = SSD_SHAPES["mamba2"]
+    S = 512
+
+    def rand(*shape, dt=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(
+            shape, np.float32)).to(dev, dt)
+
+    dt = F.softplus(rand(1, S, H, dt=torch.float32))
+    args = (rand(1, S, H, P), dt,
+            -dt * torch.exp(0.5 * rand(H, dt=torch.float32)),
+            rand(1, S, 1, N).expand(1, S, H, N),
+            rand(1, S, 1, N).expand(1, S, H, N))
+    out = device_kernels_per_call(
+        lambda i: sk.ssd_chunk_scan(*args, chunk=SSD_CHUNK))
+    log(f"device kernels per ssd_chunk_scan call (torch.profiler, 3 calls, "
+        f"bf16, Mamba2 S={S}): {out:g}")
+    return out
 
 
 def ssd_tolerance(want, dtype) -> float:
@@ -834,11 +898,12 @@ def ssd_tolerance(want, dtype) -> float:
     return SSD_TOL_REL * float(want.float().abs().max())
 
 
-def ssd_phase(rng, rows):
-    """Row 10: the SSD kernel against the plain chunked scan
+def ssd_phase(rng, rows, occupancy=True):
+    """Row 10: the SSD kernel's occupancy (``ssd_occupancy``, unless
+    ``occupancy`` is False), then the kernel against the plain chunked scan
     (``ref.ref_ssd_chunked``, chunk 256 as the configs set it) at
     Hymba-1.5B's geometry (H 50, P 64, N 16; S 250, 512, 2048) and
-    Mamba2-2.7B's (H 80, P 64, N 128; S 256, 2048), batch 1, B and C
+    Mamba2-2.7B's (H 80, P 64, N 128; S 256, 512, 2048), batch 1, B and C
     broadcast from one group by a zero head stride as the model passes
     them, dt = softplus(normal) and A = -exp(0.5 normal) as the reference's
     kernel test draws them.  No single PyTorch call computes the scan: the
@@ -851,13 +916,16 @@ def ssd_phase(rng, rows):
     import torch.nn.functional as F
     from repro_torch.kernels import ref, ssd_scan as sk
 
+    if occupancy:
+        ssd_occupancy()
     dev = torch.device("cuda")
-    B, P = 1, 64
-    cases = [("hymba", 50, 16, S) for S in (250, 512, 2048)] + \
-        [("mamba2", 80, 128, S) for S in (256, 2048)]
+    B = 1
+    cases = [("hymba", S) for S in (250, 512, 2048)] + \
+        [("mamba2", S) for S in (256, 512, 2048)]
     for dtype in (torch.bfloat16, torch.float32):
         el = torch.tensor([], dtype=dtype).element_size()
-        for label, H, N, S in cases:
+        for label, S in cases:
+            H, P, N = SSD_SHAPES[label]
             L = SSD_CHUNK if S % SSD_CHUNK == 0 else S
             nbytes = (B * S * H * P * el + 2 * B * S * N * el
                       + 2 * B * S * H * 4 + B * S * H * P * 4 + B * H * P * N * 4)
@@ -1571,6 +1639,7 @@ def profiled(what, fn, steps):
     busy = sum(r[0] for r in rows) / 1e6
     flash = sum(r[0] for r in rows if "flash" in r[1]) / 1e6
     decode = [r for r in rows if "decode" in r[1]]
+    ssd = [r for r in rows if "ssd" in r[1]]
     out = {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
            "device_ms_per_step": busy / steps * 1e3,
            "device_busy_share": busy / wall,
@@ -1579,6 +1648,8 @@ def profiled(what, fn, steps):
            "decode_kernel_ms_per_step": sum(r[0] for r in decode) / steps
            / 1e3,
            "decode_kernels_per_step": sum(r[2] for r in decode) / steps,
+           "ssd_kernel_ms_per_step": sum(r[0] for r in ssd) / steps / 1e3,
+           "ssd_kernels_per_step": sum(r[2] for r in ssd) / steps,
            "kernels_total": sum(r[2] for r in rows),
            "kernels_per_step": sum(r[2] for r in rows) // steps,
            "top": [[k[:90], us / steps / 1e3, n // steps]
@@ -1590,7 +1661,9 @@ def profiled(what, fn, steps):
         f"{out['flash_ms_per_step']:.3f} ms/call, "
         f"{100 * out['flash_share_of_device']:.1f}% of the kernels' time; "
         f"decode attention kernels {out['decode_kernel_ms_per_step']:.3f} "
-        f"ms/call, {out['decode_kernels_per_step']:g} launches/call; "
+        f"ms/call, {out['decode_kernels_per_step']:g} launches/call; SSD "
+        f"kernel {out['ssd_kernel_ms_per_step']:.3f} ms/call, "
+        f"{out['ssd_kernels_per_step']:g} launches/call; "
         f"{out['kernels_total']} kernel launches in all")
     for k, ms, n in out["top"]:
         log(f"    {ms:8.3f} ms/call  {n:4d} calls/call  {k[:90]}")
@@ -1702,6 +1775,10 @@ def run() -> int:
         regs = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
                 if "Used" in ln]
         log(f"  {name}: ptxas {'; '.join(sorted(set(regs)))}")
+        spills = {ln.strip() for ln in out.splitlines()
+                  if "spill stores" in ln and " 0 bytes spill stores" not in ln}
+        for ln in sorted(spills):
+            log(f"  {name}: ptxas {ln}")
     decode_occupancy(card)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1709,9 +1786,11 @@ def run() -> int:
 
     rng = np.random.default_rng(0)
     per_call = decode_kernels_per_call(np.random.default_rng(1))
+    per_call["ssd_chunk_scan"] = ssd_kernels_per_call(
+        np.random.default_rng(1))
     if any(c != 1 for c in per_call.values()):
-        raise AssertionError(f"a decode wrapper call launched other than "
-                             f"one device kernel: {per_call}")
+        raise AssertionError(f"a decode or SSD wrapper call launched other "
+                             f"than one device kernel: {per_call}")
     rows = []
     decode_phase(rng, rows)
     flash_phase(rng, rows)

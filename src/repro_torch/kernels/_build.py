@@ -48,6 +48,7 @@ SIGNATURES = {
     },
     "ssd_scan": {
         "ssd_scan_launch": [_I, _I] + [_P] * 7 + [_I] * 4 + [_LL] * 9 + [_P],
+        "ssd_scan_occupancy": [_I] * 4 + [_P],
     },
 }
 
@@ -206,7 +207,8 @@ def check_q8_operands(name: str, q, pools, scales, ints=()) -> int:
 
 def check_aligned(name: str, tensors) -> None:
     """Operands of a kernel that moves 16-byte chunks (the bf16 flash
-    body, the decode body's K/V): each pointer 16-byte aligned, each
+    body, the decode body's K/V, the SSD scan's x, B and C): each pointer
+    16-byte aligned, each
     stride but the last a whole number of 16 bytes (a dimension of size 1
     has no stride to check)."""
     for t in tensors:

@@ -14,12 +14,22 @@ if that divides S, else one chunk of S).  The CUDA kernel tiles by its own
 plain version (``kernels.ref.ref_ssd_chunked``) tiles as the reference
 does.  B and C may come broadcast from their groups with a zero head
 stride: the kernel takes strides, so the repeat is never materialised.
+The kernel reads x, B and C rows in 16-byte pieces, so N is a multiple of
+8 and their pointers and strides are 16-byte aligned.
+
+The kernel cuts the sequence of each (batch, head) into ``ssd_split(S)``
+spans of whole 64-row tiles, the blocks of one thread-block cluster, which
+pass their states to each other inside the one launch (see the CUDA
+source).
 
 A tensor on the CPU runs the plain version; a tensor on a CUDA device
 launches the kernel (built at first use) on the current stream, or raises
-— there is no fallback.  ``launches`` counts kernel launches.
+— there is no fallback.  ``launches`` counts kernel launches: one per
+call.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -30,6 +40,31 @@ launches = {"ssd_chunk_scan": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_STATE = 128
+TILE = 64  # rows of the kernel's tile
+MAX_SPAN = 8  # spans of one (batch, head): one thread-block cluster
+
+
+def ssd_split(S: int):
+    """(n_span, span_rows): the kernel's cut of a sequence of ``S`` rows
+    into at most ``MAX_SPAN`` spans of whole ``TILE``-row tiles, one span
+    per tile up to that cap, none empty (``ssd_split`` in the CUDA
+    source)."""
+    tiles = max(1, -(-S // TILE))
+    per = -(-tiles // min(MAX_SPAN, tiles))
+    return -(-tiles // per), per * TILE
+
+
+def occupancy(dtype: torch.dtype, P: int, N: int, S: int):
+    """Residency on the card of the kernel that a call over ``S`` rows
+    launches for inputs of ``dtype``, head dim ``P`` and state ``N``:
+    (blocks per SM, clusters resident at once, dynamic shared memory bytes
+    per block, n_span, span_rows)."""
+    res = (ctypes.c_int * 5)()
+    lib = _build.library("ssd_scan")
+    err = lib.ssd_scan_occupancy(_build.DTYPE_CODES[str(dtype)], P, N, S,
+                                 ctypes.addressof(res))
+    _build.check_launch("ssd_scan_occupancy", err)
+    return tuple(res)
 
 
 def _max_offset(t: torch.Tensor) -> int:
@@ -67,15 +102,16 @@ def ssd_chunk_scan(
     if dt.dtype != torch.float32 or a.dtype != torch.float32:
         raise ValueError(f"{name}: dt and a must be float32, got {dt.dtype}, "
                          f"{a.dtype}")
-    if P not in HEAD_DIMS or not 1 <= N <= MAX_STATE:
+    if P not in HEAD_DIMS or not 8 <= N <= MAX_STATE or N % 8:
         raise ValueError(f"{name}: head dim {P} not in {HEAD_DIMS} or state "
-                         f"{N} not in [1, {MAX_STATE}]")
+                         f"{N} not a multiple of 8 in [8, {MAX_STATE}]")
     if x.stride(-1) != 1 or Bm.stride(-1) != 1 or not dt.is_contiguous() \
             or not a.is_contiguous():
         raise ValueError(f"{name}: x, Bm and Cm need a contiguous last dim "
                          "and dt, a contiguous tensors")
     if any(_max_offset(t) >= 2 ** 31 for t in (x, dt, Bm)):
         raise ValueError(f"{name}: operand too large for the kernel")
+    _build.check_aligned(name, (x, Bm, Cm))
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     fin = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     lib = _build.library("ssd_scan")

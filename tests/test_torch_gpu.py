@@ -614,26 +614,114 @@ def _ssd_inputs(rng, B, S, H, P, N, dtype, dev):
     return x, dt, dt * A, bm, cm
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,P,N", [(50, 64, 16), (80, 64, 128), (4, 16, 8)])
-@pytest.mark.parametrize("S", [1, 130])
-def test_ssd_kernel_matches_the_sequential_oracle(dtype, H, P, N, S):
-    """Hymba-1.5B's and Mamba2-2.7B's scan geometries (and the reduced
-    one), B and C broadcast from one group by a zero head stride, a
-    ragged last chunk: y and the final state against ``ref_ssd`` within
-    3e-5 of the oracle's largest |value| (float32 outputs on both sides;
-    sums in another order)."""
-    dev = _cuda()
+def _ssd_check(args):
+    """The kernel's y and final state against ``ref_ssd`` within 3e-5 of
+    the oracle's largest |value| (float32 outputs on both sides; sums in
+    another order)."""
     from repro_torch.kernels import ssd_scan as sk
 
-    rng = np.random.default_rng(H + N + S)
-    args = _ssd_inputs(rng, 2, S, H, P, N, dtype, dev)
     y, fin = sk.ssd_chunk_scan(*args, chunk=256)
     want_y, want_fin = ref.ref_ssd(*args)
     for got, want in ((y, want_y), (fin, want_fin)):
         assert got.dtype == torch.float32
+        assert torch.isfinite(got).all()
         torch.testing.assert_close(
             got, want, rtol=0, atol=3e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,P,N", [(50, 64, 16), (80, 64, 128), (4, 16, 8)])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 130, 512, 2100, 8192])
+def test_ssd_kernel_matches_the_sequential_oracle(dtype, H, P, N, S):
+    """Hymba-1.5B's and Mamba2-2.7B's scan geometries (and the reduced
+    one), B and C broadcast from one group by a zero head stride: one
+    span of one row, of a tile less one row and of a full tile, two spans
+    (the second of one row), three with a ragged last tile, the full
+    cluster of eight one-tile spans (512), seven spans of five tiles with a
+    ragged last span (2100) and eight of sixteen (8192)."""
+    dev = _cuda()
+    rng = np.random.default_rng(H + N + S)
+    _ssd_check(_ssd_inputs(rng, 2, S, H, P, N, dtype, dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [65, 600])
+def test_ssd_kernel_takes_per_head_and_strided_b_and_c(dtype, S):
+    """B and C with their own value per head (a nonzero head stride), and
+    x, B and C as views into one (B, S, H*P + 2 H*N) tensor, as the model's
+    split of the conv output hands them over (row strides of the whole
+    row)."""
+    dev = _cuda()
+    rng = np.random.default_rng(S)
+    Bsz, H, P, N = 2, 6, 64, 32
+    x, dt, a, _, _ = _ssd_inputs(rng, Bsz, S, H, P, N, dtype, dev)
+    bm, cm = (torch.from_numpy(rng.standard_normal(
+        (Bsz, S, H, N), np.float32)).to(dev, dtype) for _ in range(2))
+    _ssd_check((x, dt, a, bm, cm))
+    whole = torch.from_numpy(rng.standard_normal(
+        (Bsz, S, H * (P + 2 * N)), np.float32)).to(dev, dtype)
+    xv, bv, cv = torch.split(whole, [H * P, H * N, H * N], dim=-1)
+    xv, bv, cv = (t.reshape(Bsz, S, H, -1) for t in (xv, bv, cv))
+    assert xv.stride(1) == whole.shape[-1] and not bv.is_contiguous()
+    _ssd_check((xv, dt, a, bv, cv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_strong_decay_over_a_long_sequence(dtype):
+    """A strongly negative a (A = -exp(normal + 3), |a| up to ~100 a row)
+    over 4096 rows: every decay is exp of a difference <= 0, so nothing
+    overflows, and the spans' states still pass on what survives."""
+    dev = _cuda()
+    rng = np.random.default_rng(7)
+    x, dt, _, bm, cm = _ssd_inputs(rng, 1, 4096, 8, 64, 128, dtype, dev)
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(
+        8, np.float32)).to(dev) + 3.0)
+    _ssd_check((x, dt, dt * A, bm, cm))
+
+
+def test_ssd_split_of_the_kernel_is_the_python_plan():
+    """The CUDA launcher's own cut of the sequence (reported by its
+    occupancy call) is ``ssd_split``'s, for S from 0 to 8192."""
+    _cuda()
+    from repro_torch.kernels import ssd_scan as sk
+
+    for S in list(range(0, 600)) + list(range(600, 8193, 37)):
+        got = sk.occupancy(torch.bfloat16, 64, 128, S)[3:]
+        assert got == sk.ssd_split(S), (S, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [250, 2048])
+def test_each_ssd_call_is_one_device_kernel(dtype, S):
+    """Each ``ssd_chunk_scan`` call launches exactly one device kernel
+    (the spans pass their states inside it), and counts it once."""
+    dev = _cuda()
+    from repro_torch.kernels import ssd_scan as sk
+
+    rng = np.random.default_rng(S)
+    args = _ssd_inputs(rng, 1, S, 80, 64, 128, dtype, dev)
+    before = sk.launches["ssd_chunk_scan"]
+    sk.ssd_chunk_scan(*args, chunk=256)
+    assert sk.launches["ssd_chunk_scan"] - before == 1
+    assert _device_kernels(lambda: sk.ssd_chunk_scan(*args, chunk=256),
+                           calls=3) == 3
+
+
+def test_ssd_wrapper_rejects_unaligned_or_narrow_state():
+    """The kernel reads x, B and C rows in 16-byte pieces: a state width
+    that is not a multiple of 8, or an operand whose pointer is not 16-byte
+    aligned, is refused, not read."""
+    dev = _cuda()
+    from repro_torch.kernels import ssd_scan as sk
+
+    rng = np.random.default_rng(0)
+    x, dt, a, bm, cm = _ssd_inputs(rng, 1, 8, 2, 64, 16, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        sk.ssd_chunk_scan(x, dt, a, bm[..., :12], cm[..., :12], chunk=8)
+    xs = torch.zeros(x.numel() + 1, device=dev,
+                     dtype=x.dtype)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        sk.ssd_chunk_scan(xs, dt, a, bm, cm, chunk=8)
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take():

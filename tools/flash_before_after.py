@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """The flash kernel rows (bf16, and float32 beside them) and a long merged
 prefill profile, or (``--mode decode``) the decode kernel rows and the
-decode step profiles, on the port found under ``--src``, so that two trees
+decode step profiles, or (``--mode ssd``) the SSD scan rows and the SSM
+prefill profiles, on the port found under ``--src``, so that two trees
 can be compared on one card.
 
     python3 tools/flash_before_after.py --src build/parent/src --tag parent
     python3 tools/flash_before_after.py --src src --tag change
     python3 tools/flash_before_after.py --mode decode --src src --tag change
+    python3 tools/flash_before_after.py --mode ssd --src src --tag change
 
 Imports ``repro_torch`` from ``--src`` (nothing else of that tree) and the
 phases of this checkout's ``chip_smoke.py``, builds that tree's kernels of
@@ -28,7 +30,18 @@ and in the decode mode:
   paged tables and int8 pools), each held against its plain version as
   there, with the device kernels per call of each bf16 wrapper;
 * ``profile_decode`` of the same merged Mistral-7B on the dense, paged
-  and int8 paged caches (4 slots, the path phase's prompts).
+  and int8 paged caches (4 slots, the path phase's prompts);
+
+and in the ssd mode:
+
+* ``chip_smoke.py``'s SSD rows (row 10) in bf16 and float32 at
+  Hymba-1.5B's geometry (H 50, P 64, N 16; 250, 512 and 2048 tokens) and
+  Mamba2-2.7B's (H 80, P 64, N 128; 256, 512 and 2048), each held against
+  its plain version at the same gate, with the device kernels per
+  ``ssd_chunk_scan`` call;
+* ``profile_prefill`` of bf16 Mamba2-2.7B at 64 layers (512 and 2048
+  tokens) and of bf16 Hymba-1.5B at 32 layers (512 tokens), random weights
+  from seed 0, with the SSD kernel's device ms.
 
 Prints the card, then one JSON line, and appends it to
 ``build/<mode>_before_after_<tag>.jsonl`` (run each tree twice, in turns
@@ -51,8 +64,8 @@ def main() -> int:
     ap.add_argument("--src", required=True,
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", required=True, help="name of the tree")
-    ap.add_argument("--mode", choices=("flash", "decode"), default="flash",
-                    help="which kernel family to time")
+    ap.add_argument("--mode", choices=("flash", "decode", "ssd"),
+                    default="flash", help="which kernel family to time")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, ROOT)
@@ -62,9 +75,7 @@ def main() -> int:
         print("flash_before_after: needs a CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models import init_params
 
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -72,7 +83,8 @@ def main() -> int:
         timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     t0 = time.perf_counter()
-    _build.build_all([f"{args.mode}_attention"])
+    _build.build_all(["ssd_scan" if args.mode == "ssd"
+                      else f"{args.mode}_attention"])
     build_s = time.perf_counter() - t0
 
     rng = np.random.default_rng(0)
@@ -84,30 +96,25 @@ def main() -> int:
         cs.paged_phase(rng, rows, q8=False)
         cs.paged_phase(rng, rows, q8=True)
         cs.decode_phase(rng, rows, hymba=True)
+    elif args.mode == "ssd":
+        from repro_torch.kernels import ssd_scan as sk
+        per_call = {"ssd_chunk_scan": cs.ssd_kernels_per_call(
+            np.random.default_rng(1))}
+        cs.ssd_phase(rng, rows, occupancy=hasattr(sk, "occupancy"))
     else:
         flash_rows(cs, rng, rows)
     for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']:36s} {r['dtype'][6:]:9s} {r['case'][:56]:56s} "
-              f"err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} sdpa "
-              f"{r['library_ms']:.4f} bound {r['bound_ms']:.5f} "
+              f"err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} sdpa {lib} "
+              f"bound {r['bound_ms']:.5f} "
               f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}%)",
               flush=True)
 
-    cfg = get_config("mistral-7b").with_(
-        block_style="skipless_merged", dtype="bfloat16",
-        param_dtype="bfloat16")
-    with torch.no_grad():
-        params = init_params(cfg, seed=0, device="cuda")
-        if args.mode == "decode":
-            prng = np.random.default_rng(0)
-            prompts = [prng.integers(0, cfg.vocab_size, n)
-                       for n in (16, 37, 100, 250)]
-            profiles = {"decode_profile_bf16": {
-                cache: cs.profile_decode(cfg, params, prompts, cache)
-                for cache in ("dense", "paged", "paged_q8")}}
-        else:
-            profiles = {"prefill_profile_bf16": cs.prefill_profiles(
-                cfg, params)}
+    if args.mode == "ssd":
+        profiles = {"prefill_profile_bf16": ssm_profiles(cs)}
+    else:
+        profiles = attention_profiles(cs, args.mode)
     out = {"tag": args.tag, "mode": args.mode, "card": card,
            "build_s": build_s,
            "rows": [{k: r[k] for k in (
@@ -123,6 +130,59 @@ def main() -> int:
                            f"{args.tag}.jsonl"), "a") as f:
         f.write(line + "\n")
     return 0
+
+
+def attention_profiles(cs, mode):
+    """The flash and decode modes' profiles of a merged bf16 Mistral-7B."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config("mistral-7b").with_(
+        block_style="skipless_merged", dtype="bfloat16",
+        param_dtype="bfloat16")
+    with torch.no_grad():
+        params = init_params(cfg, seed=0, device="cuda")
+        if mode == "decode":
+            prng = np.random.default_rng(0)
+            prompts = [prng.integers(0, cfg.vocab_size, n)
+                       for n in (16, 37, 100, 250)]
+            profiles = {"decode_profile_bf16": {
+                cache: cs.profile_decode(cfg, params, prompts, cache)
+                for cache in ("dense", "paged", "paged_q8")}}
+        else:
+            profiles = {"prefill_profile_bf16": cs.prefill_profiles(
+                cfg, params)}
+    return profiles
+
+
+SSM_PROFILES = (("mamba2-2.7b", (512, 2048)), ("hymba-1.5b", (512,)))
+
+
+def ssm_profiles(cs):
+    """The ssd mode's prefill profiles: bf16 Mamba2-2.7B (64 layers) and
+    Hymba-1.5B (32 layers) at full width from seed 0, one seeded prompt of
+    each length, keyed "<arch> <length>"."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    out = {}
+    rng = np.random.default_rng(2)
+    with torch.no_grad():
+        for arch, lens in SSM_PROFILES:
+            cfg = get_config(arch).with_(dtype="bfloat16",
+                                         param_dtype="bfloat16")
+            params = init_params(cfg, seed=0, device="cuda")
+            for n in lens:
+                out[f"{arch} {n}"] = cs.profile_prefill(
+                    cfg, params, rng.integers(0, cfg.vocab_size, n),
+                    max_len=max(n, cs.SSM_MAX_LEN))
+            del params
+            torch.cuda.empty_cache()
+    return out
 
 
 def flash_rows(cs, rng, rows):

@@ -35,7 +35,11 @@ NVIDIA card.  Run from the repository root:
    come from CUDA graphs of 30 calls (``cuda_ms``), three timed replays
    each.  First, ``torch.profiler`` counts the device kernels per call
    of each of the six decode wrappers (rows 4-9) and of the SSD scan (row
-   10) on bf16 inputs of the main path's shapes, which must be one;
+   10) on bf16 inputs of the main path's shapes, which must be one.  Rows
+   6-9 also run with one batch row SHIELDED (``shielded_phase``: its table
+   all -1 at a length > 0, as the scheduler ships a slot mid-chunked-
+   prefill): that row must be exactly zero, the others the plain
+   versions';
 5. path phase, Mistral-7B: builds a skipless Mistral-7B at full width on
    the card from a seeded generator, merges it exactly
    (``merge_skipless(..., "qp")``) and serves 4 prompts (16, 37, 100, 250
@@ -70,7 +74,24 @@ NVIDIA card.  Run from the repository root:
      decode steps on each cache, profiles of its dense prefill of 250 and
      2048 tokens (with the flash kernels' share of the device time), and
      the peak concurrent streams of the fp and int8 pools at one byte
-     budget are printed beside the card's name;
+     budget (prefix retention off) are printed beside the card's name;
+   - the scheduled path (``ScheduledEngine``: chunks of 64 tokens, 256
+     tokens a step, the four prompts and a repeat of the 250-token one):
+     at 4 calibrated layers in float32 its greedy streams equal the
+     synchronous engine's on the dense cache and the paged pool, merged
+     equal source, a warm prefix hit equals the cold stream, and a starved
+     pool (deferral and preemption counted) equals the roomy one; the
+     int8 pool's agreement and chunked prefill logit error (gate 10%) are
+     printed.  At 32 layers every scheduled engine launches its decode
+     kernel exactly once per layer and decode step and no flash kernel
+     (a chunk's attention is the eager positions-based core, as in the
+     reference); in bfloat16 its iterations, chunks, tok/s, TTFT and a
+     profile of one 64-token chunk step (device ms, launches, and the
+     eager chunk attention's share) are printed;
+   - sampling (temperature 0.8, top-k 50, merged, paged, 4 calibrated
+     layers): a stream alone == beside others, a preempting pool == a
+     roomy one, scheduled == synchronous, top_k=1 == greedy, and the
+     launches per sampled decode step beside the greedy step's;
 6. path phase, Hymba-1.5B (``hybrid_path``): skipless at full width and
    its qp merge (Q removed, P kept) on the dense cache, prompts of 16, 37,
    250 and 512 tokens (512: SSM state carried across two 256-token
@@ -79,12 +100,15 @@ NVIDIA card.  Run from the repository root:
    at 32 layers the launch counts (per prompt 32 flash and 32 SSD
    launches, per decode step 32 decode launches, nothing else), and bf16
    merged and source tok/s, TTFT, and decode and 512-token prefill
-   profiles of the merged model;
+   profiles of the merged model; at 4 layers the ``ScheduledEngine``
+   (monolithic jobs: SSM state has no mid-prompt checkpoint) gives the
+   synchronous engine's streams and flash and SSD launches;
 7. path phase, Mamba2-2.7B (``mamba2_path``): 64 layers at full width,
    standard style, the same prompts: kernels vs plain prefill logits in
    float32, the launch counts (64 SSD launches per prompt, nothing else),
-   bf16 tok/s, TTFT, and decode and 512-token prefill profiles (each
-   profile also gives the SSD kernel's device ms);
+   the ``ScheduledEngine``'s monolithic jobs (the synchronous streams and
+   SSD launches), bf16 tok/s, TTFT, and decode and 512-token prefill
+   profiles (each profile also gives the SSD kernel's device ms);
 8. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -710,6 +734,85 @@ def paged_phase(rng, rows, q8):
             del us, kps, vps, khs, vhs
 
 
+SHIELD_QPOS = (15, 64, 300, 511)  # row 1: a slot shielded at frontier 64
+
+
+def shielded_phase(rng):
+    """Rows 6-9 with one batch row SHIELDED, as the scheduler ships a slot
+    mid-chunked-prefill: its table row all -1 and its length at its chunk
+    frontier (> 0).  That row must be exactly zero (the unmapped pages'
+    K/V rows and q8 scales are NaN in the kernels' inputs, so a kernel
+    that read one would return NaN) and the others must equal the plain
+    versions within ``tolerance``.  These launches compare and are not
+    counted.  Returns the rows checked."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk, quant, ref
+
+    dev = torch.device("cuda")
+    G = Hq // Hkv
+    B, MB = len(SHIELD_QPOS), 512 // PAGE
+    qp = torch.tensor(SHIELD_QPOS, dtype=torch.int32, device=dev)
+    perm = iter(np.random.default_rng(29).permutation(NB_POOL).tolist())
+    bt_np = np.full((B, MB), -1, np.int32)
+    for b, q in enumerate(SHIELD_QPOS):
+        if b != 1:
+            for j in range(q // PAGE + 1):
+                bt_np[b, j] = next(perm)
+    bt = torch.from_numpy(bt_np).to(dev)
+    mapped = torch.zeros(NB_POOL, dtype=torch.bool, device=dev)
+    mapped[bt[bt >= 0].long()] = True
+    checked = []
+    for dtype in (torch.bfloat16, torch.float32):
+        def rand(*shape, dt=dtype):
+            return torch.from_numpy(rng.standard_normal(
+                shape, np.float32)).to(dev, dt)
+        u = rand(B, Hq, D)
+        for q8 in (False, True):
+            if q8:
+                pools = [quant.q8_quantize_pages(rand(NB_POOL, PAGE, Hkv, D,
+                                                      dt=torch.float32))
+                         for _ in range(2)]
+                clean = [(i, s) for i, s in pools]
+                bad = [(i, torch.where(mapped[:, None], s, float("nan")))
+                       for i, s in pools]
+                kernel_kv = (bad[0][0], bad[1][0], bad[0][1], bad[1][1])
+                plain_kv = (clean[0][0], clean[1][0], clean[0][1],
+                            clean[1][1])
+            else:
+                kv = [rand(NB_POOL, PAGE, Hkv, D) for _ in range(2)]
+                nan = [torch.where(mapped[:, None, None, None], x,
+                                   float("nan")).to(dtype) for x in kv]
+                kernel_kv, plain_kv = tuple(nan), tuple(kv)
+            infix = "_q8" if q8 else ""
+            for merged in (True, False):
+                name = f"decode_attention_paged{infix}_" + \
+                    ("merged_bsd" if merged else "bhsd")
+                oracle = getattr(ref, f"ref_decode_attention_paged{infix}"
+                                 + ("_merged" if merged else ""))
+                q = u if merged else u.reshape(B, Hkv, G, D)
+                got = getattr(dk, name)(q, *kernel_kv, bt, qp,
+                                        ring_blocks=0).reshape(B, Hq, D)
+                want = oracle(q, *plain_kv, bt, qp,
+                              ring_blocks=0).reshape(B, Hq, D)
+                torch.cuda.synchronize()
+                rows = [0, 2, 3]
+                err = float((got[rows].float() - want[rows].float())
+                            .abs().max())
+                tol = tolerance(want[rows], dtype)
+                zero = torch.equal(got[1], torch.zeros_like(got[1]))
+                if not (zero and err <= tol):
+                    raise AssertionError(
+                        f"{name} {dtype} shielded row: exactly zero {zero}, "
+                        f"other rows max abs err {err} (tol {tol})")
+                checked.append(f"{name} {str(dtype)[6:]}: err {err:.2e}")
+    log(f"shielded-row check (rows 6-9, B={B}, row 1 table all -1 at "
+        f"length {SHIELD_QPOS[1]}, unmapped K/V and scales NaN): the "
+        f"shielded row exactly zero, the others within tolerance: "
+        f"{'; '.join(checked)}")
+    return checked
+
+
 def quant_check(rng):
     """The int8 quantization is plain torch on every route: on the same
     seeded float32 K/V at Mistral's shape (Hkv 8, D 128, pages of 16) the
@@ -968,18 +1071,30 @@ def ssd_phase(rng, rows, occupancy=True):
 # path phase
 # ---------------------------------------------------------------------------
 
+# the scheduled path: continuous batching with chunked prefill
+SCHED = dict(token_budget=256, chunk_tokens=64)
+# 16-token pages for the path's five requests: admissions defer and decode
+# steps preempt, yet no request is left alone without a page (a trace of
+# the manager's host logic, which does not depend on the weights)
+SCHED_STARVED_PAGES = 28
+
+
 def serve(cfg, params, prompts, max_new, cache="dense", probe=None,
-          max_len=512, **serve_kw):
-    """Serve ``prompts`` on a fresh 4-slot engine; ``probe(eng)`` may wrap
-    the engine's manager before the run.  Returns (engine, results, the
-    launch counts of exactly this run, wall seconds)."""
+          max_len=512, sched=False, **serve_kw):
+    """Serve ``prompts`` on a fresh 4-slot engine, the synchronous
+    ``Engine`` or with ``sched`` the ``ScheduledEngine`` (``SCHED``);
+    ``probe(eng)`` may wrap the engine's manager before the run.  Returns
+    (engine, results, the launch counts of exactly this run, wall
+    seconds)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving import (Engine, SchedConfig, ScheduledEngine,
+                                     ServeConfig)
     import torch
 
-    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=max_len,
-                                          **serve_kw),
-                 impl="cuda", cache=cache, device="cuda")
+    sc = ServeConfig(n_slots=4, max_len=max_len, **serve_kw)
+    kw = dict(impl="cuda", cache=cache, device="cuda")
+    eng = ScheduledEngine(cfg, params, sc, SchedConfig(**SCHED), **kw) \
+        if sched else Engine(cfg, params, sc, **kw)
     if probe is not None:
         probe(eng)
     torch.cuda.synchronize()
@@ -1307,7 +1422,10 @@ def equal_budget(cfg, params):
     requests alternating 40- and 24-token prompts (one repeated), 8 new
     tokens each, 16 slots, max_len 64 (``benchmarks/bench_paged_serving.py``
     ``_serve_quant``'s traffic, at this page size); the fp pool has the
-    dense cache's 4 x 64 tokens of pages."""
+    dense cache's 4 x 64 tokens of pages.  Prefix retention is off on both
+    pools (the reference's ``_serve_quant`` keeps it on): a retained page
+    is reclaimable, and with it off the cell counts only the pages live
+    requests hold, as it did before the port had retention."""
     import numpy as np
     from repro_torch.serving import (Engine, PagedCacheAdapter,
                                      PagedQ8CacheAdapter, ServeConfig)
@@ -1320,7 +1438,8 @@ def equal_budget(cfg, params):
 
     def engine(adapter, n_blocks):
         return Engine(cfg, params, sc, impl="cuda", device="cuda",
-                      cache=adapter(block_size=PAGE, n_blocks=n_blocks))
+                      cache=adapter(block_size=PAGE, n_blocks=n_blocks,
+                                    prefix_retention=False))
 
     n_fp = 4 * 64 // PAGE
     budget = engine(PagedCacheAdapter, n_fp).pm.pool_bytes
@@ -1339,6 +1458,218 @@ def equal_budget(cfg, params):
     log(f"  equal budget ({budget:,d} bytes), {cfg.dtype}, 16 requests: fp "
         f"pool {out['fp']} / int8 pool {out['q8']}")
     return out
+
+
+def check_sched_counts(tag, counts, eng, merged, sync_counts=None):
+    """A chunked engine launches its decode kernel once per layer and
+    decode step and nothing else: no flash kernel runs on a chunk step
+    (the chunk's attention is the eager positions-based core, as in the
+    reference).  A monolithic one (stacks with SSM layers) launches the
+    synchronous engine's flash and SSD kernels (``sync_counts``), and its
+    decode kernel once per layer and step."""
+    L = eng.cfg.n_layers
+    want = {k: 0 for k in KERNELS}
+    if eng.cfg.has_attention:
+        dec = {"dense": "decode_attention_", "paged":
+               "decode_attention_paged_", "paged_q8":
+               "decode_attention_paged_q8_"}[eng.kv.kind] + \
+            ("merged_bsd" if merged else "bhsd")
+        want[dec] = L * eng.stats["n_steps"]
+    if sync_counts is not None:
+        for k in KERNELS:
+            if k.startswith(("flash", "ssd")):
+                want[k] = sync_counts[k]
+    if counts != want:
+        raise AssertionError(f"{tag}: scheduled launch counts {counts} != "
+                             f"{want}")
+    log(f"  {tag} scheduled: launches { {k: v for k, v in counts.items() if v} }"
+        f" ({eng.stats['n_steps']} decode steps, {eng.n_iterations} "
+        f"iterations, {eng.n_chunks_run} "
+        f"{'chunks' if eng._chunked else 'monolithic jobs'})")
+
+
+def chunked_q8_logit_error(cfg, params, prompt):
+    """The prompt chunked (64 tokens) into an int8 pool and into an fp
+    pool by ``forward_prefill_chunk``: the final chunk's max |logit| error
+    of the int8 pool against the fp pool's, as a share of the max |fp
+    logit| (the reference's q8 gate is 10%)."""
+    import torch
+    from repro_torch.models import (PagedChunkDest, PagedQ8ChunkDest,
+                                    forward_prefill_chunk, init_paged_cache,
+                                    init_paged_q8_cache)
+    C = SCHED["chunk_tokens"]
+    n = -(-len(prompt) // C) * C
+    table = torch.arange(n // PAGE, dtype=torch.int32, device="cuda")[None]
+    q8 = init_paged_q8_cache(cfg, n // PAGE, PAGE, 1, n, device="cuda")
+    fp = init_paged_cache(cfg, n // PAGE, PAGE, 1, n, device="cuda")
+    x = torch.zeros((1, n), dtype=torch.long, device="cuda")
+    x[0, :len(prompt)] = torch.as_tensor(prompt)
+    for start in range(0, n, C):
+        bids = table[0, start // PAGE:(start + C) // PAGE]
+        kw = dict(start=start, true_len=len(prompt), impl="cuda")
+        lg_q8, _ = forward_prefill_chunk(params, cfg, x[:, start:start + C],
+                                         PagedQ8ChunkDest(*q8[:4], table,
+                                                          bids), **kw)
+        lg_fp, _ = forward_prefill_chunk(params, cfg, x[:, start:start + C],
+                                         PagedChunkDest(fp.k, fp.v, table,
+                                                        bids), **kw)
+    return float((lg_q8 - lg_fp).abs().max() / lg_fp.abs().max())
+
+
+def sched_checks(cfg, params, mcfg, mparams, prompts, max_new):
+    """The scheduled path at 4 calibrated layers in float32 (chunks of 64,
+    256 tokens a step, max_len 512, 4 slots; the four prompts and a repeat
+    of the 250-token one): on the dense cache and the paged pool the
+    ``ScheduledEngine``'s greedy streams equal the synchronous engine's,
+    merged equal source, a warm prefix hit (the 250-token prompt served
+    again after its pages were released to the prefix cache) equals the
+    cold stream, and a starved pool (deferral and preemption counted)
+    equals the roomy one; the int8 pool's agreement with them and its
+    chunked prefill's logit error (gate 10%) are printed.  Returns the
+    findings."""
+    sp = list(prompts) + [prompts[3].copy()]
+    out, sync_streams = {}, {}
+    for tag, c, p in (("source", cfg, params), ("merged", mcfg, mparams)):
+        merged = tag == "merged"
+        _, sync, _, _ = serve(c, p, sp, max_new)
+        want = streams(sync)
+        sync_streams[tag] = want
+        ev = {}
+        for cache in ("dense", "paged"):
+            eng, res, counts, _ = serve(c, p, sp, max_new, cache,
+                                        sched=True)
+            check_sched_counts(f"{tag} {cache} float32", counts, eng, merged)
+            if streams(res) != want or not eng._chunked:
+                raise AssertionError(f"{tag} {cache}: scheduled streams "
+                                     f"differ from the synchronous engine's")
+        # the paged engine again: the 250-token prompt once more, its pages
+        # now held only by the prefix cache
+        hits = eng.pm.tree.hit_tokens
+        warm = eng.generate([sp[3]], max_new_tokens=max_new)
+        ev["warm_hit_tokens"] = eng.pm.tree.hit_tokens - hits
+        if list(warm[0]) != want[3] or not ev["warm_hit_tokens"]:
+            raise AssertionError(f"{tag}: warm prefix hit {ev} differs from "
+                                 f"the cold stream")
+        eng, res, counts, _ = serve(c, p, sp, max_new, "paged", sched=True,
+                                    n_blocks=SCHED_STARVED_PAGES)
+        check_sched_counts(f"{tag} paged float32, {SCHED_STARVED_PAGES} "
+                           f"pages", counts, eng, merged)
+        ev.update(starved_pages=SCHED_STARVED_PAGES,
+                  deferred=eng.stats["n_deferred"],
+                  preempted=eng.stats["n_preempted"])
+        if streams(res) != want or not (ev["deferred"] and ev["preempted"]):
+            raise AssertionError(f"{tag}: starved scheduled pool {ev}, "
+                                 f"streams equal {streams(res) == want}")
+        eng, res, counts, _ = serve(c, p, sp, max_new, "paged_q8",
+                                    sched=True)
+        check_sched_counts(f"{tag} paged_q8 float32", counts, eng, merged)
+        ev["q8_agree_with_fp"] = agreement(res, want)
+        ev["q8_chunked_prefill_logit_err_share"] = chunked_q8_logit_error(
+            c, p, sp[3])
+        if not ev["q8_chunked_prefill_logit_err_share"] <= 0.10:
+            raise AssertionError(f"{tag}: chunked q8 prefill logit error "
+                                 f"{ev} over the 10% gate")
+        log(f"  {tag} scheduled float32: streams == synchronous on dense and "
+            f"paged, warm prefix hit == cold, starved pool == roomy; "
+            f"{ev}")
+        out[tag] = ev
+    if sync_streams["merged"] != sync_streams["source"]:
+        raise AssertionError("scheduled path: merged and source streams "
+                             "differ")
+    log(f"  scheduled merged == source (float32, {EQ_LAYERS} layers, "
+        f"{len(sp)} requests)")
+    return out
+
+
+def sampling_checks(cfg, params, prompts, max_new):
+    """Temperature 0.8, top-k 50 on the paged pool, on one model: a
+    request's stream alone == beside the others; a pool that preempts ==
+    a roomy one; the scheduler's streams == the synchronous engine's;
+    top_k=1 == greedy.  Then device launches per decode step, sampled and
+    greedy (``torch.profiler``)."""
+    kw = dict(cache="paged", temperature=0.8, top_k=50, seed=7)
+    _, busy, _, _ = serve(cfg, params, prompts, max_new, **kw)
+    busy = streams(busy)
+    _, solo, _, _ = serve(cfg, params, prompts[:1], max_new, **kw)
+    # the pool of ``paged_checks`` (the prompts reordered so the longest
+    # is admitted beside a short one): a request's stream depends on its
+    # arrival index, so the roomy run takes the same order
+    need = max(-(-(len(p) + max_new - 1) // PAGE) for p in prompts)
+    reordered = [prompts[i] for i in (0, 3, 1, 2)]
+    eng, tight, _, _ = serve(cfg, params, reordered, max_new,
+                             n_blocks=need + 1, **kw)
+    n_pre = eng.stats["n_preempted"]
+    _, roomy, _, _ = serve(cfg, params, reordered, max_new, **kw)
+    _, sched, _, _ = serve(cfg, params, prompts, max_new, sched=True, **kw)
+    _, top1, _, _ = serve(cfg, params, prompts, max_new,
+                          **{**kw, "top_k": 1})
+    _, greedy, _, _ = serve(cfg, params, prompts, max_new, cache="paged")
+    ok = {"solo_eq_busy": streams(solo) == busy[:1],
+          "tight_eq_roomy": streams(tight) == streams(roomy),
+          "tight_preempted": n_pre,
+          "sched_eq_sync": streams(sched) == busy,
+          "top1_eq_greedy": streams(top1) == streams(greedy),
+          "sampled_differs_from_greedy": busy != streams(greedy)}
+    if not all(ok.values()):
+        raise AssertionError(f"sampling on the card: {ok}")
+    ok["launches_per_decode_step"] = {
+        tag: profile_decode(cfg, params, prompts, "paged",
+                            **skw)["kernels_per_step"]
+        for tag, skw in (("sampled", dict(temperature=0.8, top_k=50,
+                                          seed=7)), ("greedy", {}))}
+    log(f"  sampling (T 0.8, top-k 50, paged, {cfg.n_layers} layers): {ok}")
+    return ok
+
+
+def profile_chunk(cfg, params, prompt, cache, steps=3):
+    """``profiled`` over ``steps`` runs of one 64-token chunk step (the
+    third chunk of ``prompt``, tokens 128-191, against the chunks before
+    it) of a 4-slot ``ScheduledEngine`` on ``cache``; then the same
+    step's eager chunk-attention calls alone (recorded from the step), so
+    that their share of the step's device time is read off two profiles.
+    Returns the step's profile with ``attention_share``."""
+    import numpy as np
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import SchedConfig, ScheduledEngine, ServeConfig
+
+    C = SCHED["chunk_tokens"]
+    eng = ScheduledEngine(cfg, params, ServeConfig(n_slots=4, max_len=512),
+                          SchedConfig(**SCHED), impl="cuda", cache=cache,
+                          device="cuda")
+    toks = np.asarray(prompt, np.int32)
+    eng.kv.admit_chunked(0, toks)
+    for start in range(0, 2 * C, C):  # the chunks before the profiled one
+        eng.kv.chunk_step(eng.params, 0, eng.host_to_device(
+            toks[start:start + C])[None], start, len(toks))
+    row = eng.host_to_device(toks[2 * C:3 * C])[None]
+    calls, core = [], tr._chunk_core
+
+    def recording(*a, **k):
+        calls.append((a, k))
+        return core(*a, **k)
+
+    tr._chunk_core = recording
+    try:
+        eng.kv.chunk_step(eng.params, 0, row, 2 * C, len(toks))
+    finally:
+        tr._chunk_core = core
+    what = (f"chunk step profile, {cfg.name}, {cache} cache, {cfg.dtype} "
+            f"({cfg.n_layers} layers, tokens {2 * C}-{3 * C - 1} of "
+            f"{len(toks)})")
+    prof = profiled(what, lambda: eng.kv.chunk_step(
+        eng.params, 0, row, 2 * C, len(toks)), steps)
+    attn = profiled(f"  its eager chunk attention alone ({len(calls)} "
+                    f"calls)", lambda: [core(*a, **k) for a, k in calls],
+                    steps)
+    prof["attention_device_ms_per_step"] = attn["device_ms_per_step"]
+    prof["attention_kernels_per_step"] = attn["kernels_per_step"]
+    prof["attention_share"] = (attn["device_ms_per_step"]
+                               / prof["device_ms_per_step"])
+    log(f"  eager chunk attention: {attn['device_ms_per_step']:.3f} of "
+        f"{prof['device_ms_per_step']:.3f} device ms per chunk step "
+        f"({100 * prof['attention_share']:.1f}%), "
+        f"{attn['kernels_per_step']} of {prof['kernels_per_step']} launches")
+    return prof
 
 
 def path_phase(summary):
@@ -1390,6 +1721,11 @@ def path_phase(summary):
             f"{max_new}")
         q8.update(q8_prefill_findings(cfg, params, mcfg, mparams, prompts[3]))
         summary["q8_4_layers"] = q8
+        # the scheduled path, and temperature sampling, on the same models
+        summary["sched_4_layers"] = sched_checks(cfg, params, mcfg, mparams,
+                                                 prompts, max_new)
+        summary["sampling_4_layers"] = sampling_checks(mcfg, mparams,
+                                                       prompts, max_new)
         del src, mrg, params, mparams
         torch.cuda.empty_cache()
 
@@ -1405,6 +1741,11 @@ def path_phase(summary):
                 eng, _, counts, _ = serve(c, p, prompts, max_new, cache=cache)
                 check_counts(f"{tag} {cache} float32", counts, eng, L, n,
                              merged)
+                launches = {k: launches[k] + counts[k] for k in KERNELS}
+                eng, _, counts, _ = serve(c, p, prompts, max_new, cache,
+                                          sched=True)
+                check_sched_counts(f"{tag} {cache} float32 ({L} layers)",
+                                   counts, eng, merged)
                 launches = {k: launches[k] + counts[k] for k in KERNELS}
         summary["launches"] = launches
         kernels_vs_plain(f"merged {L} layers, uncalibrated", mcfg, mparams,
@@ -1431,6 +1772,18 @@ def path_phase(summary):
             key = "merged_bf16" + ("" if cache == "dense" else "_" + cache)
             summary[key] = report(f"merged bfloat16, {cache} cache ({L} "
                                   "layers)", outs, wall)
+            serve(bcfg, bparams, prompts, max_new, cache, sched=True)
+            eng, outs, counts, wall = serve(bcfg, bparams, prompts, max_new,
+                                            cache, sched=True)
+            check_sched_counts(f"merged bfloat16 {cache}", counts, eng,
+                               merged=True)
+            summary["sched_" + key] = dict(
+                report(f"merged bfloat16, {cache} cache, scheduled ({L} "
+                       f"layers)", outs, wall),
+                iterations=eng.n_iterations, chunks=eng.n_chunks_run,
+                decode_steps=eng.stats["n_steps"])
+            summary["sched_" + key]["chunk_step_profile"] = profile_chunk(
+                bcfg, bparams, prompts[3], cache)
         summary["decode_profile_bf16"] = {
             cache: profile_decode(bcfg, bparams, prompts, cache)
             for cache in ("dense", "paged", "paged_q8")}
@@ -1496,6 +1849,15 @@ def hybrid_path(summary):
                                               max_len=SSM_MAX_LEN)
             check_counts(f"hymba {tag} float32", counts, eng, EQ_LAYERS, n,
                          merged=False)
+            # the scheduler: monolithic jobs (SSM state has no mid-prompt
+            # checkpoint), the synchronous engine's streams and prefills
+            eng, res, sched_counts, _ = serve(c, p, prompts, max_new,
+                                              max_len=SSM_MAX_LEN, sched=True)
+            check_sched_counts(f"hymba {tag} float32", sched_counts, eng,
+                               merged=False, sync_counts=counts)
+            if eng._chunked or streams(res) != streams(outs[tag]):
+                raise AssertionError(f"hymba {tag}: scheduled streams differ "
+                                     f"from the synchronous engine's")
         if streams(outs["source"]) != streams(outs["merged"]):
             bad = first_mismatch(cfg, params, prompts, outs["source"],
                                  outs["merged"])
@@ -1583,12 +1945,19 @@ def mamba2_path(summary):
         # layer adds up over 64 layers, far below 1e-3
         out = {"plain_vs_kernels_rel_f32": kernels_vs_plain(
             "mamba2", cfg, params, prompts[1], 1e-3)}
-        eng, _, counts, _ = serve(cfg, params, prompts, max_new,
-                                  max_len=SSM_MAX_LEN)
+        eng, sync, counts, _ = serve(cfg, params, prompts, max_new,
+                                     max_len=SSM_MAX_LEN)
         check_counts(f"mamba2 float32 ({L} layers)", counts, eng, L, n,
                      merged=False)
+        eng, res, sched_counts, _ = serve(cfg, params, prompts, max_new,
+                                          max_len=SSM_MAX_LEN, sched=True)
+        check_sched_counts(f"mamba2 float32 ({L} layers)", sched_counts, eng,
+                           merged=False, sync_counts=counts)
+        if eng._chunked or streams(res) != streams(sync):
+            raise AssertionError("mamba2: scheduled streams differ from the "
+                                 "synchronous engine's")
         summary["launches"] = {k: summary["launches"][k] + counts[k]
-                               for k in KERNELS}
+                               + sched_counts[k] for k in KERNELS}
         del eng
         bcfg = cfg.with_(dtype="bfloat16", param_dtype="bfloat16")
         bparams = tree_map(lambda t: t.to(torch.bfloat16), params)
@@ -1672,18 +2041,23 @@ def profiled(what, fn, steps):
     return out
 
 
-def profile_decode(cfg, params, prompts, cache, steps=5, max_len=512):
+def profile_decode(cfg, params, prompts, cache, steps=5, max_len=512,
+                   **serve_kw):
     """``profiled`` over ``steps`` batched decode steps of the 4-slot
-    engine on ``cache``, the prompts prefilled first."""
+    engine on ``cache`` (``serve_kw``: more ``ServeConfig`` fields, e.g. a
+    temperature), the prompts prefilled first."""
     from repro_torch.serving import Engine, Request, ServeConfig
 
-    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=max_len),
+    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=max_len,
+                                          **serve_kw),
                  impl="cuda", cache=cache, device="cuda")
     for p in prompts:
         eng.submit(Request(prompt=p, max_new_tokens=steps + 2))
     eng.step()
+    extra = "".join(f", {k} {v}" for k, v in serve_kw.items())
     return profiled(f"decode profile, {cfg.name}, {cache} cache, {cfg.dtype} "
-                    f"({cfg.n_layers} layers, 4 slots)", eng.step, steps)
+                    f"({cfg.n_layers} layers, 4 slots{extra})", eng.step,
+                    steps)
 
 
 def profile_prefill(cfg, params, prompt, steps=3, max_len=None):
@@ -1797,6 +2171,7 @@ def run() -> int:
     paged_phase(rng, rows, q8=False)
     quant_check(rng)
     paged_phase(rng, rows, q8=True)
+    shielded_phase(rng)
     q8_flash_phase(rng, rows)
     decode_phase(rng, rows, hymba=True)
     flash_phase(rng, rows, hymba=True)

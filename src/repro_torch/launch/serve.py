@@ -1,5 +1,6 @@
-"""Serving launcher: batched greedy generation on the dense cache, the
-paged pool or the int8 paged pool.
+"""Serving launcher: batched generation on the dense cache, the paged pool
+or the int8 paged pool, greedy or (``--temperature`` > 0) sampled from
+per-request streams seeded by ``--seed``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-7b \
       --smoke --merged-from-skipless --requests 4 --max-new 8 \
@@ -71,7 +72,7 @@ def main(argv=None):
               f"({100 * (n0 - n1) / n0:.1f}% removed)", flush=True)
 
     sc = ServeConfig(n_slots=args.slots, max_len=args.max_len,
-                     temperature=args.temperature,
+                     temperature=args.temperature, seed=args.seed,
                      block_size=args.block_size, n_blocks=args.n_blocks)
     impl = "cuda" if args.device.startswith("cuda") else "torch"
     eng = Engine(cfg, params, sc, impl=impl, cache=args.cache,

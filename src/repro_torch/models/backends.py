@@ -14,11 +14,14 @@ registered backend keyed ``(cache_kind, style, impl)``:
   impl        "cuda" (the hand-written kernels) or "torch" (the plain
               PyTorch versions, which run on the CPU)
 
-Both serving phases have one dispatcher each looking their route up here:
-decode — :class:`AttentionBackend` (a per-layer, per-token attention step)
-behind ``models.transformer.forward_step``; prefill —
+Three serving programs have one dispatcher each looking their route up
+here: decode — :class:`AttentionBackend` (a per-layer, per-token
+attention step) behind ``models.transformer.forward_step``; prefill —
 :class:`PrefillBackend` (a whole-sequence program) behind
-``models.transformer.forward_prefill``.  Registering a route::
+``models.transformer.forward_prefill``; chunked prefill —
+:class:`ChunkBackend` (one fixed-width slice of a prompt against the
+serving cache) behind ``models.transformer.forward_prefill_chunk``.
+Registering a route::
 
     def my_step(lp, cfg, u1, k_layer, v_layer, ctx):
         # u1 (B,1,d) stream; ctx carries "length", "impl" and the cache
@@ -140,3 +143,61 @@ def get_prefill_backend(cache_kind: str, style: str,
 
 def registered_prefill_backends() -> List[Tuple[str, str, str]]:
     return sorted(_PREFILL_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# chunk: fixed-width prompt-slice prefill programs, same key space
+# ---------------------------------------------------------------------------
+
+# run(params, cfg, chunk, dest, ctx) -> (last_logits, filled destination)
+ChunkFn = Callable[..., Tuple]
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkBackend:
+    """One registered (cache_kind, style, impl) chunked-prefill route: run
+    the stack over ONE fixed-width slice ``[start, start+C)`` of a single
+    prompt, attending to everything the slot holds so far (earlier chunks
+    and the slice itself), and write the slice's KV into the batched
+    cache or the pool's pages in place.  ``fast_path`` is True when the
+    program reads no Q or P weights (the merged qp layout, chunk by
+    chunk)."""
+    cache_kind: str
+    style: str
+    impl: str
+    run: ChunkFn
+    fast_path: bool = False
+
+    @property
+    def key(self) -> Tuple[str, str, str]:
+        return (self.cache_kind, self.style, self.impl)
+
+
+_CHUNK_REGISTRY: Dict[Tuple[str, str, str], ChunkBackend] = {}
+
+
+def register_chunk_backend(cache_kind: str, style: str, run: ChunkFn, *,
+                           impls: Tuple[str, ...] = IMPLS,
+                           fast_path: bool = False) -> None:
+    """Register ``run`` under (cache_kind, style) for each impl in
+    ``impls``.  Re-registration overwrites (latest wins)."""
+    for impl in impls:
+        _CHUNK_REGISTRY[(cache_kind, style, impl)] = ChunkBackend(
+            cache_kind=cache_kind, style=style, impl=impl, run=run,
+            fast_path=fast_path)
+
+
+def get_chunk_backend(cache_kind: str, style: str, impl: str) -> ChunkBackend:
+    """Look up one chunk combo; unknown combos raise KeyError naming the
+    offending key and every registered one."""
+    try:
+        return _CHUNK_REGISTRY[(cache_kind, style, impl)]
+    except KeyError:
+        raise KeyError(
+            f"no ChunkBackend registered for (cache_kind={cache_kind!r}, "
+            f"style={style!r}, impl={impl!r}); registered chunk combos: "
+            f"{registered_chunk_backends()}") from None
+
+
+def registered_chunk_backends() -> List[Tuple[str, str, str]]:
+    return sorted(_CHUNK_REGISTRY)

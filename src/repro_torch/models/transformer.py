@@ -25,6 +25,10 @@ the layer axis the port loops over it.  Serving entry points:
                    per-layer attention route is looked up in the
                    AttentionBackend registry keyed (cache_kind, style,
                    impl)
+  forward_prefill_chunk
+                   one fixed-width slice of a prompt against the serving
+                   cache (the scheduler's chunked prefill), dispatched over
+                   the CHUNK registry
 
 Unlike the JAX reference, ``forward_step`` updates the cache IN PLACE (the
 new K/V rows, ``kv_pos``; a paged pool's pages) and returns it with
@@ -1233,3 +1237,375 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
                              st)
     logits = _logits(params, cfg, h)[:, 0, :]
     return logits, cache._replace(length=length + 1)
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill: fixed-width prompt slices against the SERVING cache, the
+# third program of the backend registry (``serving.sched`` interleaves
+# these with decode steps inside one engine iteration)
+# ---------------------------------------------------------------------------
+
+# causal-mask sentinel for kv positions that must never be attended (empty
+# dense entries, unmapped pages): larger than any real position, so the
+# causal test kv_pos <= q_pos excludes them without a separate validity
+# mask (attention_core_merged has no kv_valid parameter)
+_CHUNK_POS_SENTINEL = 2 ** 30
+
+
+class DenseChunkDest(NamedTuple):
+    """Destination of one dense prefill chunk: batch row ``slot`` (an int)
+    of the BATCHED serving ``DecodeCache``, written in place at positions
+    [start, start+C) of that row."""
+    cache: Any
+    slot: int
+
+
+class PagedChunkDest(NamedTuple):
+    """Destination of one paged prefill chunk, written direct-to-page, in
+    place.
+
+    ``block_table`` is THIS slot's (1, MB) table row (the true mapping, not
+    the shield-masked decode view); ``block_ids`` maps the chunk's C//bs
+    logical blocks to physical pages, -1 = do not write (prefix-shared
+    pages already holding the prefix, and blocks wholly past the prompt on
+    a padded final chunk: the ``PagedPrefillDest.block_ids`` contract, per
+    chunk)."""
+    k_pool: Any
+    v_pool: Any
+    block_table: Any
+    block_ids: Any
+
+
+class PagedQ8ChunkDest(NamedTuple):
+    """Destination of one int8 paged prefill chunk: the ``PagedChunkDest``
+    contract over int8 pools and per-(page, kv-head) float32 scales; the
+    chunk quantizes its K/V at page granularity and writes the ints and the
+    scale rows of the same pages together."""
+    k_pool: Any
+    v_pool: Any
+    k_scale: Any
+    v_scale: Any
+    block_table: Any
+    block_ids: Any
+
+
+def _chunk_last_logits(logits, start: int, true_len: int, C: int):
+    """The last REAL position's logits within the chunk: index
+    true_len-1-start clipped into [0, C), meaningful on the final chunk
+    (where the prompt's last token lies in [start, start+C))."""
+    idx = min(max(true_len - 1 - start, 0), C - 1)
+    return logits[:, idx, :]
+
+
+def _chunk_block_scan(params, cfg: ModelConfig, h, chunk_attn, k_stack,
+                      v_stack, impl: str):
+    """Run the block stack over a chunk stream with ``chunk_attn`` as the
+    attention route of every layer, a Python loop over layers where the
+    reference scans (``apply_block_step``'s backend seam is shape-agnostic
+    in the stream's sequence extent, so the block wiring, styles, b_out,
+    norms and FFN, is reused as it is).  ``k_stack``/``v_stack`` are the
+    layer-stacked stores (int8 pool: (pools, scales) pairs), written in
+    place by ``chunk_attn``.  Returns the chunk's logits (1, C, V)."""
+    ctx = {"impl": impl,
+           "backend": backends.AttentionBackend(
+               cache_kind="chunk", style="chunk", impl=impl,
+               step=chunk_attn)}
+    q8 = isinstance(k_stack, tuple)
+    for i in range(cfg.n_layers):
+        k_i = (k_stack[0][i], k_stack[1][i]) if q8 else k_stack[i]
+        v_i = (v_stack[0][i], v_stack[1][i]) if q8 else v_stack[i]
+        h = apply_block_step(layer_params(params, i), cfg, h, k_i, v_i, ctx)
+    return _logits(params, cfg, h)
+
+
+def _chunk_rope(cfg: ModelConfig, q, k_new, positions):
+    return _rope(cfg, q, positions), _rope(cfg, k_new, positions)
+
+
+def _chunk_core(cfg: ModelConfig, q, k_row, v_row, pos, kv_eff,
+                merged_core: bool, cache_kind: str):
+    """Attention of the chunk's C queries at positions ``pos`` over the
+    slot's whole row.  This is the port of the reference's positions-based
+    XLA core, which its chunk programs run for every impl
+    (``repro/models/transformer.py``, ``_chunk_dense``): the flash kernels
+    assume arange positions, and a chunk's queries sit at [start, start+C)
+    over keys [0, start+C).  So ``impl="torch"`` here is the chunk
+    program's own computation on the tensors' device, not a kernel's plain
+    version standing in for it; no fused chunk kernel exists in either
+    package."""
+    C = q.shape[1]
+    if merged_core:
+        return attn_mod.attention_core_merged(
+            q.reshape(1, C, cfg.attn_dim), k_row, v_row, q_positions=pos,
+            kv_positions=kv_eff, n_kv_heads=cfg.n_kv_heads,
+            causal=cfg.causal, sliding_window=cfg.sliding_window,
+            query_chunk=C, impl="torch", cache_kind=cache_kind)
+    out = attn_mod.attention_core(
+        q, k_row, v_row, q_positions=pos, kv_positions=kv_eff,
+        causal=cfg.causal, sliding_window=cfg.sliding_window, query_chunk=C,
+        impl="torch")
+    return out.reshape(1, C, cfg.attn_dim)
+
+
+def _chunk_dense(params, cfg: ModelConfig, chunk, dest: DenseChunkDest, ctx,
+                 *, merged_core: bool):
+    """Shared body of both dense chunk routes.
+
+    Per layer: write the chunk's K/V into the slot's rows at [start,
+    start+C) FIRST, then attend over the whole row: the chunk attends to
+    itself and every earlier chunk, and overwrites the garbage a
+    concurrent batched decode step parked at the chunk frontier (the
+    scheduler holds a mid-prefill slot's length at its frontier).  kv_pos
+    validity rides the causal mask through a sentinel beyond every real
+    position.  A padded final chunk's positions get kv_pos = their
+    absolute position >= true_len: no earlier query attends them and
+    decode overwrites them in order.  Writes the cache in place and sets
+    the slot's length to min(start+C, true_len)."""
+    cache, slot = dest.cache, int(dest.slot)
+    start, true_len = ctx["start"], ctx["true_len"]
+    C = chunk.shape[1]
+    Sc = cache.k.shape[2]
+    if start + C > Sc:
+        raise ValueError(f"chunk [{start}, {start + C}) runs past the "
+                         f"{Sc}-position cache")
+    merged = _is_merged(cfg.block_style)
+    dev = chunk.device
+    pos = torch.arange(start, start + C, dtype=torch.int32,
+                       device=dev)[None, :]  # (1, C)
+    cache.kv_pos[slot, start:start + C] = pos[0]
+    kv_row = cache.kv_pos[slot:slot + 1]
+    kv_eff = torch.where(kv_row >= 0, kv_row, _CHUNK_POS_SENTINEL)
+
+    def chunk_attn(lp, cfg_, x, k_layer, v_layer, actx):
+        q, k_new, v_new = _project_qkv(lp, cfg_, x, x, merged)
+        q, k_new = _chunk_rope(cfg_, q, k_new, pos)
+        k_layer[slot, start:start + C] = k_new[0].to(k_layer.dtype)
+        v_layer[slot, start:start + C] = v_new[0].to(v_layer.dtype)
+        out = _chunk_core(cfg_, q, k_layer[slot:slot + 1],
+                          v_layer[slot:slot + 1], pos, kv_eff, merged_core,
+                          "dense")
+        return out, k_layer, v_layer
+
+    h = embed_inputs(params, cfg, chunk)
+    logits = _chunk_block_scan(params, cfg, h, chunk_attn, cache.k, cache.v,
+                               ctx["impl"])
+    cache.length[slot] = min(start + C, true_len)
+    return _chunk_last_logits(logits, start, true_len, C), cache
+
+
+def _chunk_paged_common(cfg: ModelConfig, chunk, table, block_ids, bs: int,
+                        start: int):
+    """What both paged chunk bodies share: the chunk's positions (1, C),
+    the kv positions of the slot's densified page view with the sentinel
+    on unmapped entries, and the blocks to write (``keep``: indices of the
+    chunk's blocks whose destination is >= 0, ``dst``: their pages).
+    JAX drops the -1 destinations with ``mode="drop"``; torch has none,
+    so only the kept blocks are selected and written (one host sync per
+    chunk)."""
+    C = chunk.shape[1]
+    dev = chunk.device
+    MB = table.shape[1]
+    pos = torch.arange(start, start + C, dtype=torch.int32,
+                       device=dev)[None, :]
+    ring = paging.paged_ring_active(cfg.sliding_window, bs, MB)
+    q_last = torch.full((1,), start + C - 1, dtype=torch.int32, device=dev)
+    kvpos = attn_mod.paged_kv_positions(table, bs, q_last, ring)
+    kv_eff = torch.where(kvpos >= 0, kvpos, _CHUNK_POS_SENTINEL)
+    keep = torch.nonzero(block_ids >= 0).flatten()
+    return pos, kv_eff, keep, block_ids[keep].long()
+
+
+def _chunk_paged(params, cfg: ModelConfig, chunk, dest: PagedChunkDest, ctx,
+                 *, merged_core: bool):
+    """Shared body of both paged chunk routes: write the chunk's pages
+    (the ``PagedChunkDest.block_ids`` contract), then attend over the
+    slot's densified page view (1, MB*bs), the extent of the plain paged
+    decode core.  Ring (sliding-window) tables: the dispatcher pins C to
+    the block size, so the whole chunk lives in one ring slot and the
+    positions rebuilt at the chunk's last query hold for every query in
+    it.  Writes the pools in place."""
+    k_pool, v_pool, table, bids = dest
+    start, true_len = ctx["start"], ctx["true_len"]
+    C = chunk.shape[1]
+    bs = k_pool.shape[2]
+    nbk = C // bs
+    Hkv, Dh = cfg.n_kv_heads, cfg.d_head
+    merged = _is_merged(cfg.block_style)
+    pos, kv_eff, keep, dst = _chunk_paged_common(cfg, chunk, table, bids, bs,
+                                                 start)
+
+    def chunk_attn(lp, cfg_, x, kp, vp, actx):
+        q, k_new, v_new = _project_qkv(lp, cfg_, x, x, merged)
+        q, k_new = _chunk_rope(cfg_, q, k_new, pos)
+        kp[dst] = k_new[0].to(kp.dtype).reshape(nbk, bs, Hkv, Dh)[keep]
+        vp[dst] = v_new[0].to(vp.dtype).reshape(nbk, bs, Hkv, Dh)[keep]
+        out = _chunk_core(cfg_, q, attn_mod._paged_gather(kp, table),
+                          attn_mod._paged_gather(vp, table), pos, kv_eff,
+                          merged_core, "paged")
+        return out, kp, vp
+
+    h = embed_inputs(params, cfg, chunk)
+    logits = _chunk_block_scan(params, cfg, h, chunk_attn, k_pool, v_pool,
+                               ctx["impl"])
+    return _chunk_last_logits(logits, start, true_len, C), (k_pool, v_pool)
+
+
+def _chunk_paged_q8(params, cfg: ModelConfig, chunk, dest: PagedQ8ChunkDest,
+                    ctx, *, merged_core: bool):
+    """Shared body of both paged_q8 chunk routes: ``_chunk_paged`` over the
+    int8 pool.  The chunk's K/V are quantized at page granularity
+    (positions >= true_len zeroed first: the same ``q8_quantize_seq`` call
+    the whole-prompt q8 prefill makes, so a chunked prompt lands the same
+    pool bits), the ints and the scale rows of the kept pages written
+    together, and the attention view is the dequantized page gather, as
+    the plain q8 decode core reconstructs it."""
+    k_pool, v_pool, k_scale, v_scale, table, bids = dest
+    start, true_len = ctx["start"], ctx["true_len"]
+    C = chunk.shape[1]
+    bs = k_pool.shape[2]
+    nbk = C // bs
+    Hkv, Dh = cfg.n_kv_heads, cfg.d_head
+    merged = _is_merged(cfg.block_style)
+    pos, kv_eff, keep, dst = _chunk_paged_common(cfg, chunk, table, bids, bs,
+                                                 start)
+    valid = pos < true_len  # (1, C)
+
+    def chunk_attn(lp, cfg_, x, kst, vst, actx):
+        q, k_new, v_new = _project_qkv(lp, cfg_, x, x, merged)
+        q, k_new = _chunk_rope(cfg_, q, k_new, pos)
+        gathered = []
+        for (pool, scale), new in ((kst, k_new), (vst, v_new)):
+            ints, sc = quant.q8_quantize_seq(new, bs, valid)
+            pool[dst] = ints[0].reshape(nbk, bs, Hkv, Dh)[keep]
+            scale[dst] = sc[0][keep]
+            gathered.append(attn_mod._paged_gather_q8(pool, scale, table,
+                                                      x.dtype))
+        out = _chunk_core(cfg_, q, *gathered, pos, kv_eff, merged_core,
+                          "paged_q8")
+        return out, kst, vst
+
+    h = embed_inputs(params, cfg, chunk)
+    logits = _chunk_block_scan(params, cfg, h, chunk_attn, (k_pool, k_scale),
+                               (v_pool, v_scale), ctx["impl"])
+    return (_chunk_last_logits(logits, start, true_len, C),
+            (k_pool, v_pool, k_scale, v_scale))
+
+
+# --- the six registered chunk routes (each for both impls) -----------------
+
+def _chunk_dense_generic(params, cfg: ModelConfig, chunk, dest, ctx):
+    """Registered chunk backend ("dense", "generic")."""
+    return _chunk_dense(params, cfg, chunk, dest, ctx, merged_core=False)
+
+
+def _chunk_dense_merged(params, cfg: ModelConfig, chunk, dest, ctx):
+    """Registered chunk backend ("dense", "merged"): the Q/P-removed fast
+    path chunk by chunk; the program reads no Q or P weights."""
+    return _chunk_dense(params, cfg, chunk, dest, ctx, merged_core=True)
+
+
+def _chunk_paged_generic(params, cfg: ModelConfig, chunk, dest, ctx):
+    """Registered chunk backend ("paged", "generic")."""
+    return _chunk_paged(params, cfg, chunk, dest, ctx, merged_core=False)
+
+
+def _chunk_paged_merged(params, cfg: ModelConfig, chunk, dest, ctx):
+    """Registered chunk backend ("paged", "merged"): stream-as-query
+    attention and direct-to-page chunk writes."""
+    return _chunk_paged(params, cfg, chunk, dest, ctx, merged_core=True)
+
+
+def _chunk_paged_q8_generic(params, cfg: ModelConfig, chunk, dest, ctx):
+    """Registered chunk backend ("paged_q8", "generic")."""
+    return _chunk_paged_q8(params, cfg, chunk, dest, ctx, merged_core=False)
+
+
+def _chunk_paged_q8_merged(params, cfg: ModelConfig, chunk, dest, ctx):
+    """Registered chunk backend ("paged_q8", "merged"): stream-as-query
+    attention and int8 direct-to-page chunk writes."""
+    return _chunk_paged_q8(params, cfg, chunk, dest, ctx, merged_core=True)
+
+
+backends.register_chunk_backend("dense", "generic", _chunk_dense_generic)
+backends.register_chunk_backend("dense", "merged", _chunk_dense_merged,
+                                fast_path=True)
+backends.register_chunk_backend("paged", "generic", _chunk_paged_generic)
+backends.register_chunk_backend("paged", "merged", _chunk_paged_merged,
+                                fast_path=True)
+backends.register_chunk_backend("paged_q8", "generic",
+                                _chunk_paged_q8_generic)
+backends.register_chunk_backend("paged_q8", "merged", _chunk_paged_q8_merged,
+                                fast_path=True)
+
+
+def forward_prefill_chunk(params, cfg: ModelConfig, chunk, dest, *,
+                          start: int, true_len: int, impl: str = "torch",
+                          max_len: Optional[int] = None):
+    """One fixed-width prefill chunk against the SERVING cache: the single
+    dispatcher over the ``models.backends`` CHUNK registry.
+
+    ``chunk`` is (1, C) int: tokens [start, start+C) of ONE stream's
+    prompt, right-padded past ``true_len`` on the final chunk; ``start``
+    and ``true_len`` are host ints.  Returns (last_logits (1, V), the
+    prompt's last real position, meaningful on the final chunk, and the
+    filled destination), mirroring ``forward_prefill``:
+
+    * ``DenseChunkDest(cache, slot)`` writes rows [start, start+C) of
+      batch row ``slot`` in place and returns the ``DecodeCache``.  A
+      BINDING dense window (window < ``max_len``) is refused: the
+      window-sized ring cache cannot hold a partial prompt at absolute
+      positions (the scheduler takes monolithic jobs there);
+    * ``PagedChunkDest`` / ``PagedQ8ChunkDest`` write the chunk's pages
+      in place and return the pools (and scales).  C must be a multiple
+      of the page size, and exactly one page on a ring (windowed) table.
+
+    Attention-only stacks only (SSM state has no mid-prompt checkpoint).
+    The attention inside a chunk is the positions-based plain core on
+    every impl, as in the reference (``_chunk_core``); ``impl`` selects
+    the registry entry.  Invalid requests raise ValueError; unknown
+    (cache_kind, style, impl) combos raise the registry's KeyError."""
+    B, C = int(chunk.shape[0]), int(chunk.shape[1])
+    if B != 1:
+        raise ValueError(f"chunked prefill feeds one stream at a time, got "
+                         f"batch size {B}")
+    plan = layer_plan(cfg)
+    if plan["kind"] != "attn":
+        raise ValueError(
+            f"chunked prefill supports attention-only stacks, not "
+            f"{plan['kind']!r} (family {cfg.family!r})")
+    _require_ported(cfg)
+    if isinstance(dest, (PagedChunkDest, PagedQ8ChunkDest)):
+        kind = "paged_q8" if isinstance(dest, PagedQ8ChunkDest) else "paged"
+        bs = int(dest.k_pool.shape[2])
+        MB = int(dest.block_table.shape[1])
+        if C % bs:
+            raise ValueError(f"chunk width {C} must be a multiple of the "
+                             f"page size {bs}")
+        if paging.paged_ring_active(cfg.sliding_window, bs, MB) and C != bs:
+            raise ValueError(
+                f"ring (sliding-window) paged chunks must be exactly one "
+                f"block: chunk width {C} != block size {bs}")
+        if int(dest.block_ids.shape[0]) != C // bs:
+            raise ValueError(
+                f"{type(dest).__name__}.block_ids maps "
+                f"{int(dest.block_ids.shape[0])} blocks; a {C}-token chunk "
+                f"over {bs}-token pages needs {C // bs}")
+    elif isinstance(dest, DenseChunkDest):
+        kind = "dense"
+        # a window >= max_len never masks or wraps anything and chunks like
+        # window 0; the cache alone cannot tell the two apart (Sc =
+        # min(max_len, window)), so the max_len hint carries the check
+        if cfg.sliding_window and max_len is not None \
+                and cfg.sliding_window < max_len:
+            raise ValueError(
+                "dense sliding-window chunked prefill is unsupported (the "
+                "window-sized ring cache can't park a partial prompt at "
+                "absolute positions); use the scheduler's monolithic "
+                "fallback or the paged cache")
+    else:
+        raise ValueError(
+            f"unknown chunk destination {type(dest).__name__!r}; expected "
+            "DenseChunkDest, PagedChunkDest or PagedQ8ChunkDest")
+    backend = backends.get_chunk_backend(kind, prefill_style_key(cfg), impl)
+    ctx = {"start": int(start), "true_len": int(true_len), "impl": impl}
+    return backend.run(params, cfg, chunk, dest, ctx)

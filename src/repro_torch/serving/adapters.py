@@ -4,8 +4,25 @@ Counterpart of ``repro.serving.adapters`` for the dense cache, the paged
 pool and the int8 paged pool.  The engine speaks to its cache through one
 interface, so cache layouts stay out of the scheduling code; a new layout
 is a new adapter plus its registered attention backends
-(``models.backends``).  The chunked-prefill part of the interface and the
-observer gauges are later slices of the port (ROADMAP.md).
+(``models.backends``).  The observer gauges are a later slice of the port
+(ROADMAP.md).
+
+Chunked prefill (``serving.sched``) adds a third program per adapter:
+``build_chunk`` binds one fixed-width slice program
+(``models.forward_prefill_chunk``), and ``admit_chunked`` /
+``chunk_ready`` / ``chunk_step`` / ``finish_chunked`` / ``unshield``
+drive a prompt into the SHARED batched cache chunk by chunk while decode
+steps go on for the other slots.  A mid-prefill slot is protected per
+kind:
+
+  * dense: the adapter keeps HOST lengths for every slot and copies them
+    into the cache's device lengths before each decode step, so the step's
+    write for a mid-prefill slot parks AT the chunk frontier (the next
+    chunk overwrites it) and never advances the slot;
+  * paged: the manager SHIELDS mid-prefill slots (their table rows ship
+    as -1, so the decode write drops) while the chunk program gets the
+    true row; ``unshield`` exposes the slot only after the activating
+    decode step.
 """
 from __future__ import annotations
 
@@ -15,8 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import (DensePrefillDest, PagedPrefillDest,
-                                PagedQ8PrefillDest, forward_prefill,
+from repro_torch.models import (DenseChunkDest, DensePrefillDest,
+                                PagedChunkDest, PagedPrefillDest,
+                                PagedQ8ChunkDest, PagedQ8PrefillDest,
+                                forward_prefill, forward_prefill_chunk,
                                 init_cache)
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving import paged_kv_cache as pkv
@@ -56,9 +75,12 @@ class KVCacheAdapter:
         request (a pool that is out of pages)."""
         raise NotImplementedError
 
-    def prefill(self, params, slot: int, padded_row, true_n: int):
+    def prefill(self, params, slot: int, padded_row, true_n: int,
+                n_shared: int = 0):
         """Prefill ``padded_row`` (1, S) and install its KV for ``slot``;
-        returns the last real position's logits (1, V)."""
+        returns the last real position's logits (1, V).  ``n_shared`` is
+        what ``admit`` returned: the paged pools skip writing those
+        prefix-shared pages."""
         raise NotImplementedError
 
     def ensure_appendable(self, slot: int) -> bool:
@@ -74,6 +96,56 @@ class KVCacheAdapter:
     def release(self, slot: int) -> None:
         raise NotImplementedError
 
+    # -- chunked prefill (serving.sched) ----------------------------------
+
+    @property
+    def supports_chunked(self) -> bool:
+        """True when this adapter (as initialised) can run chunked
+        prefill; False routes every request through the scheduler's
+        monolithic whole-prompt jobs."""
+        return False
+
+    def enable_chunked(self) -> None:
+        """Switch to chunked mode (host bookkeeping only), before the first
+        ``device_cache()`` the scheduled engine ships."""
+        raise NotImplementedError
+
+    def build_chunk(self, chunk_tokens: int, impl: str) -> None:
+        """Bind this cache kind's fixed-width chunk program
+        (``models.forward_prefill_chunk``)."""
+        raise NotImplementedError
+
+    def admit_chunked(self, slot: int, tokens: np.ndarray) -> Optional[int]:
+        """Admission for a chunked prefill: reserve ``slot`` for ``tokens``
+        without running anything.  Returns the prefix-shared pages (0
+        where that does not apply) or None to defer."""
+        raise NotImplementedError
+
+    def chunk_ready(self, slot: int, start: int, end: int) -> bool:
+        """Make the chunk's write targets writable (paged: map or recycle
+        ring pages); False when out of resources (the scheduler
+        preempts)."""
+        return True
+
+    def chunk_step(self, params, slot: int, chunk_row, start: int,
+                   true_len: int):
+        """Run ONE chunk of ``slot``'s prompt; returns the logits (1, V) of
+        the chunk's last real position (meaningful on the final chunk)."""
+        raise NotImplementedError
+
+    def finish_chunked(self, slot: int, tokens: np.ndarray) -> None:
+        """All chunks landed: publish the slot's full length (paged:
+        register the prompt's pages for prefix sharing)."""
+        raise NotImplementedError
+
+    def unshield(self, slot: int) -> None:
+        """Expose the slot to batched decode writes, after the activating
+        decode step."""
+
+    def set_length(self, slot: int, n: int) -> None:
+        """Host length bookkeeping after a MONOLITHIC prefill installed
+        ``n`` tokens into ``slot``."""
+
 
 class DenseCacheAdapter(KVCacheAdapter):
     """Worst-case-length slot cache: every slot owns a ``max_len`` (or
@@ -86,6 +158,7 @@ class DenseCacheAdapter(KVCacheAdapter):
     def init(self, cfg, sc, device):
         self.cfg, self.sc = cfg, sc
         self._cache = init_cache(cfg, sc.n_slots, sc.max_len, device=device)
+        self._chunked = False
 
     def build_prefill(self, impl):
         dest = DensePrefillDest(cache_len=self.sc.max_len)
@@ -98,6 +171,19 @@ class DenseCacheAdapter(KVCacheAdapter):
         self._prefill = run
 
     def device_cache(self):
+        if self._chunked:
+            # chunked mode: the HOST lengths are authoritative (a
+            # mid-prefill slot's length is its chunk frontier).  One copy
+            # per step from a pinned staging tensor; the previous copy must
+            # have read the staging buffer before it is rewritten
+            if self._staged is not None:
+                self._staged.synchronize()
+            self._stage_np[:] = self._lengths
+            length = self._cache.length
+            length.copy_(self._stage, non_blocking=True)
+            if length.is_cuda:
+                self._staged = torch.cuda.Event()
+                self._staged.record()
         return self._cache
 
     def update(self, new):
@@ -106,15 +192,68 @@ class DenseCacheAdapter(KVCacheAdapter):
     def admit(self, slot, tokens):
         return 0
 
-    def prefill(self, params, slot, padded_row, true_n):
+    def prefill(self, params, slot, padded_row, true_n, n_shared=0):
         tl = torch.full((1,), true_n, dtype=torch.int32,
                         device=padded_row.device)
         logits, one = self._prefill(params, padded_row, tl)
         self._cache = kvc.insert_request(self._cache, one, slot)
         return logits
 
+    def advance(self, slot):
+        if self._chunked:
+            self._lengths[slot] += 1
+
     def release(self, slot):
         self._cache = kvc.clear_slot(self._cache, slot)
+        if self._chunked:
+            self._lengths[slot] = 0
+
+    # -- chunked prefill --------------------------------------------------
+
+    @property
+    def supports_chunked(self):
+        # a BINDING window (window < max_len) makes the cache a
+        # window-sized ring that cannot hold a partial prompt at absolute
+        # positions: the scheduler takes monolithic jobs there
+        w = self.cfg.sliding_window
+        return not (w and w < self.sc.max_len)
+
+    def enable_chunked(self):
+        self._chunked = True
+        self._lengths = np.zeros((self.sc.n_slots,), np.int32)
+        dev = self._cache.length.device
+        self._stage = torch.zeros((self.sc.n_slots,), dtype=torch.int32,
+                                  pin_memory=dev.type == "cuda")
+        self._stage_np = self._stage.numpy()
+        self._staged = None
+
+    def build_chunk(self, chunk_tokens, impl):
+        cfg, max_len = self.cfg, self.sc.max_len
+        self._chunk_tokens = chunk_tokens
+
+        def run(params, tokens, start, true_len, slot):
+            return forward_prefill_chunk(
+                params, cfg, tokens, DenseChunkDest(self._cache, slot),
+                start=start, true_len=true_len, impl=impl, max_len=max_len)
+
+        self._chunk = run
+
+    def admit_chunked(self, slot, tokens):
+        self._lengths[slot] = 0
+        return 0
+
+    def chunk_step(self, params, slot, chunk_row, start, true_len):
+        logits, self._cache = self._chunk(params, chunk_row, start, true_len,
+                                          slot)
+        self._lengths[slot] = min(start + self._chunk_tokens, true_len)
+        return logits
+
+    def finish_chunked(self, slot, tokens):
+        self._lengths[slot] = len(tokens)
+
+    def set_length(self, slot, n):
+        if self._chunked:
+            self._lengths[slot] = n
 
 
 class PagedCacheAdapter(KVCacheAdapter):
@@ -126,7 +265,10 @@ class PagedCacheAdapter(KVCacheAdapter):
 
     ``block_size``/``n_blocks`` default to the ServeConfig's values at
     ``init`` (n_blocks 0 means dense-equivalent memory: n_slots·max_len/bs
-    pages).  Prefill writes the prompt's KV straight into its mapped pages
+    pages).  ``prefix_retention`` (default on, as in the reference) keeps
+    a released request's registered pages in the prefix cache until pool
+    pressure evicts them (``pm.drop_prefix_cache()`` drops them all).
+    Prefill writes the prompt's KV straight into its mapped pages
     (``forward_prefill`` with a ``PagedPrefillDest``), in place: no
     max_len-sized intermediate buffer, no second scatter pass."""
 
@@ -135,7 +277,7 @@ class PagedCacheAdapter(KVCacheAdapter):
 
     def __init__(self, block_size: Optional[int] = None,
                  n_blocks: Optional[int] = None,
-                 prefix_retention: bool = False):
+                 prefix_retention: bool = True):
         self._block_size, self._n_blocks = block_size, n_blocks
         self._prefix_retention = prefix_retention
 
@@ -171,7 +313,9 @@ class PagedCacheAdapter(KVCacheAdapter):
     def admit(self, slot, tokens):
         return self.pm.admit(slot, tokens)
 
-    def prefill(self, params, slot, padded_row, true_n):
+    def prefill(self, params, slot, padded_row, true_n, n_shared=0):
+        # the shared pages are the slot's first ``first_owned`` blocks:
+        # prefill_block_ids marks them -1, so they are not rewritten
         dev = padded_row.device
         bids = self.pm.prefill_block_ids(slot, padded_row.shape[1])
         tl = torch.full((1,), true_n, dtype=torch.int32, device=dev)
@@ -187,6 +331,63 @@ class PagedCacheAdapter(KVCacheAdapter):
 
     def release(self, slot):
         self.pm.release(slot)
+
+    # -- chunked prefill --------------------------------------------------
+
+    @property
+    def supports_chunked(self):
+        return True
+
+    def enable_chunked(self):
+        pass  # the shields and frontiers live in the manager
+
+    def build_chunk(self, chunk_tokens, impl):
+        if chunk_tokens % self.pm.bs:
+            raise ValueError(
+                f"chunk_tokens ({chunk_tokens}) must be a multiple of the "
+                f"block size ({self.pm.bs})")
+        if self.pm.ring and chunk_tokens != self.pm.bs:
+            raise ValueError(
+                f"ring (windowed) paged chunking pins chunk_tokens to one "
+                f"block ({self.pm.bs}); got {chunk_tokens}")
+        cfg = self.cfg
+        self._chunk_tokens = chunk_tokens
+
+        def run(params, tokens, start, true_len, table_row, block_ids):
+            return forward_prefill_chunk(
+                params, cfg, tokens, self._chunk_dest(table_row, block_ids),
+                start=start, true_len=true_len, impl=impl)
+
+        self._chunk = run
+
+    def _chunk_dest(self, table_row, block_ids):
+        """The chunk's destination: the pools, the slot's true table row
+        and the chunk's pages."""
+        return PagedChunkDest(self.pm.k, self.pm.v, table_row, block_ids)
+
+    def admit_chunked(self, slot, tokens):
+        return self.pm.admit_chunked(slot, tokens)
+
+    def chunk_ready(self, slot, start, end):
+        return self.pm.ensure_chunk(slot, start, end)
+
+    def chunk_step(self, params, slot, chunk_row, start, true_len):
+        C = self._chunk_tokens
+        dev = chunk_row.device
+        bids = self.pm.chunk_block_ids(slot, start, start + C, true_len)
+        # the TRUE table row (the decode view masks shielded slots), copied:
+        # the manager mutates its tables between steps
+        row = torch.from_numpy(self.pm.tables[slot:slot + 1].copy()).to(dev)
+        logits, _ = self._chunk(params, chunk_row, start, true_len, row,
+                                torch.from_numpy(bids).to(dev))
+        self.pm.set_frontier(slot, min(start + C, true_len))
+        return logits
+
+    def finish_chunked(self, slot, tokens):
+        self.pm.finish_chunked(slot, tokens)
+
+    def unshield(self, slot):
+        self.pm.unshield(slot)
 
 
 class PagedQ8CacheAdapter(PagedCacheAdapter):
@@ -211,6 +412,10 @@ class PagedQ8CacheAdapter(PagedCacheAdapter):
     def _dest(self, block_ids):
         return PagedQ8PrefillDest(self.pm.k, self.pm.v, self.pm.k_scale,
                                   self.pm.v_scale, block_ids)
+
+    def _chunk_dest(self, table_row, block_ids):
+        return PagedQ8ChunkDest(self.pm.k, self.pm.v, self.pm.k_scale,
+                                self.pm.v_scale, table_row, block_ids)
 
 
 def make_adapter(kind: str) -> KVCacheAdapter:

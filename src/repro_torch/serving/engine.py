@@ -1,4 +1,4 @@
-"""Serving engine: prefill + batched greedy decode over a fixed set of slots.
+"""Serving engine: prefill + batched decode over a fixed set of slots.
 
 Counterpart of ``repro.serving.engine`` for the dense cache, the paged
 pool and the int8 paged pool.  The engine drives exactly two seams:
@@ -34,10 +34,17 @@ On the paged pool a request that does not fit is deferred (``submit``
 returns False and ``generate`` retries it after others finish), and when
 a decode step finds the pool exhausted the youngest request is preempted:
 its pages are released and it is resubmitted later, re-prefilling its
-prompt and the tokens it had generated (exact for greedy decoding).
-Sampling is greedy; temperature sampling (and with it the resumed PRNG
-state of a preempted request) and observer hooks are later slices
-(ROADMAP.md).
+prompt and the tokens it had generated.
+
+Sampling is greedy (``temperature`` 0) or temperature / top-k with one
+PRIVATE ``torch.Generator`` per request on the engine's device, seeded
+from (``ServeConfig.seed``, the request's submission index) and advanced
+only by that request's own draws: a sampled continuation does not depend
+on co-scheduled traffic, and a preempted request resumes its stream from
+the saved generator state (``Request.key_state``), not from its start.
+JAX's PRNG draws cannot be reproduced in torch, so sampled streams differ
+from the reference's while keeping its properties.  Observer hooks are a
+later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -61,8 +68,10 @@ _IMPL_DEVICE = {"cuda": "cuda", "torch": "cpu"}
 class ServeConfig:
     n_slots: int = 8
     max_len: int = 512
-    temperature: float = 0.0  # 0 => greedy (the only mode ported yet)
+    temperature: float = 0.0  # 0 => greedy
+    top_k: int = 0  # > 0 => sample among the k largest logits only
     eos_token: int = -1  # -1 => run to max_new_tokens
+    seed: int = 0  # with the submission index, seeds each request's stream
     block_size: int = 16  # paged: tokens per physical page
     n_blocks: int = 0  # paged pool size; 0 => dense-equivalent memory
 
@@ -77,6 +86,8 @@ class Request:
     slot: int = -1  # >=0 active; -1 idle/finished; -2 preempted
     remaining: int = 0
     rid: int = -1  # submission index (preemption takes the youngest)
+    # a preempted request's advanced sampling state (Generator.get_state())
+    key_state: Optional[torch.Tensor] = None
     # serving telemetry (host wall clock, seconds)
     t_arrival: Optional[float] = None
     t_first: Optional[float] = None
@@ -137,10 +148,6 @@ class Engine:
                 f"on device {str(dev)!r}: use impl='cuda' with a CUDA device "
                 "or impl='torch' with device='cpu'")
         self.device = resolve_device(dev)
-        if sc.temperature > 0:
-            raise NotImplementedError(
-                "temperature sampling is not ported yet (ROADMAP.md, "
-                "'Temperature sampling'); serve with temperature=0")
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params lie on {table.device}, the engine "
@@ -173,6 +180,8 @@ class Engine:
         self.kv.init(cfg, sc, self.device)
         self.kv.build_prefill(impl)
         self._last_token = np.zeros((sc.n_slots,), np.int32)
+        # temperature sampling: each slot's request's private generator
+        self._gens: List[Optional[torch.Generator]] = [None] * sc.n_slots
 
     @property
     def stats(self) -> Dict[str, int]:
@@ -256,22 +265,24 @@ class Engine:
             toks = np.concatenate(
                 [toks, np.asarray(req.out_tokens[:-1], np.int32)])
         slot = self.free_slots[0]
-        if self.kv.admit(slot, toks) is None:
+        n_shared = self.kv.admit(slot, toks)
+        if n_shared is None:
             self._n_deferred += 1
             return False
         self.free_slots.pop(0)
         padded, n = self._bucket_pad(toks)
         logits = self.kv.prefill(self.params, slot,
                                  self.host_to_device(padded, np.int32)[None],
-                                 n)
+                                 n, n_shared)
         if req.rid < 0:
             req.rid = self._rid
             self._rid += 1
+        self._seed_stream(slot, req)
         req.slot = slot
         if resume:
             tok = req.out_tokens[-1]
         else:
-            tok = int(self._sample(logits)[0])
+            tok = int(self._sample(logits, [slot])[0])
             req.out_tokens = [tok]
             req.remaining = req.max_new_tokens - 1
             req.t_first = req.t_last = time.perf_counter()
@@ -301,7 +312,9 @@ class Engine:
                                          impl=self.impl)
         self.kv.update(new_cache)
         self._n_steps += 1
-        next_tokens = self._sample(logits)
+        slots = sorted(self.active)
+        next_tokens = dict(zip(slots, self._sample(logits, slots,
+                                                   rows=slots)))
         now = time.perf_counter()
         emitted: Dict[int, int] = {}
         for slot, req in list(self.active.items()):
@@ -336,6 +349,10 @@ class Engine:
         self.kv.release(slot)
         self.free_slots.append(slot)
         req.slot = -2
+        if self._gens[slot] is not None:
+            # resume the stream where it stopped: replayed draws would make
+            # the continuation depend on whether preemption happened
+            req.key_state = self._gens[slot].get_state()
         self.preempted.append(req)
         self._n_preempted += 1
 
@@ -364,7 +381,44 @@ class Engine:
             self.step()
         return [_result_of(r) for r in pending]
 
-    def _sample(self, logits: torch.Tensor) -> np.ndarray:
-        """Greedy: argmax over the real vocabulary (padded ids excluded);
-        the host copy synchronises with the device."""
-        return logits[:, :self.cfg.vocab_size].argmax(dim=-1).cpu().numpy()
+    def _seed_stream(self, slot: int, req: Request) -> None:
+        """Give ``slot`` its request's private generator: a fresh one
+        seeded from (engine seed, submission index), or, for a preempted
+        request, its saved state.  Greedy serving draws nothing and keeps
+        none."""
+        if self.sc.temperature <= 0:
+            return
+        g = torch.Generator(device=self.device)
+        if req.key_state is not None:
+            g.set_state(req.key_state)
+        else:
+            g.manual_seed(int(np.random.SeedSequence(
+                [self.sc.seed, req.rid]).generate_state(1, np.uint64)[0]))
+        self._gens[slot] = g
+
+    def _sample(self, logits: torch.Tensor, slots,
+                rows: Optional[Sequence[int]] = None) -> np.ndarray:
+        """One token for each of ``slots`` over the real vocabulary (padded
+        ids are never drawn), from row ``rows[i]`` of ``logits`` (default:
+        row i).  Greedy is the argmax.  With a temperature the logits are
+        scaled by 1/T and cut to the top k, and each row draws from ITS
+        slot's generator (Gumbel-max on uniforms drawn on the device): a
+        slot's generator advances only when its row samples.  The host
+        copy synchronises with the device."""
+        logits = logits[:, :self.cfg.vocab_size]
+        if self.sc.temperature <= 0:
+            toks = logits.argmax(dim=-1).cpu().numpy()
+            return toks if rows is None else toks[list(rows)]
+        if rows is not None and len(rows) < logits.shape[0]:
+            logits = logits[torch.as_tensor(rows, device=logits.device)]
+        scaled = logits.float() / self.sc.temperature
+        k = min(self.sc.top_k, scaled.shape[-1])
+        if k > 0:
+            kth = torch.topk(scaled, k, dim=-1).values[:, -1:]
+            scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+        u = torch.empty_like(scaled)
+        for i, slot in enumerate(slots):
+            u[i].uniform_(generator=self._gens[slot])
+        gumbel = -torch.log(-torch.log(
+            u.clamp_(min=torch.finfo(torch.float32).tiny)))
+        return (scaled + gumbel).argmax(dim=-1).cpu().numpy()

@@ -30,9 +30,25 @@ later be extended by its owner's decoded tokens, which is safe because a
 sharer's causal mask hides positions beyond its own length and any append
 into a page with refcount > 1 first copies it (copy-on-write).  Sharing
 is exact, so the greedy streams are the same with it as without it.
-Retention of released prefixes (the reference's default) and the chunked-
-prefill methods are later slices of the port (ROADMAP.md): the registry
-here dies with its pages' last sharer.
+
+Retention (``prefix_retention``, on by default as in the reference): the
+pages of a released request that the tree references are ADOPTED instead
+of freed (``BlockAllocator.retain``: the tree becomes a holder), so a
+popular prefix outlives its last sharer and later requests hit it warm.
+Retained pages are reclaimable: ``_alloc`` evicts LRU leaf-end pages that
+only the tree holds before reporting the pool exhausted, and
+``drop_prefix_cache`` evicts them all.  The refcount invariant becomes
+``ref[p] == live slots mapping p + (1 if tree-retained)``; every write
+path already copies on write at ref > 1, so a retained page that is
+shared again is never written in place.  With retention off the registry
+dies with its pages' last sharer.
+
+Chunked prefill (``serving.sched``): ``admit_chunked`` maps a prompt
+without running anything, the chunk methods (``ensure_chunk``,
+``chunk_block_ids``, ``set_frontier``, ``finish_chunked``) walk it in,
+and the slot stays SHIELDED until the scheduler activates it: its table
+row ships as -1 in ``device_cache()``, so interleaved decode steps drop
+their write for it.
 
 Sliding-window ring-of-pages: with a sliding window a request's block
 table is a bounded RING of ``ceil(window/bs)+1`` slots (absolute block b
@@ -126,13 +142,14 @@ class BlockAllocator:
         self.peak_used = max(self.peak_used, self.n_used)
         return ids
 
-    def fork(self, ids: List[int]) -> None:
-        """Share pages with another request (refcount += 1)."""
+    def retain(self, ids: List[int]) -> None:
+        """Take a reference without counting a shared hit: the prefix tree
+        adopting a released request's pages, or an admission pinning its
+        matched chain against eviction before it knows it will succeed."""
         for i in ids:
             if self.ref[i] <= 0:
-                raise RuntimeError(f"fork of free page {i}")
+                raise RuntimeError(f"retain of free page {i}")
             self.ref[i] += 1
-        self.n_shared_hits += len(ids)
 
     def release(self, ids: List[int]) -> List[int]:
         """Drop one reference per page; returns the pages that became free."""
@@ -197,7 +214,10 @@ class PagedCacheManager:
       ``ensure_appendable(slot)``    map/recycle/CoW the page ``length``
                                      falls in
       ``advance(slot)`` / ``release(slot)``
-    and per decode step ``device_cache()``.
+    and per decode step ``device_cache()``.  The scheduler's chunked
+    prefill replaces ``admit``/``prefill_block_ids`` by ``admit_chunked``,
+    ``ensure_chunk``, ``chunk_block_ids``, ``set_frontier``,
+    ``finish_chunked`` and ``unshield``.
 
     The pools ``k``/``v`` are (L, NB, bs, Hkv, Dh) tensors on ``device``,
     zero-filled at construction and written in place by the prefill and
@@ -209,11 +229,7 @@ class PagedCacheManager:
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int, max_len: int,
                  block_size: int, n_blocks: int,
-                 prefix_retention: bool = False, device="cuda"):
-        if prefix_retention:
-            raise NotImplementedError(
-                "prefix retention is not ported yet (ROADMAP.md, slice 5: "
-                "the prefix cache); pass prefix_retention=False")
+                 prefix_retention: bool = True, device="cuda"):
         if layer_plan(cfg)["kind"] != "attn":
             raise ValueError("paged serving supports attention-only stacks")
         if max_len % block_size:
@@ -234,7 +250,11 @@ class PagedCacheManager:
         self.lengths = np.zeros((n_slots,), np.int32)
         self.allocator = BlockAllocator(n_blocks)
         self._slots: Dict[int, _SlotInfo] = {}
+        # slots mid-CHUNKED-prefill: their table rows ship as -1 in
+        # device_cache(), so interleaved decode steps drop their write
+        self.shielded: set = set()
         self.request_page_hwm = RequestPageHwm()
+        self.prefix_retention = prefix_retention
         self.tree = RadixPrefixTree(block_size)
 
     @property
@@ -274,8 +294,14 @@ class PagedCacheManager:
         steps, and ``torch.from_numpy(...).to("cpu")`` would share their
         memory."""
         dev = self.k.device
+        tbl = self.tables.copy()
+        if self.shielded:
+            # mid-chunked-prefill slots: the decode step's write for them
+            # drops and its output for them is discarded; the true rows
+            # stay on the host and feed the chunk programs
+            tbl[sorted(self.shielded), :] = -1
         return self._pools._replace(
-            block_tables=torch.from_numpy(self.tables.copy()).to(dev),
+            block_tables=torch.from_numpy(tbl).to(dev),
             length=torch.from_numpy(self.lengths.copy()).to(dev))
 
     @property
@@ -290,10 +316,44 @@ class PagedCacheManager:
     def _drop_page(self, bid: int) -> None:
         """Page ``bid``'s bytes are being rewritten (ring recycle) or it
         was freed: its registry entries, and the subtree they anchor, die
-        with it."""
+        with it.  Retained pages that fall out with the subtree lose the
+        tree's reference here.  Such an orphan is not necessarily freed
+        by that release: a live slot whose ring already rolled past
+        ``bid`` may still map a retained descendant, and the page then
+        dies with its last slot."""
         orphans = self.tree.drop_page(bid)
         if orphans:
             self.allocator.release(orphans)
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """``allocator.alloc`` with retention-aware admission: under pool
+        pressure, reclaim LRU retained leaf-end pages whose only reference
+        is the tree's before reporting exhaustion (a page a live slot maps
+        has ref >= 1 from the slot, so the ref == 1 guard can only free
+        tree-only pages)."""
+        ids = self.allocator.alloc(n)
+        if ids is not None or not self.prefix_retention:
+            return ids
+        evicted = self.tree.evict(
+            n - self.allocator.n_free,
+            lambda p: int(self.allocator.ref[p]) == 1)
+        if evicted:
+            freed = self.allocator.release(evicted)
+            if len(freed) != len(evicted):
+                raise RuntimeError("an evicted page had holders beyond the "
+                                   "prefix tree")
+        return self.allocator.alloc(n)
+
+    def drop_prefix_cache(self) -> int:
+        """Evict EVERY reclaimable retained page (returns the pool to its
+        live requests' pages; retained pages a live sharer still maps
+        stay).  Returns the pages reclaimed."""
+        evicted = self.tree.evict(
+            self.allocator.n_blocks,
+            lambda p: int(self.allocator.ref[p]) == 1)
+        if evicted:
+            self.allocator.release(evicted)
+        return len(evicted)
 
     # -- request lifecycle ----------------------------------------------
 
@@ -324,10 +384,15 @@ class PagedCacheManager:
                 f"({self.max_blocks * self.bs})")
         b_min = self._first_live_block(len(tokens))
         shared, covered = self.tree.match(tokens) if b_min == 0 else ([], 0)
-        fresh = self.allocator.alloc(nb - b_min - len(shared))
+        # pin the matched chain BEFORE allocating: _alloc may evict
+        # retained pages, and the pages just matched must not be among them
+        self.allocator.retain(shared)
+        fresh = self._alloc(nb - b_min - len(shared))
         if fresh is None:
+            if self.allocator.release(shared):  # unpin
+                raise RuntimeError("a pinned tree page had no other holder")
             return None
-        self.allocator.fork(shared)
+        self.allocator.n_shared_hits += len(shared)
         self.tree.hit_tokens += covered
         chain = shared + fresh  # absolute blocks b_min..nb-1, in order
         if self.ring:
@@ -377,7 +442,9 @@ class PagedCacheManager:
         the copy (every offset of the new block is rewritten before any
         query can attend it)."""
         bid = info.blocks[idx]
-        fresh = self.allocator.alloc(1)
+        # _alloc may evict retained pages; the source is safe: its ref > 1
+        # (why it is detached) fails the eviction guard
+        fresh = self._alloc(1)
         if fresh is None:
             return False
         if copy:
@@ -397,7 +464,7 @@ class PagedCacheManager:
         rs = b % self.ring
         bid = info.blocks[rs]
         if bid < 0:  # ring slot never entered: map a fresh page
-            fresh = self.allocator.alloc(1)
+            fresh = self._alloc(1)
             if fresh is None:
                 return False
             info.blocks[rs] = fresh[0]
@@ -411,8 +478,8 @@ class PagedCacheManager:
             return True
         # window rolled past the slot's old block: recycle
         if self.allocator.ref[bid] > 1:
-            # a prefix-sharing peer still holds the old bytes: detach,
-            # never rewrite in place
+            # a prefix-sharing peer or the tree's retention still holds
+            # the old bytes: detach, never rewrite in place
             if not self._cow(slot, info, rs, copy=False):
                 return False
         else:
@@ -433,7 +500,7 @@ class PagedCacheManager:
         if self.ring:
             return self._ensure_ring_block(slot, info, li)
         if li >= len(info.blocks):
-            fresh = self.allocator.alloc(1)
+            fresh = self._alloc(1)
             if fresh is None:
                 return False
             info.blocks.append(fresh[0])
@@ -450,16 +517,128 @@ class PagedCacheManager:
 
     def release(self, slot: int) -> None:
         """Return a finished or preempted request's pages (shared pages
-        stay resident for their other holders)."""
+        stay resident for their other holders).  With ``prefix_retention``
+        the pages the radix tree references are ADOPTED first: the tree
+        takes a reference, so registered prefixes survive their last
+        sharer until pool pressure evicts them."""
         info = self._slots.pop(slot, None)
+        self.shielded.discard(slot)
         if info is None:
             return
         self.request_page_hwm.record(info.hwm)
         live = [p for p in info.blocks if p >= 0]
+        if self.prefix_retention:
+            for p in live:
+                if p not in self.tree.retained and self.tree.references(p):
+                    self.allocator.retain([p])
+                    self.tree.retained.add(p)
         for bid in self.allocator.release(live):
             self._drop_page(bid)
         self.tables[slot, :] = -1
         self.lengths[slot] = 0
+
+    # -- chunked prefill (serving.sched) ----------------------------------
+
+    def admit_chunked(self, slot: int, tokens: np.ndarray) -> Optional[int]:
+        """Admission for CHUNKED prefill: like ``admit``, except that
+
+        * ``lengths[slot]`` tracks the chunk FRONTIER (0 now, moved by
+          ``set_frontier`` after each chunk, the total at
+          ``finish_chunked``);
+        * prefix REGISTRATION waits for ``finish_chunked``: a sharer
+          admitted mid-prefill would attend pages whose chunks have not
+          run (so two identical prompts in flight at once do not share
+          with each other, only with finished residents);
+        * ring (sliding-window) mode maps NOTHING up front: early chunks
+          need blocks that are dead for the final query but live for
+          their own, so ``ensure_chunk`` maps each chunk's block in turn
+          and the ring recycles them as the window rolls; ring mode
+          neither shares nor registers;
+        * the slot is SHIELDED until the scheduler activates it.
+
+        Returns the number of prefix-shared pages, or None when the pool
+        cannot hold the prompt's fresh pages now (the caller re-queues)."""
+        nb = self.blocks_for(len(tokens))
+        if nb > self.max_blocks:
+            raise ValueError(
+                f"prompt of {len(tokens)} tokens exceeds max_len "
+                f"({self.max_blocks * self.bs})")
+        if self.ring:
+            info = _SlotInfo(blocks=[-1] * self.ring,
+                             abs_blocks=[-1] * self.ring, first_owned=0,
+                             hwm=0)
+            shared: List[int] = []
+        else:
+            shared, covered = self.tree.match(tokens)
+            self.allocator.retain(shared)  # pin against eviction (admit)
+            fresh = self._alloc(nb - len(shared))
+            if fresh is None:
+                if self.allocator.release(shared):  # unpin
+                    raise RuntimeError("a pinned tree page had no other "
+                                       "holder")
+                return None
+            self.allocator.n_shared_hits += len(shared)
+            self.tree.hit_tokens += covered
+            info = _SlotInfo(blocks=shared + fresh, first_owned=len(shared),
+                             hwm=nb)
+        self._slots[slot] = info
+        self.tables[slot, :] = -1
+        self.tables[slot, :len(info.blocks)] = info.blocks
+        self.lengths[slot] = 0  # the chunk frontier
+        self.shielded.add(slot)
+        return len(shared)
+
+    def ensure_chunk(self, slot: int, start: int, end: int) -> bool:
+        """Make the pages of chunk [start, end) writable.  Absolute mode
+        mapped the whole prompt at ``admit_chunked`` (a no-op here); ring
+        mode maps or recycles each of the chunk's blocks in turn.  Returns
+        False when the pool is exhausted (the caller preempts)."""
+        info = self._slots[slot]
+        if not self.ring:
+            return True
+        for b in range(start // self.bs, -(-end // self.bs)):
+            if not self._ensure_ring_block(slot, info, b):
+                return False
+        return True
+
+    def chunk_block_ids(self, slot: int, start: int, end: int,
+                        n_tokens: int) -> np.ndarray:
+        """Physical destination per logical block of chunk [start, end) of
+        an ``n_tokens``-long prompt, the per-chunk slice of the
+        ``prefill_block_ids`` contract: -1 (no write) for prefix-shared
+        pages and for padding blocks wholly past the prompt."""
+        info = self._slots[slot]
+        b0, b1 = start // self.bs, -(-end // self.bs)
+        nb = self.blocks_for(n_tokens)
+        ids = np.full((b1 - b0,), -1, np.int32)
+        for b in range(b0, min(b1, nb)):
+            if self.ring:
+                if info.abs_blocks[b % self.ring] == b:
+                    ids[b - b0] = info.blocks[b % self.ring]
+            elif b >= info.first_owned:
+                ids[b - b0] = info.blocks[b]
+        return ids
+
+    def set_frontier(self, slot: int, n: int) -> None:
+        """Move the chunk frontier: tokens [0, n) of the slot's prompt are
+        resident (= the next chunk's start)."""
+        self.lengths[slot] = n
+
+    def finish_chunked(self, slot: int, tokens: np.ndarray) -> None:
+        """Chunked prefill complete: publish the full length and (absolute
+        mode) register the written pages for prefix sharing.  The shield
+        stays ON until the scheduler activates the slot, so a decode step
+        dispatched in the same iteration cannot write into a shared
+        trailing page."""
+        info = self._slots[slot]
+        self.lengths[slot] = len(tokens)
+        if not self.ring:
+            self.tree.insert(tokens, info.blocks)
+
+    def unshield(self, slot: int) -> None:
+        """Expose the slot's true table row to decode steps again (at
+        decode activation, after the iteration's decode step)."""
+        self.shielded.discard(slot)
 
 
 # ---------------------------------------------------------------------------

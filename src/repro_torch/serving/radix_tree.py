@@ -1,9 +1,8 @@
 """Radix tree over block-aligned token runs: the paged prefix cache.
 
 A copy of ``repro.serving.radix_tree`` (the port imports nothing of the
-JAX package).  The port's manager uses it as its prefix registry with
-retention off (``serving.paged_kv_cache``); retention and eviction are
-copied with it and wired in by a later slice (ROADMAP.md).
+JAX package).  The port's manager uses it as its prefix registry, with
+retention and LRU eviction (``serving.paged_kv_cache``).
 
 ``PagedCacheManager`` used to keep a flat ``Dict[token-prefix, page]``
 registry: one full token-tuple key PER REGISTERED BLOCK, so a distinct

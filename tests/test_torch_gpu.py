@@ -994,3 +994,104 @@ def test_decode_wrappers_reject_unaligned_kv():
     assert k.is_contiguous()
     with pytest.raises(ValueError, match="16-byte"):
         dk.decode_attention_merged_bsd(u, k, k, kvp, qp)
+
+
+# ---------------------------------------------------------------------------
+# the scheduler on the card: shielded rows, chunked serving, sampling
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["paged", "paged_q8"])
+def test_decode_shielded_paged_row_is_zero(dtype, kind):
+    """A slot mid-chunked-prefill reaches the paged decode kernels (rows
+    6-9) with its table row all -1 and a length at its chunk frontier (>
+    0): its output row is exactly zero (no NaN, though every unmapped
+    page's K/V rows and q8 scales are NaN), and the other rows equal the
+    plain versions'."""
+    dev = _cuda()
+    Hkv, G, D = DECODE_SHAPES["mistral"]
+    B, S = 4, 512
+    rng = np.random.default_rng(23 + DECODE_KINDS.index(kind))
+    q_pos = np.array([15, 64, 300, 511])  # row 1: shielded at frontier 64
+    pos = np.where(np.arange(S)[None] <= q_pos[:, None], np.arange(S)[None],
+                   -1)
+    pos[1] = -1  # no page mapped: the masked decode view of the slot
+    args = _decode_inputs(rng, kind, Hkv, G, D, pos, q_pos, 0, dtype, dev)
+    assert bool((args[0][-2][1] == -1).all())  # the table row
+    outs = _decode_pair(kind, 0, args)
+    for got, want in zip(outs[::2], outs[1::2]):
+        assert torch.equal(got[1], torch.zeros_like(got[1]))
+        rows = [0, 2, 3]
+        torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                                   rtol=0, atol=_tol(want[rows]))
+
+
+def _sched_model(window=0):
+    from repro_torch.core.merge import merge_skipless
+    from repro_torch.models import init_params
+    cfg = reduce_config(get_config("mistral-7b")).with_(
+        block_style="skipless", d_model=256, n_heads=4, n_kv_heads=2,
+        d_head=64, sliding_window=window)
+    params = init_params(cfg, seed=0, device="cpu")
+    mparams, mcfg = merge_skipless(params, cfg, "qp")
+    return {"generic": (cfg, params), "merged": (mcfg, mparams)}
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged", "paged_q8"])
+def test_scheduled_engine_on_the_card_matches_the_cpu_engine(cache):
+    """The ``ScheduledEngine`` through the CUDA decode kernels emits the
+    CPU scheduler's streams (chunks of 8; a repeated prompt hits the
+    paged pools' prefix cache), and launches only its cache's decode
+    kernel, once per layer and decode step: no flash kernel runs on chunk
+    steps."""
+    dev = _cuda()
+    from repro_torch.serving import (SchedConfig, ScheduledEngine,
+                                     ServeConfig, make_adapter)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 128, n) for n in (5, 19, 40, 40)]
+    prompts[3] = prompts[2].copy()  # a prefix hit on the paged pools
+    sc = ServeConfig(n_slots=3, max_len=64, block_size=8)
+    scfg = SchedConfig(token_budget=32, chunk_tokens=8)
+    infix = {"dense": "", "paged": "paged_", "paged_q8": "paged_q8_"}[cache]
+    for kind, (c, p) in _sched_model().items():
+        cpu = ScheduledEngine(c, p, sc, scfg, impl="torch",
+                              cache=make_adapter(cache), device="cpu")
+        want = [list(o) for o in cpu.generate(prompts, max_new_tokens=12)]
+        reset_launch_counts()
+        eng = ScheduledEngine(c, tree_map(lambda t: t.to(dev), p), sc, scfg,
+                              impl="cuda", cache=make_adapter(cache),
+                              device=dev)
+        got = [list(o) for o in eng.generate(prompts, max_new_tokens=12)]
+        assert got == want, (cache, kind)
+        assert eng._chunked and eng.n_chunks_run > len(prompts)
+        decode = f"decode_attention_{infix}" + (
+            "merged_bsd" if kind == "merged" else "bhsd")
+        counts = launch_counts()
+        assert counts[decode] == c.n_layers * eng.stats["n_steps"]
+        assert sum(counts.values()) == counts[decode], counts
+
+
+def test_sampling_on_the_card():
+    """Temperature sampling through the CUDA engines: a request's stream
+    is the same alone and beside other traffic, the scheduler's equals the
+    synchronous engine's, and top_k=1 is greedy."""
+    dev = _cuda()
+    from repro_torch.serving import (Engine, SchedConfig, ScheduledEngine,
+                                     ServeConfig)
+    c, p = _sched_model()["merged"]
+    p = tree_map(lambda t: t.to(dev), p)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 128, n) for n in (6, 17, 30)]
+
+    def run(ps, sched=False, **kw):
+        sc = ServeConfig(**{**dict(n_slots=3, max_len=64, temperature=0.8,
+                                   top_k=50, seed=4, block_size=8), **kw})
+        eng = ScheduledEngine(c, p, sc, SchedConfig(32, 8), impl="cuda",
+                              cache="paged", device=dev) if sched else \
+            Engine(c, p, sc, impl="cuda", cache="paged", device=dev)
+        return [list(o) for o in eng.generate(ps, max_new_tokens=10)]
+
+    busy = run(prompts)
+    assert run(prompts[:1]) == busy[:1]
+    assert run(prompts, sched=True) == busy
+    assert run(prompts, top_k=1) == run(prompts, temperature=0.0)

@@ -1,7 +1,8 @@
 """The port's paged cache against the JAX package's: the host manager
 (``serving.paged_kv_cache``) replays seeded traces side by side with
-``repro.serving.paged_kv_cache.PagedCacheManager(prefix_retention=False)``
-with identical tables, lengths, refcounts, free lists and counters after
+``repro.serving.paged_kv_cache.PagedCacheManager``, both with prefix
+retention off (``tests/test_torch_prefix_cache.py`` replays it on), with
+identical tables, lengths, refcounts, free lists and counters after
 every operation; and the model's paged prefill and decode
 (``forward_prefill`` with a ``PagedPrefillDest``, ``forward_step`` on a
 ``PagedDecodeCache``) match the JAX logits and written pages, generic and
@@ -43,7 +44,8 @@ def _managers(window, n_blocks, n_slots=4, max_len=64, bs=8):
     kw = dict(n_slots=n_slots, max_len=max_len, block_size=bs,
               n_blocks=n_blocks)
     return (jpkv.PagedCacheManager(jc, prefix_retention=False, **kw),
-            tpkv.PagedCacheManager(tc, device="cpu", **kw))
+            tpkv.PagedCacheManager(tc, device="cpu", prefix_retention=False,
+                                   **kw))
 
 
 def _same_state(j, t, where):
@@ -198,10 +200,6 @@ def test_window_rollover_detaches_a_page_a_peer_still_reads():
 
 def test_manager_refuses_what_it_does_not_serve():
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpkv.PagedCacheManager(tc, n_slots=2, max_len=32, block_size=8,
-                               n_blocks=8, prefix_retention=True,
-                               device="cpu")
     with pytest.raises(ValueError, match="multiple"):
         tpkv.PagedCacheManager(tc, n_slots=2, max_len=30, block_size=8,
                                n_blocks=8, device="cpu")

@@ -84,9 +84,10 @@ def jax_streams():
 def test_paged_streams_match_the_jax_paged_engine(jax_streams, grid, style):
     cfg, params, want, jstats = jax_streams[(grid, style)]
     _, prompts, max_new, n_slots, n_blocks = GRIDS[grid]
-    eng = Engine(cfg, params, ServeConfig(n_slots=n_slots, max_len=64,
-                                          block_size=8, n_blocks=n_blocks),
-                 impl="torch", cache="paged", device="cpu")
+    eng = Engine(cfg, params, ServeConfig(n_slots=n_slots, max_len=64),
+                 impl="torch", device="cpu",
+                 cache=PagedCacheAdapter(block_size=8, n_blocks=n_blocks,
+                                         prefix_retention=False))
     merged = style == "qp"
     assert eng.backend.key == ("paged", "merged" if merged else "generic",
                                "torch")
@@ -143,7 +144,8 @@ def test_staggered_sharing_matches_the_jax_engine(window, new_a, new_b):
     eng, got_a, got_b = _staggered(
         lambda: Engine(tc, tp, ServeConfig(n_slots=2, max_len=64),
                        impl="torch", device="cpu",
-                       cache=PagedCacheAdapter(block_size=8, n_blocks=32)),
+                       cache=PagedCacheAdapter(block_size=8, n_blocks=32,
+                                               prefix_retention=False)),
         Request, prompt, 3, new_a, new_b)
     assert (got_a, got_b) == (want_a, want_b)
     alloc = eng.pm.allocator
@@ -162,9 +164,6 @@ def test_paged_engine_refusals(jax_streams):
     with pytest.raises(ValueError, match="impl='cuda'"):
         Engine(cfg, params, ServeConfig(), impl="cuda", cache="paged",
                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg, params, ServeConfig(), impl="torch", device="cpu",
-               cache=PagedCacheAdapter(prefix_retention=True))
     with pytest.raises(RuntimeError, match="n_blocks"):
         # one request that outgrows the whole pool cannot be preempted
         Engine(cfg, params, ServeConfig(n_slots=2, max_len=32, block_size=8,

@@ -2,8 +2,8 @@
 
 * the host manager (``serving.paged_kv_cache.PagedQ8CacheManager``)
   replays seeded traces side by side with
-  ``repro.serving.paged_kv_cache.PagedQ8CacheManager(prefix_retention=
-  False)``: equal tables, lengths and refcounts after every operation, and
+  ``repro.serving.paged_kv_cache.PagedQ8CacheManager``, both with prefix
+  retention off: equal tables, lengths and refcounts after every operation, and
   scale rows that travel with their page (both managers stamp the same
   marker into each newly mapped page's scale rows; after every operation
   the scale arrays are equal, and every live page still carries its own
@@ -67,7 +67,8 @@ class _Lockstep:
         kw = dict(n_slots=n_slots, max_len=max_len, block_size=bs,
                   n_blocks=n_blocks)
         self.j = jpkv.PagedQ8CacheManager(jc, prefix_retention=False, **kw)
-        self.t = tpkv.PagedQ8CacheManager(tc, device="cpu", **kw)
+        self.t = tpkv.PagedQ8CacheManager(tc, device="cpu",
+                                          prefix_retention=False, **kw)
         self.expected = {}
         self.marker = 1.0
 
@@ -399,8 +400,8 @@ SMALL_PROMPTS = [np.arange(8, dtype=np.int32) + i for i in range(3)]
 
 @pytest.fixture(scope="module")
 def jax_grids():
-    """The JAX q8 engine's streams on each grid (prefix retention off, as
-    the port's manager has none)."""
+    """The JAX q8 engine's streams on each grid (prefix retention off, on
+    the port's side too)."""
     out = {}
     x50 = _ref_models(0, 50.0)
     out["x50"] = (x50, _jax_streams(*x50["generic"], JaxQ8Adapter(
@@ -431,8 +432,8 @@ def test_q8_grid_streams_match_the_jax_q8_engine(jax_grids, style):
     cell's streams, which every JAX cell equals."""
     models, want = jax_grids["x50"]
     c, p = _port(*models[style])
-    got, eng = _port_streams(c, p, PagedQ8CacheAdapter(block_size=8),
-                             PROMPTS, 4)
+    got, eng = _port_streams(c, p, PagedQ8CacheAdapter(
+        block_size=8, prefix_retention=False), PROMPTS, 4)
     assert eng.backend.key == ("paged_q8", tm.serving_style_key(c), "torch")
     assert eng.prefill_backend.key == ("paged_q8", tm.prefill_style_key(c),
                                        "torch")
@@ -448,8 +449,8 @@ def test_q8_windowed_grid_rings_like_the_jax_engine(jax_grids, style):
     JAX windowed q8 cell's."""
     models, want = jax_grids["window"]
     c, p = _port(*models[style])
-    got, eng = _port_streams(c, p, PagedQ8CacheAdapter(block_size=2),
-                             WIN_PROMPTS, 5, max_len=32)
+    got, eng = _port_streams(c, p, PagedQ8CacheAdapter(
+        block_size=2, prefix_retention=False), WIN_PROMPTS, 5, max_len=32)
     assert got == want, (style, got, want)
     assert eng.pm.ring == 3 and eng.pm.allocator.n_recycled > 0
     assert eng.pm.request_page_hwm.max <= eng.pm.ring_bound
@@ -462,9 +463,10 @@ def test_q8_matches_fp_paged_on_the_unscaled_model(jax_grids, style):
     the argmax margins, as the reference's gate asserts)."""
     models, want = jax_grids["unscaled"]
     c, p = _port(*models[style])
-    q8, _ = _port_streams(c, p, PagedQ8CacheAdapter(block_size=8), PROMPTS,
-                          4)
-    fp, _ = _port_streams(c, p, PagedCacheAdapter(block_size=8), PROMPTS, 4)
+    q8, _ = _port_streams(c, p, PagedQ8CacheAdapter(
+        block_size=8, prefix_retention=False), PROMPTS, 4)
+    fp, _ = _port_streams(c, p, PagedCacheAdapter(
+        block_size=8, prefix_retention=False), PROMPTS, 4)
     assert q8 == want[style] == fp, (style, q8, want[style], fp)
 
 
@@ -474,9 +476,9 @@ def test_q8_small_pool_defers_and_preempts_like_the_jax_engine(jax_grids,
     models, small = jax_grids["small"]
     want, n_pre, n_def = small[style]
     c, p = _port(*models[style])
-    got, eng = _port_streams(c, p, PagedQ8CacheAdapter(block_size=8,
-                                                       n_blocks=7),
-                             SMALL_PROMPTS, 20, n_slots=3, max_len=64)
+    got, eng = _port_streams(c, p, PagedQ8CacheAdapter(
+        block_size=8, n_blocks=7, prefix_retention=False), SMALL_PROMPTS,
+        20, n_slots=3, max_len=64)
     assert got == want
     assert (eng.stats["n_preempted"], eng.stats["n_deferred"]) == \
         (n_pre, n_def)

@@ -126,9 +126,6 @@ def test_bucketing_pads_only_window_free_configs(grids):
 def test_unported_options_and_bad_requests_raise(grids):
     cfg, params, _ = grids[("full", "generic")]
     p = to_torch(params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg, p, ServeConfig(temperature=0.7), impl="torch",
-               device="cpu")
     with pytest.raises(ValueError, match="'dense'"):
         make_adapter("paged_q4")
     eng = Engine(cfg.with_(sliding_window=0), p,

@@ -22,7 +22,10 @@ NVIDIA card.  Run from the repository root:
    bf16 (2048 and 4096 tokens causal, 2048 with window 512, q8 at 2048)
    and at 2048 in float32; the generic flash and decode kernels also at
    Hymba-1.5B's (Hq=25, Hkv=5, D=64; flash also at 2048 with its window of
-   1024); the SSD scan at Hymba's (H 50, P 64,
+   1024); the decode kernels (rows 4-9) also at ChatGLM3-6B's (Hq=32,
+   Hkv=2, D=128: 16 query heads per kv head, two parts of the group) and
+   rows 4-5 at G 12 (Hq=24, Hkv=2: a part that is not full); the SSD scan
+   at Hymba's (H 50, P 64,
    N 16; 250, 512 and 2048 tokens) and Mamba2-2.7B's (H 80, P 64, N 128;
    256, 512 and 2048), after printing its occupancy per instantiation
    (``ssd_occupancy``: a whole wave of clusters must cover every SM) —
@@ -34,8 +37,9 @@ NVIDIA card.  Run from the repository root:
    such call), beside the least time the card could take (bound).  Times
    come from CUDA graphs of 30 calls (``cuda_ms``), three timed replays
    each.  First, ``torch.profiler`` counts the device kernels per call
-   of each of the six decode wrappers (rows 4-9) and of the SSD scan (row
-   10) on bf16 inputs of the main path's shapes, which must be one.  Rows
+   of each of the six decode wrappers (rows 4-9, at Mistral's and at
+   ChatGLM3's shapes) and of the SSD scan (row 10) on bf16 inputs of the
+   main path's shapes, which must be one.  Rows
    6-9 also run with one batch row SHIELDED (``shielded_phase``: its table
    all -1 at a length > 0, as the scheduler ships a slot mid-chunked-
    prefill): that row must be exactly zero, the others the plain
@@ -109,7 +113,25 @@ NVIDIA card.  Run from the repository root:
    the ``ScheduledEngine``'s monolithic jobs (the synchronous streams and
    SSD launches), bf16 tok/s, TTFT, and decode and 512-token prefill
    profiles (each profile also gives the SSD kernel's device ms);
-8. prints one JSON line of per-kernel numbers, then, as the last line,
+8. the five other dense configs (``dense_configs_path``): Llama-3.2-1B,
+   Phi-3-medium-14B, Qwen2.5-32B, Pythia-6.9B (source only: its parallel
+   blocks make the merge raise) and ChatGLM3-6B at full width, the Mistral
+   path's prompts: at 4 calibrated layers in float32 merged == source,
+   paged == dense and scheduled == synchronous greedy streams, exact
+   launch counts and the kernels' prefill logits against the plain
+   forward; then in bfloat16 at full depth (Qwen2.5-32B at 32 of its 64
+   layers, so that the source and its merge fit together) exact launch
+   counts on the three caches and the scheduler (``n_layers`` decode
+   launches per decode step, G 16 included), tok/s and TTFT;
+9. the obs phase (``obs_path``, last: it turns on PyTorch's GPU trace
+   hooks to count host syncs): merged bf16 Mistral-7B at 32 layers on the
+   paged pool, roomy and tight, through ``Engine`` and
+   ``ScheduledEngine`` with ``ServeConfig(obs=True)``: one terminal event
+   per request, a valid Perfetto export, histograms counting the
+   requests, pool gauges equal to the allocator's counters, and the
+   streams, launch counts and host syncs of the obs-off run; obs-on and
+   obs-off tok/s side by side;
+10. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Everything printed to stdout is also written to ``build/chip_smoke.log``
@@ -139,6 +161,8 @@ BF16_EPS = 2.0 ** -7  # spacing of bfloat16 numbers in [1, 2)
 TOL_BF16_MAX = 2e-2  # flash rows: O(1) outputs, one ulp near 2 is 7.8e-3
 Hq, Hkv, D = MISTRAL_ATTN = (32, 8, 128)  # Mistral-7B's attention shape
 HYMBA_ATTN = (25, 5, 64)  # Hymba-1.5B's (Hq, Hkv, D)
+CHATGLM_ATTN = (32, 2, 128)  # ChatGLM3-6B's: 16 query heads per kv head
+G12_ATTN = (24, 2, 128)  # G 12: the second part of the group not full
 SSD_TOL_REL = 3e-5  # SSD rows: max |err| <= this x the plain version's max
 L2_BYTES = 50e6
 
@@ -345,16 +369,17 @@ def ring_positions(rng, S, q_pos, hole_frac):
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def decode_phase(rng, rows, hymba=False):
+def decode_phase(rng, rows, hymba=False, attn=None):
     """Rows 4 and 5 at Mistral-7B's attention shape; with ``hymba`` row 4
-    (the hybrid's decode kernel) at Hymba-1.5B's (Hq 25, Hkv 5, D 64),
-    untimed in the JSON line."""
+    (the hybrid's decode kernel) at Hymba-1.5B's (Hq 25, Hkv 5, D 64);
+    with ``attn`` (Hq, Hkv, D) rows 4 and 5 at that shape (ChatGLM3-6B's
+    G 16, or G 12); the last two untimed in the JSON line."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk, ref
 
-    Hq, Hkv, D = HYMBA_ATTN if hymba else MISTRAL_ATTN
+    Hq, Hkv, D = attn or (HYMBA_ATTN if hymba else MISTRAL_ATTN)
     B, S = 4, 512
     G = Hq // Hkv
     dev = torch.device("cuda")
@@ -362,7 +387,7 @@ def decode_phase(rng, rows, hymba=False):
              ("no window, full ring", 0, [511, 600, 777, 1000], 0.0)]
     names = ("decode_attention_bhsd",) if hymba else \
         ("decode_attention_merged_bsd", "decode_attention_bhsd")
-    geom = f" Hq={Hq} Hkv={Hkv} D={D}" if hymba else ""
+    geom = f" Hq={Hq} Hkv={Hkv} D={D}" if hymba or attn else ""
     for dtype in (torch.bfloat16, torch.float32):
         for label, window, q_pos, holes in cases:
             kvp_np = ring_positions(rng, S, q_pos, holes)
@@ -420,7 +445,7 @@ def decode_phase(rng, rows, hymba=False):
                 rows.append(kernel_row(
                     name, dtype, f"B={B} S={S} {label}{geom}", kern, plain,
                     sdpa, n_sets, bound, timed=(
-                        label.startswith("no window") and not hymba
+                        label.startswith("no window") and not geom
                         and dtype == torch.bfloat16)))
             del us, ks, vs, khs, vhs
 
@@ -456,16 +481,18 @@ def decode_occupancy(card):
                     + "; ".join(cells))
 
 
-def decode_kernels_per_call(rng) -> dict:
+def decode_kernels_per_call(rng, attn=None) -> dict:
     """Device kernels per call of each of the six decode wrappers, counted
     by ``torch.profiler`` (``device_kernels_per_call``) before any other
     kernel row runs, on bf16 inputs of the main path's shapes: Mistral's
-    dense cache at B=4, S=512 full, and its pools behind the absolute
-    table of ``paged_tables``.  Keyed by wrapper name."""
+    (or ``attn``'s (Hq, Hkv, D)) dense cache at B=4, S=512 full, and its
+    pools behind the absolute table of ``paged_tables``.  Keyed by wrapper
+    name."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as dk, quant
 
+    Hq, Hkv, D = attn or MISTRAL_ATTN
     dev = torch.device("cuda")
     B, S, G = 4, 512, Hq // Hkv
 
@@ -495,8 +522,9 @@ def decode_kernels_per_call(rng) -> dict:
     out = {name: device_kernels_per_call(
         lambda i, f=getattr(dk, name), args=args: f(*args))
         for name, args in calls.items()}
-    log("device kernels per decode wrapper call (torch.profiler, 3 calls, "
-        "bf16): " + ", ".join(f"{n} {c:g}" for n, c in out.items()))
+    log(f"device kernels per decode wrapper call (torch.profiler, 3 calls, "
+        f"bf16, Hq {Hq} Hkv {Hkv} D {D}): "
+        + ", ".join(f"{n} {c:g}" for n, c in out.items()))
     return out
 
 
@@ -631,18 +659,22 @@ def paged_tables():
              np.asarray(RING_QPOS, np.int32))]
 
 
-def paged_phase(rng, rows, q8):
+def paged_phase(rng, rows, q8, attn=None):
     """Rows 6 and 7 (``q8`` False) or 8 and 9 (``q8`` True): the paged
     decode kernels on ``paged_tables``, over float pools or over int8
     pools quantized from seeded float pages whose unmapped pages' scale
     rows are NaN in the kernels' inputs (the plain versions get the clean
-    scales: a kernel that read such a scale would disagree)."""
+    scales: a kernel that read such a scale would disagree).  At
+    Mistral-7B's attention shape, or at ``attn`` (Hq, Hkv, D), untimed in
+    the JSON line."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk, quant, ref
     from repro_torch.kernels.paging import paged_ring_active
 
+    Hq, Hkv, D = attn or MISTRAL_ATTN
+    geom = f" Hq={Hq} Hkv={Hkv} D={D}" if attn else ""
     G = Hq // Hkv
     dev = torch.device("cuda")
     kind = "paged_q8" if q8 else "paged"
@@ -728,9 +760,10 @@ def paged_phase(rng, rows, q8):
                                   **kw).reshape(B, Hq, D)
 
                 rows.append(kernel_row(
-                    name, dtype, f"B={B} bs={PAGE} {kind} {label}", kern,
-                    plain, sdpa, n_sets, bound,
-                    timed=(window == 0 and dtype == torch.bfloat16)))
+                    name, dtype, f"B={B} bs={PAGE} {kind} {label}{geom}",
+                    kern, plain, sdpa, n_sets, bound,
+                    timed=(window == 0 and dtype == torch.bfloat16
+                           and not attn)))
             del us, kps, vps, khs, vhs
 
 
@@ -1160,10 +1193,14 @@ def first_mismatch(cfg, params, prompts, a, b):
 EQ_LAYERS = 4  # depth of the float32 merged-vs-source identity check
 
 
-def build(n_layers, calibrate, arch="mistral-7b"):
-    """A skipless ``arch`` (Mistral-7B, or Hymba-1.5B) of ``n_layers`` at
-    full width on the card, and its exact qp merge (on the hybrid: Q
-    removed, P kept).
+def build(n_layers, calibrate, arch="mistral-7b", dtype=None):
+    """A skipless ``arch`` (Mistral-7B, Hymba-1.5B or a dense config) of
+    ``n_layers`` at full width on the card, in float32 (or ``dtype``, for
+    weights and activations), and its exact qp merge (on the hybrid: Q
+    removed, P kept).  A config with QKV biases gets seeded nonzero biases
+    (the merge's affine part then does work).  A parallel block (Pythia)
+    has no merge: ``merge_skipless`` must raise, and the merged pair is
+    returned as None.
 
     A random skipless GLU stack maps its signal scale roughly as
     s -> c * s**2, an unstable fixed point: uncalibrated, the signal
@@ -1172,7 +1209,9 @@ def build(n_layers, calibrate, arch="mistral-7b"):
     seeded calibration prompt is 1 (deterministic from the seed, applied
     before the merge, which is exact for any weights).  That keeps other
     prompts O(1) for a few layers only: by 8 layers their scale wanders by
-    orders of magnitude, and by 32 it overflows."""
+    orders of magnitude, and by 32 it overflows.  On a parallel block the
+    attention output projection is rescaled with the FFN's, so the sum of
+    the two branches has RMS 1."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1181,10 +1220,19 @@ def build(n_layers, calibrate, arch="mistral-7b"):
     from repro_torch.models.transformer import (apply_block_seq,
                                                 embed_inputs, layer_params)
 
-    cfg = get_config(arch).with_(block_style="skipless", dtype="float32",
-                                 n_layers=n_layers)
+    cfg = get_config(arch).with_(block_style="skipless", n_layers=n_layers,
+                                 **({"dtype": "float32"} if dtype is None
+                                    else {"dtype": dtype,
+                                          "param_dtype": dtype}))
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
+    if cfg.qkv_bias:
+        gen = torch.Generator("cuda").manual_seed(2)
+        for name in ("bq", "bk", "bv"):
+            b = params["layers"]["attn"][name]
+            b.copy_(0.1 * torch.randn(b.shape, generator=gen, device="cuda"))
+    ffn = params["layers"]["ffn"]
+    w_out = "w_down" if "w_down" in ffn else "w_out"
     calib = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, 64)), device="cuda")
     pos = torch.arange(64, device="cuda")[None]
@@ -1194,16 +1242,32 @@ def build(n_layers, calibrate, arch="mistral-7b"):
             out, _, _ = apply_block_seq(layer_params(params, i), cfg, h,
                                         {"positions": pos, "impl": "cuda"})
             r = out.pow(2).mean().sqrt()
-            params["layers"]["ffn"]["w_down"][i] /= r
+            ffn[w_out][i] /= r
+            if cfg.parallel_block:
+                params["layers"]["attn"]["wp"][i] /= r
             h = out / r
     torch.cuda.synchronize()
     ssm = (f", SSM {cfg.ssm_n_heads}x{cfg.ssm_head_dim}x{cfg.ssm_state}"
            if cfg.ssm_state else "")
+    extra = "".join(f", {k}" for k, on in (
+        ("QKV biases", cfg.qkv_bias), ("tied embeddings", cfg.tie_embeddings),
+        ("parallel blocks", cfg.parallel_block),
+        (f"rope {cfg.rope_style} x{cfg.rope_fraction:g}",
+         cfg.rope_style != "half")) if on)
     log(f"init {cfg.name} skipless ({n_layers} layers, d_model {cfg.d_model},"
-        f" d_ff {cfg.d_ff}, GQA {cfg.n_heads}/{cfg.n_kv_heads}{ssm}, window "
-        f"{cfg.sliding_window}, vocab {cfg.vocab_size}) on the card"
+        f" d_ff {cfg.d_ff}, GQA {cfg.n_heads}/{cfg.n_kv_heads} of "
+        f"{cfg.d_head}{ssm}, window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab_size}{extra}, {cfg.dtype}) on the card"
         f"{', calibrated' if calibrate else ''}: "
         f"{time.perf_counter() - t0:.1f} s")
+    if cfg.parallel_block:
+        try:
+            merge_skipless(params, cfg, "qp")
+        except ValueError as e:
+            log(f"  merge refused, as in the reference: {e}")
+            return cfg, params, None, None
+        raise AssertionError(f"{cfg.name}: merge_skipless took a parallel "
+                             f"block")
     t0 = time.perf_counter()
     mparams, mcfg = merge_skipless(params, cfg, "qp")
     torch.cuda.synchronize()
@@ -1979,6 +2043,309 @@ def mamba2_path(summary):
     summary["mamba2"] = out
 
 
+DENSE_ARCHS = ("llama3.2-1b", "phi3-medium-14b", "qwen2.5-32b",
+               "pythia-6.9b", "chatglm3-6b")
+# bf16 layers served per config after the 4-layer checks: the full depth,
+# except Qwen2.5-32B, whose 64 layers take ~65 GB alone; at 32 the source
+# and its merge (~34 + ~31 GB) are resident together on the 80 GB card
+CONFIG_DEPTH = {"qwen2.5-32b": 32}
+
+
+def dense_configs_path(summary):
+    """The reference's five other dense configs at full width (Llama-3.2-1B:
+    D 64, tied embeddings, vocab 128,256; Phi-3-medium-14B: G 4;
+    Qwen2.5-32B: G 5, QKV biases; Pythia-6.9B: MHA, parallel blocks, GeLU
+    MLP, source only; ChatGLM3-6B: G 16, QKV biases, half-dimension
+    interleaved RoPE), skipless from seed 0 with seeded nonzero QKV biases,
+    and their qp merges; the Mistral path's four prompt lengths, 16 new
+    tokens each:
+
+    * 4 calibrated layers in float32: merged == source greedy streams on
+      the dense cache (Pythia: its merge raises), paged == dense, the
+      ``ScheduledEngine``'s == the synchronous engine's on both caches,
+      exact launch counts on each, and the kernels' prefill logits
+      against the plain forward (1e-4 of the logit scale);
+    * ``CONFIG_DEPTH`` layers in bfloat16: exact launch counts per prompt
+      and per decode step (``n_layers`` decode launches a step, G 16
+      included) on the dense cache, the paged pool and the int8 pool for
+      the source and the merge, and the scheduler's on the dense cache;
+      the served model's (merged; Pythia's source) tok/s and TTFT, one
+      run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    max_new, lens = 16, (16, 37, 100, 250)
+    n = len(lens)
+    out = {}
+    with torch.no_grad():
+        for arch in DENSE_ARCHS:
+            cfg, params, mcfg, mparams = build(EQ_LAYERS, True, arch)
+            rng = np.random.default_rng(4)
+            prompts = [rng.integers(0, cfg.vocab_size, m) for m in lens]
+            models = [("source", cfg, params, False)]
+            if mcfg is not None:
+                models.append(("merged", mcfg, mparams, True))
+            dense = {}
+            for tag, c, p, merged in models:
+                name = f"{arch} {tag} float32"
+                eng, res, counts, _ = serve(c, p, prompts, max_new)
+                check_counts(name, counts, eng, EQ_LAYERS, n, merged)
+                dense[tag] = streams(res)
+                eng, res, counts, _ = serve(c, p, prompts, max_new, "paged")
+                check_counts(f"{name} paged", counts, eng, EQ_LAYERS, n,
+                             merged)
+                if streams(res) != dense[tag]:
+                    raise AssertionError(f"{name}: paged streams differ "
+                                         f"from dense")
+                for cache in ("dense", "paged"):
+                    eng, res, counts, _ = serve(c, p, prompts, max_new,
+                                                cache, sched=True)
+                    check_sched_counts(f"{name} {cache}", counts, eng,
+                                       merged)
+                    if streams(res) != dense[tag] or not eng._chunked:
+                        raise AssertionError(f"{name} {cache}: scheduled "
+                                             f"streams differ")
+            if mcfg is not None and dense["merged"] != dense["source"]:
+                bad = first_mismatch(cfg, params, prompts, dense["source"],
+                                     dense["merged"])
+                raise AssertionError(
+                    f"{arch}: merged and source greedy streams differ: "
+                    f"prompt {bad[0]}, position {bad[1]}, source top-2 "
+                    f"margin {bad[2]:.3g}")
+            tag, c, p, _ = models[-1]
+            rel = kernels_vs_plain(f"{arch} {tag}", c, p, prompts[1], 1e-4)
+            log(f"  {arch} ({EQ_LAYERS} layers, float32): "
+                + ("merged == source, " if mcfg is not None else "")
+                + "paged == dense, scheduled == synchronous: "
+                f"{[s[:6] for s in dense['source']]} …")
+            res_arch = {"plain_vs_kernels_rel_f32": rel,
+                        "merged": mcfg is not None}
+            del models, params, mparams, p, eng
+            torch.cuda.empty_cache()
+
+            L = CONFIG_DEPTH.get(arch, get_config(arch).n_layers)
+            cfg, params, mcfg, mparams = build(L, False, arch,
+                                               dtype="bfloat16")
+            models = [("source", cfg, params, False)]
+            if mcfg is not None:
+                models.append(("merged", mcfg, mparams, True))
+            for tag, c, p, merged in models:
+                for cache in ("dense", "paged", "paged_q8"):
+                    eng, res, counts, _ = serve(c, p, prompts, max_new,
+                                                cache)
+                    check_counts(f"{arch} {tag} bfloat16 {cache} ({L} "
+                                 f"layers)", counts, eng, L, n, merged)
+                    summary["launches"] = {
+                        k: summary["launches"][k] + counts[k]
+                        for k in KERNELS}
+                eng, res, counts, _ = serve(c, p, prompts, max_new,
+                                            sched=True)
+                check_sched_counts(f"{arch} {tag} bfloat16 dense ({L} "
+                                   f"layers)", counts, eng, merged)
+                summary["launches"] = {k: summary["launches"][k] + counts[k]
+                                       for k in KERNELS}
+            tag, c, p, _ = models[-1]
+            serve(c, p, prompts, max_new)  # warm-up
+            eng, res, counts, wall = serve(c, p, prompts, max_new)
+            if not all(0 <= t < c.vocab_size for o in res for t in o):
+                raise AssertionError(f"{arch}: out-of-vocab ids")
+            res_arch.update(layers=L, served=tag, bf16=report(
+                f"{arch} {tag} bfloat16, dense cache ({L} layers)", res,
+                wall))
+            out[arch] = res_arch
+            del models, params, mparams, p, eng
+            torch.cuda.empty_cache()
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    summary["dense_configs"] = out
+
+
+_SYNC_SINK = []  # the Counter that ``sync_counted`` fills, while it counts
+
+
+def _record_sync(*_):
+    import traceback
+    if _SYNC_SINK:
+        stack = traceback.extract_stack()[:-1][-6:]
+        _SYNC_SINK[-1][" < ".join(f"{os.path.basename(f.filename)}:"
+                                  f"{f.lineno} {f.name}"
+                                  for f in reversed(stack))] += 1
+
+
+def sync_counted(fn):
+    """(fn(), the host syncs it made, by the Python call chain that made
+    them), counted through PyTorch's GPU trace hooks (the ones its CUDA
+    sanitizer uses): each device, stream or event synchronization (a
+    device-to-host copy, a blocking host-to-device copy, a ``.cpu()``, a
+    ``synchronize``) calls back into Python on the thread that made it.
+    The hooks stay on for the rest of the process once set, so this runs
+    after every timed phase.  Garbage from earlier work is collected
+    first, so that no finalizer of it runs inside the count."""
+    import collections
+    import gc
+    import torch
+    from torch.cuda import _gpu_trace as gpu_trace
+
+    if not getattr(sync_counted, "hooked", False):
+        torch._C._activate_gpu_trace()
+        gpu_trace.register_callback_for_device_synchronization(_record_sync)
+        gpu_trace.register_callback_for_stream_synchronization(_record_sync)
+        gpu_trace.register_callback_for_event_synchronization(_record_sync)
+        sync_counted.hooked = True
+    gc.collect()
+    torch.cuda.synchronize()
+    _SYNC_SINK.append(collections.Counter())
+    try:
+        out = fn()
+    finally:
+        caught = _SYNC_SINK.pop()
+    return out, caught
+
+
+def obs_path(summary):
+    """The obs phase on merged bf16 Mistral-7B at 32 layers (uncalibrated,
+    as the path phase's bf16 runs), the path phase's prompts.  Last in the
+    script: it turns on the GPU trace hooks (``sync_counted``)."""
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_map
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 32000, n) for n in (16, 37, 100, 250)]
+    with torch.no_grad():
+        _, params, mcfg, mparams = build(32, calibrate=False)
+        del params
+        bcfg = mcfg.with_(dtype="bfloat16", param_dtype="bfloat16")
+        bparams = tree_map(lambda t: t.to(torch.bfloat16), mparams)
+        del mparams
+        torch.cuda.empty_cache()
+        summary["obs_bf16"] = obs_phase(bcfg, bparams, prompts, 16)
+        del bparams
+        torch.cuda.empty_cache()
+
+
+def obs_phase(cfg, params, prompts, max_new):
+    """The observer (``ServeConfig(obs=True)``) on the served model (merged
+    bf16 Mistral-7B, 32 layers) through ``Engine`` and ``ScheduledEngine``
+    on the paged pool, roomy and tight (deferral and preemption), the four
+    prompts and a repeat of the 250-token one.  Per run, against the same
+    run with the observer off: the same streams, the same kernel launch
+    counts and the same host syncs made by ``generate`` (``sync_counted``;
+    after a warm-up run of the same configuration); and with it on:
+    one terminal event per request, a valid Perfetto export (written to
+    ``build/obs_trace_<engine>_<pool>.json``), histograms that count the
+    requests and the decode steps, and pool gauges equal to the
+    allocator's counters.  On the roomy pools the obs-off and obs-on tok/s
+    of one timed run each are printed side by side (no claim)."""
+    import torch
+    from repro_torch import obs as O
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (Engine, SchedConfig, ScheduledEngine,
+                                     ServeConfig)
+
+    def counted(sched, n_blocks, obs):
+        """``serve``, with the host syncs of ``generate`` alone counted
+        (the synchronizes around it are the measurement's own)."""
+        sc = ServeConfig(n_slots=4, max_len=512, n_blocks=n_blocks, obs=obs)
+        kw = dict(impl="cuda", cache="paged", device="cuda")
+        eng = ScheduledEngine(cfg, params, sc, SchedConfig(**SCHED), **kw) \
+            if sched else Engine(cfg, params, sc, **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res, syncs = sync_counted(lambda: eng.generate(
+            sp, max_new_tokens=max_new))
+        torch.cuda.synchronize()
+        return eng, streams(res), launch_counts(), syncs
+
+    sp = list(prompts) + [prompts[3].copy()]
+    n = len(sp)
+    need = max(-(-(len(p) + max_new - 1) // PAGE) for p in sp)
+    # timed first: the sync count's trace hooks stay on once set
+    timed = {}
+    for sched in (False, True):
+        engine = "scheduled" if sched else "engine"
+        for obs in (False, False, True):  # a warm-up, then timed
+            eng, res, _, wall = serve(cfg, params, sp, max_new, "paged",
+                                      sched=sched, obs=obs)
+            timed[(engine, obs)] = report(
+                f"{engine} roomy obs {'on' if obs else 'off'} "
+                f"({cfg.dtype})", res, wall)["tok_s"]
+        timed[engine] = O.serving_obs_doc(eng)["headline"]
+        del eng
+    out = {}
+    for sched in (False, True):
+        engine = "scheduled" if sched else "engine"
+        tight = SCHED_STARVED_PAGES if sched else need + 1
+        for pool, n_blocks in (("roomy", 0), ("tight", tight)):
+            tag = f"{engine} {pool}"
+            # a warm-up: the first run of a configuration in the process
+            # may make a one-time host sync
+            serve(cfg, params, sp, max_new, "paged", sched=sched,
+                  n_blocks=n_blocks)
+            runs = {obs: counted(sched, n_blocks, obs)
+                    for obs in (False, True)}
+            (_, s_off, c_off, y_off), (eng, s_on, c_on, y_on) = \
+                runs[False], runs[True]
+            if not (s_on == s_off and c_on == c_off and y_on == y_off
+                    and y_off):
+                raise AssertionError(
+                    f"obs {tag}: obs-on changed the run: streams equal "
+                    f"{s_on == s_off}, launches {c_on} vs {c_off}, host "
+                    f"syncs {sum(y_on.values())} vs {sum(y_off.values())}: "
+                    f"obs on only {dict(y_on - y_off)}, obs off only "
+                    f"{dict(y_off - y_on)}")
+            tr, m = eng.obs.trace, eng.metrics
+            finishes = [sum(e["name"] == "finish"
+                            for e in O.request_events(tr, rid))
+                        for rid in range(n)]
+            path = os.path.join(ROOT, "build", f"obs_trace_{engine}_"
+                                f"{pool}.json")
+            O.write_perfetto(path, tr)
+            with open(path) as f:
+                counts = O.validate_perfetto(json.load(f))
+            a = eng.pm.allocator
+            gauges = {k: m[k].collect()["value"] for k in (
+                "pool_blocks_used", "pool_peak_used", "pool_cow",
+                "pool_prefix_hits", "pool_recycled")}
+            want_gauges = {"pool_blocks_used": a.n_used,
+                           "pool_peak_used": a.peak_used,
+                           "pool_cow": a.n_cow,
+                           "pool_prefix_hits": a.n_shared_hits,
+                           "pool_recycled": a.n_recycled}
+            ev = dict(deferred=eng.stats["n_deferred"],
+                      preempted=eng.stats["n_preempted"],
+                      decode_steps=eng.stats["n_steps"],
+                      host_syncs=sum(y_on.values()),
+                      trace_events=counts, dropped=tr.n_dropped)
+            ok = (finishes == [1] * n and tr.open_spans() == []
+                  and tr.n_dropped == 0
+                  and m["serve_requests_finished"].value == n
+                  and m["serve_ttft_seconds"].count == n
+                  and m["serve_queued_seconds"].count == n
+                  and m["serve_decode_step_seconds"].count
+                  == eng.stats["n_steps"]
+                  and m["serve_requests_resumed"].value
+                  == eng.stats["n_preempted"]
+                  and gauges == want_gauges
+                  and (pool == "roomy" or ev["deferred"] + ev["preempted"]))
+            if not ok:
+                raise AssertionError(f"obs {tag}: finishes {finishes}, "
+                                     f"gauges {gauges} vs {want_gauges}, "
+                                     f"{ev}, metrics {m.collect()}")
+            if pool == "roomy":
+                ev.update(tok_s_obs_off=timed[(engine, False)],
+                          tok_s_obs_on=timed[(engine, True)],
+                          headline_obs_on=timed[engine])
+            log(f"  obs {tag}: one finish per request, Perfetto export "
+                f"valid, histograms and pool gauges agree; streams, "
+                f"launches and host syncs equal with the observer off; "
+                f"{ev}")
+            out[tag] = ev
+            del eng, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def profiled(what, fn, steps):
     """torch.profiler over ``steps`` calls of ``fn``: device time by kernel
     name, kernel launches per call and the device busy share of the wall
@@ -2165,6 +2532,10 @@ def run() -> int:
     if any(c != 1 for c in per_call.values()):
         raise AssertionError(f"a decode or SSD wrapper call launched other "
                              f"than one device kernel: {per_call}")
+    glm_call = decode_kernels_per_call(np.random.default_rng(1), CHATGLM_ATTN)
+    if any(c != 1 for c in glm_call.values()):
+        raise AssertionError(f"a decode wrapper call at G 16 launched other "
+                             f"than one device kernel: {glm_call}")
     rows = []
     decode_phase(rng, rows)
     flash_phase(rng, rows)
@@ -2176,6 +2547,12 @@ def run() -> int:
     decode_phase(rng, rows, hymba=True)
     flash_phase(rng, rows, hymba=True)
     ssd_phase(rng, rows)
+    # ChatGLM3-6B's G 16 (two parts of the query group) and a G 12 whose
+    # second part is not full
+    decode_phase(rng, rows, attn=CHATGLM_ATTN)
+    paged_phase(rng, rows, q8=False, attn=CHATGLM_ATTN)
+    paged_phase(rng, rows, q8=True, attn=CHATGLM_ATTN)
+    decode_phase(rng, rows, attn=G12_ATTN)
     log(f"kernel phase ({card}; times in ms, L2 cold, per call from a CUDA "
         f"graph of 30 calls: median [three replays], then the eager timer "
         f"of earlier runs; bound = the larger of the bytes at 3.35 TB/s and "
@@ -2198,6 +2575,8 @@ def run() -> int:
     path_phase(summary)
     hybrid_path(summary)
     mamba2_path(summary)
+    dense_configs_path(summary)
+    obs_path(summary)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,7 +1,10 @@
 """Config registry. Importing this package registers the port's archs.
 
-A copy of ``repro.configs`` restricted to what the port serves (skipless
-Mistral-7B, Hymba-1.5B and Mamba2-2.7B); the port never imports the JAX
+A copy of ``repro.configs`` restricted to what the port serves: the dense
+stacks Mistral-7B, Llama-3.2-1B, Phi-3-medium-14B, Qwen2.5-32B,
+Pythia-6.9B and ChatGLM3-6B, the hybrid Hymba-1.5B and the SSM stack
+Mamba2-2.7B.  The MoE, VLM and audio configs and ``shapes.py`` stay out
+until their model code is ported.  The port never imports the JAX
 package.
 """
 from repro_torch.configs.base import (
@@ -15,9 +18,14 @@ from repro_torch.configs.base import (
 
 # eagerly import every arch module so REGISTRY is complete
 from repro_torch.configs import (  # noqa: F401
+    chatglm3_6b,
     hymba_1_5b,
+    llama3_2_1b,
     mamba2_2_7b,
     mistral_7b,
+    phi3_medium_14b,
+    pythia_6_9b,
+    qwen2_5_32b,
 )
 
 __all__ = [

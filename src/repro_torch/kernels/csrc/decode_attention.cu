@@ -44,8 +44,14 @@
 // B = 4, S = 512 the bytes take 2.5 us; a body that walks keys one
 // dependent load after another takes ~20x that.  The design hides the
 // latency instead:
-//   * one block per (kv split, kv head, batch), 128 threads, loads each
-//     K/V row ONCE for all G query heads of the kv head;
+//   * one block per (kv split, group part, kv head, batch), 128 threads,
+//     loads each K/V row ONCE for the query heads of its part: a kv head's
+//     G query heads are cut into ceil(G / MAX_G) parts of at most MAX_G = 8
+//     consecutive heads (one part, the whole group, when G <= 8; ChatGLM3's
+//     G = 16 takes two).  Each part's blocks read the kv head's K/V rows
+//     themselves, so a K/V row is read once per part: a few hundred KB a
+//     step at G 16, where Hkv is 2, against the extra blocks that a grid of
+//     only B x Hkv (batch, kv head) pairs needs to fill the card;
 //   * every load of a key tile is in flight at once.  The tile's 64 (or
 //     32) positions or table entries are read with one coalesced load, the
 //     row offsets and the attend mask are built in shared memory, and then
@@ -69,8 +75,8 @@
 //     float4 for four heads; a masked key's V row zero-filled, so no
 //     branch); the key shares are summed once, at the end, in the idle
 //     ring;
-//   * one launch: the kv splits of one (batch, kv head) form a thread-block
-//     cluster (at most MAX_SPLIT blocks, the portable cluster size).  Each
+//   * one launch: the kv splits of one (batch, kv head, part) form a
+//     thread-block cluster (at most MAX_SPLIT blocks, the portable cluster size).  Each
 //     block leaves its softmax state (m, l) and unnormalised output in its
 //     own shared memory; after a cluster barrier every block combines a
 //     share of the G x D outputs by reading its peers' states through
@@ -99,7 +105,8 @@ namespace {
 constexpr float NEG = -1e30f;
 constexpr int NT = 128;  // threads per block
 constexpr int NWARP = NT / 32;
-constexpr int MAX_G = 8;  // query heads per kv head
+constexpr int MAX_G = 8;  // query heads of one block (a part of the group)
+constexpr int MAX_GROUP = 16;  // query heads per kv head a launch takes
 constexpr int MAX_SPLIT = 8;  // kv splits of one (batch, kv head): a cluster
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -189,6 +196,7 @@ struct DecodeArgs {
   const int* q_pos;  // (B,)
   void* out;  // same strides as q
   int B, Hkv, G, S, window, n_split, chunk;
+  int n_part;  // parts of the query group: ceil(G / MAX_G)
   int MB, bs, ring;  // paged: table width, page size, ring slots (0: absolute)
   long long q_sb, q_sh, k_sb, k_sh, k_ss;
 };
@@ -248,8 +256,16 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(DecodeArgs a) {
   __shared__ float s_m[MAX_G], s_l[MAX_G], s_alpha[MAX_G];
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int G = a.G, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // blockIdx.y = h * n_part + part: the part's query heads are g0 .. g0+G-1
+  // (one part, the whole group, when G <= MAX_G: no division)
+  const int split = blockIdx.x, b = blockIdx.z;
+  int h = blockIdx.y, g0 = 0, G = a.G;
+  if (a.n_part > 1) {
+    h = blockIdx.y / a.n_part;
+    g0 = (blockIdx.y - h * a.n_part) * MAX_G;
+    G = min(MAX_G, a.G - g0);
+  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const KV* k = static_cast<const KV*>(a.k);
   const KV* v = static_cast<const KV*>(a.v);
   const int s0 = split * a.chunk;
@@ -267,7 +283,7 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(DecodeArgs a) {
   int idx_next = nt > 1 ? load_idx(s0 + TK) : -1;
   const int qp = a.q_pos[b];
   {
-    const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + g0 * D;
     const float scale = 1.0f / sqrtf(static_cast<float>(D));
     constexpr int QN = MAX_G * D / NT;
     float qv[QN];
@@ -512,7 +528,7 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(DecodeArgs a) {
 
   // combine: split r of n writes outputs r*NT + tid, stepping n*NT
   const int n = static_cast<int>(cluster.num_blocks());
-  T* out = static_cast<T*>(a.out) + b * a.q_sb + h * a.q_sh;
+  T* out = static_cast<T*>(a.out) + b * a.q_sb + h * a.q_sh + g0 * D;
   for (int e = split * NT + tid; e < G * D; e += n * NT) {
     const int g = e / D;
     float m_r[MAX_SPLIT];
@@ -561,7 +577,7 @@ template <typename I>
 cudaLaunchConfig_t config(const DecodeArgs& a, cudaStream_t stream,
                           cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.n_split, a.Hkv, a.B);
+  cfg.gridDim = dim3(a.n_split, a.Hkv * a.n_part, a.B);
   cfg.blockDim = dim3(NT, 1, 1);
   cfg.dynamicSmemBytes = ring_bytes<I>(a.chunk);
   cfg.stream = stream;
@@ -612,14 +628,14 @@ int dispatch(int dtype, int D, const DecodeArgs& a, void* stream) {
 }
 
 bool bad_common(int dtype, int D, int G, int n_split, int chunk) {
-  return G < 1 || G > MAX_G || (D != 64 && D != 128) ||
+  return G < 1 || G > MAX_GROUP || (D != 64 && D != 128) ||
          (dtype != 0 && dtype != 1) || n_split < 1 || n_split > MAX_SPLIT ||
          chunk < 1 || chunk % 64 != 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  D must be 64 or 128, G at most 8,
+// dtype: 0 = float32, 1 = bfloat16.  D must be 64 or 128, G at most 16,
 // n_split at most 8 (a cluster), chunk a whole number of 64-key tiles;
 // K/V 16-byte aligned.  Each launch function returns a cudaError_t (0 on
 // success); the Python wrapper raises on any other value.
@@ -642,6 +658,7 @@ extern "C" int decode_attention_launch(
   a.B = B;
   a.Hkv = Hkv;
   a.G = G;
+  a.n_part = (G + MAX_G - 1) / MAX_G;
   a.S = S;
   a.window = window;
   a.n_split = n_split;
@@ -679,6 +696,7 @@ int paged(int dtype, int D, const void* q, const void* k_pool,
   a.B = B;
   a.Hkv = Hkv;
   a.G = G;
+  a.n_part = (G + MAX_G - 1) / MAX_G;
   a.S = MB * bs;
   a.MB = MB;
   a.bs = bs;
@@ -738,6 +756,7 @@ extern "C" int decode_attention_occupancy(int dtype, int D, int kind,
     DecodeArgs a = {};
     a.B = 1;
     a.Hkv = 1;
+    a.n_part = 1;
     a.n_split = n_split;
     a.chunk = chunk;
     r[2] = ring_bytes<I>(chunk);

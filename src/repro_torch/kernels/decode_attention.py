@@ -46,19 +46,28 @@ launches = {"decode_attention_bhsd": 0, "decode_attention_merged_bsd": 0,
             "decode_attention_paged_q8_bhsd": 0,
             "decode_attention_paged_q8_merged_bsd": 0}
 
-MAX_G = 8  # query heads per kv head the kernel takes
+MAX_G = 16  # query heads per kv head the kernel takes
+PART_G = 8  # query heads of one block: a group is cut into parts of PART_G
 TILE = 64  # keys per tile of the plan (the kernel's: 64, or 32 for float32
 # at D 128, which divides it)
 MAX_SPLIT = 8  # kv splits of one (batch, kv head): one thread-block cluster
 _TARGET_BLOCKS = 2 * 132  # two blocks per H100 SM
 
 
-def kv_split(B: int, Hkv: int, S: int):
+def group_parts(G: int) -> int:
+    """Blocks that share one (batch, kv head, kv split): its ``G`` query
+    heads cut into parts of at most ``PART_G`` consecutive heads."""
+    return -(-G // PART_G)
+
+
+def kv_split(B: int, Hkv: int, S: int, G: int = 1):
     """(n_split, chunk): the kv axis is cut into ``n_split`` ranges of
     ``chunk`` whole tiles so that about ``_TARGET_BLOCKS`` blocks run, at
-    most ``MAX_SPLIT`` per (batch, kv head): the splits of one (batch, kv
-    head) form a cluster that combines them in the kernel."""
-    want = min(MAX_SPLIT, max(1, -(-_TARGET_BLOCKS // max(B * Hkv, 1))))
+    most ``MAX_SPLIT`` per (batch, kv head, group part): the splits of one
+    (batch, kv head, part) form a cluster that combines them in the
+    kernel.  ``G`` (query heads per kv head) counts the parts."""
+    want = min(MAX_SPLIT, max(1, -(-_TARGET_BLOCKS
+                                   // max(B * Hkv * group_parts(G), 1))))
     chunk = -(-max(S, 1) // want)
     chunk = -(-chunk // TILE) * TILE
     return -(-max(S, 1) // chunk), chunk
@@ -69,7 +78,10 @@ def occupancy(dtype: torch.dtype, D: int, kind: str, n_split: int,
     """Residency on the card of the kernel that a call with ``n_split``
     splits of ``chunk`` keys launches, for query ``dtype``, head dim ``D``
     and ``kind`` "dense", "paged" or "paged_q8": (blocks per SM, clusters
-    resident at once, dynamic shared memory bytes per block)."""
+    resident at once, dynamic shared memory bytes per block).  A block
+    takes at most ``PART_G`` query heads whatever G is, so this does not
+    depend on G; a launch has ``group_parts(G)`` clusters per (batch, kv
+    head)."""
     res = (ctypes.c_int * 3)()
     lib = _build.library("decode_attention")
     err = lib.decode_attention_occupancy(
@@ -107,7 +119,7 @@ def _launch(name, q, k, v, kv_positions, q_position, *, q_strides,
     code = _checks(name, q, (q, k, v), (kv_positions, q_position), G=G,
                    index=kv_positions, index_shape=(B, S))
     _build.check_aligned(name, (k, v))
-    n_split, chunk = kv_split(B, Hkv, S)
+    n_split, chunk = kv_split(B, Hkv, S, G)
     out = torch.empty_like(q)
     lib = _build.library("decode_attention")
     err = lib.decode_attention_launch(
@@ -142,7 +154,7 @@ def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
                    G=G, index=block_tables, index_shape=(B, MB),
                    scales=scales)
     _build.check_aligned(name, (k_pool, v_pool))
-    n_split, chunk = kv_split(B, Hkv, MB * bs)
+    n_split, chunk = kv_split(B, Hkv, MB * bs, G)
     out = torch.empty_like(q)
     lib = _build.library("decode_attention")
     pools = [k_pool.data_ptr(), v_pool.data_ptr()]

@@ -6,7 +6,9 @@ per-request streams seeded by ``--seed``.
       --smoke --merged-from-skipless --requests 4 --max-new 8 \
       [--cache paged|paged_q8 --block-size 16 --n-blocks 0]
 
-``--arch`` is one of the port's configs: mistral-7b, hymba-1.5b (hybrid:
+``--arch`` is one of the port's configs: the dense stacks mistral-7b,
+llama3.2-1b, phi3-medium-14b, qwen2.5-32b, chatglm3-6b and pythia-6.9b
+(parallel blocks: no merge, serve it as the source), hymba-1.5b (hybrid:
 attention beside SSM heads) or mamba2-2.7b (attention-free, standard
 style; dense cache only, as for the hybrid).  With
 ``--merged-from-skipless`` the launcher builds a skipless model, runs the

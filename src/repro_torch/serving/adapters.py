@@ -4,8 +4,8 @@ Counterpart of ``repro.serving.adapters`` for the dense cache, the paged
 pool and the int8 paged pool.  The engine speaks to its cache through one
 interface, so cache layouts stay out of the scheduling code; a new layout
 is a new adapter plus its registered attention backends
-(``models.backends``).  The observer gauges are a later slice of the port
-(ROADMAP.md).
+(``models.backends``).  ``obs_gauges`` lifts a cache's telemetry into the
+engine's metrics as lazy gauges (``repro_torch.obs``).
 
 Chunked prefill (``serving.sched``) adds a third program per adapter:
 ``build_chunk`` binds one fixed-width slice program
@@ -145,6 +145,13 @@ class KVCacheAdapter:
     def set_length(self, slot: int, n: int) -> None:
         """Host length bookkeeping after a MONOLITHIC prefill installed
         ``n`` tokens into ``slot``."""
+
+    def obs_gauges(self):
+        """name -> (zero-arg callable, help) of this cache's telemetry,
+        lifted into ``Engine.metrics`` as LAZY gauges: each reads host
+        integers only, at ``collect()`` time, never on the serving path.
+        The dense cache has no pool to report."""
+        return {}
 
 
 class DenseCacheAdapter(KVCacheAdapter):
@@ -389,6 +396,30 @@ class PagedCacheAdapter(KVCacheAdapter):
     def unshield(self, slot):
         self.pm.unshield(slot)
 
+    def obs_gauges(self):
+        a, tree = self.pm.allocator, self.pm.tree
+        return {
+            "pool_blocks_used": (lambda: a.n_used, "pages mapped now"),
+            "pool_blocks_free": (lambda: a.n_free, "pages on the free list"),
+            "pool_peak_used": (lambda: a.peak_used,
+                               "pool occupancy high-water (pages)"),
+            "pool_recycled": (lambda: a.n_recycled,
+                              "ring pages recycled in place"),
+            "pool_cow": (lambda: a.n_cow, "copy-on-write page splits"),
+            "pool_prefix_hits": (lambda: a.n_shared_hits,
+                                 "prefix pages shared at admit"),
+            "prefix_tree_nodes": (lambda: tree.n_nodes,
+                                  "radix prefix-tree nodes resident"),
+            "prefix_retained_pages": (
+                lambda: len(tree.retained),
+                "pages held only by the prefix tree (retention)"),
+            "prefix_hit_tokens": (lambda: tree.hit_tokens,
+                                  "prompt tokens served from the prefix "
+                                  "cache"),
+            "prefix_evicted": (lambda: tree.n_evicted,
+                               "retained pages evicted under pressure"),
+        }
+
 
 class PagedQ8CacheAdapter(PagedCacheAdapter):
     """The block-pool cache with int8 pages and per-(page, kv-head)
@@ -416,6 +447,22 @@ class PagedQ8CacheAdapter(PagedCacheAdapter):
     def _chunk_dest(self, table_row, block_ids):
         return PagedQ8ChunkDest(self.pm.k, self.pm.v, self.pm.k_scale,
                                 self.pm.v_scale, table_row, block_ids)
+
+    def obs_gauges(self):
+        pm = self.pm
+        # int8 pages: one byte an element; an fp16 pool of the same pages
+        # takes two (sizes from the shapes: no device read)
+        elems = pm.k.numel() + pm.v.numel()
+        g = dict(super().obs_gauges())
+        g.update({
+            "q8_pool_bytes": (lambda: pm.pool_bytes,
+                              "int8 pool + scale bytes resident"),
+            "q8_bytes_saved_vs_fp16": (
+                lambda: elems * 2 - pm.pool_bytes,
+                "device memory saved vs an fp16 pool of the same page "
+                "count"),
+        })
+        return g
 
 
 def make_adapter(kind: str) -> KVCacheAdapter:

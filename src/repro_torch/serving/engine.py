@@ -43,8 +43,17 @@ only by that request's own draws: a sampled continuation does not depend
 on co-scheduled traffic, and a preempted request resumes its stream from
 the saved generator state (``Request.key_state``), not from its start.
 JAX's PRNG draws cannot be reproduced in torch, so sampled streams differ
-from the reference's while keeping its properties.  Observer hooks are a
-later slice (ROADMAP.md).
+from the reference's while keeping its properties.
+
+Observability (``repro_torch.obs``) as in the reference: the engine always
+owns a ``MetricsRegistry`` whose counters back ``Engine.stats``, and emits
+request and step events through ONE observer (``ServeConfig.obs``): the
+shared no-op ``NULL`` by default, or an ``Observer`` recording spans and
+histograms.  Every hook is called with host values after the host read
+that ends its work (a step's span closes after ``_sample``'s copy of the
+tokens to the host, a device sync), so turning the observer on changes no
+token, no kernel launch and no host sync.  The reference's
+``compile_event`` has no counterpart here: the port compiles nothing.
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (backends, forward_step, prefill_style_key,
                                 serving_style_key)
+from repro_torch.obs import NULL, MetricsRegistry, Observer
 from repro_torch.serving.adapters import KVCacheAdapter, make_adapter
 
 _IMPL_DEVICE = {"cuda": "cuda", "torch": "cpu"}
@@ -74,6 +84,11 @@ class ServeConfig:
     seed: int = 0  # with the submission index, seeds each request's stream
     block_size: int = 16  # paged: tokens per physical page
     n_blocks: int = 0  # paged pool size; 0 => dense-equivalent memory
+    # observability (repro_torch.obs): False => the shared NullObserver
+    # (every hook a no-op); True => a fresh Observer (metrics + trace
+    # ring); an Observer instance is adopted (its registry becomes
+    # Engine.metrics)
+    obs: Any = False
 
 
 # eq=False: requests are identities, not values (the generated __eq__
@@ -166,10 +181,26 @@ class Engine:
         self.active: Dict[int, Request] = {}
         self.preempted: List[Request] = []
         self._rid = 0
-        self._peak_active = 0
-        self._n_steps = 0
-        self._n_preempted = 0
-        self._n_deferred = 0
+        # the engine ALWAYS owns a MetricsRegistry: the always-on counters
+        # below back Engine.stats; timestamps, histograms and spans are the
+        # Observer's, off by default
+        if isinstance(sc.obs, Observer):
+            self.obs = sc.obs
+            self.metrics = sc.obs.metrics
+        elif sc.obs:
+            self.obs = Observer()
+            self.metrics = self.obs.metrics
+        else:
+            self.obs = NULL
+            self.metrics = MetricsRegistry()
+        self._g_peak = self.metrics.gauge(
+            "serve_peak_active", "most slots concurrently decoding")
+        self._c_steps = self.metrics.counter(
+            "serve_decode_steps", "batched decode steps run")
+        self._c_preempted = self.metrics.counter(
+            "serve_preempted", "requests evicted mid-decode")
+        self._c_deferred = self.metrics.counter(
+            "serve_deferred", "admissions deferred (pool exhausted)")
         # bucketing needs paddable positions: causal attention masks a
         # padded tail, but SSM prefill state is not position-masked, and a
         # dense sliding-window cache is a window-sized ring that would drop
@@ -182,14 +213,18 @@ class Engine:
         self._last_token = np.zeros((sc.n_slots,), np.int32)
         # temperature sampling: each slot's request's private generator
         self._gens: List[Optional[torch.Generator]] = [None] * sc.n_slots
+        # lifts the adapter's pool telemetry in as LAZY gauges (no-op off)
+        self.obs.attach_engine(self)
 
     @property
     def stats(self) -> Dict[str, int]:
-        """Scheduler counters: peak concurrent slots, decode steps run,
-        requests preempted mid-decode and admissions deferred."""
-        return {"peak_active": self._peak_active, "n_steps": self._n_steps,
-                "n_preempted": self._n_preempted,
-                "n_deferred": self._n_deferred}
+        """Scheduler counters, read through ``self.metrics``: peak
+        concurrent slots, decode steps run, requests preempted mid-decode
+        and admissions deferred."""
+        return {"peak_active": int(self._g_peak.high_water),
+                "n_steps": int(self._c_steps.value),
+                "n_preempted": int(self._c_preempted.value),
+                "n_deferred": int(self._c_deferred.value)}
 
     @property
     def paged(self) -> bool:
@@ -267,9 +302,10 @@ class Engine:
         slot = self.free_slots[0]
         n_shared = self.kv.admit(slot, toks)
         if n_shared is None:
-            self._n_deferred += 1
+            self._c_deferred.inc()
             return False
         self.free_slots.pop(0)
+        t_p0 = self.obs.clock()  # slot granted: the queued span ends here
         padded, n = self._bucket_pad(toks)
         logits = self.kv.prefill(self.params, slot,
                                  self.host_to_device(padded, np.int32)[None],
@@ -288,7 +324,10 @@ class Engine:
             req.t_first = req.t_last = time.perf_counter()
         self.active[slot] = req
         self._last_token[slot] = tok
-        self._peak_active = max(self._peak_active, len(self.active))
+        self._g_peak.set_max(len(self.active))
+        self.obs.request_admitted(req, slot, n_shared=n_shared,
+                                  resume=resume, bucket_len=len(padded),
+                                  t_prefill0=t_p0)
         if not resume and (req.remaining <= 0 or tok == self.sc.eos_token):
             # the prefill token already satisfied the budget (or is EOS):
             # finish now — a decode step would overshoot by one
@@ -296,22 +335,32 @@ class Engine:
         return True
 
     def _finish(self, slot: int) -> None:
+        """Release a finished request's slot; its terminal hook, exactly
+        once per request."""
         self.kv.release(slot)
-        self.active.pop(slot).slot = -1
+        req = self.active.pop(slot)
+        req.slot = -1
         self.free_slots.append(slot)
+        self._finished(req)
+
+    def _finished(self, req: Request) -> None:
+        if self.obs.enabled:
+            ttft, tok_s = _timings_of(req)
+            self.obs.request_finished(req, decode_tok_s=tok_s, ttft_s=ttft)
 
     def step(self) -> Dict[int, int]:
         """One batched decode step for all active slots; returns
         slot -> token."""
         if not self.active:
             return {}
+        t0 = self.obs.clock()  # the step span includes appendability
         self._make_appendable()
         tokens = self.host_to_device(self._last_token, np.int32)
         logits, new_cache = forward_step(self.params, self.cfg, tokens,
                                          self.kv.device_cache(),
                                          impl=self.impl)
         self.kv.update(new_cache)
-        self._n_steps += 1
+        self._c_steps.inc()
         slots = sorted(self.active)
         next_tokens = dict(zip(slots, self._sample(logits, slots,
                                                    rows=slots)))
@@ -327,6 +376,9 @@ class Engine:
             self.kv.advance(slot)
             if req.remaining <= 0 or tok == self.sc.eos_token:
                 self._finish(slot)
+        # after _sample's host copy: the span closes on a device sync
+        self.obs.step_done(t0, self.obs.clock(), n_active=len(self.active),
+                           n_tokens=len(emitted))
         return emitted
 
     def _make_appendable(self) -> None:
@@ -354,19 +406,22 @@ class Engine:
             # the continuation depend on whether preemption happened
             req.key_state = self._gens[slot].get_state()
         self.preempted.append(req)
-        self._n_preempted += 1
+        self._c_preempted.inc()
+        self.obs.request_preempted(req, slot)
 
     def generate(self, prompts: Sequence[np.ndarray],
                  max_new_tokens: int = 32) -> List[RequestResult]:
         """Keep the slots full until every prompt is done (resumes of
         preempted requests first); one :class:`RequestResult` per prompt,
         in order."""
+        t_gen0 = self.obs.clock()
         t_arrival = time.perf_counter()
         pending = [Request(prompt=np.asarray(p, np.int32),
                            max_new_tokens=max_new_tokens,
                            t_arrival=t_arrival) for p in prompts]
         queue = list(pending)
         while queue or self.active or self.preempted:
+            self.obs.queue_depth(len(queue) + len(self.preempted))
             while self.free_slots:
                 waiting = self.preempted or queue
                 if not waiting or not self.submit(waiting[0]):
@@ -379,7 +434,16 @@ class Engine:
                                        "n_blocks or max_len)")
                 break
             self.step()
-        return [_result_of(r) for r in pending]
+        results = [_result_of(r) for r in pending]
+        self._generate_done(t_gen0, results)
+        return results
+
+    def _generate_done(self, t0: float, results) -> None:
+        if self.obs.enabled:
+            self.obs.generate_done(t0, self.obs.clock(),
+                                   n_requests=len(results),
+                                   n_tokens=sum(r.new_tokens
+                                                for r in results))
 
     def _seed_stream(self, slot: int, req: Request) -> None:
         """Give ``slot`` its request's private generator: a fresh one

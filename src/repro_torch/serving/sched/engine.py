@@ -32,10 +32,17 @@ prefill up to float rounding (exactly on the int8 pool's ints, where a
 rounding boundary falls the same way), each request's sampling stream is
 seeded from (seed, rid) with rids assigned in arrival order, and a
 request's generator advances only with its own draws, so greedy and
-sampled continuations match the synchronous engine's.  The observer
-hooks of the reference (``obs.sched_iteration``, ``obs.chunk_done``) are
-a later slice; the always-on counters ``n_iterations`` and
-``n_chunks_run`` are here.
+sampled continuations match the synchronous engine's.
+
+Observability as in the reference: each iteration emits
+``obs.sched_iteration`` (its span closes after the decode step's host
+read of the sampled tokens, a device sync) and each chunk
+``obs.chunk_done``, whose span is DISPATCH time: a non-final chunk ends
+in no host read, so its kernels may still run when the span closes (the
+reference's span, under JAX's asynchronous dispatch, is the same).  A
+request's queued span ends at its slot grant and its prefill span at the
+end of its last chunk (``request_admitted``); its terminal event comes
+exactly once.  ``n_iterations`` and ``n_chunks_run`` are always on.
 """
 from __future__ import annotations
 
@@ -135,12 +142,13 @@ class ScheduledEngine(Engine):
             else:
                 n_shared = self.kv.admit_chunked(slot, job.toks)
             if n_shared is None:
-                self._n_deferred += 1
+                self._c_deferred.inc()
                 break
             self.free_slots.pop(0)
             self.waiting.pop(0)
             job.slot, job.n_shared = slot, n_shared
             job.cursor = 0
+            job.t_slot = self.obs.clock()
             self.prefilling.append(job)
             n += 1
         return n
@@ -156,7 +164,7 @@ class ScheduledEngine(Engine):
         job.cursor = 0
         self.waiting.insert(0, job)
         self.prefilling = [j for j in self.prefilling if j is not job]
-        self._n_deferred += 1
+        self._c_deferred.inc()
 
     def _run_chunk(self, cp: ChunkPlan):
         """Run one planned chunk; returns the (1, V) logits of the chunk's
@@ -204,12 +212,18 @@ class ScheduledEngine(Engine):
             req.t_first = req.t_last = time.perf_counter()
         self._last_token[slot] = tok
         self.prefilling = [j for j in self.prefilling if j is not job]
+        C = self.scfg.chunk_tokens
+        bucket = job.total if job.monolithic else -(-job.total // C) * C
+        self.obs.request_admitted(req, slot, n_shared=job.n_shared,
+                                  resume=job.resume, bucket_len=bucket,
+                                  t_prefill0=job.t_slot)
         if not job.resume and (req.remaining <= 0
                                or tok == self.sc.eos_token):
             # the first token already satisfied the budget (or is EOS)
             self.kv.release(slot)
             req.slot = -1
             self.free_slots.append(slot)
+            self._finished(req)
             return None
         if job.monolithic:
             # no shield or host lengths in play (monolithic => the engine
@@ -225,17 +239,24 @@ class ScheduledEngine(Engine):
         activate.  Returns slot -> token for the decode part."""
         while self.preempted:  # re-enter the queue at the front
             self.submit(self.preempted.pop(0))
+        t0 = self.obs.clock()
         n_admitted = self._admit()
         schedule = plan_iteration(self.scfg, len(self.active),
                                   self.prefilling)
         self.last_schedule = schedule
-        n_chunks = 0
+        n_chunks = n_chunk_tokens = 0
         activated = []
         for cp in schedule.chunks:
+            tc = self.obs.clock()
             logits = self._run_chunk(cp)
             if logits is None:
                 continue
             n_chunks += 1
+            n_chunk_tokens += cp.cost
+            # dispatch time: a non-final chunk ends in no host read
+            self.obs.chunk_done(cp.job.req, cp.job.slot, cp.start,
+                                cp.end - cp.start, tc, self.obs.clock(),
+                                final=cp.final)
             if cp.job.done:
                 act = self._finish_prefill(cp.job, logits)
                 if act is not None:
@@ -247,9 +268,14 @@ class ScheduledEngine(Engine):
         for slot, req in activated:
             self.active[slot] = req
             self.kv.unshield(slot)
-        self._peak_active = max(self._peak_active, len(self.active))
+        self._g_peak.set_max(len(self.active))
         self.n_iterations += 1
         self.n_chunks_run += n_chunks
+        self.obs.sched_iteration(t0, self.obs.clock(),
+                                 n_decode=schedule.n_decode,
+                                 n_chunks=n_chunks,
+                                 n_chunk_tokens=n_chunk_tokens,
+                                 budget_used=schedule.budget_used)
         self._progress = bool(emitted) or n_chunks > 0 or n_admitted > 0
         return emitted
 
@@ -258,6 +284,7 @@ class ScheduledEngine(Engine):
                  max_new_tokens: int = 32) -> List[RequestResult]:
         """Drain a batch of prompts through the scheduler; the contract
         (and, greedy, the tokens) of ``Engine.generate``."""
+        t_gen0 = self.obs.clock()
         t_arrival = time.perf_counter()
         pending = [Request(prompt=np.asarray(p, np.int32),
                            max_new_tokens=max_new_tokens,
@@ -266,10 +293,14 @@ class ScheduledEngine(Engine):
             self.submit(r)
         while (self.waiting or self.prefilling or self.active
                or self.preempted):
+            self.obs.queue_depth(len(self.waiting) + len(self.prefilling)
+                                 + len(self.preempted))
             self.step()
             if not self._progress:
                 raise RuntimeError(
                     "serving stalled: no admission, chunk or decode "
                     "progressed (raise n_blocks or token_budget, or shrink "
                     "the prompts)")
-        return [_result_of(r) for r in pending]
+        results = [_result_of(r) for r in pending]
+        self._generate_done(t_gen0, results)
+        return results

@@ -54,7 +54,8 @@ def _ring_positions(rng, B, S, q_pos, hole_frac=0.1):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 64)])
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 64), (12, 128),
+                                 (16, 64), (16, 128)])
 @pytest.mark.parametrize("window", [0, 37])
 def test_decode_kernels_match_plain(dtype, G, D, window):
     dev = _cuda()
@@ -290,7 +291,8 @@ def _paged_case(rng, B, Hkv, G, D, NB, bs, MB, q_pos, ring, dtype, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 64)])
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 64), (12, 128),
+                                 (16, 64), (16, 128)])
 @pytest.mark.parametrize("window,bs,MB,q_pos", [
     (0, 16, 32, (15, 36, 264)),  # absolute, MB*bs = 512
     (37, 16, 32, (15, 99, 480)),  # absolute with a window
@@ -401,7 +403,8 @@ def _q8_pools(kp, vp, bt, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 64)])
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 64), (12, 128),
+                                 (16, 64), (16, 128)])
 @pytest.mark.parametrize("window,bs,MB,q_pos", [
     (0, 16, 32, (15, 36, 264)),  # absolute, MB*bs = 512
     (37, 16, 32, (15, 99, 480)),  # absolute with a window
@@ -789,7 +792,9 @@ def test_ssm_engines_on_the_card_match_the_cpu_engine(arch):
 # the decode body: long caches, masked splits, one launch per call
 # ---------------------------------------------------------------------------
 
-DECODE_SHAPES = {"mistral": (8, 4, 128), "hymba": (5, 5, 64)}  # Hkv, G, D
+# Hkv, G, D
+DECODE_SHAPES = {"mistral": (8, 4, 128), "hymba": (5, 5, 64),
+                 "chatglm": (2, 16, 128)}
 DECODE_KINDS = ("dense", "paged", "paged_q8")
 LONG_BS = 16  # page size of the long tables
 
@@ -874,7 +879,8 @@ def _decode_pair(kind, window, args):
 @pytest.mark.parametrize("window", [0, 1500])
 def test_decode_long_cache_reaches_the_cluster_cap(dtype, shape, kind,
                                                    window):
-    """B = 1, S = 4096 at Mistral-7B's and Hymba-1.5B's shapes: the plan
+    """B = 1, S = 4096 at Mistral-7B's, Hymba-1.5B's and ChatGLM3-6B's
+    (G 16: two parts of the query group) shapes: the plan
     takes the cluster's 8 splits of 512 keys (several double-buffered
     tiles each), and with q_pos 2900, 5% holes and a window of 1500 the
     splits of the one cluster straddle attended and masked keys (future,
@@ -884,7 +890,7 @@ def test_decode_long_cache_reaches_the_cluster_cap(dtype, shape, kind,
     dev = _cuda()
     Hkv, G, D = DECODE_SHAPES[shape]
     B, S = 1, 4096
-    assert dk.kv_split(B, Hkv, S) == (dk.MAX_SPLIT, 512)
+    assert dk.kv_split(B, Hkv, S, G) == (dk.MAX_SPLIT, 512)
     rng = np.random.default_rng(Hkv + D + window + DECODE_KINDS.index(kind))
     q_pos = np.array([2900])
     pos = np.where(np.arange(S)[None] <= q_pos[:, None], np.arange(S)[None],
@@ -979,6 +985,69 @@ def test_each_decode_wrapper_call_is_one_device_kernel(name):
     fn(u, *rest)
     assert dk.launches[name] - before == 1
     assert _device_kernels(lambda: fn(u, *rest), calls=3) == 3
+
+
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_wrappers_reject_17_query_heads_per_kv_head(kind):
+    """G 16 is the widest group the decode kernel takes (two parts of 8);
+    G 17 raises ValueError before any launch, on every wrapper."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    B, S, Hkv, G, D = 2, 64, 2, 17, 64
+    q_pos = np.array([10, 40])
+    pos = np.where(np.arange(S)[None] <= q_pos[:, None], np.arange(S)[None],
+                   -1)
+    (u, *rest), _ = _decode_inputs(rng, kind, Hkv, G, D, pos, q_pos, 0,
+                                   torch.float32, dev)
+    infix = {"dense": "", "paged": "paged_", "paged_q8": "paged_q8_"}[kind]
+    for merged in (True, False):
+        name = f"decode_attention_{infix}" + ("merged_bsd" if merged
+                                              else "bhsd")
+        q, kv = u, rest
+        if not merged:
+            q = u.reshape(B, Hkv, G, D)
+            if kind == "dense":
+                kv = [x.transpose(1, 2).contiguous() for x in rest[:2]] \
+                    + rest[2:]
+        before = dk.launches[name]
+        with pytest.raises(ValueError, match="1..16"):
+            getattr(dk, name)(q, *kv)
+        assert dk.launches[name] == before
+
+
+def test_engine_serves_a_16_head_group_through_the_decode_kernel():
+    """A reduced skipless ChatGLM3-6B widened to ChatGLM3's G 16 (16 query
+    heads over one kv head of 64; QKV biases, half-dimension interleaved
+    RoPE) and its qp merge serve the CPU engine's greedy streams through
+    the CUDA kernels, one decode launch per layer and step."""
+    dev = _cuda()
+    from repro_torch.core.merge import merge_skipless
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = reduce_config(get_config("chatglm3-6b")).with_(
+        block_style="skipless", d_model=1024, n_heads=16, n_kv_heads=1,
+        d_head=64)
+    params = init_params(cfg, seed=0, device="cpu")
+    mparams, mcfg = merge_skipless(params, cfg, "qp")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 19, 40)]
+    sc = ServeConfig(n_slots=3, max_len=64)
+    for c, p, merged in ((cfg, params, False), (mcfg, mparams, True)):
+        for cache in ("dense", "paged"):
+            cpu = Engine(c, p, sc, impl="torch", cache=cache,
+                         device="cpu").generate(prompts, max_new_tokens=6)
+            reset_launch_counts()
+            eng = Engine(c, tree_map(lambda t: t.to(dev), p), sc,
+                         impl="cuda", cache=cache, device=dev)
+            gpu = eng.generate(prompts, max_new_tokens=6)
+            assert [list(o) for o in gpu] == [list(o) for o in cpu], \
+                (merged, cache)
+            decode = "decode_attention_" + ("paged_" if cache == "paged"
+                                             else "") + \
+                ("merged_bsd" if merged else "bhsd")
+            assert launch_counts()[decode] == \
+                cfg.n_layers * eng.stats["n_steps"] > 0
 
 
 def test_decode_wrappers_reject_unaligned_kv():

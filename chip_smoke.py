@@ -123,7 +123,20 @@ NVIDIA card.  Run from the repository root:
    layers, so that the source and its merge fit together) exact launch
    counts on the three caches and the scheduler (``n_layers`` decode
    launches per decode step, G 16 included), tok/s and TTFT;
-9. the obs phase (``obs_path``, last: it turns on PyTorch's GPU trace
+9. the two MoE configs (``moe_path``): Phi-3.5-MoE (GQA 32/8, 16 experts
+   top-2) and Moonshot-v1-16B-A3B (MHA 16/16, 64 experts top-6, vocab
+   163,840) at full width, the same prompts: at 4 calibrated layers in
+   float32 at the no-drop capacity (``capacity_factor = n_experts``)
+   merged == source, paged == dense and scheduled == synchronous streams,
+   exact launch counts and the kernels' prefill logits against the plain
+   forward; at the configs' capacity 1.25 merged == source, the merge's
+   removed weights == ``weight_table``'s, the pairs dropped per prefill
+   and the scheduled (dropless chunks) agreement printed; then bf16 at
+   ``MOE_DEPTH`` layers (Phi 12 of 32, Moonshot 24 of 48: the source and
+   its merge fit together) exact launch counts on the three caches and
+   the scheduler, tok/s, TTFT, peak memory, and a decode profile with the
+   MoE blocks' share of the device time beside ``decode_speedup``;
+10. the obs phase (``obs_path``, last: it turns on PyTorch's GPU trace
    hooks to count host syncs): merged bf16 Mistral-7B at 32 layers on the
    paged pool, roomy and tight, through ``Engine`` and
    ``ScheduledEngine`` with ``ServeConfig(obs=True)``: one terminal event
@@ -131,7 +144,7 @@ NVIDIA card.  Run from the repository root:
    requests, pool gauges equal to the allocator's counters, and the
    streams, launch counts and host syncs of the obs-off run; obs-on and
    obs-off tok/s side by side;
-10. prints one JSON line of per-kernel numbers, then, as the last line,
+11. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Everything printed to stdout is also written to ``build/chip_smoke.log``
@@ -1193,11 +1206,12 @@ def first_mismatch(cfg, params, prompts, a, b):
 EQ_LAYERS = 4  # depth of the float32 merged-vs-source identity check
 
 
-def build(n_layers, calibrate, arch="mistral-7b", dtype=None):
-    """A skipless ``arch`` (Mistral-7B, Hymba-1.5B or a dense config) of
-    ``n_layers`` at full width on the card, in float32 (or ``dtype``, for
-    weights and activations), and its exact qp merge (on the hybrid: Q
-    removed, P kept).  A config with QKV biases gets seeded nonzero biases
+def build(n_layers, calibrate, arch="mistral-7b", dtype=None, **overrides):
+    """A skipless ``arch`` (Mistral-7B, Hymba-1.5B, a dense or an MoE
+    config; ``overrides``: more config fields) of ``n_layers`` at full
+    width on the card, in float32 (or ``dtype``, for weights and
+    activations), and its exact qp merge (on the hybrid: Q removed, P
+    kept).  A config with QKV biases gets seeded nonzero biases
     (the merge's affine part then does work).  A parallel block (Pythia)
     has no merge: ``merge_skipless`` must raise, and the merged pair is
     returned as None.
@@ -1205,13 +1219,14 @@ def build(n_layers, calibrate, arch="mistral-7b", dtype=None):
     A random skipless GLU stack maps its signal scale roughly as
     s -> c * s**2, an unstable fixed point: uncalibrated, the signal
     underflows to exactly zero within a few layers (all logits 0).
-    ``calibrate`` rescales each layer's w_down so that its output RMS on a
-    seeded calibration prompt is 1 (deterministic from the seed, applied
-    before the merge, which is exact for any weights).  That keeps other
-    prompts O(1) for a few layers only: by 8 layers their scale wanders by
-    orders of magnitude, and by 32 it overflows.  On a parallel block the
-    attention output projection is rescaled with the FFN's, so the sum of
-    the two branches has RMS 1."""
+    ``calibrate`` rescales each layer's w_down (an MoE layer's: every
+    expert's) so that its output RMS on a seeded calibration prompt is 1
+    (deterministic from the seed, applied before the merge, which is exact
+    for any weights).  That keeps other prompts O(1) for a few layers
+    only: by 8 layers their scale wanders by orders of magnitude, and by
+    32 it overflows.  On a parallel block the attention output projection
+    is rescaled with the FFN's, so the sum of the two branches has RMS
+    1."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1223,7 +1238,8 @@ def build(n_layers, calibrate, arch="mistral-7b", dtype=None):
     cfg = get_config(arch).with_(block_style="skipless", n_layers=n_layers,
                                  **({"dtype": "float32"} if dtype is None
                                     else {"dtype": dtype,
-                                          "param_dtype": dtype}))
+                                          "param_dtype": dtype}),
+                                 **overrides)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     if cfg.qkv_bias:
@@ -1231,7 +1247,7 @@ def build(n_layers, calibrate, arch="mistral-7b", dtype=None):
         for name in ("bq", "bk", "bv"):
             b = params["layers"]["attn"][name]
             b.copy_(0.1 * torch.randn(b.shape, generator=gen, device="cuda"))
-    ffn = params["layers"]["ffn"]
+    ffn = params["layers"]["moe" if cfg.n_experts else "ffn"]
     w_out = "w_down" if "w_down" in ffn else "w_out"
     calib = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, 64)), device="cuda")
@@ -1239,8 +1255,9 @@ def build(n_layers, calibrate, arch="mistral-7b", dtype=None):
     with torch.no_grad():
         h = embed_inputs(params, cfg, calib)
         for i in range(n_layers if calibrate else 0):
-            out, _, _ = apply_block_seq(layer_params(params, i), cfg, h,
-                                        {"positions": pos, "impl": "cuda"})
+            out, _, _, _ = apply_block_seq(layer_params(params, i), cfg, h,
+                                           {"positions": pos,
+                                            "impl": "cuda"})
             r = out.pow(2).mean().sqrt()
             ffn[w_out][i] /= r
             if cfg.parallel_block:
@@ -1249,6 +1266,9 @@ def build(n_layers, calibrate, arch="mistral-7b", dtype=None):
     torch.cuda.synchronize()
     ssm = (f", SSM {cfg.ssm_n_heads}x{cfg.ssm_head_dim}x{cfg.ssm_state}"
            if cfg.ssm_state else "")
+    if cfg.n_experts:
+        ssm += (f", {cfg.n_experts} experts top-{cfg.experts_per_token}, "
+                f"capacity factor {cfg.capacity_factor:g}")
     extra = "".join(f", {k}" for k, on in (
         ("QKV biases", cfg.qkv_bias), ("tied embeddings", cfg.tie_embeddings),
         ("parallel blocks", cfg.parallel_block),
@@ -2160,6 +2180,242 @@ def dense_configs_path(summary):
     summary["dense_configs"] = out
 
 
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")
+# bf16 depth cuts at full width, so that the source and its merge fit on
+# the card together (PERF.md section 4)
+MOE_DEPTH = {"phi3.5-moe-42b-a6.6b": 12, "moonshot-v1-16b-a3b": 24}
+
+
+def drop_counter():
+    """Wraps ``repro_torch.models.moe.route`` to record, for each routing
+    call whose capacity is below its group (whole-prompt prefill at the
+    configured capacity factor; dropless calls cannot drop), the number of
+    (token, choice) pairs it drops.  Returns (that list, a function that
+    puts ``route`` back)."""
+    from repro_torch.models import moe
+    real, rec = moe.route, []
+
+    def counting(router, xg, k, cap):
+        out = real(router, xg, k, cap)
+        if cap < xg.shape[0]:
+            rec.append(int((~out[3]).sum()))
+        return out
+
+    moe.route = counting
+    return rec, lambda: setattr(moe, "route", real)
+
+
+def moe_path(summary):
+    """The reference's two MoE configs at full width (Phi-3.5-MoE: GQA
+    32/8 of 128, 16 experts top-2 of d_ff 6400; Moonshot-v1-16B-A3B: MHA
+    16/16 of 128, 64 experts top-6 of d_ff 1408, vocab 163,840), skipless
+    from seed 0, and their qp merges (P folded into the router and every
+    expert); the Mistral path's four prompt lengths, 16 new tokens each:
+
+    * 4 calibrated layers in float32 at the no-drop capacity
+      ``capacity_factor = n_experts``: merged == source greedy streams on
+      the dense cache, paged == dense, the ``ScheduledEngine``'s == the
+      synchronous engine's on both caches, exact launch counts on each,
+      and the kernels' prefill logits against the plain forward (1e-4 of
+      the logit scale);
+    * the same weights at the config's capacity factor 1.25, where
+      whole-prompt prefill drops (token, choice) pairs: merged == source
+      streams on the dense cache, and the merge removed
+      ``weight_table(cfg)["removed"]`` weights at that depth.  The pairs
+      dropped per prefill, and how far the scheduled streams agree with
+      the synchronous ones (chunks route dropless, so they may differ),
+      are printed, not gated;
+    * ``MOE_DEPTH`` layers in bfloat16: exact launch counts on the dense
+      cache, the paged pool and the int8 pool for the source and the
+      merge, and the scheduler's on the dense cache; the merged model's
+      tok/s, TTFT and peak device memory, one run; a profile of its
+      decode steps on the dense cache with the MoE blocks' share of the
+      device time, beside the paper's model of the merge's decode gain
+      (``decode_speedup``, total and active-only) and the least time a
+      step could take streaming the weights the buffer-form dispatch
+      reads (every expert's)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (decode_ms_per_token, decode_speedup,
+                                  removed_weight_count, weight_table)
+    from repro_torch.models import moe
+
+    max_new, lens = 16, (16, 37, 100, 250)
+    n = len(lens)
+    out = {}
+    with torch.no_grad():
+        for arch in MOE_ARCHS:
+            full = get_config(arch)
+            cfg, params, mcfg, mparams = build(
+                EQ_LAYERS, True, arch, capacity_factor=float(full.n_experts))
+            rng = np.random.default_rng(4)
+            prompts = [rng.integers(0, cfg.vocab_size, m) for m in lens]
+            models = [("source", cfg, params, False),
+                      ("merged", mcfg, mparams, True)]
+            dense = {}
+            for tag, c, p, merged in models:
+                name = f"{arch} {tag} float32 no-drop"
+                eng, res, counts, _ = serve(c, p, prompts, max_new)
+                check_counts(name, counts, eng, EQ_LAYERS, n, merged)
+                dense[tag] = streams(res)
+                eng, res, counts, _ = serve(c, p, prompts, max_new, "paged")
+                check_counts(f"{name} paged", counts, eng, EQ_LAYERS, n,
+                             merged)
+                if streams(res) != dense[tag]:
+                    raise AssertionError(f"{name}: paged streams differ "
+                                         f"from dense")
+                for cache in ("dense", "paged"):
+                    eng, res, counts, _ = serve(c, p, prompts, max_new,
+                                                cache, sched=True)
+                    check_sched_counts(f"{name} {cache}", counts, eng,
+                                       merged)
+                    if streams(res) != dense[tag] or not eng._chunked:
+                        raise AssertionError(f"{name} {cache}: scheduled "
+                                             f"streams differ")
+            if dense["merged"] != dense["source"]:
+                bad = first_mismatch(cfg, params, prompts, dense["source"],
+                                     dense["merged"])
+                raise AssertionError(
+                    f"{arch} no-drop: merged and source greedy streams "
+                    f"differ: prompt {bad[0]}, position {bad[1]}, source "
+                    f"top-2 margin {bad[2]:.3g}")
+            rel = kernels_vs_plain(f"{arch} merged no-drop", mcfg, mparams,
+                                   prompts[1], 1e-4)
+            log(f"  {arch} ({EQ_LAYERS} layers, float32, capacity factor "
+                f"{cfg.capacity_factor:g}): merged == source, paged == "
+                f"dense, scheduled == synchronous: "
+                f"{[s[:6] for s in dense['source']]} …")
+
+            removed = removed_weight_count(params, mparams)
+            if removed != weight_table(cfg)["removed"]:
+                raise AssertionError(
+                    f"{arch}: the merge removed {removed:,d} weights, the "
+                    f"table says {weight_table(cfg)['removed']:,d}")
+            drops, agree, dflt = {}, {}, {}
+            for tag, c, p, merged in models:
+                c = c.with_(capacity_factor=full.capacity_factor)
+                name = f"{arch} {tag} float32 capacity " \
+                    f"{c.capacity_factor:g}"
+                rec, restore = drop_counter()
+                try:
+                    eng, res, counts, _ = serve(c, p, prompts, max_new)
+                finally:
+                    restore()
+                check_counts(name, counts, eng, EQ_LAYERS, n, merged)
+                dflt[tag] = streams(res)
+                drops[tag] = [sum(rec[i:i + EQ_LAYERS])
+                              for i in range(0, len(rec), EQ_LAYERS)]
+                eng, res, counts, _ = serve(c, p, prompts, max_new,
+                                            sched=True)
+                check_sched_counts(name, counts, eng, merged)
+                agree[tag] = agreement(dflt[tag], streams(res))
+            if dflt["merged"] != dflt["source"]:
+                c = cfg.with_(capacity_factor=full.capacity_factor)
+                bad = first_mismatch(c, params, prompts, dflt["source"],
+                                     dflt["merged"])
+                raise AssertionError(
+                    f"{arch} capacity {full.capacity_factor:g}: merged and "
+                    f"source greedy streams differ: prompt {bad[0]}, "
+                    f"position {bad[1]}, source top-2 margin {bad[2]:.3g}")
+            log(f"  {arch} capacity {full.capacity_factor:g} ({EQ_LAYERS} "
+                f"layers, float32): merged == source "
+                f"{[s[:6] for s in dflt['source']]} …; the merge removed "
+                f"{removed:,d} weights = weight_table's; pairs dropped per "
+                f"prefill (prompts of {list(lens)} tokens, bucketed): "
+                f"{drops}; scheduled (dropless chunks) vs synchronous, "
+                f"tokens shared before the first difference of "
+                f"{max_new}: {agree}")
+            res_arch = {"plain_vs_kernels_rel_f32": rel,
+                        "dropped_pairs_per_prefill": drops["source"],
+                        "sched_vs_sync_agreement_default_capacity":
+                        agree["source"]}
+            del models, params, mparams, p, c, eng
+            torch.cuda.empty_cache()
+
+            L = MOE_DEPTH[arch]
+            torch.cuda.reset_peak_memory_stats()
+            cfg, params, mcfg, mparams = build(L, False, arch,
+                                               dtype="bfloat16")
+            if removed_weight_count(params, mparams) != \
+                    weight_table(cfg)["removed"]:
+                raise AssertionError(f"{arch} ({L} layers): the merge's "
+                                     f"removed weights != weight_table's")
+            models = [("source", cfg, params, False),
+                      ("merged", mcfg, mparams, True)]
+            for tag, c, p, merged in models:
+                for cache in ("dense", "paged", "paged_q8"):
+                    eng, res, counts, _ = serve(c, p, prompts, max_new,
+                                                cache)
+                    check_counts(f"{arch} {tag} bfloat16 {cache} ({L} "
+                                 f"layers)", counts, eng, L, n, merged)
+                    summary["launches"] = {
+                        k: summary["launches"][k] + counts[k]
+                        for k in KERNELS}
+                eng, res, counts, _ = serve(c, p, prompts, max_new,
+                                            sched=True)
+                check_sched_counts(f"{arch} {tag} bfloat16 dense ({L} "
+                                   f"layers)", counts, eng, merged)
+                summary["launches"] = {k: summary["launches"][k] + counts[k]
+                                       for k in KERNELS}
+            serve(mcfg, mparams, prompts, max_new)  # warm-up
+            eng, res, counts, wall = serve(mcfg, mparams, prompts, max_new)
+            if not all(0 <= t < mcfg.vocab_size for o in res for t in o):
+                raise AssertionError(f"{arch}: out-of-vocab ids")
+            res_arch.update(layers=L, bf16=report(
+                f"{arch} merged bfloat16, dense cache ({L} layers)", res,
+                wall))
+            real = moe.apply_moe
+
+            def ranged(*a, **k):
+                with torch.profiler.record_function("moe_block"):
+                    return real(*a, **k)
+
+            profs = {}
+            moe.apply_moe = ranged
+            try:
+                for tag, c, p, _ in models:
+                    profs[tag] = profile_decode(c, p, prompts, "dense",
+                                                ranges=("moe_block",))
+            finally:
+                moe.apply_moe = real
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            t = weight_table(cfg)
+            # a buffer-form step streams every expert, the layers' other
+            # weights and the unembedding; the input embedding is read a
+            # row per token
+            unembed = cfg.d_model * cfg.vocab_size
+            streamed = t["total_without_qp"] - unembed
+            bound = decode_ms_per_token(streamed,
+                                        hbm_gbps=HBM_BYTES_PER_S / 1e9)
+            dev = {k: v["device_ms_per_step"] for k, v in profs.items()}
+            res_arch.update(
+                decode_profile=profs["merged"],
+                decode_device_ms_source=dev["source"], peak_gb=peak,
+                step_bound_ms=bound,
+                streamed_ratio=(t["total"] - unembed) / streamed,
+                decode_speedup_total=decode_speedup(full),
+                decode_speedup_active=decode_speedup(full,
+                                                     active_only=True))
+            log(f"  {arch} bfloat16 ({L} layers): peak device memory "
+                f"{peak:.1f} GB; a merged decode step streams "
+                f"{streamed * 2 / 1e9:.1f} GB of weights (every expert: "
+                f"the buffer-form dispatch), bound {bound:.3f} ms at 3.35 "
+                f"TB/s; decode step device ms source / merged "
+                f"{dev['source']:.3f} / {dev['merged']:.3f} = "
+                f"{dev['source'] / max(dev['merged'], 1e-9):.4f} against "
+                f"the bytes "
+                f"streamed, {res_arch['streamed_ratio']:.4f}; the paper's "
+                f"decode model for the full config: speedup "
+                f"{res_arch['decode_speedup_total']:.4f} over all weights, "
+                f"{res_arch['decode_speedup_active']:.4f} over the weights "
+                f"a token reads (active experts only)")
+            out[arch] = res_arch
+            del models, params, mparams, p, eng
+            torch.cuda.empty_cache()
+    summary["moe_configs"] = out
+
+
 _SYNC_SINK = []  # the Counter that ``sync_counted`` fills, while it counts
 
 
@@ -2346,10 +2602,13 @@ def obs_phase(cfg, params, prompts, max_new):
     return out
 
 
-def profiled(what, fn, steps):
+def profiled(what, fn, steps, ranges=()):
     """torch.profiler over ``steps`` calls of ``fn``: device time by kernel
     name, kernel launches per call and the device busy share of the wall
-    time, logged under ``what``."""
+    time, logged under ``what``.  For each name in ``ranges`` (a
+    ``record_function`` range that ``fn`` opens), the device time of the
+    kernels launched inside it per call, and its share of the device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2369,9 +2628,12 @@ def profiled(what, fn, steps):
 
     # device-side rows only: a CPU op's row (aten::mm) also carries the
     # device time of the kernels it launched, which have rows of their own
-    rows = sorted(((dev_us(e), e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                  reverse=True)
+    events = prof.key_averages()
+    # a range's own device-side row (its span on the GPU timeline) is left
+    # out: the kernels inside it have rows of their own
+    rows = sorted(((dev_us(e), e.key, e.count) for e in events
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                   and e.key not in ranges), reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     flash = sum(r[0] for r in rows if "flash" in r[1]) / 1e6
     decode = [r for r in rows if "decode" in r[1]]
@@ -2390,6 +2652,14 @@ def profiled(what, fn, steps):
            "kernels_per_step": sum(r[2] for r in rows) // steps,
            "top": [[k[:90], us / steps / 1e3, n // steps]
                    for us, k, n in rows[:8]]}
+    for name in ranges:
+        # the CPU-side range row: device time of every kernel launched
+        # inside it, children included
+        us = sum(getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0) for e in events
+                 if e.key == name and e.device_type == DeviceType.CPU)
+        out[f"{name}_ms_per_step"] = us / steps / 1e3
+        out[f"{name}_share_of_device"] = us / 1e6 / busy if busy else 0.0
     log(f"  {what} ({steps} calls): {out['wall_ms_per_step']:.2f} ms/call "
         f"wall, {out['device_ms_per_step']:.2f} ms/call of kernels "
         f"({100 * out['device_busy_share']:.0f}% busy), "
@@ -2401,6 +2671,10 @@ def profiled(what, fn, steps):
         f"kernel {out['ssd_kernel_ms_per_step']:.3f} ms/call, "
         f"{out['ssd_kernels_per_step']:g} launches/call; "
         f"{out['kernels_total']} kernel launches in all")
+    for name in ranges:
+        log(f"    range {name}: {out[f'{name}_ms_per_step']:.3f} ms/call of "
+            f"kernels, {100 * out[f'{name}_share_of_device']:.1f}% of the "
+            f"kernels' time")
     for k, ms, n in out["top"]:
         log(f"    {ms:8.3f} ms/call  {n:4d} calls/call  {k[:90]}")
     if not rows:
@@ -2409,10 +2683,11 @@ def profiled(what, fn, steps):
 
 
 def profile_decode(cfg, params, prompts, cache, steps=5, max_len=512,
-                   **serve_kw):
+                   ranges=(), **serve_kw):
     """``profiled`` over ``steps`` batched decode steps of the 4-slot
     engine on ``cache`` (``serve_kw``: more ``ServeConfig`` fields, e.g. a
-    temperature), the prompts prefilled first."""
+    temperature; ``ranges``: as ``profiled``'s), the prompts prefilled
+    first."""
     from repro_torch.serving import Engine, Request, ServeConfig
 
     eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=max_len,
@@ -2424,7 +2699,7 @@ def profile_decode(cfg, params, prompts, cache, steps=5, max_len=512,
     extra = "".join(f", {k} {v}" for k, v in serve_kw.items())
     return profiled(f"decode profile, {cfg.name}, {cache} cache, {cfg.dtype} "
                     f"({cfg.n_layers} layers, 4 slots{extra})", eng.step,
-                    steps)
+                    steps, ranges)
 
 
 def profile_prefill(cfg, params, prompt, steps=3, max_len=None):
@@ -2576,6 +2851,7 @@ def run() -> int:
     hybrid_path(summary)
     mamba2_path(summary)
     dense_configs_path(summary)
+    moe_path(summary)
     obs_path(summary)
 
     kernels = []

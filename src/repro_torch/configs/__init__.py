@@ -2,9 +2,10 @@
 
 A copy of ``repro.configs`` restricted to what the port serves: the dense
 stacks Mistral-7B, Llama-3.2-1B, Phi-3-medium-14B, Qwen2.5-32B,
-Pythia-6.9B and ChatGLM3-6B, the hybrid Hymba-1.5B and the SSM stack
-Mamba2-2.7B.  The MoE, VLM and audio configs and ``shapes.py`` stay out
-until their model code is ported.  The port never imports the JAX
+Pythia-6.9B and ChatGLM3-6B, the MoE stacks Phi-3.5-MoE and
+Moonshot-v1-16B-A3B, the hybrid Hymba-1.5B and the SSM stack
+Mamba2-2.7B.  The VLM and audio configs and ``shapes.py`` stay out until
+their model code is ported.  The port never imports the JAX
 package.
 """
 from repro_torch.configs.base import (
@@ -23,6 +24,8 @@ from repro_torch.configs import (  # noqa: F401
     llama3_2_1b,
     mamba2_2_7b,
     mistral_7b,
+    moonshot_v1_16b,
+    phi3_5_moe_42b,
     phi3_medium_14b,
     pythia_6_9b,
     qwen2_5_32b,

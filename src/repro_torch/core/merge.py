@@ -1,6 +1,7 @@
 """Exact weight-removal transforms for skipless transformers (the paper).
 
-Counterpart of ``repro.core.merge`` for dense and hybrid serial stacks.
+Counterpart of ``repro.core.merge`` for dense, MoE and hybrid serial
+stacks.
 ``merge_skipless(params, cfg, variant)`` maps a ``block_style="skipless"``
 (Fig 1a) parameter tree to a mathematically identical
 ``block_style="skipless_merged"`` tree (Fig 1b/c/d per Table 1):
@@ -14,20 +15,24 @@ Removing projection T_i of block i rewrites the block-i input basis
 ``u* = u T_i (+ b_T)``: every producer of u (the previous block's w_down,
 or the embedding table for i = 0) is right-multiplied by T_i, and every
 other consumer in block i (the remaining attention projections) is
-left-multiplied by T_i⁻¹.  A hybrid block (attention heads beside SSM
-heads, ``repro.models.mamba2``) gets the Q-removal half only: its FFN
-reads the fused attention+SSM stream, so P stays, and the SSM ``in_proj``
-is one more consumer of u.  Pure SSM stacks have no Q/K/V/P: they raise
+left-multiplied by T_i⁻¹.  P folds into the FFN input matrices; in an
+MoE block, into the float32 router and every expert's ``w_gate`` and
+``w_up`` (same shapes), and every expert's ``w_down`` absorbs the next T.
+A hybrid block (attention heads beside SSM heads,
+``repro.models.mamba2``) gets the Q-removal half only: its FFN reads the
+fused attention+SSM stream, so P stays, and the SSM ``in_proj`` is one
+more consumer of u.  Pure SSM stacks have no Q/K/V/P: they raise
 ValueError.  With QKV biases, consumers get
 ``b'_c = b_c − b_T (T⁻¹ W_c)`` and the previous block's output gains
 ``b_out = b_T`` (the embedding gains ``embed_bias``).
 
-The math runs in float64 on the parameters' device, ONE LAYER AT A TIME:
-the whole-stack einsums of the reference would hold (L, d, d_ff) float64
-operands (15 GB at Mistral-7B width) and run without BLAS; per layer the
-temporaries are a few hundred MB and freed before the next layer, and the
-card's FP64 units do the products.  Results are cast back to each
-weight's dtype into preallocated stacked tensors.
+The math runs in float64 on the parameters' device, ONE LAYER (and in an
+MoE block one expert) AT A TIME: the whole-stack einsums of the reference
+would hold (L, d, d_ff) float64 operands (15 GB at Mistral-7B width; one
+Phi-3.5-MoE layer's experts alone are 3.4 GB in float64) and run without
+BLAS; one matrix's temporaries are a few hundred MB and freed before the
+next, and the card's FP64 units do the products.  Results are cast back
+to each weight's dtype into preallocated stacked tensors.
 """
 from __future__ import annotations
 
@@ -43,6 +48,12 @@ from repro_torch.models.transformer import layer_plan
 _F64 = torch.float64
 
 
+def _mats(w, i: int):
+    """Layer ``i``'s 2-D matrices of a stacked weight: (L, a, b) -> [w[i]];
+    an MoE's (L, E, a, b) -> one view per expert."""
+    return [w[i]] if w.dim() == 3 else list(w[i])
+
+
 def condition_numbers(params, cfg: ModelConfig, variant: str = "qp") -> np.ndarray:
     """cond₂(T_i) per layer — the paper §4 invertibility audit."""
     conds = []
@@ -54,7 +65,7 @@ def condition_numbers(params, cfg: ModelConfig, variant: str = "qp") -> np.ndarr
 
 def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
                    variant: str = "qp") -> Tuple[Dict[str, Any], ModelConfig]:
-    """Exact (Fig 1) merge of a serial skipless dense or hybrid model.
+    """Exact (Fig 1) merge of a serial skipless dense, MoE or hybrid model.
     Returns (merged_params, merged_cfg); tensors the merge does not change
     are shared with ``params``."""
     if cfg.block_style != "skipless":
@@ -66,8 +77,8 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
     kind = layer_plan(cfg)["kind"]
     if kind == "ssm":
         raise ValueError("pure SSM stacks have no Q/K/V/P to merge")
-    if kind not in ("attn", "hybrid") or cfg.n_experts or \
-            cfg.family not in ("dense", "hybrid"):
+    if kind not in ("attn", "hybrid") or \
+            cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"merge of family {cfg.family!r} is not ported yet (ROADMAP.md)")
     hybrid = kind == "hybrid"
@@ -82,10 +93,10 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
     has_bias = ("b" + t) in attn
     if hybrid and has_bias:
         raise NotImplementedError("hybrid merge with QKV biases")
-    ffn = layers["ffn"]
-    glu = "w_gate" in ffn
-    f_in = ("w_gate", "w_up") if glu else ("w_in",)
-    f_out = "w_down" if glu else "w_out"
+    f_key = "moe" if "moe" in layers else "ffn"
+    ffn = layers[f_key]
+    f_in = [n for n in ("router", "w_gate", "w_up", "w_in") if n in ffn]
+    f_out = "w_out" if "w_out" in ffn else "w_down"
 
     new_attn: Dict[str, torch.Tensor] = {}
     for n in consumers:
@@ -99,11 +110,11 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
         ssm = layers["ssm"]
         new_ssm = dict(ssm, in_proj=torch.empty_like(ssm["in_proj"]))
     else:
-        for name in f_in:
+        for name in f_in:  # (L, [E,] d, f) -> (L, [E,] ad, f)
             w = ffn[name]
-            new_ffn[name] = w.new_empty((L, ad, w.shape[2]))
+            new_ffn[name] = w.new_empty(w.shape[:-2] + (ad, w.shape[-1]))
     new_ffn[f_out] = torch.empty_like(ffn[f_out])
-    new_layers: Dict[str, Any] = {"attn": new_attn, "ffn": new_ffn}
+    new_layers: Dict[str, Any] = {"attn": new_attn, f_key: new_ffn}
     if hybrid:
         new_layers["ssm"] = new_ssm
     if has_bias:
@@ -127,19 +138,17 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
         if hybrid:
             new_ssm["in_proj"][i] = (Tinv @ ssm["in_proj"][i].to(_F64)).to(
                 ssm["in_proj"].dtype)
-        else:  # P-fold into the FFN input matrices
+        else:  # P-fold into the FFN input matrices (MoE: router, experts)
             P = attn["wp"][i].to(_F64)
             for name in f_in:
-                new_ffn[name][i] = (P @ ffn[name][i].to(_F64)).to(
-                    ffn[name].dtype)
+                for w, dst in zip(_mats(ffn[name], i),
+                                  _mats(new_ffn[name], i)):
+                    dst.copy_(P @ w.to(_F64))
             del P
-        # w_down absorbs the next T
+        # w_down (every expert's) absorbs the next T
         T_next = attn["w" + t][i + 1].to(_F64) if i + 1 < L else None
-        w_down = ffn[f_out][i].to(_F64)
-        if T_next is not None:
-            w_down = w_down @ T_next
-        new_ffn[f_out][i] = w_down.to(ffn[f_out].dtype)
-        del w_down
+        for w, dst in zip(_mats(ffn[f_out], i), _mats(new_ffn[f_out], i)):
+            dst.copy_(w if T_next is None else w.to(_F64) @ T_next)
         if has_bias:  # the next block's folded bias enters after w_down
             nb = attn["b" + t][i + 1] if i + 1 < L \
                 else torch.zeros_like(attn["b" + t][i])

@@ -8,7 +8,9 @@ per-request streams seeded by ``--seed``.
 
 ``--arch`` is one of the port's configs: the dense stacks mistral-7b,
 llama3.2-1b, phi3-medium-14b, qwen2.5-32b, chatglm3-6b and pythia-6.9b
-(parallel blocks: no merge, serve it as the source), hymba-1.5b (hybrid:
+(parallel blocks: no merge, serve it as the source), the MoE stacks
+phi3.5-moe-42b-a6.6b and moonshot-v1-16b-a3b (the merge folds P into the
+router and every expert), hymba-1.5b (hybrid:
 attention beside SSM heads) or mamba2-2.7b (attention-free, standard
 style; dense cache only, as for the hybrid).  With
 ``--merged-from-skipless`` the launcher builds a skipless model, runs the

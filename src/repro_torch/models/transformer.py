@@ -1,13 +1,17 @@
-"""Dense attention, Mamba2 (SSM) and hybrid stacks in all paper block
-styles: setup, the sequence forward, prefill into the dense cache, a paged
-pool or an int8 paged pool, and one-token decode against any of them.
+"""Dense, MoE, Mamba2 (SSM) and hybrid stacks in all paper block styles:
+setup, the sequence forward, prefill into the dense cache, a paged pool or
+an int8 paged pool, and one-token decode against any of them.
 
 Counterpart of ``repro.models.transformer`` for the plan kinds "attn"
-(dense family), "ssm" (mamba2 mixer blocks) and "hybrid" (attention heads
-in parallel with SSM heads, mean-fused, then the FFN); MoE, VLM and audio
-raise NotImplementedError (see ROADMAP.md).  The paged pools serve
-attention-only stacks: SSM state has no pages.  Block styles (paper
-mapping):
+(the dense family, and the moe family, whose FFN is ``models.moe``),
+"ssm" (mamba2 mixer blocks) and "hybrid" (attention heads in parallel
+with SSM heads, mean-fused, then the FFN); VLM and audio raise
+NotImplementedError (see ROADMAP.md).  The paged pools serve
+attention-only stacks: SSM state has no pages.  An MoE FFN routes as in
+the reference: whole-prompt prefill (``forward_seq``, ``forward_prefill``)
+drops pairs by ``capacity_factor`` over a group of ``moe_group`` (or B·S)
+tokens, padding included; chunk programs and the decode step route
+dropless.  Block styles (paper mapping):
   standard         pre-norm residual blocks
   skipless         Fig 1(a): no skips / no norms, full Q,K,V,P
   skipless_merged  Fig 1(b): Q and P removed (``core.merge``)
@@ -55,6 +59,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import backends
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     apply_embedding,
     apply_rmsnorm,
@@ -67,7 +72,7 @@ from repro_torch.models.layers import (
     orthogonal_init,
 )
 
-_NOT_PORTED = ("not ported yet: the port serves dense attention, SSM and "
+_NOT_PORTED = ("not ported yet: the port serves dense, MoE, SSM and "
                "hybrid stacks (see ROADMAP.md, 'Modules to port')")
 
 
@@ -101,8 +106,9 @@ def layer_plan(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _require_ported(cfg: ModelConfig) -> None:
     if layer_plan(cfg)["kind"] not in ("attn", "ssm", "hybrid") or \
-            cfg.n_experts or cfg.conv_pos_width or \
-            cfg.family not in ("dense", "ssm", "hybrid"):
+            cfg.conv_pos_width or \
+            cfg.family not in ("dense", "moe", "ssm", "hybrid") or \
+            (cfg.n_experts and cfg.family != "moe"):
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}) is {_NOT_PORTED}")
 
@@ -159,14 +165,18 @@ def init_block(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
     if kind in ("ssm", "hybrid"):
         p["ssm"] = m2.init_mamba2(gen, cfg, dtype)
     if cfg.has_ffn:
-        # merged serial attention stacks: FFN input dim is attn_dim (P
-        # folded in)
+        # merged serial attention stacks: FFN (or MoE) input dim is
+        # attn_dim (P folded in)
         ffn_in = cfg.attn_dim if (merged and not cfg.parallel_block
                                   and kind == "attn") else cfg.d_model
-        p["ffn"] = ffn_mod.init_ffn(gen, ffn_in, cfg.d_ff, cfg.d_model,
-                                    cfg.ffn_type, dtype,
-                                    init_fn=_init_fn_for(cfg),
-                                    out_gain=cfg.ffn_out_gain)
+        if cfg.n_experts and kind == "attn":
+            p["moe"] = moe_mod.init_moe(gen, ffn_in, cfg.d_ff, cfg.d_model,
+                                        cfg.n_experts, cfg.ffn_type, dtype)
+        else:
+            p["ffn"] = ffn_mod.init_ffn(gen, ffn_in, cfg.d_ff, cfg.d_model,
+                                        cfg.ffn_type, dtype,
+                                        init_fn=_init_fn_for(cfg),
+                                        out_gain=cfg.ffn_out_gain)
     if _needs_norms(style):
         p["norm1"] = init_rmsnorm(cfg.d_model, dtype, gen.device)
         if cfg.has_ffn:
@@ -305,34 +315,51 @@ def _attn_out_proj(lp, cat):
     return cat @ lp["wp"].to(cat.dtype)
 
 
-def _apply_ffn(p, cfg: ModelConfig, x):
-    return ffn_mod.apply_ffn(p["ffn"], x, cfg.ffn_type)
+def _apply_ffn(p, cfg: ModelConfig, x, dropless: bool = False):
+    """The dense FFN or the MoE -> (out, aux_loss); ``dropless`` routes
+    every (token, choice) pair (chunk and decode programs).  A dense FFN's
+    aux is the Python float 0.0: a device zero would be one more launch
+    per layer and decode step."""
+    if "moe" in p:
+        return moe_mod.apply_moe(
+            p["moe"], x, n_experts=cfg.n_experts,
+            experts_per_token=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor, ffn_type=cfg.ffn_type,
+            dropless=dropless, impl=cfg.moe_impl,
+            group_size=cfg.moe_group or x.shape[0] * x.shape[1])
+    return ffn_mod.apply_ffn(p["ffn"], x, cfg.ffn_type), 0.0
 
 
-def _apply_style(p, cfg: ModelConfig, u, mixer_fn):
+def _apply_style(p, cfg: ModelConfig, u, mixer_fn, dropless: bool = False):
     """The block-style wiring shared by the sequence and the step paths:
-    where the norms, skips, mixer and FFN sit (paper Figs 1, 3, 4)."""
+    where the norms, skips, mixer and FFN sit (paper Figs 1, 3, 4) ->
+    (out, aux_loss)."""
     style = cfg.block_style
     if style in ("standard", "residual_qpfree"):
         if cfg.parallel_block:
             n = apply_rmsnorm(p["norm1"], u)
-            return u + mixer_fn(n) + _apply_ffn(p, cfg, n)
+            f, aux = _apply_ffn(p, cfg, n, dropless)
+            return u + mixer_fn(n) + f, aux
         h = u + mixer_fn(apply_rmsnorm(p["norm1"], u))
-        return h + _apply_ffn(p, cfg, apply_rmsnorm(p["norm2"], h))
+        f, aux = _apply_ffn(p, cfg, apply_rmsnorm(p["norm2"], h), dropless)
+        return h + f, aux
     if style in ("skipless", "skipless_merged"):
         if cfg.parallel_block:
-            out = mixer_fn(u) + _apply_ffn(p, cfg, u)
+            f, aux = _apply_ffn(p, cfg, u, dropless)
+            out = mixer_fn(u) + f
         else:
-            out = _apply_ffn(p, cfg, mixer_fn(u))
+            out, aux = _apply_ffn(p, cfg, mixer_fn(u), dropless)
         if style == "skipless_merged" and "b_out" in p:
             # folded b_q of the NEXT block (affine merge)
             out = out + p["b_out"].to(out.dtype)
-        return out
+        return out, aux
     raise ValueError(style)
 
 
 def apply_block_seq(p, cfg: ModelConfig, u, ctx):
-    """One block over a sequence -> (out_stream, kv, state).  ``kv`` is
+    """One block over a sequence -> (out_stream, aux_loss, kv, state).
+    ``aux_loss`` is the MoE load-balance loss (the float 0.0 without
+    experts); the MoE drops pairs by ``capacity_factor``.  ``kv`` is
     (k, v), or (k ints, k scales, v ints, v scales) under
     ``ctx["q8_block"]``, for blocks with attention, else None; ``state``
     is the SSM mixer's ``SSMState`` after the last position (final scan
@@ -348,9 +375,9 @@ def apply_block_seq(p, cfg: ModelConfig, u, ctx):
 
     if kind == "ssm":
         if cfg.block_style != "standard":  # skipless: no skip, no norm
-            return ssm_fn(u), None, st[0]
+            return ssm_fn(u), 0.0, None, st[0]
         x = apply_rmsnorm(p["norm1"], u) if "norm1" in p else u
-        return u + ssm_fn(x), None, st[0]
+        return u + ssm_fn(x), 0.0, None, st[0]
 
     def mixer_fn(x):
         cat, kv[0] = _self_attention_seq(
@@ -363,8 +390,8 @@ def apply_block_seq(p, cfg: ModelConfig, u, ctx):
             return 0.5 * (_attn_out_proj(p["attn"], cat) + ssm_fn(x))
         return cat if merged else _attn_out_proj(p["attn"], cat)
 
-    out = _apply_style(p, cfg, u, mixer_fn)
-    return out, kv[0], st[0]
+    out, aux = _apply_style(p, cfg, u, mixer_fn)
+    return out, aux, kv[0], st[0]
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +429,9 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
                impl: str = "torch", collect: bool = False,
                merged_core: bool = False, cache_kind: str = "dense",
                q8_block: int = 0, q8_true_len=None):
-    """Embed, every block, the logits -> (logits, kvs, states).  With
+    """Embed, every block, the logits -> (logits, aux, kvs, states):
+    ``aux`` sums the layers' MoE load-balance losses (0.0 without
+    experts).  With
     ``collect``: ``kvs`` stacks the attention layers' K/V (None without
     attention) and ``states`` the SSM layers' ``SSMState``s, (L, B, …)
     each (None without SSM layers)."""
@@ -416,8 +445,10 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
            "cache_kind": cache_kind, "q8_block": q8_block,
            "q8_true_len": q8_true_len}
     kv_layers, st_layers = [], []
+    aux = 0.0
     for i in range(cfg.n_layers):
-        h, kv, st = apply_block_seq(layer_params(params, i), cfg, h, ctx)
+        h, a, kv, st = apply_block_seq(layer_params(params, i), cfg, h, ctx)
+        aux = aux + a
         if collect and kv is not None:
             kv_layers.append(kv)
         if collect and st is not None:
@@ -426,7 +457,7 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
         if kv_layers else None
     states = m2.SSMState(*(torch.stack(t) for t in zip(*st_layers))) \
         if st_layers else None
-    return _logits(params, cfg, h), kvs, states
+    return _logits(params, cfg, h), aux, kvs, states
 
 
 def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
@@ -434,6 +465,10 @@ def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
                 merged_core: bool = False, cache_kind: str = "dense",
                 q8_block: int = 0, q8_true_len=None):
     """Full-sequence forward over int tokens (B,S) -> (logits, aux, kvs).
+
+    ``aux`` is the sum of the layers' MoE load-balance losses (0 without
+    experts); the MoE drops pairs by ``capacity_factor`` over groups of
+    ``moe_group`` (or B·S) tokens, as whole-prompt prefill does.
 
     ``kvs`` is (k, v), each (L, B, S, Hkv, Dh), when ``collect_kv`` on a
     stack with attention (None otherwise).
@@ -444,11 +479,12 @@ def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
     then those bits: (k ints, k scales, v ints, v scales), the ints
     (L, B, S, Hkv, Dh) int8 and the scales (L, B, S // q8_block, Hkv)
     float32 (``_self_attention_seq``)."""
-    logits, kvs, _ = _run_stack(
+    logits, aux, kvs, _ = _run_stack(
         params, cfg, inputs, positions=positions, impl=impl,
         collect=collect_kv, merged_core=merged_core, cache_kind=cache_kind,
         q8_block=q8_block, q8_true_len=q8_true_len)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, aux, kvs
 
 
@@ -694,9 +730,10 @@ def _prefill_seq(params, cfg: ModelConfig, inputs, ctx, *,
                  merged_core: bool, cache_kind: str):
     """The full-sequence pass every prefill backend starts with ->
     (logits, kvs, SSM states) (``_run_stack``)."""
-    return _run_stack(params, cfg, inputs, impl=ctx.get("impl", "torch"),
-                      collect=True, merged_core=merged_core,
-                      cache_kind=cache_kind)
+    logits, _, kvs, states = _run_stack(
+        params, cfg, inputs, impl=ctx.get("impl", "torch"), collect=True,
+        merged_core=merged_core, cache_kind=cache_kind)
+    return logits, kvs, states
 
 
 def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs, states,
@@ -1138,9 +1175,10 @@ backends.register_backend("paged_q8", "merged", _attn_step_paged_q8_merged,
 def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx,
                      state: Optional[m2.SSMState] = None):
     """One block, one token (the cache rows, and the layer's SSM ``state``
-    views, are written in place).  On the int8 pool ``k_layer``/``v_layer``
-    are (pool, scale) pairs, passed through to the backend step as they
-    are."""
+    views, are written in place); the chunk programs pass a chunk's C
+    tokens.  An MoE routes dropless here, as in the reference's step and
+    chunk programs.  On the int8 pool ``k_layer``/``v_layer`` are (pool,
+    scale) pairs, passed through to the backend step as they are."""
     merged = _is_merged(cfg.block_style)
     kind = layer_plan(cfg)["kind"]
 
@@ -1163,7 +1201,7 @@ def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx,
             return 0.5 * (_attn_out_proj(p["attn"], cat) + ssm_fn(x))
         return cat if merged else _attn_out_proj(p["attn"], cat)
 
-    return _apply_style(p, cfg, u1, mixer_fn)
+    return _apply_style(p, cfg, u1, mixer_fn, dropless=True)[0]
 
 
 def serving_style_key(cfg: ModelConfig) -> str:

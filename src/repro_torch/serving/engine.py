@@ -20,15 +20,19 @@ pool and the int8 paged pool.  The engine drives exactly two seams:
 ``device="cpu"``.  Any other pairing raises ValueError at construction;
 ``device="cuda"`` without a card raises RuntimeError.
 
-Prompt lengths are bucketed (padded to the next power of two, exact logits
-and cache via ``true_len``) except for stacks with SSM layers, whose
-prefill state is not position-masked (a padded tail would run through the
-scan), and for sliding-window configs on the dense cache, whose
-window-sized ring would drop real positions under a padded tail: those
-prompts reach prefill at their own length (the paged pool stores absolute
-positions, so it buckets windowed configs too; it serves attention-only
-stacks).  Every prompt is padded up to the adapter's ``bucket_align``,
-bucketed or not: the int8 pool quantizes whole pages.
+Prompt lengths are bucketed (padded with token 0 to the next power of
+two, exact logits and cache via ``true_len``;
+``ServeConfig.bucket_prompts=False`` turns it off) except for stacks with
+SSM layers, whose prefill state is not position-masked (a padded tail
+would run through the scan), and for sliding-window configs on the dense
+cache, whose window-sized ring would drop real positions under a padded
+tail: those prompts reach prefill at their own length (the paged pool
+stores absolute positions, so it buckets windowed configs too; it serves
+attention-only stacks).  Every prompt is padded up to the adapter's ``bucket_align``,
+bucketed or not: the int8 pool quantizes whole pages.  An MoE prefill
+routes its padded tail with the prompt, so under capacity dropping a pad
+token can take a real token's expert slot: the port pads exactly as the
+reference does.
 
 On the paged pool a request that does not fit is deferred (``submit``
 returns False and ``generate`` retries it after others finish), and when
@@ -84,6 +88,7 @@ class ServeConfig:
     seed: int = 0  # with the submission index, seeds each request's stream
     block_size: int = 16  # paged: tokens per physical page
     n_blocks: int = 0  # paged pool size; 0 => dense-equivalent memory
+    bucket_prompts: bool = True  # pad prompts to power-of-two buckets
     # observability (repro_torch.obs): False => the shared NullObserver
     # (every hook a no-op); True => a fresh Observer (metrics + trace
     # ring); an Observer instance is adopted (its registry becomes
@@ -205,9 +210,12 @@ class Engine:
         # padded tail, but SSM prefill state is not position-masked, and a
         # dense sliding-window cache is a window-sized ring that would drop
         # real positions when a padded tail pushes them out (the paged
-        # pool stores absolute positions)
-        self._bucketing = not cfg.ssm_state and (
-            self.paged or not cfg.sliding_window)
+        # pool stores absolute positions).  Under MoE capacity dropping
+        # the padded tail joins the prefill's routing group, so the
+        # streams depend on ``bucket_prompts``, as in the reference
+        self._bucketing = (sc.bucket_prompts and cfg.has_attention
+                           and not cfg.ssm_state
+                           and (self.paged or not cfg.sliding_window))
         self.kv.init(cfg, sc, self.device)
         self.kv.build_prefill(impl)
         self._last_token = np.zeros((sc.n_slots,), np.int32)

@@ -335,7 +335,7 @@ def test_paged_prefill_refuses_bad_destinations():
     with pytest.raises(ValueError, match="attention-only"):
         tm.forward_step(p, ssm, torch.zeros(2, dtype=torch.long), c)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward_step(p, tc.with_(family="moe", n_experts=4),
+        tm.forward_step(p, tc.with_(family="audio"),
                         torch.zeros(2, dtype=torch.long), c)
 
 

@@ -47,8 +47,8 @@ def main(argv=None):
         h = embed_inputs(params, cfg, toks)
         out = []
         for i in range(cfg.n_layers):
-            h, _ = apply_block_seq(layer_params(params, i), cfg, h,
-                                   {"positions": pos, "impl": impl})
+            h, _, _, _ = apply_block_seq(layer_params(params, i), cfg, h,
+                                         {"positions": pos, "impl": impl})
             out.append(float(h.pow(2).mean().sqrt()))
         return out
 
@@ -70,8 +70,9 @@ def main(argv=None):
             pos = torch.arange(64, device=dev)[None]
             h = embed_inputs(params, cfg, calib)
             for i in range(L):
-                out, _ = apply_block_seq(layer_params(params, i), cfg, h,
-                                         {"positions": pos, "impl": impl})
+                out, _, _, _ = apply_block_seq(
+                    layer_params(params, i), cfg, h,
+                    {"positions": pos, "impl": impl})
                 r = out.pow(2).mean().sqrt()
                 params["layers"]["ffn"]["w_down"][i] /= r
                 h = out / r

@@ -24,7 +24,11 @@ NVIDIA card.  Run from the repository root:
    Hymba-1.5B's (Hq=25, Hkv=5, D=64; flash also at 2048 with its window of
    1024); the decode kernels (rows 4-9) also at ChatGLM3-6B's (Hq=32,
    Hkv=2, D=128: 16 query heads per kv head, two parts of the group) and
-   rows 4-5 at G 12 (Hq=24, Hkv=2: a part that is not full); the SSD scan
+   rows 4-5 at G 12 (Hq=24, Hkv=2: a part that is not full); row 1
+   non-causal at the VLM's cross prefill (Sq 250 over Sk 1600 vision
+   tokens, Hq 32, Hkv 8, D 128) and at HuBERT's layer (B 4, Sq = Sk =
+   1000, MHA 16 of D 80), row 4 at the VLM's cross decode step (B 4, 1600
+   vision tokens, the cache read in place) (``cross_phase``); the SSD scan
    at Hymba's (H 50, P 64,
    N 16; 250, 512 and 2048 tokens) and Mamba2-2.7B's (H 80, P 64, N 128;
    256, 512 and 2048), after printing its occupancy per instantiation
@@ -136,7 +140,23 @@ NVIDIA card.  Run from the repository root:
    its merge fit together) exact launch counts on the three caches and
    the scheduler, tok/s, TTFT, peak memory, and a decode profile with the
    MoE blocks' share of the device time beside ``decode_speedup``;
-10. the obs phase (``obs_path``, last: it turns on PyTorch's GPU trace
+10. the VLM (``vlm_path``): Llama-3.2-Vision-11B at full width, skipless
+   and its qp merge, the four prompts each with a seeded (1600, 4096)
+   vision array, the dense cache: at 10 calibrated float32 layers (two
+   groups; 5 if merged != source there, the mismatch printed) merged ==
+   source, exact launch counts, kernels vs plain prefill logits, and the
+   refusals of ``ScheduledEngine`` and the paged pool; then bf16 at all
+   40 layers, exact launch counts (per prefill 40 generic flash launches,
+   8 non-causal; per decode step 32 merged + 8 generic decode launches,
+   or 40 generic for the source), merged tok/s, TTFT, decode profiles of
+   both, peak memory;
+11. the audio encoder (``audio_path``): HuBERT-XLarge at full width, at 4
+   calibrated float32 layers its qp, kp and vp merges and the kernels
+   against the source's plain forward (``AUDIO_TOL`` of the logit scale),
+   then bf16 at 48 layers on B 4 x 1000 frames: 48 flash launches per
+   forward (non-causal, D 80) and profiles of the source's and the
+   merge's forward;
+12. the obs phase (``obs_path``, last: it turns on PyTorch's GPU trace
    hooks to count host syncs): merged bf16 Mistral-7B at 32 layers on the
    paged pool, roomy and tight, through ``Engine`` and
    ``ScheduledEngine`` with ``ServeConfig(obs=True)``: one terminal event
@@ -144,7 +164,7 @@ NVIDIA card.  Run from the repository root:
    requests, pool gauges equal to the allocator's counters, and the
    streams, launch counts and host syncs of the obs-off run; obs-on and
    obs-off tok/s side by side;
-11. prints one JSON line of per-kernel numbers, then, as the last line,
+13. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Everything printed to stdout is also written to ``build/chip_smoke.log``
@@ -1126,12 +1146,12 @@ SCHED_STARVED_PAGES = 28
 
 
 def serve(cfg, params, prompts, max_new, cache="dense", probe=None,
-          max_len=512, sched=False, **serve_kw):
-    """Serve ``prompts`` on a fresh 4-slot engine, the synchronous
-    ``Engine`` or with ``sched`` the ``ScheduledEngine`` (``SCHED``);
-    ``probe(eng)`` may wrap the engine's manager before the run.  Returns
-    (engine, results, the launch counts of exactly this run, wall
-    seconds)."""
+          max_len=512, sched=False, vision=None, **serve_kw):
+    """Serve ``prompts`` (a VLM: with ``vision``, one array per prompt) on
+    a fresh 4-slot engine, the synchronous ``Engine`` or with ``sched``
+    the ``ScheduledEngine`` (``SCHED``); ``probe(eng)`` may wrap the
+    engine's manager before the run.  Returns (engine, results, the launch
+    counts of exactly this run, wall seconds)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import (Engine, SchedConfig, ScheduledEngine,
                                      ServeConfig)
@@ -1146,7 +1166,7 @@ def serve(cfg, params, prompts, max_new, cache="dense", probe=None,
     torch.cuda.synchronize()
     reset_launch_counts()  # counts cover exactly this serve
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, max_new_tokens=max_new)
+    outs = eng.generate(prompts, max_new_tokens=max_new, vision=vision)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return eng, outs, launch_counts(), wall
@@ -1160,11 +1180,15 @@ def check_counts(tag, counts, eng, n_layers, n_prompts, merged):
     (it dequantizes upstream, as the reference routes it).  A stack with
     SSM layers also launches the SSD scan once per layer and prefill (the
     decode step's SSM update is plain torch); an attention-free one
-    launches nothing else."""
+    launches nothing else.  A VLM prefills generic, merged or not, and its
+    cross layers decode through the generic decode kernel (the vision K/V
+    read in place) beside the self layers' kernel."""
     cfg = eng.cfg
     q8 = eng.kv.kind == "paged_q8"
+    vlm = cfg.family == "vlm"
     flash_k = "flash_attention_" + (("merged_q8_bsd" if q8 else "merged_bsd")
-                                    if merged else "bhsd")
+                                    if merged and not vlm else "bhsd")
+    n_cross = n_layers // cfg.cross_attn_every if vlm else 0
     dec_k = {"dense": "decode_attention_", "paged": "decode_attention_paged_",
              "paged_q8": "decode_attention_paged_q8_"}[eng.kv.kind] \
         + ("merged_bsd" if merged else "bhsd")
@@ -1172,7 +1196,8 @@ def check_counts(tag, counts, eng, n_layers, n_prompts, merged):
     prefills = n_prompts + eng.stats["n_preempted"]
     if cfg.has_attention:
         want[flash_k] = n_layers * prefills
-        want[dec_k] = n_layers * eng.stats["n_steps"]
+        want[dec_k] = (n_layers - n_cross) * eng.stats["n_steps"]
+        want["decode_attention_bhsd"] += n_cross * eng.stats["n_steps"]
     if cfg.ssm_state:
         want["ssd_chunk_scan"] = n_layers * prefills
     if counts != want:
@@ -1185,8 +1210,9 @@ def streams(outs):
     return [list(o) for o in outs]
 
 
-def first_mismatch(cfg, params, prompts, a, b):
-    """(prompt, position, top-2 margin of the source logits there)."""
+def first_mismatch(cfg, params, prompts, a, b, vision=None):
+    """(prompt, position, top-2 margin of the source logits there); a VLM
+    takes each prompt's ``vision``."""
     import numpy as np
     import torch
     from repro_torch.models import forward_seq
@@ -1195,9 +1221,11 @@ def first_mismatch(cfg, params, prompts, a, b):
             continue
         j = next(t for t in range(len(x)) if x[t] != y[t])
         toks = np.concatenate([prompts[i], np.asarray(x[:j], np.int64)])
+        vis = None if vision is None else torch.as_tensor(
+            vision[i], device="cuda")[None]
         with torch.no_grad():
             lg, _, _ = forward_seq(params, cfg, torch.as_tensor(
-                toks, device="cuda")[None], impl="cuda")
+                toks, device="cuda")[None], vision=vis, impl="cuda")
         top = torch.topk(lg[0, -1, :cfg.vocab_size].float(), 2).values
         return i, j, float(top[0] - top[1])
     return None
@@ -1227,13 +1255,15 @@ def build(n_layers, calibrate, arch="mistral-7b", dtype=None, **overrides):
     32 it overflows.  On a parallel block the attention output projection
     is rescaled with the FFN's, so the sum of the two branches has RMS
     1."""
+    import itertools
+
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import merge_skipless, removed_weight_count
-    from repro_torch.models import init_params
-    from repro_torch.models.transformer import (apply_block_seq,
-                                                embed_inputs, layer_params)
+    from repro_torch.models import block_sequence, init_params
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.transformer import apply_block_seq, embed_inputs
 
     cfg = get_config(arch).with_(block_style="skipless", n_layers=n_layers,
                                  **({"dtype": "float32"} if dtype is None
@@ -1247,21 +1277,29 @@ def build(n_layers, calibrate, arch="mistral-7b", dtype=None, **overrides):
         for name in ("bq", "bk", "bv"):
             b = params["layers"]["attn"][name]
             b.copy_(0.1 * torch.randn(b.shape, generator=gen, device="cuda"))
-    ffn = params["layers"]["moe" if cfg.n_experts else "ffn"]
-    w_out = "w_down" if "w_down" in ffn else "w_out"
-    calib = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (1, 64)), device="cuda")
-    pos = torch.arange(64, device="cuda")[None]
+    crng = np.random.default_rng(1)
+    if cfg.causal:
+        calib = torch.as_tensor(crng.integers(0, cfg.vocab_size, (1, 64)),
+                                device="cuda")
+    else:  # an encoder's frames
+        calib = torch.as_tensor(crng.standard_normal(
+            (1, 64, cfg.d_model), np.float32), device="cuda")
+    ctx = {"positions": torch.arange(64, device="cuda")[None],
+           "impl": "cuda"}
+    if cfg.family == "vlm":
+        ctx["vision"] = torch.as_tensor(crng.standard_normal(
+            (1, cfg.n_vision_tokens, cfg.d_model), np.float32),
+            device="cuda").to(dtype_of(cfg.dtype))
     with torch.no_grad():
         h = embed_inputs(params, cfg, calib)
-        for i in range(n_layers if calibrate else 0):
-            out, _, _, _ = apply_block_seq(layer_params(params, i), cfg, h,
-                                           {"positions": pos,
-                                            "impl": "cuda"})
+        for kind, lp, _ in itertools.islice(block_sequence(params, cfg),
+                                            n_layers if calibrate else 0):
+            out, _, _, _ = apply_block_seq(lp, cfg, h, ctx, kind)
             r = out.pow(2).mean().sqrt()
-            ffn[w_out][i] /= r
+            ffn = lp["moe" if "moe" in lp else "ffn"]
+            ffn["w_down" if "w_down" in ffn else "w_out"].div_(r)
             if cfg.parallel_block:
-                params["layers"]["attn"]["wp"][i] /= r
+                lp["attn"]["wp"].div_(r)
             h = out / r
     torch.cuda.synchronize()
     ssm = (f", SSM {cfg.ssm_n_heads}x{cfg.ssm_head_dim}x{cfg.ssm_state}"
@@ -1273,7 +1311,11 @@ def build(n_layers, calibrate, arch="mistral-7b", dtype=None, **overrides):
         ("QKV biases", cfg.qkv_bias), ("tied embeddings", cfg.tie_embeddings),
         ("parallel blocks", cfg.parallel_block),
         (f"rope {cfg.rope_style} x{cfg.rope_fraction:g}",
-         cfg.rope_style != "half")) if on)
+         cfg.rope_style != "half"),
+        (f"a cross-attention layer every {cfg.cross_attn_every}, "
+         f"{cfg.n_vision_tokens} vision tokens", cfg.cross_attn_every),
+        (f"encoder, conv_pos width {cfg.conv_pos_width}", not cfg.causal))
+        if on)
     log(f"init {cfg.name} skipless ({n_layers} layers, d_model {cfg.d_model},"
         f" d_ff {cfg.d_ff}, GQA {cfg.n_heads}/{cfg.n_kv_heads} of "
         f"{cfg.d_head}{ssm}, window {cfg.sliding_window}, vocab "
@@ -1886,16 +1928,19 @@ def ssm_prompts(vocab):
     return [rng.integers(0, vocab, n) for n in SSM_LENS]
 
 
-def kernels_vs_plain(tag, cfg, params, prompt, rel=None):
+def kernels_vs_plain(tag, cfg, params, prompt, rel=None, vision=None):
     """The kernels' prefill logits against the plain PyTorch forward on
-    one prompt: finite, same shape and, unless ``rel`` is None (a finding
-    only), max |diff| <= ``rel`` x max |logit|.  Returns the ratio."""
+    one prompt (a VLM: with its ``vision``): finite, same shape and,
+    unless ``rel`` is None (a finding only), max |diff| <= ``rel`` x max
+    |logit|.  Returns the ratio."""
     import torch
     from repro_torch.models import DensePrefillDest, forward_prefill
     x = torch.as_tensor(prompt, device="cuda")[None]
+    vis = None if vision is None else torch.as_tensor(vision,
+                                                      device="cuda")[None]
     dest = DensePrefillDest(len(prompt))
-    lg_k, _ = forward_prefill(params, cfg, x, dest, impl="cuda")
-    lg_p, _ = forward_prefill(params, cfg, x, dest, impl="torch")
+    lg_k, _ = forward_prefill(params, cfg, x, dest, vision=vis, impl="cuda")
+    lg_p, _ = forward_prefill(params, cfg, x, dest, vision=vis, impl="torch")
     scale = float(lg_p.abs().max())
     diff = float((lg_k - lg_p).abs().max())
     if not (torch.isfinite(lg_k).all() and lg_k.shape == lg_p.shape
@@ -2415,6 +2460,349 @@ def moe_path(summary):
             torch.cuda.empty_cache()
     summary["moe_configs"] = out
 
+# ---------------------------------------------------------------------------
+# the VLM and the audio encoder
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, AUDIO_ARCH = "llama3.2-vision-11b", "hubert-xlarge"
+# float32 identity depth of the VLM: two groups of four self layers and a
+# cross layer, so the cross -> next-self fold of the merge is exercised
+# (5 if 10 do not hold: one group)
+VLM_EQ_LAYERS = (10, 5)
+AUDIO_FRAMES = (4, 1000)  # B x frames: 20 s of audio at 50 Hz
+AUDIO_TOL = 1e-4  # merges and kernels vs plain: of the float32 logit scale
+
+
+def cross_phase(rng, rows):
+    """Kernel rows of the new shapes: row 1 non-causal at the VLM's cross
+    prefill (B 1, Sq 250 over Sk 1600 vision tokens, Hq 32, Hkv 8, D 128)
+    and at HuBERT's encoder layer (B 4, Sq = Sk = 1000, MHA 16 of D 80),
+    bf16 and float32; row 4 at the VLM's cross decode step (B 4, Hkv 8,
+    G 4, D 128, all 1600 vision tokens at q_position 1601), the cache read
+    in place (``decode_attention_bshd``).  SDPA runs non-causal on the
+    same (head-major) inputs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk, ref
+
+    dev = torch.device("cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        el = torch.tensor([], dtype=dtype).element_size()
+
+        def rand(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, np.float32)).to(dev, dtype)
+
+        for label, B, Sq, Sk, Hq_, Hkv_, D_ in (
+                ("VLM cross prefill", 1, 250, 1600, 32, 8, 128),
+                ("HuBERT encoder", 4, 1000, 1000, 16, 16, 80)):
+            nbytes = B * (2 * Sq * Hq_ + 2 * Sk * Hkv_) * D_ * el
+            n_sets = n_sets_for(nbytes)
+            qh = [rand(B, Hq_, Sq, D_) for _ in range(n_sets)]
+            kh = [rand(B, Hkv_, Sk, D_) for _ in range(n_sets)]
+            vh = [rand(B, Hkv_, Sk, D_) for _ in range(n_sets)]
+            bound = bound_ms(nbytes, 4 * D_ * Hq_ * B * Sq * Sk, dtype)
+            rows.append(kernel_row(
+                "flash_attention_bhsd", dtype,
+                f"B={B} Sq={Sq} Sk={Sk} non-causal Hq={Hq_} Hkv={Hkv_} "
+                f"D={D_} ({label})",
+                lambda i: fk.flash_attention_bhsd(qh[i], kh[i], vh[i],
+                                                  causal=False),
+                lambda i: ref.ref_attention(qh[i], kh[i], vh[i],
+                                            causal=False),
+                lambda i: F.scaled_dot_product_attention(
+                    qh[i], kh[i], vh[i], enable_gqa=True),
+                n_sets, bound, timed=False))
+            del qh, kh, vh
+        B, Hkv_, G_, D_, nv = 4, 8, 4, 128, 1600
+        nbytes = 2 * B * nv * Hkv_ * D_ * el + 2 * B * Hkv_ * G_ * D_ * el \
+            + B * nv * 4 + B * 4
+        n_sets = n_sets_for(nbytes)
+        qs = [rand(B, Hkv_, G_, D_) for _ in range(n_sets)]
+        ks = [rand(B, nv, Hkv_, D_) for _ in range(n_sets)]
+        vs = [rand(B, nv, Hkv_, D_) for _ in range(n_sets)]
+        khs = [k.transpose(1, 2).contiguous() for k in ks]
+        vhs = [v.transpose(1, 2).contiguous() for v in vs]
+        kvp = torch.arange(nv, dtype=torch.int32, device=dev).expand(
+            B, nv).contiguous()
+        qp = torch.full((B,), nv + 1, dtype=torch.int32, device=dev)
+        rows.append(kernel_row(
+            "decode_attention_bhsd", dtype,
+            f"B={B} S={nv} all valid, cache read in place (VLM cross step)",
+            lambda i: dk.decode_attention_bshd(qs[i], ks[i], vs[i], kvp, qp),
+            lambda i: ref.ref_decode_attention(qs[i], khs[i], vhs[i], kvp,
+                                               qp),
+            lambda i: F.scaled_dot_product_attention(
+                qs[i].reshape(B, Hkv_ * G_, 1, D_), khs[i], vhs[i],
+                enable_gqa=True),
+            n_sets, bound_ms(nbytes, 4 * D_ * Hkv_ * G_ * B * nv, dtype),
+            timed=False))
+        del qs, ks, vs, khs, vhs
+        torch.cuda.empty_cache()
+
+
+def logit_gap(cfg, params, mcfg, mparams, tokens, vision):
+    """(max |merged - source| logit, max |source logit|) of one prompt's
+    last position, the kernels' forward."""
+    import torch
+    from repro_torch.models import forward_seq
+    x = torch.as_tensor(tokens, device="cuda")[None]
+    v = torch.as_tensor(vision, device="cuda")[None]
+    a, _, _ = forward_seq(params, cfg, x, vision=v, impl="cuda")
+    b, _, _ = forward_seq(mparams, mcfg, x, vision=v, impl="cuda")
+    a, b = a[0, -1, :cfg.vocab_size], b[0, -1, :cfg.vocab_size]
+    return float((a - b).abs().max()), float(a.abs().max())
+
+
+def block_rms(cfg, params, tokens, vision):
+    """The source stream's RMS after each block on one prompt (the
+    kernels' forward): where a calibrated random skipless stack leaves
+    its O(1) regime."""
+    import torch
+    from repro_torch.models import block_sequence
+    from repro_torch.models.transformer import apply_block_seq, embed_inputs
+    x = torch.as_tensor(tokens, device="cuda")[None]
+    h = embed_inputs(params, cfg, x)
+    ctx = {"positions": torch.arange(x.shape[1], device="cuda")[None],
+           "impl": "cuda",
+           "vision": torch.as_tensor(vision, device="cuda")[None].to(h.dtype)}
+    out = []
+    for kind, lp, _ in block_sequence(params, cfg):
+        h, _, _, _ = apply_block_seq(lp, cfg, h, ctx, kind)
+        out.append(float(h.float().pow(2).mean().sqrt()))
+    return out
+
+
+def vlm_path(summary):
+    """Llama-3.2-Vision-11B at full width (40 layers, d 4096, GQA 32/8 of
+    128, d_ff 14336, vocab 128,256, a cross-attention layer every 5th over
+    1600 vision tokens), skipless from seed 0, and its qp merge (the cross
+    layers keep wk/wv, P folds into their FFN); the Mistral path's four
+    prompt lengths, each with its own seeded (1600, 4096) vision array, 16
+    new tokens each, the dense cache:
+
+    * ``VLM_EQ_LAYERS`` calibrated layers in float32 (10: two groups, so
+      the cross -> next-self fold is exercised; if merged != source there,
+      the first mismatch and its logit margin are printed and 5 are
+      tried): merged == source greedy streams, exact launch counts, the
+      kernels' prefill logits against the plain forward (1e-4 of the
+      logit scale); ``ScheduledEngine`` and the paged pools refuse vision;
+    * 40 layers in bfloat16: exact launch counts (per prefill 40 generic
+      flash launches, 8 of them non-causal over the vision tokens; per
+      decode step 32 merged + 8 generic decode launches merged, 40
+      generic source), merged tok/s and TTFT (one run), decode-step
+      profiles of both, peak device memory."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import removed_weight_count, weight_table
+    from repro_torch.serving import (Engine, Request, ScheduledEngine,
+                                     ServeConfig)
+
+    max_new, lens = 16, (16, 37, 100, 250)
+    n = len(lens)
+    out = {}
+    with torch.no_grad():
+        for L in VLM_EQ_LAYERS:
+            cfg, params, mcfg, mparams = build(L, True, VLM_ARCH)
+            rng = np.random.default_rng(5)
+            prompts = [rng.integers(0, cfg.vocab_size, m) for m in lens]
+            vision = [rng.standard_normal(
+                (cfg.n_vision_tokens, cfg.d_model), np.float32)
+                for _ in lens]
+            got = {}
+            for tag, c, p, merged in (("source", cfg, params, False),
+                                      ("merged", mcfg, mparams, True)):
+                eng, res, counts, _ = serve(c, p, prompts, max_new,
+                                            vision=vision)
+                check_counts(f"{VLM_ARCH} {tag} float32 ({L} layers)",
+                             counts, eng, L, n, merged)
+                got[tag] = streams(res)
+            if got["merged"] == got["source"]:
+                break
+            bad = first_mismatch(cfg, params, prompts, got["source"],
+                                 got["merged"], vision)
+            # the logit gap there, and on the calibration prompt (whose
+            # layers are O(1) by construction): a broken fold would show on
+            # both, float32 drift through a chaotic stack on the first only
+            crng = np.random.default_rng(1)
+            calib = (crng.integers(0, cfg.vocab_size, 64),
+                     crng.standard_normal((cfg.n_vision_tokens, cfg.d_model),
+                                          np.float32))
+            i, j = bad[0], bad[1]
+            at = (np.concatenate([prompts[i], np.asarray(got["source"][i][:j],
+                                                         np.int64)]),
+                  vision[i])
+            gaps = {name: logit_gap(cfg, params, mcfg, mparams, *x)
+                    for name, x in (("mismatch", at), ("calibration", calib))}
+            log(f"  {VLM_ARCH} ({L} layers, float32): merged and source "
+                f"greedy streams differ: prompt {i}, position {j}, source "
+                f"top-2 margin {bad[2]:.3g}; max |merged - source logit| / "
+                f"max |logit| there {gaps['mismatch'][0]:.3g} / "
+                f"{gaps['mismatch'][1]:.3g}, on the calibration prompt "
+                f"{gaps['calibration'][0]:.3g} / {gaps['calibration'][1]:.3g}")
+            rms = block_rms(cfg, params, *at)
+            log(f"  the source stream's RMS after each block there: "
+                + ", ".join(f"{r:.3g}" for r in rms))
+            out[f"gap_{L}_layers"] = gaps
+            out[f"rms_{L}_layers"] = rms
+            if L == VLM_EQ_LAYERS[-1]:
+                raise AssertionError(f"{VLM_ARCH}: merged != source at {L} "
+                                     f"layers")
+            del params, mparams, eng, p
+            torch.cuda.empty_cache()
+        rel = kernels_vs_plain(f"{VLM_ARCH} source", cfg, params, prompts[3],
+                               1e-4, vision[3])
+        rel_m = kernels_vs_plain(f"{VLM_ARCH} merged", mcfg, mparams,
+                                 prompts[3], 1e-4, vision[3])
+        removed = removed_weight_count(params, mparams)
+        if removed != weight_table(cfg)["removed"]:
+            raise AssertionError(f"{VLM_ARCH}: the merge removed "
+                                 f"{removed:,d} weights, the table says "
+                                 f"{weight_table(cfg)['removed']:,d}")
+        sc = ServeConfig(n_slots=4, max_len=512)
+        for fn in (lambda: ScheduledEngine(mcfg, mparams, sc, impl="cuda",
+                                           device="cuda").submit(
+                Request(prompt=prompts[0]), vision=vision[0]),
+                lambda: Engine(mcfg, mparams, sc, impl="cuda",
+                               cache="paged", device="cuda"),
+                lambda: Engine(mcfg, mparams, sc, impl="cuda",
+                               device="cuda").submit(
+                    Request(prompt=prompts[0]))):
+            try:
+                fn()
+            except ValueError as e:
+                log(f"  refused, as in the reference: {e}")
+            else:
+                raise AssertionError(f"{VLM_ARCH}: a vision refusal did not "
+                                     f"raise")
+        log(f"  {VLM_ARCH} ({L} layers, float32): merged == source "
+            f"{[x[:6] for x in got['source']]} …; the merge removed "
+            f"{removed:,d} weights = weight_table's")
+        out.update(eq_layers=L, plain_vs_kernels_rel_f32=rel,
+                   plain_vs_kernels_rel_f32_merged=rel_m)
+        del params, mparams, eng, p
+        torch.cuda.empty_cache()
+
+        L = get_config(VLM_ARCH).n_layers
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, mcfg, mparams = build(L, False, VLM_ARCH,
+                                           dtype="bfloat16")
+        models = (("source", cfg, params, False),
+                  ("merged", mcfg, mparams, True))
+        for tag, c, p, merged in models:
+            eng, res, counts, _ = serve(c, p, prompts, max_new,
+                                        vision=vision)
+            check_counts(f"{VLM_ARCH} {tag} bfloat16 dense ({L} layers)",
+                         counts, eng, L, n, merged)
+            summary["launches"] = {k: summary["launches"][k] + counts[k]
+                                   for k in KERNELS}
+        serve(mcfg, mparams, prompts, max_new, vision=vision)  # warm-up
+        eng, res, counts, wall = serve(mcfg, mparams, prompts, max_new,
+                                       vision=vision)
+        if not all(0 <= t < mcfg.vocab_size for o in res for t in o):
+            raise AssertionError(f"{VLM_ARCH}: out-of-vocab ids")
+        out["bf16"] = report(f"{VLM_ARCH} merged bfloat16, dense cache ({L} "
+                             f"layers, 1600 vision tokens a request)", res,
+                             wall)
+        profs = {tag: profile_decode(c, p, prompts, "dense", vision=vision)
+                 for tag, c, p, _ in models}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  {VLM_ARCH} bfloat16 ({L} layers): peak device memory "
+            f"{peak:.1f} GB (source and merge resident together)")
+        out.update(layers=L, peak_gb=peak, decode_profile=profs["merged"],
+                   decode_profile_source=profs["source"])
+        del models, params, mparams, p, c, eng
+        torch.cuda.empty_cache()
+    summary["vlm"] = out
+
+
+def audio_path(summary):
+    """HuBERT-XLarge at full width (48 layers, d 1280, MHA 16 of D 80,
+    d_ff 5120, GeLU MLP, conv positional embedding of width 128), an
+    encoder: no cache, no engine; seeded frame embeddings stand in for the
+    conv feature extractor, as in the reference.
+
+    * 4 calibrated layers in float32, B 2 x 250 frames: the qp, kp and vp
+      merges' logits against the source's, and the kernels' forward
+      against the plain forward, within ``AUDIO_TOL`` of the logit scale;
+      each forward launches the generic flash kernel (non-causal, D 80)
+      once per layer and nothing else;
+    * 48 layers in bfloat16, B 4 x 1000 frames (``AUDIO_FRAMES``): 48 row-1
+      launches per forward, exactly; the source's and the qp merge's
+      forward profiled (device ms, busy share, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import merge_skipless
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward_seq
+
+    out = {}
+
+    def forward(c, p, frames, impl="cuda"):
+        reset_launch_counts()
+        lg, _, _ = forward_seq(p, c, frames, impl=impl)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {k: 0 for k in KERNELS}
+        if impl == "cuda":
+            want["flash_attention_bhsd"] = c.n_layers
+        if counts != want:
+            raise AssertionError(f"{c.name} forward: launch counts {counts} "
+                                 f"!= {want}")
+        if not torch.isfinite(lg).all() or lg.shape[:2] != frames.shape[:2]:
+            raise AssertionError(f"{c.name}: bad logits {lg.shape}")
+        return lg, counts
+
+    with torch.no_grad():
+        cfg, params, mcfg, mparams = build(EQ_LAYERS, True, AUDIO_ARCH)
+        frames = torch.as_tensor(np.random.default_rng(6).standard_normal(
+            (2, 250, cfg.d_model), np.float32), device="cuda")
+        ref_lg, _ = forward(cfg, params, frames)
+        scale = float(ref_lg.abs().max())
+        errs = {}
+        for v in ("qp", "kp", "vp"):
+            mp, mc = (mparams, mcfg) if v == "qp" else \
+                merge_skipless(params, cfg, v)
+            lg, _ = forward(mc, mp, frames)
+            errs[v] = float((lg - ref_lg).abs().max()) / scale
+            del mp
+        plain, _ = forward(cfg, params, frames, impl="torch")
+        errs["kernels_vs_plain"] = float((ref_lg - plain).abs().max()) / scale
+        log(f"  {AUDIO_ARCH} ({EQ_LAYERS} layers, float32, B 2 x 250 "
+            f"frames): max |logit diff| / logit scale {scale:.3g}: "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + f" (gate {AUDIO_TOL:g})")
+        if not 0 < scale or any(e > AUDIO_TOL for e in errs.values()):
+            raise AssertionError(f"{AUDIO_ARCH}: merges or kernels beyond "
+                                 f"{AUDIO_TOL:g} of the logit scale: {errs}")
+        out.update(eq_layers=EQ_LAYERS, rel_err_f32=errs)
+        del params, mparams, frames, ref_lg, plain
+        torch.cuda.empty_cache()
+
+        L = get_config(AUDIO_ARCH).n_layers
+        cfg, params, mcfg, mparams = build(L, False, AUDIO_ARCH,
+                                           dtype="bfloat16")
+        frames = torch.as_tensor(np.random.default_rng(7).standard_normal(
+            AUDIO_FRAMES + (cfg.d_model,), np.float32),
+            device="cuda").to(torch.bfloat16)
+        for tag, c, p in (("source", cfg, params), ("merged", mcfg, mparams)):
+            _, counts = forward(c, p, frames)
+            summary["launches"] = {k: summary["launches"][k] + counts[k]
+                                   for k in KERNELS}
+            out[f"forward_profile_{tag}"] = profiled(
+                f"forward profile, {AUDIO_ARCH} {tag}, bfloat16 ({L} layers, "
+                f"B {AUDIO_FRAMES[0]} x {AUDIO_FRAMES[1]} frames)",
+                lambda: forward_seq(p, c, frames, impl="cuda"), 3)
+        out["layers"] = L
+        del params, mparams, frames
+        torch.cuda.empty_cache()
+    summary["audio"] = out
+
+
 
 _SYNC_SINK = []  # the Counter that ``sync_counted`` fills, while it counts
 
@@ -2683,18 +3071,19 @@ def profiled(what, fn, steps, ranges=()):
 
 
 def profile_decode(cfg, params, prompts, cache, steps=5, max_len=512,
-                   ranges=(), **serve_kw):
+                   ranges=(), vision=None, **serve_kw):
     """``profiled`` over ``steps`` batched decode steps of the 4-slot
     engine on ``cache`` (``serve_kw``: more ``ServeConfig`` fields, e.g. a
-    temperature; ``ranges``: as ``profiled``'s), the prompts prefilled
-    first."""
+    temperature; ``ranges``: as ``profiled``'s), the prompts (a VLM's with
+    their ``vision``) prefilled first."""
     from repro_torch.serving import Engine, Request, ServeConfig
 
     eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=max_len,
                                           **serve_kw),
                  impl="cuda", cache=cache, device="cuda")
-    for p in prompts:
-        eng.submit(Request(prompt=p, max_new_tokens=steps + 2))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(prompt=p, max_new_tokens=steps + 2),
+                   vision=None if vision is None else vision[i])
     eng.step()
     extra = "".join(f", {k} {v}" for k, v in serve_kw.items())
     return profiled(f"decode profile, {cfg.name}, {cache} cache, {cfg.dtype} "
@@ -2828,6 +3217,9 @@ def run() -> int:
     paged_phase(rng, rows, q8=False, attn=CHATGLM_ATTN)
     paged_phase(rng, rows, q8=True, attn=CHATGLM_ATTN)
     decode_phase(rng, rows, attn=G12_ATTN)
+    # the VLM's and HuBERT's shapes: non-causal flash with Sk != Sq and at
+    # D 80, the cross step's decode read in place
+    cross_phase(rng, rows)
     log(f"kernel phase ({card}; times in ms, L2 cold, per call from a CUDA "
         f"graph of 30 calls: median [three replays], then the eager timer "
         f"of earlier runs; bound = the larger of the bytes at 3.35 TB/s and "
@@ -2852,6 +3244,8 @@ def run() -> int:
     mamba2_path(summary)
     dense_configs_path(summary)
     moe_path(summary)
+    vlm_path(summary)
+    audio_path(summary)
     obs_path(summary)
 
     kernels = []

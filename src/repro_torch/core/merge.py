@@ -1,7 +1,7 @@
 """Exact weight-removal transforms for skipless transformers (the paper).
 
-Counterpart of ``repro.core.merge`` for dense, MoE and hybrid serial
-stacks.
+Counterpart of ``repro.core.merge`` for every serial family: dense,
+MoE, hybrid, VLM and the audio encoder.
 ``merge_skipless(params, cfg, variant)`` maps a ``block_style="skipless"``
 (Fig 1a) parameter tree to a mathematically identical
 ``block_style="skipless_merged"`` tree (Fig 1b/c/d per Table 1):
@@ -21,8 +21,12 @@ MoE block, into the float32 router and every expert's ``w_gate`` and
 A hybrid block (attention heads beside SSM heads,
 ``repro.models.mamba2``) gets the Q-removal half only: its FFN reads the
 fused attention+SSM stream, so P stays, and the SSM ``in_proj`` is one
-more consumer of u.  Pure SSM stacks have no Q/K/V/P: they raise
-ValueError.  With QKV biases, consumers get
+more consumer of u.  A VLM's next-T chain runs self(g, s) ->
+self(g, s + 1) -> cross(g) -> self(g + 1, 0); its cross blocks keep
+wk/wv (they read the vision tokens, not the stream), so only "qp" is
+legal there.  An encoder's continuous frames cannot fold T_0 into an
+embedding table: the merge emits an explicit ``input_proj`` (= T_0)
+instead.  Pure SSM stacks have no Q/K/V/P: they raise ValueError.  With QKV biases, consumers get
 ``b'_c = b_c − b_T (T⁻¹ W_c)`` and the previous block's output gains
 ``b_out = b_T`` (the embedding gains ``embed_bias``).
 
@@ -41,7 +45,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch._tree import tree_leaves
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import layer_plan
 
@@ -55,9 +59,14 @@ def _mats(w, i: int):
 
 
 def condition_numbers(params, cfg: ModelConfig, variant: str = "qp") -> np.ndarray:
-    """cond₂(T_i) per layer — the paper §4 invertibility audit."""
+    """cond₂(T_i) per layer — the paper §4 invertibility audit (a VLM: its
+    self layers in order, then its cross layers)."""
+    w = params["layers"]["attn"]["w" + variant[0]]
+    mats = list(w.reshape(-1, *w.shape[-2:]))
+    if layer_plan(cfg)["kind"] == "vlm":
+        mats += list(params["cross_layers"]["attn"]["w" + variant[0]])
     conds = []
-    for m in params["layers"]["attn"]["w" + variant[0]]:
+    for m in mats:
         s = torch.linalg.svdvals(m.to(_F64))
         conds.append(float(s[0] / s[-1]))
     return np.asarray(conds)
@@ -65,9 +74,9 @@ def condition_numbers(params, cfg: ModelConfig, variant: str = "qp") -> np.ndarr
 
 def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
                    variant: str = "qp") -> Tuple[Dict[str, Any], ModelConfig]:
-    """Exact (Fig 1) merge of a serial skipless dense, MoE or hybrid model.
-    Returns (merged_params, merged_cfg); tensors the merge does not change
-    are shared with ``params``."""
+    """Exact (Fig 1) merge of a serial skipless dense, MoE, hybrid, VLM or
+    audio-encoder model.  Returns (merged_params, merged_cfg); tensors the
+    merge does not change are shared with ``params``."""
     if cfg.block_style != "skipless":
         raise ValueError("merge_skipless expects block_style='skipless'")
     if cfg.parallel_block:
@@ -77,19 +86,79 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
     kind = layer_plan(cfg)["kind"]
     if kind == "ssm":
         raise ValueError("pure SSM stacks have no Q/K/V/P to merge")
-    if kind not in ("attn", "hybrid") or \
-            cfg.family not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(
-            f"merge of family {cfg.family!r} is not ported yet (ROADMAP.md)")
-    hybrid = kind == "hybrid"
+    if kind == "vlm":
+        if variant != "qp":
+            raise ValueError("VLM merge supports the qp variant (cross-attn "
+                             "K/V read vision tokens, which are not "
+                             "stream-basis)")
+        if cfg.qkv_bias:
+            raise NotImplementedError("vlm merge with QKV biases")
     mcfg = cfg.with_(block_style="skipless_merged", merged_variant=variant)
     mcfg.validate_style()
-
-    layers = params["layers"]
-    attn = layers["attn"]
-    L = attn["w" + variant[0]].shape[0]
     t = variant[0]
-    consumers = [n for n in ("q", "k", "v") if n != t]
+    out: Dict[str, Any] = {k: v for k, v in params.items()
+                           if k not in ("layers", "cross_layers", "embed")}
+
+    if kind == "vlm":
+        slf, crs = params["layers"], params["cross_layers"]  # (ng, spg, …)
+        ng, spg = slf["attn"]["wq"].shape[:2]
+        flat = tree_map(lambda x: x.reshape((ng * spg,) + x.shape[2:]), slf)
+        Tq, Tc = flat["attn"]["wq"], crs["attn"]["wq"]
+
+        def next_self(j):  # self(g, s) -> self(g, s + 1), or cross(g)
+            g, s_ = divmod(j, spg)
+            return (Tq[j + 1] if s_ + 1 < spg else Tc[g]).to(_F64)
+
+        def next_cross(g):  # cross(g) -> self(g + 1, 0); identity last
+            return Tq[(g + 1) * spg].to(_F64) if g + 1 < ng else None
+
+        merged = _merge_stack(flat, variant, next_self)
+        out["layers"] = tree_map(
+            lambda x: x.view((ng, spg) + tuple(x.shape[1:])), merged)
+        out["cross_layers"] = _merge_stack(crs, variant, next_cross,
+                                           cross=True)
+        T0, b0 = Tq[0], None
+    else:
+        attn = params["layers"]["attn"]
+        T, L = attn["w" + t], attn["w" + t].shape[0]
+        out["layers"] = _merge_stack(
+            params["layers"], variant,
+            lambda i: T[i + 1].to(_F64) if i + 1 < L else None)
+        T0 = T[0]
+        b0 = attn["b" + t][0] if ("b" + t) in attn else None
+
+    # fold T_0 (+ b_T0) into the embedding table; an encoder's frames
+    # cannot fold it into a table, so it keeps T_0 as an input projection
+    table = params["embed"]["table"]
+    if b0 is not None:
+        out["embed_bias"] = b0.to(table.dtype, copy=True)
+    if cfg.family == "audio":
+        out["embed"] = params["embed"]
+        out["input_proj"] = T0.to(table.dtype, copy=True)
+        return out, mcfg
+    out["embed"] = {"table": (table.to(_F64) @ T0.to(_F64)).to(table.dtype)}
+    if cfg.tie_embeddings:
+        # the unembedding keeps the ORIGINAL table: the basis rotation
+        # applies to the input side only.  Untie.
+        out["unembed"] = {"table": table}
+        mcfg = mcfg.with_(tie_embeddings=False)
+    return out, mcfg
+
+
+def _merge_stack(layers, variant: str, T_next, cross: bool = False):
+    """Merge a stacked (L, …) tree of serial blocks one layer at a time:
+    layer i's remaining attention projections (the consumers of its input
+    basis) become T_i⁻¹ W, its P folds into the FFN input matrices (a
+    hybrid block keeps P and its SSM ``in_proj`` is one more consumer),
+    and its w_down (every expert's) absorbs ``T_next(i)`` (float64, or
+    None for the identity after the last block).  A VLM's cross block
+    (``cross``) reads the stream only through its removed Q: it keeps
+    wk/wv (they read the vision tokens) and gets no consumer step."""
+    attn = layers["attn"]
+    t = variant[0]
+    L = attn["wp"].shape[0]
+    hybrid = "ssm" in layers
+    consumers = [] if cross else [n for n in ("q", "k", "v") if n != t]
     has_bias = ("b" + t) in attn
     if hybrid and has_bias:
         raise NotImplementedError("hybrid merge with QKV biases")
@@ -98,7 +167,8 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
     f_in = [n for n in ("router", "w_gate", "w_up", "w_in") if n in ffn]
     f_out = "w_out" if "w_out" in ffn else "w_down"
 
-    new_attn: Dict[str, torch.Tensor] = {}
+    new_attn: Dict[str, torch.Tensor] = \
+        {n: attn[n] for n in ("wk", "wv")} if cross else {}
     for n in consumers:
         new_attn["w" + n] = torch.empty_like(attn["w" + n])
         if has_bias or ("b" + n) in attn:
@@ -120,9 +190,9 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
     if has_bias:
         new_layers["b_out"] = torch.empty_like(attn["b" + t])
 
-    T = attn["w" + t][0].to(_F64)
     for i in range(L):
-        Tinv = torch.linalg.inv(T)
+        if consumers or hybrid:
+            Tinv = torch.linalg.inv(attn["w" + t][i].to(_F64))
         bT = attn["b" + t][i].to(_F64) if has_bias else None
         # (b) consumers of u: W' = T⁻¹ W, b' = b − b_T (T⁻¹ W)
         for n in consumers:
@@ -146,32 +216,15 @@ def merge_skipless(params: Dict[str, Any], cfg: ModelConfig,
                     dst.copy_(P @ w.to(_F64))
             del P
         # w_down (every expert's) absorbs the next T
-        T_next = attn["w" + t][i + 1].to(_F64) if i + 1 < L else None
+        T_next_i = T_next(i)
         for w, dst in zip(_mats(ffn[f_out], i), _mats(new_ffn[f_out], i)):
-            dst.copy_(w if T_next is None else w.to(_F64) @ T_next)
+            dst.copy_(w if T_next_i is None else w.to(_F64) @ T_next_i)
         if has_bias:  # the next block's folded bias enters after w_down
             nb = attn["b" + t][i + 1] if i + 1 < L \
                 else torch.zeros_like(attn["b" + t][i])
             new_layers["b_out"][i] = nb
-        if T_next is not None:
-            T = T_next
-        del Tinv
-
-    out: Dict[str, Any] = {k: v for k, v in params.items()
-                           if k not in ("layers", "embed")}
-    out["layers"] = new_layers
-    # fold T_0 (+ b_T0) into the embedding table
-    table = params["embed"]["table"]
-    T0 = attn["w" + t][0].to(_F64)
-    out["embed"] = {"table": (table.to(_F64) @ T0).to(table.dtype)}
-    if has_bias:
-        out["embed_bias"] = attn["b" + t][0].to(table.dtype, copy=True)
-    if cfg.tie_embeddings:
-        # the unembedding keeps the ORIGINAL table: the basis rotation
-        # applies to the input side only.  Untie.
-        out["unembed"] = {"table": table}
-        mcfg = mcfg.with_(tie_embeddings=False)
-    return out, mcfg
+        del T_next_i
+    return new_layers
 
 
 def removed_weight_count(params_before, params_after) -> int:

@@ -139,7 +139,10 @@ def library(name: str) -> ctypes.CDLL:
 # --------------------------------------------------------------------------
 
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
-HEAD_DIMS = (64, 128)
+# the head dims each attention source instantiates: flash also takes
+# HuBERT-XLarge's 80 (an encoder: no decode path needs it)
+HEAD_DIMS = {"flash_attention": (64, 80, 128),
+             "decode_attention": (64, 128)}
 
 
 def on_cuda(name: str, *tensors) -> bool:
@@ -167,11 +170,12 @@ def _check_layout(name: str, tensors, strided: bool = False) -> None:
             raise ValueError(f"{name}: operand too large for int32 offsets")
 
 
-def check_operands(name: str, data, ints=(), strided: bool = False) -> int:
+def check_operands(name: str, data, ints=(), strided: bool = False,
+                   head_dims=HEAD_DIMS["decode_attention"]) -> int:
     """Checks dtype, layout (``_check_layout``) and int32 addressability of
     the float operands ``data`` (one dtype, float32 or bfloat16) and the
-    int32 operands ``ints``; returns the dtype code the launch function
-    takes."""
+    int32 operands ``ints``, and that the head dim is one of
+    ``head_dims``; returns the dtype code the launch function takes."""
     dt = data[0].dtype
     if any(t.dtype != dt for t in data) or str(dt) not in DTYPE_CODES:
         raise ValueError(f"{name}: float operands must share float32 or "
@@ -182,17 +186,18 @@ def check_operands(name: str, data, ints=(), strided: bool = False) -> int:
         if str(t.dtype) != "torch.int32":
             raise ValueError(f"{name}: position and table operands must be "
                              f"int32, got {t.dtype}")
-    if data[0].shape[-1] not in HEAD_DIMS:
+    if data[0].shape[-1] not in head_dims:
         raise ValueError(f"{name}: head dim {data[0].shape[-1]} not in "
-                         f"{HEAD_DIMS}")
+                         f"{head_dims}")
     return DTYPE_CODES[str(dt)]
 
 
-def check_q8_operands(name: str, q, pools, scales, ints=()) -> int:
+def check_q8_operands(name: str, q, pools, scales, ints=(),
+                      head_dims=HEAD_DIMS["decode_attention"]) -> int:
     """``check_operands`` for an int8 operation: the query ``q`` (float32
     or bfloat16, whose code is returned), int8 ``pools`` of its head dim
     and their float32 ``scales``."""
-    code = check_operands(name, (q,), ints)
+    code = check_operands(name, (q,), ints, head_dims=head_dims)
     if any(str(t.dtype) != "torch.int8" for t in pools) or \
             any(str(t.dtype) != "torch.float32" for t in scales):
         raise ValueError(f"{name}: K/V must be int8 and their scales "

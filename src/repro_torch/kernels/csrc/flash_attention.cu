@@ -56,6 +56,14 @@
 //     need.  Still open at long prompts, where it stays below SDPA's rate
 //     (PERF.md): a TMA producer warp, ping-pong scheduling of two consumer
 //     warpgroups, a persistent grid.
+//     Head dim 80 (HuBERT-XLarge: 1280 / 16 heads) is not a whole number of
+//     64-column swizzle atoms.  Its K/V tiles are laid out as D 128 (two
+//     atoms, columns 80..127 never written): Q K^T runs the five 16-column
+//     k blocks it needs, all inside the swizzle pattern D 128 uses, and
+//     P V runs at N 128, whose output columns 80..127 (fed by the unwritten
+//     V columns) are dropped.  The waste: 48 of every 128 P V columns
+//     (1.3x the tensor work of Q K^T + P V at D 80) and 37.5% of each
+//     K/V tile's shared memory.
 //   * float32: plain FMA in float32 (wgmma would take float32 as TF32,
 //     about three decimal digits).  One block per 32 query rows walks kv
 //     tiles of 64 held as float32 in shared memory (q8: dequantized on the
@@ -397,13 +405,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
+// Columns of a bf16 K/V tile in shared memory: D rounded up to whole
+// 64-column swizzle atoms (D 80 is laid out as D 128)
+__host__ __device__ constexpr int tile_cols(int D) {
+  return (D + 63) / 64 * 64;
+}
+
 // Shared memory of the bf16 body: NS stages of K and V tiles (bf16,
 // swizzled), plus for q8 two int8 staging slots each for K and V and the
 // tile's 64 k and 64 v scales; 1024 B of slack align the tiles to the
 // swizzle pattern.  (Q lives in registers.)
 template <bool Q8, int D>
 constexpr int wg_smem_bytes() {
-  return 1024 + 2 * (Q8 ? 1 : 3) * WQ * D * 2 +
+  return 1024 + 2 * (Q8 ? 1 : 3) * WQ * tile_cols(D) * 2 +
          (Q8 ? 4 * WK * D + 2 * WK * 4 : 0);
 }
 
@@ -417,10 +431,11 @@ __global__ void __launch_bounds__(NWG * WT) flash_wgmma_kernel(FlashArgs a) {
   // ahead; q8 tiles land in two staging slots and are widened just before
   // their step
   constexpr int NS = Q8 ? 1 : 3;
-  constexpr int TILE = WQ * D * 2;  // bytes of a 64 x D bf16 tile
+  constexpr int DS = tile_cols(D);  // columns of a tile in shared memory
+  constexpr int TILE = WQ * DS * 2;  // bytes of a 64 x DS bf16 tile
   constexpr int CH = D / 8;  // 16-byte chunks in a bf16 row
   constexpr int CH8 = D / 16;  // 16-byte chunks in an int8 row
-  constexpr int NO = D / 2;  // output accumulators per thread
+  constexpr int NO = DS / 2;  // output accumulators per thread (P V at N DS)
   constexpr int NTH = NWG * WT;  // threads per block
   static_assert(WT == 2 * WK, "one thread per k or v scale of a tile");
   extern __shared__ unsigned char smem_raw[];
@@ -599,7 +614,7 @@ __global__ void __launch_bounds__(NWG * WT) flash_wgmma_kernel(FlashArgs a) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dv = desc(aV + kk * 2048, ATOM, 1024);
-      if constexpr (D == 64)
+      if constexpr (DS == 64)
         wgmma_rs_n64(o, p[kk], dv);
       else
         wgmma_rs_n128(o, p[kk], dv);
@@ -749,7 +764,8 @@ int flash(int dtype, int D, const void* q, const void* k, const void* v,
           const void* k_scale, const void* v_scale, void* out, int B, int Hq,
           int Hkv, int Sq, int Sk, int q_sb, int q_ss, int q_sh, int k_sb,
           int k_ss, int k_sh, int causal, int window, int sg, void* stream) {
-  if ((D != 64 && D != 128) || (dtype != 0 && dtype != 1) || Hkv < 1 ||
+  if ((D != 64 && D != 80 && D != 128) || (dtype != 0 && dtype != 1) ||
+      Hkv < 1 ||
       Hq % Hkv != 0 || (Q8 && (sg < 1 || Sk % sg != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   // the bf16 body moves 16-byte chunks: pointers 16-byte aligned, strides a
@@ -788,11 +804,13 @@ int flash(int dtype, int D, const void* q, const void* k, const void* v,
   using H = __nv_bfloat16;
   cudaError_t err;
   if (dtype == 0)
-    err = D == 64 ? launch<F, KVOf<F, Q8>, 64>(a, B, st)
-                  : launch<F, KVOf<F, Q8>, 128>(a, B, st);
+    err = D == 64   ? launch<F, KVOf<F, Q8>, 64>(a, B, st)
+          : D == 80 ? launch<F, KVOf<F, Q8>, 80>(a, B, st)
+                    : launch<F, KVOf<F, Q8>, 128>(a, B, st);
   else
-    err = D == 64 ? launch_wgmma<KVOf<H, Q8>, 64>(a, B, st)
-                  : launch_wgmma<KVOf<H, Q8>, 128>(a, B, st);
+    err = D == 64   ? launch_wgmma<KVOf<H, Q8>, 64>(a, B, st)
+          : D == 80 ? launch_wgmma<KVOf<H, Q8>, 80>(a, B, st)
+                    : launch_wgmma<KVOf<H, Q8>, 128>(a, B, st);
   return static_cast<int>(err);
 }
 
@@ -800,7 +818,7 @@ int flash(int dtype, int D, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32 (the FMA body), 1 = bfloat16 (the wgmma body); the
 // query's and the output's type, K/V share it or are int8 for the q8
-// variant.  D must be 64 or 128; the bf16 body also needs 16-byte aligned
+// variant.  D must be 64, 80 or 128; the bf16 body also needs 16-byte aligned
 // pointers and strides.  Strides are in elements; the output takes the
 // query's.  Returns a cudaError_t (0 on success); the Python wrapper
 // raises on any other value.

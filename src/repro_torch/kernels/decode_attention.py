@@ -5,6 +5,9 @@ pairs:
 
   * ``decode_attention_bhsd`` — generic: a separately-projected grouped
     query (B, Hkv, G, D) against a head-major (B, Hkv, S, D) cache;
+    ``decode_attention_bshd`` launches the same kernel on a
+    sequence-major (B, S, Hkv, D) cache read in place (a VLM's cross
+    K/V);
   * ``decode_attention_merged_bsd`` — the paper's merged (Q/P-removed)
     fast path: the RoPE'd residual stream viewed (B, Hq, D) is the query,
     K*/V* are read in the serving cache's native (B, S, Hkv, D) layout and
@@ -196,6 +199,36 @@ def decode_attention_bhsd(
     return _launch(name, q, k, v, kv_positions, q_position,
                    q_strides=(Hkv * G * D, G * D),
                    k_strides=(Hkv * S * D, S * D, D),
+                   Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
+
+
+def decode_attention_bshd(
+    q: torch.Tensor,  # (B, Hkv, G, D) — grouped query heads
+    k: torch.Tensor,  # (B, S, Hkv, D) — native (sequence-major) layout
+    v: torch.Tensor,  # (B, S, Hkv, D)
+    kv_positions: torch.Tensor,  # (B, S) int32; -1 marks empty slots
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Generic decode attention over a sequence-major cache read in place
+    -> (B, Hkv, G, D): the ``decode_attention_bhsd`` kernel launched on
+    the cache's own strides (no head-major copy), counted under its
+    key."""
+    name = "decode_attention_bhsd"
+    if not _build.on_cuda(name, q, k, v, kv_positions, q_position):
+        return ref_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                    kv_positions, q_position,
+                                    sliding_window=sliding_window)
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape:
+        raise ValueError(f"{name}: k/v must be (B, S, Hkv, D) = "
+                         f"{(B, S, Hkv, D)}, got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    return _launch(name, q, k, v, kv_positions, q_position,
+                   q_strides=(Hkv * G * D, G * D),
+                   k_strides=(S * Hkv * D, D, Hkv * D),
                    Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
 
 

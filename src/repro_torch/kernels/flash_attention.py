@@ -1,5 +1,5 @@
-"""Causal / sliding-window GQA flash attention: wrappers of
-``csrc/flash_attention.cu``.
+"""Causal / sliding-window / non-causal GQA flash attention: wrappers of
+``csrc/flash_attention.cu`` (head dims 64, 80 and 128).
 
 Counterparts of ``repro.kernels.flash_attention``'s three kernels:
 
@@ -39,8 +39,10 @@ def _launch(name, q, k, v, *, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
     (k_scale, v_scale), each (B, Sk // sg, Hkv); the output takes q's
     strides.  ``strided`` operands need only a dense last dimension."""
     D = q.shape[-1]
+    dims = _build.HEAD_DIMS["flash_attention"]
     if scales:
-        code = _build.check_q8_operands(name, q, (k, v), scales)
+        code = _build.check_q8_operands(name, q, (k, v), scales,
+                                        head_dims=dims)
         n_sg = scales[0].shape[1]
         if any(tuple(s.shape) != (B, n_sg, Hkv) for s in scales) or \
                 n_sg < 1 or Sk % n_sg:
@@ -48,7 +50,8 @@ def _launch(name, q, k, v, *, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
                              f"with sg | Sk={Sk}, got "
                              f"{[tuple(s.shape) for s in scales]}")
     else:
-        code = _build.check_operands(name, (q, k, v), strided=strided)
+        code = _build.check_operands(name, (q, k, v), strided=strided,
+                                     head_dims=dims)
     if Hq % Hkv:
         raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv heads")
     out = torch.empty_like(q)  # q's strides: q is contiguous or dense

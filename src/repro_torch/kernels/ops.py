@@ -7,7 +7,9 @@ The generic flash wrapper hands the sequence-major q/k/v to the
 ``flash_attention_bhsd`` kernel with their own strides
 (``flash_attention_bshd``: no copies); the generic dense decode wrapper
 keeps the reference's head-major transposes (``.contiguous()`` copies of
-q and of the whole cache), part of what the merged layout removes.  The
+q and of the whole cache), part of what the merged layout removes.  A
+VLM's cross K/V, written once by the prefill and read every step, go to
+the same decode kernel in place (``decode_attention_native``).  The
 merged wrappers hand the stream and the native cache to the kernel as
 views.  Unlike the TPU wrappers there is no block-size search: the CUDA
 kernels mask ragged tails, so any prompt length runs at full tile size.
@@ -33,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.decode_attention import (
-    decode_attention_bhsd, decode_attention_merged_bsd,
+    decode_attention_bhsd, decode_attention_bshd, decode_attention_merged_bsd,
     decode_attention_paged_bhsd, decode_attention_paged_merged_bsd,
     decode_attention_paged_q8_bhsd, decode_attention_paged_q8_merged_bsd)
 from repro_torch.kernels.flash_attention import (
@@ -110,6 +112,27 @@ def decode_attention(
         q.reshape(B, Hkv, Hq // Hkv, D).contiguous(),
         k_cache.transpose(1, 2).contiguous(),
         v_cache.transpose(1, 2).contiguous(),
+        kv_positions.to(torch.int32).contiguous(),
+        q_position.to(torch.int32).contiguous(),
+        sliding_window=sliding_window)
+    return out.reshape(B, Hq, D)
+
+
+def decode_attention_native(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_cache: torch.Tensor,  # (B, S, Hkv, D), read in place
+    v_cache: torch.Tensor,  # (B, S, Hkv, D)
+    *,
+    kv_positions: torch.Tensor,  # (B, S) int32, -1 empty
+    q_position: torch.Tensor,  # (B,) int32
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """``decode_attention`` without the head-major copies: the kernel reads
+    the contiguous (B, S, Hkv, D) cache on its own strides."""
+    B, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    out = decode_attention_bshd(
+        q.reshape(B, Hkv, Hq // Hkv, D).contiguous(), k_cache, v_cache,
         kv_positions.to(torch.int32).contiguous(),
         q_position.to(torch.int32).contiguous(),
         sliding_window=sliding_window)

@@ -227,6 +227,32 @@ def decode_attention_core_positions(
     return out.reshape(B, Hq, D)
 
 
+def decode_attention_core_cross(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_cache: torch.Tensor,  # (B, nv, Hkv, D) — a VLM's cross K/V
+    v_cache: torch.Tensor,  # (B, nv, Hkv, D)
+    *,
+    kv_positions: torch.Tensor,  # (B, nv) int
+    q_position: torch.Tensor,  # (B,) int
+    impl: str = "torch",
+) -> torch.Tensor:
+    """One token's cross-attention over a VLM's vision K/V -> (B, Hq, D):
+    what ``decode_attention_core_positions`` computes.  ``impl="cuda"``
+    hands the cross cache to the generic decode kernel in place
+    (``kernels.ops.decode_attention_native``): it never changes after
+    prefill, so a head-major copy per step would be pure traffic."""
+    _check_impl(impl)
+    if impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.decode_attention_native(
+            q, k_cache, v_cache, kv_positions=kv_positions,
+            q_position=q_position)
+    return decode_attention_core_positions(
+        q, k_cache, v_cache, kv_positions=kv_positions,
+        q_position=q_position, impl=impl)
+
+
 # ---------------------------------------------------------------------------
 # paged decode cores (block-table gather over a physical page pool)
 # ---------------------------------------------------------------------------

@@ -154,3 +154,29 @@ def apply_unembedding(params, x: torch.Tensor) -> torch.Tensor:
     the matmul and widened after."""
     t = params["table"]
     return torch.matmul(x.to(t.dtype), t.T).float()
+
+
+# ---------------------------------------------------------------------------
+# hubert-style depthwise conv positional embedding (encoder, rope_style none)
+# ---------------------------------------------------------------------------
+
+def init_conv_pos(gen, dim: int, width: int, dtype=torch.float32):
+    """Depthwise conv kernel in the reference's layout (width, 1, dim)."""
+    std = 1.0 / np.sqrt(width)
+    return {"kernel": (_normal(gen, (width, 1, dim)) * std).to(dtype),
+            "bias": torch.zeros((dim,), dtype=dtype, device=gen.device)}
+
+
+def apply_conv_pos(params, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) -> x + gelu(depthwise_conv(x)) (wav2vec2 positional conv),
+    in float32.  Cross-correlation (no flip) as in both packages, padded
+    (width // 2, width - 1 - width // 2): ``F.conv1d``'s symmetric
+    ``padding=`` cannot pad an even width so, hence the explicit pad.  On
+    the card the convolution is cuDNN's, which runs float32 in TF32 unless
+    ``torch.backends.cudnn.allow_tf32`` is off."""
+    width = params["kernel"].shape[0]
+    lo = width // 2
+    w = params["kernel"].float().permute(2, 1, 0)  # (D, 1, width)
+    xp = F.pad(x.float().transpose(1, 2), (lo, width - 1 - lo))
+    y = F.conv1d(xp, w, groups=x.shape[-1]).transpose(1, 2)
+    return x + gelu(y + params["bias"].float()).to(x.dtype)

@@ -1,13 +1,24 @@
-"""Dense, MoE, Mamba2 (SSM) and hybrid stacks in all paper block styles:
-setup, the sequence forward, prefill into the dense cache, a paged pool or
-an int8 paged pool, and one-token decode against any of them.
+"""Dense, MoE, Mamba2 (SSM), hybrid, VLM and audio-encoder stacks in all
+paper block styles: setup, the sequence forward, prefill into the dense
+cache, a paged pool or an int8 paged pool, and one-token decode against
+any of them.
 
-Counterpart of ``repro.models.transformer`` for the plan kinds "attn"
-(the dense family, and the moe family, whose FFN is ``models.moe``),
-"ssm" (mamba2 mixer blocks) and "hybrid" (attention heads in parallel
-with SSM heads, mean-fused, then the FFN); VLM and audio raise
-NotImplementedError (see ROADMAP.md).  The paged pools serve
-attention-only stacks: SSM state has no pages.  An MoE FFN routes as in
+Counterpart of ``repro.models.transformer`` for every plan kind: "attn"
+(the dense, moe and audio families; an MoE FFN is ``models.moe``), "ssm"
+(mamba2 mixer blocks), "hybrid" (attention heads in parallel with SSM
+heads, mean-fused, then the FFN) and "vlm" (groups of
+``cross_attn_every - 1`` self-attention layers and one cross-attention
+layer whose queries come from the stream and whose K/V come from the
+vision tokens, without RoPE).  The VLM's self layers are stacked
+(n_groups, self_per_group, …) and its cross layers (n_groups, …); the
+cache keeps the self layers' K/V flattened (n_groups · self_per_group, …)
+beside the cross K/V (n_groups, B, n_vision, Hkv, Dh), written once by
+the prefill.  An encoder (``causal=False``: the audio family, whose input
+is frames (B, S, d_model) and whose positions come from a depthwise
+convolution) runs through ``forward_seq`` only: the cache-writing entry
+points refuse it, as the reference's engine does.  The paged pools serve
+attention-only stacks: SSM state and vision K/V have no pages.  An MoE
+FFN routes as in
 the reference: whole-prompt prefill (``forward_seq``, ``forward_prefill``)
 drops pairs by ``capacity_factor`` over a group of ``moe_group`` (or B·S)
 tokens, padding included; chunk programs and the decode step route
@@ -61,20 +72,18 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
+    apply_conv_pos,
     apply_embedding,
     apply_rmsnorm,
     apply_rope,
     apply_unembedding,
     dense_init,
     dtype_of,
+    init_conv_pos,
     init_embedding,
     init_rmsnorm,
     orthogonal_init,
 )
-
-_NOT_PORTED = ("not ported yet: the port serves dense, MoE, SSM and "
-               "hybrid stacks (see ROADMAP.md, 'Modules to port')")
-
 
 def _init_fn_for(cfg: ModelConfig):
     """Orthogonal init for skipless styles (norm-preserving, cond(Q)≈1 so
@@ -104,27 +113,43 @@ def layer_plan(cfg: ModelConfig) -> Dict[str, Any]:
     return {"kind": "attn", "n": cfg.n_layers}
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if layer_plan(cfg)["kind"] not in ("attn", "ssm", "hybrid") or \
-            cfg.conv_pos_width or \
-            cfg.family not in ("dense", "moe", "ssm", "hybrid") or \
-            (cfg.n_experts and cfg.family != "moe"):
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) is {_NOT_PORTED}")
+def _require_decoder(cfg: ModelConfig, what: str) -> None:
+    """The cache-writing entry points serve decoders only: an encoder
+    (``causal=False``) runs through ``forward_seq``."""
+    if not cfg.causal:
+        raise ValueError(f"{what} serves decoders; {cfg.name} is an encoder "
+                         "(causal=False): use forward_seq")
+
+
+def n_attn_layers(cfg: ModelConfig) -> int:
+    """Self-attention layers holding per-token K/V (the leading axis of
+    every serving cache's k/v)."""
+    plan = layer_plan(cfg)
+    if plan["kind"] in ("attn", "hybrid"):
+        return plan["n"]
+    if plan["kind"] == "vlm":
+        return plan["n_groups"] * plan["self_per_group"]
+    return 0
 
 
 # ---------------------------------------------------------------------------
 # per-layer param init
 # ---------------------------------------------------------------------------
 
-def _init_attn_proj(gen, cfg: ModelConfig, dtype, merged: bool):
+def _init_attn_proj(gen, cfg: ModelConfig, dtype, merged: bool,
+                    cross: bool = False):
     """Q/K/V/P params for one attention sub-module.  Merged styles omit
-    the eliminated pair per ``cfg.merged_variant`` (paper Table 1)."""
+    the eliminated pair per ``cfg.merged_variant`` (paper Table 1).
+    Cross-attention keeps wk/wv (they read the vision tokens, which are
+    not in the stream's basis), so only "qp" is legal there."""
     d, ad, kd = cfg.d_model, cfg.attn_dim, cfg.kv_dim
     init_fn = _init_fn_for(cfg)
     dev = gen.device
     p: Dict[str, Any] = {}
     variant = cfg.merged_variant if merged else ""
+    if variant and cross and variant != "qp":
+        raise ValueError("cross-attention supports only the qp merged "
+                         "variant")
     if variant != "qp":
         p["wq"] = init_fn(gen, d, ad, dtype)
         if cfg.qkv_bias:
@@ -150,14 +175,23 @@ def _is_merged(style: str) -> bool:
     return style in ("skipless_merged", "residual_qpfree")
 
 
-def init_block(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
-    """One block's params for the config's plan kind."""
+def _block_kind(cfg: ModelConfig, kind: Optional[str]) -> str:
+    """A block's kind: ``kind`` if given ("cross" for a VLM's cross
+    layers), else the plan's, a VLM's self layers being "attn"."""
+    kind = kind or layer_plan(cfg)["kind"]
+    return "attn" if kind == "vlm" else kind
+
+
+def init_block(gen, cfg: ModelConfig, dtype,
+               kind: Optional[str] = None) -> Dict[str, Any]:
+    """One block's params for the config's plan kind (or ``kind``)."""
     style = cfg.block_style
     merged = _is_merged(style)
-    kind = layer_plan(cfg)["kind"]
+    kind = _block_kind(cfg, kind)
     p: Dict[str, Any] = {}
-    if kind in ("attn", "hybrid"):
-        p["attn"] = _init_attn_proj(gen, cfg, dtype, merged)
+    if kind in ("attn", "hybrid", "cross"):
+        p["attn"] = _init_attn_proj(gen, cfg, dtype, merged,
+                                    cross=kind == "cross")
     if kind == "hybrid" and "wp" not in p["attn"]:
         # the hybrid's merged style removes Q only: P stays, since the FFN
         # reads the fused attention+SSM stream
@@ -168,7 +202,7 @@ def init_block(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
         # merged serial attention stacks: FFN (or MoE) input dim is
         # attn_dim (P folded in)
         ffn_in = cfg.attn_dim if (merged and not cfg.parallel_block
-                                  and kind == "attn") else cfg.d_model
+                                  and kind != "hybrid") else cfg.d_model
         if cfg.n_experts and kind == "attn":
             p["moe"] = moe_mod.init_moe(gen, ffn_in, cfg.d_ff, cfg.d_model,
                                         cfg.n_experts, cfg.ffn_type, dtype)
@@ -184,23 +218,11 @@ def init_block(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
     return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *,
-                device="cuda") -> Dict[str, Any]:
-    """Random parameters made on ``device`` from a seeded
-    ``torch.Generator`` there.  The layer stack is filled one layer at a
-    time into preallocated (L, …) tensors, so the peak is one copy of the
-    model (plus one layer)."""
-    _require_ported(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(dev).manual_seed(seed)
-    dtype = dtype_of(cfg.param_dtype)
-    params: Dict[str, Any] = {}
-    params["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype)
-    if not cfg.tie_embeddings:
-        params["unembed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
-                                           dtype)
-    first = init_block(gen, cfg, dtype)
-    n = cfg.n_layers
+def _init_stack(gen, cfg: ModelConfig, dtype, n: int,
+                kind: Optional[str] = None):
+    """``n`` blocks stacked (n, …), filled one block at a time into
+    preallocated tensors."""
+    first = init_block(gen, cfg, dtype, kind)
     stacked = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
 
     def put(i, block):
@@ -210,10 +232,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     put(0, first)
     del first
     for i in range(1, n):
-        put(i, init_block(gen, cfg, dtype))
-    params["layers"] = stacked
+        put(i, init_block(gen, cfg, dtype, kind))
+    return stacked
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *,
+                device="cuda") -> Dict[str, Any]:
+    """Random parameters made on ``device`` from a seeded
+    ``torch.Generator`` there.  The layer stacks are filled one layer at a
+    time into preallocated (L, …) tensors, so the peak is one copy of the
+    model (plus one layer).  A VLM's self layers are (n_groups,
+    self_per_group, …) and its cross layers ``params["cross_layers"]``
+    (n_groups, …); an encoder with ``conv_pos_width`` gets
+    ``params["conv_pos"]``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    dtype = dtype_of(cfg.param_dtype)
+    plan = layer_plan(cfg)
+    params: Dict[str, Any] = {}
+    params["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype)
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                           dtype)
+    if plan["kind"] == "vlm":
+        ng, spg = plan["n_groups"], plan["self_per_group"]
+        params["layers"] = tree_map(
+            lambda x: x.view((ng, spg) + tuple(x.shape[1:])),
+            _init_stack(gen, cfg, dtype, ng * spg))
+        params["cross_layers"] = _init_stack(gen, cfg, dtype, ng, "cross")
+    else:
+        params["layers"] = _init_stack(gen, cfg, dtype, cfg.n_layers)
     if _needs_norms(cfg.block_style):
         params["final_norm"] = init_rmsnorm(cfg.d_model, dtype, dev)
+    if cfg.conv_pos_width:
+        params["conv_pos"] = init_conv_pos(gen, cfg.d_model,
+                                           cfg.conv_pos_width, dtype)
     return params
 
 
@@ -224,6 +277,25 @@ def count_params(params) -> int:
 def layer_params(params, i: int):
     """Layer ``i``'s slice (views) of the stacked layer tree."""
     return tree_map(lambda x: x[i], params["layers"])
+
+
+def block_sequence(params, cfg: ModelConfig):
+    """The blocks in the order the stream runs through them: (kind, block
+    params (views), index) where ``index`` is the block's row in the
+    cache's self-attention K/V (k/v's leading axis) or, for a VLM's cross
+    block, its group (cross_k/cross_v's leading axis).  A VLM runs
+    self(g, 0) … self(g, spg - 1), cross(g) for each group g."""
+    plan = layer_plan(cfg)
+    if plan["kind"] != "vlm":
+        for i in range(cfg.n_layers):
+            yield plan["kind"], layer_params(params, i), i
+        return
+    spg = plan["self_per_group"]
+    for g in range(plan["n_groups"]):
+        for s in range(spg):
+            yield "attn", tree_map(lambda x: x[g, s], params["layers"]), \
+                g * spg + s
+        yield "cross", tree_map(lambda x: x[g], params["cross_layers"]), g
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +383,24 @@ def _self_attention_seq(lp, cfg: ModelConfig, u, positions, merged: bool,
     return out.reshape(B, S, cfg.attn_dim), (k, v)
 
 
+def _cross_attention_seq(lp, cfg: ModelConfig, u, vision, merged: bool,
+                         impl: str):
+    """Cross-attention over a sequence: queries from the stream u (B,S,d),
+    K/V from the vision tokens (B,nv,d), no RoPE, every query attending
+    every vision token (``causal=False``: on ``impl="cuda"`` the generic
+    flash kernel's non-causal branch, Sk = nv).  Returns (cat (B,S,ad),
+    (k, v)), k/v (B, nv, Hkv, Dh): what the cache keeps as cross K/V."""
+    q, k, v = _project_qkv(lp, cfg, u, vision, merged)
+    B, S, nv = u.shape[0], u.shape[1], vision.shape[1]
+    dev = u.device
+    qpos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    kpos = torch.arange(nv, dtype=torch.int32, device=dev).expand(B, nv)
+    out = attn_mod.attention_core(q, k, v, q_positions=qpos, kv_positions=kpos,
+                                  causal=False, sliding_window=0, impl=impl,
+                                  query_chunk=cfg.query_chunk or S)
+    return out.reshape(B, S, cfg.attn_dim), (k, v)
+
+
 def _attn_out_proj(lp, cat):
     return cat @ lp["wp"].to(cat.dtype)
 
@@ -356,16 +446,19 @@ def _apply_style(p, cfg: ModelConfig, u, mixer_fn, dropless: bool = False):
     raise ValueError(style)
 
 
-def apply_block_seq(p, cfg: ModelConfig, u, ctx):
+def apply_block_seq(p, cfg: ModelConfig, u, ctx, kind: Optional[str] = None):
     """One block over a sequence -> (out_stream, aux_loss, kv, state).
+    ``kind`` is the plan's by default ("cross" for a VLM's cross block,
+    which reads ``ctx["vision"]``).
     ``aux_loss`` is the MoE load-balance loss (the float 0.0 without
     experts); the MoE drops pairs by ``capacity_factor``.  ``kv`` is
     (k, v), or (k ints, k scales, v ints, v scales) under
-    ``ctx["q8_block"]``, for blocks with attention, else None; ``state``
-    is the SSM mixer's ``SSMState`` after the last position (final scan
-    state and conv tail) for blocks with one, else None."""
+    ``ctx["q8_block"]``, for blocks with attention (a cross block's over
+    the vision tokens), else None; ``state`` is the SSM mixer's
+    ``SSMState`` after the last position (final scan state and conv tail)
+    for blocks with one, else None."""
     merged = _is_merged(cfg.block_style)
-    kind = layer_plan(cfg)["kind"]
+    kind = _block_kind(cfg, kind)
     kv, st = [None], [None]
 
     def ssm_fn(x):
@@ -380,6 +473,11 @@ def apply_block_seq(p, cfg: ModelConfig, u, ctx):
         return u + ssm_fn(x), 0.0, None, st[0]
 
     def mixer_fn(x):
+        if kind == "cross":
+            cat, kv[0] = _cross_attention_seq(p["attn"], cfg, x,
+                                              ctx["vision"], merged,
+                                              ctx["impl"])
+            return cat if merged else _attn_out_proj(p["attn"], cat)
         cat, kv[0] = _self_attention_seq(
             p["attn"], cfg, x, ctx["positions"], merged, ctx["impl"],
             merged_core=ctx.get("merged_core", False),
@@ -409,6 +507,8 @@ def embed_inputs(params, cfg: ModelConfig, tokens_or_frames):
             h = h * (2.0 / 0.02)
     else:
         h = tokens_or_frames.to(cdt)  # stubbed modality frontend output
+    if "conv_pos" in params:
+        h = apply_conv_pos(params["conv_pos"], h)
     # merged models: frame inputs cannot fold Q_0 into a table, so the
     # merge keeps Q_0 as an explicit input projection
     if "input_proj" in params:
@@ -426,16 +526,22 @@ def _logits(params, cfg: ModelConfig, h):
 
 
 def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
-               impl: str = "torch", collect: bool = False,
+               vision=None, impl: str = "torch", collect: bool = False,
                merged_core: bool = False, cache_kind: str = "dense",
                q8_block: int = 0, q8_true_len=None):
     """Embed, every block, the logits -> (logits, aux, kvs, states):
     ``aux`` sums the layers' MoE load-balance losses (0.0 without
     experts).  With
-    ``collect``: ``kvs`` stacks the attention layers' K/V (None without
-    attention) and ``states`` the SSM layers' ``SSMState``s, (L, B, …)
-    each (None without SSM layers)."""
-    _require_ported(cfg)
+    ``collect``: ``kvs`` stacks the self-attention layers' K/V (None
+    without attention), followed on a VLM by its cross layers' K/V over
+    the vision tokens, and ``states`` the SSM layers' ``SSMState``s,
+    (L, B, …) each (None without SSM layers).  ``vision`` (B, nv, d) is
+    required by a VLM and refused by every other stack."""
+    if (vision is not None) != (layer_plan(cfg)["kind"] == "vlm"):
+        raise ValueError(
+            f"{cfg.name}: vision tokens are " +
+            ("required (a VLM's cross-attention layers read them)"
+             if vision is None else "only for a VLM's cross-attention"))
     B, S = inputs.shape[0], inputs.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -443,17 +549,19 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
     h = embed_inputs(params, cfg, inputs)
     ctx = {"positions": positions, "impl": impl, "merged_core": merged_core,
            "cache_kind": cache_kind, "q8_block": q8_block,
-           "q8_true_len": q8_true_len}
-    kv_layers, st_layers = [], []
+           "q8_true_len": q8_true_len,
+           "vision": None if vision is None else vision.to(h.dtype)}
+    kv_layers, cross_layers, st_layers = [], [], []
     aux = 0.0
-    for i in range(cfg.n_layers):
-        h, a, kv, st = apply_block_seq(layer_params(params, i), cfg, h, ctx)
+    for kind, lp, _ in block_sequence(params, cfg):
+        h, a, kv, st = apply_block_seq(lp, cfg, h, ctx, kind)
         aux = aux + a
         if collect and kv is not None:
-            kv_layers.append(kv)
+            (cross_layers if kind == "cross" else kv_layers).append(kv)
         if collect and st is not None:
             st_layers.append(st)
     kvs = tuple(torch.stack(t) for t in zip(*kv_layers)) \
+        + tuple(torch.stack(t) for t in zip(*cross_layers)) \
         if kv_layers else None
     states = m2.SSMState(*(torch.stack(t) for t in zip(*st_layers))) \
         if st_layers else None
@@ -461,17 +569,22 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
 
 
 def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
-                impl: str = "torch", collect_kv: bool = False,
+                vision=None, impl: str = "torch", collect_kv: bool = False,
                 merged_core: bool = False, cache_kind: str = "dense",
                 q8_block: int = 0, q8_true_len=None):
-    """Full-sequence forward over int tokens (B,S) -> (logits, aux, kvs).
+    """Full-sequence forward over int tokens (B,S), or an encoder's frames
+    (B,S,d_model), -> (logits, aux, kvs).  A VLM takes ``vision``
+    (B, nv, d_model) patch embeddings, which its cross layers attend; an
+    encoder (``causal=False``) attends non-causally.
 
     ``aux`` is the sum of the layers' MoE load-balance losses (0 without
     experts); the MoE drops pairs by ``capacity_factor`` over groups of
     ``moe_group`` (or B·S) tokens, as whole-prompt prefill does.
 
     ``kvs`` is (k, v), each (L, B, S, Hkv, Dh), when ``collect_kv`` on a
-    stack with attention (None otherwise).
+    stack with attention (None otherwise); a VLM's is (k, v, cross_k,
+    cross_v), its self layers flattened (n_groups · self_per_group, B, S,
+    Hkv, Dh) and its cross layers' (n_groups, B, nv, Hkv, Dh).
     ``merged_core`` routes self-attention through the stream-as-query
     merged core (prefill backends set it for merged qp layouts).
     ``q8_block``/``q8_true_len`` (the int8 pool's prefill) make every
@@ -480,7 +593,7 @@ def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
     (L, B, S, Hkv, Dh) int8 and the scales (L, B, S // q8_block, Hkv)
     float32 (``_self_attention_seq``)."""
     logits, aux, kvs, _ = _run_stack(
-        params, cfg, inputs, positions=positions, impl=impl,
+        params, cfg, inputs, positions=positions, vision=vision, impl=impl,
         collect=collect_kv, merged_core=merged_core, cache_kind=cache_kind,
         q8_block=q8_block, q8_true_len=q8_true_len)
     if not torch.is_tensor(aux):
@@ -498,18 +611,23 @@ class DecodeCache(NamedTuple):
     kv_pos: Optional[torch.Tensor]  # (B, Sc) int32, -1 = empty (all layers)
     length: torch.Tensor  # (B,) int32 — tokens so far (= next position)
     ssm: Optional[m2.SSMState] = None  # stacked (L, …) for ssm / hybrid
+    cross_k: Optional[torch.Tensor] = None  # VLM: (n_groups, B, nv, Hkv, Dh)
+    cross_v: Optional[torch.Tensor] = None
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
     """Shapes and dtypes of an empty cache: k, v and kv_pos for stacks
-    with attention, ssm (a dict of the state and the conv tail) for stacks
-    with SSM layers."""
-    n, kind = cfg.n_layers, layer_plan(cfg)["kind"]
+    with self-attention (a VLM's self layers flattened), ssm (a dict of
+    the state and the conv tail) for stacks with SSM layers, cross_k and
+    cross_v for a VLM."""
+    plan = layer_plan(cfg)
+    n, n_attn = cfg.n_layers, n_attn_layers(cfg)
+    cdt = dtype_of(cfg.dtype)
     spec: Dict[str, Any] = {}
-    if kind in ("attn", "hybrid"):
+    if n_attn:
         Sc = min(max_len, cfg.sliding_window) if cfg.sliding_window \
             else max_len
-        kv = ((n, batch, Sc, cfg.n_kv_heads, cfg.d_head), dtype_of(cfg.dtype))
+        kv = ((n_attn, batch, Sc, cfg.n_kv_heads, cfg.d_head), cdt)
         spec.update(k=kv, v=kv, kv_pos=((batch, Sc), torch.int32))
     spec["length"] = ((batch,), torch.int32)
     if cfg.ssm_state:
@@ -518,12 +636,16 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
                      cfg.ssm_state), torch.float32),
             "conv": ((n, batch, cfg.ssm_conv_width - 1,
                       m2.conv_channels(cfg)), torch.float32)}
+    if plan["kind"] == "vlm":
+        cross = ((plan["n_groups"], batch, cfg.n_vision_tokens,
+                  cfg.n_kv_heads, cfg.d_head), cdt)
+        spec.update(cross_k=cross, cross_v=cross)
     return spec
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> DecodeCache:
-    _require_ported(cfg)
+    _require_decoder(cfg, "the decode cache")
     dev = resolve_device(device)
     spec = cache_spec(cfg, batch, max_len)
 
@@ -537,7 +659,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         ssm=full("ssm", 0, spec["ssm"]), conv=full("conv", 0, spec["ssm"]))
     return DecodeCache(k=full("k", 0), v=full("v", 0),
                        kv_pos=full("kv_pos", -1), length=full("length", 0),
-                       ssm=ssm)
+                       ssm=ssm, cross_k=full("cross_k", 0),
+                       cross_v=full("cross_v", 0))
 
 
 # ---------------------------------------------------------------------------
@@ -716,8 +839,9 @@ def prefill_style_key(cfg: ModelConfig) -> str:
     """Style axis of the PREFILL registry key: "merged" iff every layer can
     run the stream-as-query core (qp variant of the merged styles on
     attention stacks); kp/vp stay "generic" (their eliminated projection
-    is an identity inside ``_project_qkv``), and so do ssm and hybrid
-    stacks (the hybrid keeps P)."""
+    is an identity inside ``_project_qkv``), and so do ssm, hybrid and
+    vlm stacks (the hybrid keeps P; the VLM's cross layers attend vision
+    tokens, so a merged VLM decodes merged but prefills generic)."""
     if layer_plan(cfg)["kind"] != "attn":
         return "generic"
     if cfg.block_style in ("skipless_merged", "residual_qpfree") \
@@ -731,7 +855,8 @@ def _prefill_seq(params, cfg: ModelConfig, inputs, ctx, *,
     """The full-sequence pass every prefill backend starts with ->
     (logits, kvs, SSM states) (``_run_stack``)."""
     logits, _, kvs, states = _run_stack(
-        params, cfg, inputs, impl=ctx.get("impl", "torch"), collect=True,
+        params, cfg, inputs, vision=ctx.get("vision"),
+        impl=ctx.get("impl", "torch"), collect=True,
         merged_core=merged_core, cache_kind=cache_kind)
     return logits, kvs, states
 
@@ -740,7 +865,9 @@ def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs, states,
                   dest: DensePrefillDest, ctx, B: int, S: int):
     """Place the collected prompt KV into a fresh ``DecodeCache`` (ring-
     phased under a sliding window) beside the SSM layers' states after the
-    last position, and gather the last real logits.  SSM state is not
+    last position (a VLM: beside its cross K/V over the vision tokens, in
+    their native (n_groups, B, nv, Hkv, Dh) layout), and gather the last
+    real logits.  SSM state is not
     position-masked: a right-padded prompt would carry its padding into
     it, so the engine never buckets stacks with SSM layers."""
     true_len = ctx.get("true_len")
@@ -764,7 +891,10 @@ def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs, states,
         out[:, :, :S] = kv_stacked
         return out
 
-    ks, vs = kvs
+    ks, vs = kvs[:2]
+    cross = {} if len(kvs) == 2 else {
+        "cross_k": kvs[2].to(kv_dtype).contiguous(),
+        "cross_v": kvs[3].to(kv_dtype).contiguous()}
     k = place(ks).to(kv_dtype)
     v = place(vs).to(kv_dtype)
     pos = torch.arange(Sc, dtype=torch.int32, device=inputs.device)[None, :] \
@@ -775,7 +905,7 @@ def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs, states,
         kvp = torch.roll(kvp, (S - Sc) % Sc, dims=1)
     return last_logits, DecodeCache(k=k.contiguous(), v=v.contiguous(),
                                     kv_pos=kvp.contiguous(), length=length,
-                                    ssm=states)
+                                    ssm=states, **cross)
 
 
 def _finish_paged(cfg: ModelConfig, logits, kvs, dest: PagedPrefillDest, ctx,
@@ -923,7 +1053,7 @@ backends.register_prefill_backend("paged_q8", "merged",
 
 
 def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
-                    impl: str = "torch", true_len=None):
+                    vision=None, impl: str = "torch", true_len=None):
     """Cache-aware prefill: the single dispatcher over the PREFILL
     registry.  ``dest`` names the destination and selects the cache_kind
     axis of the registry key:
@@ -942,12 +1072,20 @@ def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
     right-padded, the logits are gathered at ``true_len - 1`` and the
     cache marks padded positions empty (dense: kv_pos = -1; paged: in-page
     positions past the request's length, hidden by the causal mask) with
-    ``length = true_len``.  Invalid requests (paged on a non-attention
-    stack, paged batch > 1, too few mapped blocks, an int8 prompt that is
-    not a whole number of pages, a non-positive dense cache_len) raise
-    ValueError; unknown (cache_kind, style, impl) combos raise the
-    registry's KeyError."""
+    ``length = true_len``.  A VLM takes its (B, n_vision_tokens, d_model)
+    ``vision`` here (dense cache only: its cross K/V have no pages).
+    Invalid requests (an encoder, vision missing or misshapen, paged on a
+    non-attention stack, paged batch > 1, too few mapped blocks, an int8
+    prompt that is not a whole number of pages, a non-positive dense
+    cache_len) raise ValueError; unknown (cache_kind, style, impl) combos
+    raise the registry's KeyError."""
+    _require_decoder(cfg, "forward_prefill")
     B, S = int(inputs.shape[0]), int(inputs.shape[1])
+    if vision is not None and tuple(vision.shape) != (
+            B, cfg.n_vision_tokens, cfg.d_model):
+        raise ValueError(f"vision must be (B, n_vision_tokens, d_model) = "
+                         f"{(B, cfg.n_vision_tokens, cfg.d_model)}, got "
+                         f"{tuple(vision.shape)}")
     if isinstance(dest, (PagedPrefillDest, PagedQ8PrefillDest)):
         quantized = isinstance(dest, PagedQ8PrefillDest)
         kind = "paged_q8" if quantized else "paged"
@@ -978,7 +1116,7 @@ def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
             f"unknown prefill destination {type(dest).__name__!r}; expected "
             "DensePrefillDest, PagedPrefillDest or PagedQ8PrefillDest")
     backend = backends.get_prefill_backend(kind, prefill_style_key(cfg), impl)
-    ctx = {"impl": impl, "true_len": true_len}
+    ctx = {"impl": impl, "true_len": true_len, "vision": vision}
     return backend.run(params, cfg, inputs, dest, ctx)
 
 
@@ -1172,15 +1310,36 @@ backends.register_backend("paged_q8", "merged", _attn_step_paged_q8_merged,
                           fast_path=True)
 
 
+def _cross_attn_step(lp, cfg: ModelConfig, u1, ck, cv, merged: bool, ctx):
+    """One token's cross-attention over the vision K/V ck/cv (B, nv, Hkv,
+    Dh), read in place, every vision token attended (positions
+    ``ctx["cross_pos"]``: arange(nv), queried at nv + 1).  Merged (qp):
+    the stream is the query."""
+    B = u1.shape[0]
+    q = u1
+    if not merged:
+        q = u1 @ lp["wq"].to(u1.dtype)
+        if "bq" in lp:
+            q = q + lp["bq"].to(u1.dtype)
+    kv_pos, q_pos = ctx["cross_pos"]
+    out = attn_mod.decode_attention_core_cross(
+        q.reshape(B, cfg.n_heads, cfg.d_head), ck, cv, kv_positions=kv_pos,
+        q_position=q_pos, impl=ctx["impl"])
+    return out.reshape(B, 1, cfg.attn_dim)
+
+
 def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx,
-                     state: Optional[m2.SSMState] = None):
+                     state: Optional[m2.SSMState] = None,
+                     kind: Optional[str] = None):
     """One block, one token (the cache rows, and the layer's SSM ``state``
     views, are written in place); the chunk programs pass a chunk's C
     tokens.  An MoE routes dropless here, as in the reference's step and
     chunk programs.  On the int8 pool ``k_layer``/``v_layer`` are (pool,
-    scale) pairs, passed through to the backend step as they are."""
+    scale) pairs, passed through to the backend step as they are; for a
+    VLM's cross block (``kind="cross"``) they are its group's vision K/V,
+    only read."""
     merged = _is_merged(cfg.block_style)
-    kind = layer_plan(cfg)["kind"]
+    kind = _block_kind(cfg, kind)
 
     def ssm_fn(x):
         out, new = m2.apply_mamba2_step(p["ssm"], x[:, 0], cfg, state)
@@ -1195,6 +1354,10 @@ def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx,
         return u1 + ssm_fn(x)
 
     def mixer_fn(x):
+        if kind == "cross":
+            cat = _cross_attn_step(p["attn"], cfg, x, k_layer, v_layer,
+                                   merged, ctx)
+            return cat if merged else _attn_out_proj(p["attn"], cat)
         cat, _, _ = ctx["backend"].step(p["attn"], cfg, x, k_layer, v_layer,
                                         ctx)
         if kind == "hybrid":  # P stays: mean-fuse with the SSM heads
@@ -1207,9 +1370,10 @@ def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx,
 def serving_style_key(cfg: ModelConfig) -> str:
     """Style axis of the decode registry key: "merged" iff the per-token
     step can skip every eliminated projection (qp variant of the merged
-    styles on attention stacks); kp/vp decode token-identically through
-    "generic", and so do ssm and hybrid stacks (the hybrid's merge keeps
-    P, so the fast path's contract does not hold)."""
+    styles on attention and vlm stacks: a merged VLM's self layers take
+    the fast path); kp/vp decode token-identically through "generic", and
+    so do ssm and hybrid stacks (the hybrid's merge keeps P, so the fast
+    path's contract does not hold)."""
     if layer_plan(cfg)["kind"] not in ("attn", "vlm"):
         return "generic"
     if cfg.block_style in ("skipless_merged", "residual_qpfree") \
@@ -1229,16 +1393,17 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
     per-token attention reads only K*/V* weights and the merged ``b_out``
     bias is applied in-stream after the FFN.  Unknown (cache_kind, style,
     impl) combos raise KeyError from the registry before any compute, and
-    a paged cache on a stack with SSM layers raises ValueError.  The cache
-    is updated in place: K/V rows, positions, and on ssm / hybrid stacks
-    every layer's SSM state and conv tail."""
+    a paged cache on a stack without attention only, or an encoder,
+    raises ValueError.  The cache is updated in place: K/V rows,
+    positions, and on ssm / hybrid stacks every layer's SSM state and conv
+    tail; a VLM's cross K/V are only read."""
     paged_q8 = isinstance(cache, PagedQ8DecodeCache)
     paged = paged_q8 or isinstance(cache, PagedDecodeCache)
     if not paged and not isinstance(cache, DecodeCache):
         raise ValueError(f"forward_step serves a DecodeCache, a "
                          f"PagedDecodeCache or a PagedQ8DecodeCache, got "
                          f"{type(cache).__name__}")
-    _require_ported(cfg)
+    _require_decoder(cfg, "forward_step")
     plan = layer_plan(cfg)
     if paged and plan["kind"] != "attn":
         raise ValueError(f"paged decode supports attention-only stacks, not "
@@ -1261,18 +1426,27 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
         rows = torch.arange(kv_pos.shape[0], device=kv_pos.device)
         kv_pos[rows, (length % kv_pos.shape[1]).long()] = length
         ctx["kv_pos"] = kv_pos
+    if plan["kind"] == "vlm":  # every vision token, once per step
+        B, nv = cache.cross_k.shape[1], cache.cross_k.shape[2]
+        dev = length.device
+        ctx["cross_pos"] = (
+            torch.arange(nv, dtype=torch.int32, device=dev).expand(B, nv),
+            torch.full((B,), nv + 1, dtype=torch.int32, device=dev))
     ssm = None if paged else cache.ssm
-    for i in range(cfg.n_layers):
-        if paged_q8:
+    for kind, lp, i in block_sequence(params, cfg):
+        st = None
+        if kind == "cross":
+            k_i, v_i = cache.cross_k[i], cache.cross_v[i]
+        elif paged_q8:
             k_i, v_i = (cache.k[i], cache.k_scale[i]), \
                 (cache.v[i], cache.v_scale[i])
         elif cache.k is not None:
             k_i, v_i = cache.k[i], cache.v[i]
         else:
             k_i = v_i = None
-        st = None if ssm is None else m2.SSMState(ssm.ssm[i], ssm.conv[i])
-        h = apply_block_step(layer_params(params, i), cfg, h, k_i, v_i, ctx,
-                             st)
+        if kind != "cross" and ssm is not None:
+            st = m2.SSMState(ssm.ssm[i], ssm.conv[i])
+        h = apply_block_step(lp, cfg, h, k_i, v_i, ctx, st, kind)
     logits = _logits(params, cfg, h)[:, 0, :]
     return logits, cache._replace(length=length + 1)
 
@@ -1611,7 +1785,7 @@ def forward_prefill_chunk(params, cfg: ModelConfig, chunk, dest, *,
         raise ValueError(
             f"chunked prefill supports attention-only stacks, not "
             f"{plan['kind']!r} (family {cfg.family!r})")
-    _require_ported(cfg)
+    _require_decoder(cfg, "forward_prefill_chunk")
     if isinstance(dest, (PagedChunkDest, PagedQ8ChunkDest)):
         kind = "paged_q8" if isinstance(dest, PagedQ8ChunkDest) else "paged"
         bs = int(dest.k_pool.shape[2])

@@ -76,11 +76,12 @@ class KVCacheAdapter:
         raise NotImplementedError
 
     def prefill(self, params, slot: int, padded_row, true_n: int,
-                n_shared: int = 0):
+                n_shared: int = 0, vision=None):
         """Prefill ``padded_row`` (1, S) and install its KV for ``slot``;
         returns the last real position's logits (1, V).  ``n_shared`` is
         what ``admit`` returned: the paged pools skip writing those
-        prefix-shared pages."""
+        prefix-shared pages.  ``vision`` (1, nv, d_model) is a VLM
+        request's patch embeddings (the dense cache only)."""
         raise NotImplementedError
 
     def ensure_appendable(self, slot: int) -> bool:
@@ -157,8 +158,8 @@ class KVCacheAdapter:
 class DenseCacheAdapter(KVCacheAdapter):
     """Worst-case-length slot cache: every slot owns a ``max_len`` (or
     window) stretch of one batched ``DecodeCache``, and, on stacks with SSM
-    layers, its scan state and conv tail.  Serves attention, ssm and
-    hybrid stacks."""
+    layers, its scan state and conv tail, on a VLM its cross K/V over the
+    request's vision tokens.  Serves every decoder stack."""
 
     kind = "dense"
 
@@ -171,9 +172,9 @@ class DenseCacheAdapter(KVCacheAdapter):
         dest = DensePrefillDest(cache_len=self.sc.max_len)
         cfg = self.cfg
 
-        def run(params, tokens, true_len):
-            return forward_prefill(params, cfg, tokens, dest, impl=impl,
-                                   true_len=true_len)
+        def run(params, tokens, true_len, vision):
+            return forward_prefill(params, cfg, tokens, dest, vision=vision,
+                                   impl=impl, true_len=true_len)
 
         self._prefill = run
 
@@ -199,10 +200,11 @@ class DenseCacheAdapter(KVCacheAdapter):
     def admit(self, slot, tokens):
         return 0
 
-    def prefill(self, params, slot, padded_row, true_n, n_shared=0):
+    def prefill(self, params, slot, padded_row, true_n, n_shared=0,
+                vision=None):
         tl = torch.full((1,), true_n, dtype=torch.int32,
                         device=padded_row.device)
-        logits, one = self._prefill(params, padded_row, tl)
+        logits, one = self._prefill(params, padded_row, tl, vision)
         self._cache = kvc.insert_request(self._cache, one, slot)
         return logits
 
@@ -320,7 +322,11 @@ class PagedCacheAdapter(KVCacheAdapter):
     def admit(self, slot, tokens):
         return self.pm.admit(slot, tokens)
 
-    def prefill(self, params, slot, padded_row, true_n, n_shared=0):
+    def prefill(self, params, slot, padded_row, true_n, n_shared=0,
+                vision=None):
+        if vision is not None:
+            raise ValueError("paged serving is attention-only: vision "
+                             "prefill needs the dense cache")
         # the shared pages are the slot's first ``first_owned`` blocks:
         # prefill_block_ids marks them -1, so they are not rewritten
         dev = padded_row.device

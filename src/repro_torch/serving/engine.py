@@ -1,7 +1,11 @@
 """Serving engine: prefill + batched decode over a fixed set of slots.
 
 Counterpart of ``repro.serving.engine`` for the dense cache, the paged
-pool and the int8 paged pool.  The engine drives exactly two seams:
+pool and the int8 paged pool.  A VLM request brings its vision tokens to
+``submit(req, vision=)`` (``generate(..., vision=)``: one array per
+prompt); they are prefilled once into the slot's cross K/V on the dense
+cache (the paged pools refuse them).  An encoder (``causal=False``) has
+no engine.  The engine drives exactly two seams:
 
   * a ``KVCacheAdapter`` (``serving.adapters``) owning the cache: device
     state, admission, the prefill-insert path and room for each next
@@ -281,16 +285,34 @@ class Engine:
             return toks, n
         return np.concatenate([toks, np.zeros((b - n,), np.int32)]), n
 
-    def submit(self, req: Request) -> bool:
+    def _check_vision(self, vision) -> None:
+        """A VLM request needs its (n_vision_tokens, d_model) vision
+        tokens; any other config takes none."""
+        cfg = self.cfg
+        if cfg.family != "vlm":
+            if vision is not None:
+                raise ValueError(f"{cfg.name} has no cross-attention: vision "
+                                 "tokens are for a VLM")
+            return
+        want = (cfg.n_vision_tokens, cfg.d_model)
+        if vision is None or tuple(np.shape(vision)) != want:
+            raise ValueError(f"a {cfg.name} request needs vision tokens of "
+                             f"shape {want}, got "
+                             f"{None if vision is None else np.shape(vision)}")
+
+    def submit(self, req: Request, vision=None) -> bool:
         """Prefill a request into a free slot.  Returns False when no slot
         is free or the adapter defers it (paged: pool exhausted); the
-        caller retries after other requests finish.
+        caller retries after other requests finish.  ``vision``: a VLM
+        request's (n_vision_tokens, d_model) patch embeddings, a host
+        array, required by a VLM and refused otherwise.
 
         A request with ``out_tokens`` already set is a RESUME (preempted
         earlier): its prompt and generated tokens but the last re-prefill,
         and decoding continues from its last token."""
         if req.t_arrival is None:
             req.t_arrival = time.perf_counter()
+        self._check_vision(vision)
         if not self.free_slots:
             return False
         # fail FAST on a request that cannot finish: decode past max_len
@@ -315,9 +337,11 @@ class Engine:
         self.free_slots.pop(0)
         t_p0 = self.obs.clock()  # slot granted: the queued span ends here
         padded, n = self._bucket_pad(toks)
+        vs = None if vision is None else self.host_to_device(
+            vision, np.float32)[None]
         logits = self.kv.prefill(self.params, slot,
                                  self.host_to_device(padded, np.int32)[None],
-                                 n, n_shared)
+                                 n, n_shared, vs)
         if req.rid < 0:
             req.rid = self._rid
             self._rid += 1
@@ -418,21 +442,27 @@ class Engine:
         self.obs.request_preempted(req, slot)
 
     def generate(self, prompts: Sequence[np.ndarray],
-                 max_new_tokens: int = 32) -> List[RequestResult]:
+                 max_new_tokens: int = 32,
+                 vision: Optional[Sequence[Any]] = None
+                 ) -> List[RequestResult]:
         """Keep the slots full until every prompt is done (resumes of
         preempted requests first); one :class:`RequestResult` per prompt,
-        in order."""
+        in order.  ``vision``: a VLM's patch embeddings, one array per
+        prompt."""
         t_gen0 = self.obs.clock()
         t_arrival = time.perf_counter()
         pending = [Request(prompt=np.asarray(p, np.int32),
                            max_new_tokens=max_new_tokens,
                            t_arrival=t_arrival) for p in prompts]
+        vis = {id(r): v for r, v in zip(
+            pending, [None] * len(pending) if vision is None else vision)}
         queue = list(pending)
         while queue or self.active or self.preempted:
             self.obs.queue_depth(len(queue) + len(self.preempted))
             while self.free_slots:
                 waiting = self.preempted or queue
-                if not waiting or not self.submit(waiting[0]):
+                if not waiting or not self.submit(
+                        waiting[0], vision=vis[id(waiting[0])]):
                     break
                 waiting.pop(0)
             if not self.active:

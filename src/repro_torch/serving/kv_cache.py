@@ -8,7 +8,9 @@ a jitted update for the same reason: no copy of the whole cache per
 request).  Merged (Q/P-removed) models use the same layout — K*/V* fill
 the same (L, B, Sc, Hkv, Dh) buffers — so both are style-agnostic.
 Stacks with SSM layers also keep each slot's scan state (L, B, H, P, N)
-and conv tail (L, B, W-1, C); a pure SSM stack has no K/V at all.
+and conv tail (L, B, W-1, C); a pure SSM stack has no K/V at all.  A VLM
+keeps each slot's cross K/V over its vision tokens (n_groups, B, nv, Hkv,
+Dh).
 """
 from __future__ import annotations
 
@@ -19,11 +21,14 @@ def insert_request(cache: DecodeCache, one: DecodeCache,
                    slot: int) -> DecodeCache:
     """Copy the batch-1 cache ``one`` into slot ``slot`` of ``cache``:
     K/V and positions where the stack has attention, the SSM state and
-    conv tail where it has SSM layers."""
+    conv tail where it has SSM layers, a VLM's cross K/V."""
     if cache.k is not None:
         cache.k[:, slot].copy_(one.k[:, 0])
         cache.v[:, slot].copy_(one.v[:, 0])
         cache.kv_pos[slot].copy_(one.kv_pos[0])
+    if cache.cross_k is not None:
+        cache.cross_k[:, slot].copy_(one.cross_k[:, 0])
+        cache.cross_v[:, slot].copy_(one.cross_v[:, 0])
     if cache.ssm is not None:
         cache.ssm.ssm[:, slot].copy_(one.ssm.ssm[:, 0])
         cache.ssm.conv[:, slot].copy_(one.ssm.conv[:, 0])

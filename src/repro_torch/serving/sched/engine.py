@@ -99,10 +99,16 @@ class ScheduledEngine(Engine):
         return s
 
     # ------------------------------------------------------------------
-    def submit(self, req: Request) -> bool:
+    def submit(self, req: Request, vision=None) -> bool:
         """Enqueue ONLY: no prefill runs here.  Always returns True:
         admission control moved into ``step``, where a full pool defers
-        the queue head instead of bouncing the caller."""
+        the queue head instead of bouncing the caller.  Vision prefill is
+        refused (ValueError), as in the reference: a VLM is served by the
+        base ``Engine``, so a VLM request raises here either way."""
+        if vision is not None:
+            raise ValueError("ScheduledEngine is attention-only (no vision "
+                             "prefill); use the base Engine for vlm serving")
+        self._check_vision(None)
         if req.t_arrival is None:
             req.t_arrival = time.perf_counter()
         if (self.paged or not self.cfg.sliding_window) and \
@@ -281,9 +287,13 @@ class ScheduledEngine(Engine):
 
     # ------------------------------------------------------------------
     def generate(self, prompts: Sequence[np.ndarray],
-                 max_new_tokens: int = 32) -> List[RequestResult]:
+                 max_new_tokens: int = 32,
+                 vision=None) -> List[RequestResult]:
         """Drain a batch of prompts through the scheduler; the contract
-        (and, greedy, the tokens) of ``Engine.generate``."""
+        (and, greedy, the tokens) of ``Engine.generate``.  ``vision`` is
+        refused, as in the reference (ValueError)."""
+        if vision is not None and any(v is not None for v in vision):
+            raise ValueError("ScheduledEngine is attention-only (no vlm)")
         t_gen0 = self.obs.clock()
         t_arrival = time.perf_counter()
         pending = [Request(prompt=np.asarray(p, np.int32),

@@ -97,7 +97,7 @@ def test_decode_row_with_nothing_to_attend_is_exactly_zero():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 @pytest.mark.parametrize("Sq", [1, 37, 64, 65, 130, 257, 1000])
 @pytest.mark.parametrize("G", [1, 4, 5])
 @pytest.mark.parametrize("window", [0, 17, 64])
@@ -130,7 +130,7 @@ def test_flash_kernels_match_plain(dtype, D, Sq, G, window, sk_delta):
                                atol=_tol(want))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 @pytest.mark.parametrize("window", [0, 17, 64])
 def test_flash_paired_heads_match_plain(D, window):
     """Enough blocks that the bf16 body pairs the two query heads of a kv
@@ -446,7 +446,7 @@ def test_paged_q8_decode_kernels_match_plain(dtype, G, D, window, bs, MB,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 @pytest.mark.parametrize("S,sg", [(16, 16), (48, 8), (72, 8), (144, 16),
                                   (264, 8), (1008, 16)])
 @pytest.mark.parametrize("G", [1, 4, 5])
@@ -1164,3 +1164,173 @@ def test_sampling_on_the_card():
     assert run(prompts[:1]) == busy[:1]
     assert run(prompts, sched=True) == busy
     assert run(prompts, top_k=1) == run(prompts, temperature=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the VLM and the audio encoder: non-causal flash with Sk != Sq, head dim 80,
+# the cross step's decode over the vision K/V read in place
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("Sq", [1, 37, 250, 1000])
+@pytest.mark.parametrize("Sk", [64, 100, 1600])
+@pytest.mark.parametrize("G", [1, 4])
+def test_flash_kernels_non_causal_match_plain(dtype, D, Sq, Sk, G):
+    """``causal=False`` (VLM cross prefill: Sk = the vision tokens; the
+    encoder: Sk = Sq) in rows 1-3 against the plain versions: Sk a whole
+    tile (64), not a multiple of it (100) and the VLM's 1600, Sq shorter
+    and longer than Sk and straddling the q tiles, head dims 64, 80 and
+    128.  Row 1 also through ``ops.flash_attention`` on sequence-major
+    views."""
+    dev = _cuda()
+    from repro_torch.kernels import ops, quant
+    rng = np.random.default_rng(D + Sq + Sk + G)
+    B, Hkv = 2, 2
+    Hq = G * Hkv
+    u = torch.from_numpy(rng.standard_normal((B, Sq, Hq, D),
+                                             np.float32)).to(dev, dtype)
+    kv = [torch.from_numpy(rng.standard_normal((B, Sk, Hkv, D),
+                                               np.float32)).to(dev)
+          for _ in range(2)]
+    k, v = (x.to(dtype) for x in kv)
+    got = fk.flash_attention_merged_bsd(u, k, v, causal=False)
+    want = ref.ref_flash_attention_merged(u, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (u, k, v))
+    got = fk.flash_attention_bhsd(qh, kh, vh, causal=False)
+    want_h = ref.ref_attention(qh, kh, vh, causal=False)
+    torch.testing.assert_close(got.float(), want_h.float(), rtol=0,
+                               atol=_tol(want_h))
+    got = ops.flash_attention(u, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+    (k8, ks), (v8, vs) = (quant.q8_quantize_seq(x, 4) for x in kv)
+    got = fk.flash_attention_merged_q8_bsd(u, k8, v8, ks, vs, causal=False)
+    want = ref.ref_flash_attention_merged_q8(u, k8, v8, ks, vs,
+                                             causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_decode_reads_the_vision_cache_in_place(dtype):
+    """The VLM cross step's shape (B 4, Hkv 8, G 4, D 128, 1600 vision
+    tokens, all attended at q_position 1601): ``ops.decode_attention_native``
+    launches the generic decode kernel once on the (B, nv, Hkv, D) cache's
+    own strides, allocates no copy of it, and equals the head-major launch
+    and the plain version."""
+    dev = _cuda()
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(11)
+    B, Hkv, G, D, nv = 4, 8, 4, 128, 1600
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * G, D),
+                                             np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, nv, Hkv, D),
+                                                 np.float32)).to(dev, dtype)
+            for _ in range(2))
+    kvp = torch.arange(nv, dtype=torch.int32, device=dev).expand(B, nv)
+    qp = torch.full((B,), nv + 1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    got = ops.decode_attention_native(q, k, v, kv_positions=kvp,
+                                      q_position=qp)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < k.numel() * \
+        k.element_size() // 4
+    counts = launch_counts()
+    assert counts["decode_attention_bhsd"] == 1 and sum(counts.values()) == 1
+    want = ops.decode_attention(q, k, v, kv_positions=kvp, q_position=qp)
+    assert torch.equal(got, want)  # same kernel, same order of sums
+    plain = ref.ref_decode_attention(
+        q.reshape(B, Hkv, G, D), k.transpose(1, 2), v.transpose(1, 2), kvp,
+        qp).reshape(B, Hkv * G, D)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=0,
+                               atol=_tol(plain))
+
+
+def test_decode_wrappers_keep_head_dims_64_and_128():
+    """Head dim 80 is a flash-only domain (the encoder has no decode)."""
+    dev = _cuda()
+    u = torch.zeros((2, 8, 80), device=dev)
+    k = torch.zeros((2, 16, 2, 80), device=dev)
+    kvp = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+    qp = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        dk.decode_attention_merged_bsd(u, k, k, kvp, qp)
+    with pytest.raises(ValueError, match="head dim"):
+        dk.decode_attention_bshd(u.reshape(2, 2, 4, 80), k, k, kvp, qp)
+
+
+def test_vlm_engine_on_the_card_matches_the_cpu_engine():
+    """A reduced skipless VLM (head dim 64, 4 layers, a cross layer every
+    2nd, 40 vision tokens) and its qp merge serve the same greedy streams
+    with vision through the CUDA kernels as through the plain versions on
+    the CPU; each prefill launches the generic flash kernel once per layer
+    (cross layers non-causal over the vision tokens), each decode step the
+    merged (merged self layers) or generic decode kernel per self layer
+    and the generic one per cross layer."""
+    dev = _cuda()
+    from repro_torch.core.merge import merge_skipless
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = reduce_config(get_config("llama3.2-vision-11b")).with_(
+        block_style="skipless", d_model=256, n_heads=4, n_kv_heads=2,
+        d_head=64, n_vision_tokens=40)
+    params = init_params(cfg, seed=0, device="cpu")
+    params["embed"]["table"] *= 50.0
+    mparams, mcfg = merge_skipless(params, cfg, "qp")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 19, 40)]
+    vision = [rng.standard_normal((40, 256)).astype(np.float32)
+              for _ in prompts]
+    sc = ServeConfig(n_slots=2, max_len=64)
+    n_cross = 2
+    for c, p, merged in ((cfg, params, False), (mcfg, mparams, True)):
+        cpu = Engine(c, p, sc, impl="torch", device="cpu").generate(
+            prompts, max_new_tokens=6, vision=vision)
+        reset_launch_counts()
+        eng = Engine(c, tree_map(lambda t: t.to(dev), p), sc, impl="cuda",
+                     device=dev)
+        gpu = eng.generate(prompts, max_new_tokens=6, vision=vision)
+        assert [list(o) for o in gpu] == [list(o) for o in cpu], merged
+        steps = eng.stats["n_steps"]
+        want = {k: 0 for k in launch_counts()}
+        want["flash_attention_bhsd"] = cfg.n_layers * len(prompts)
+        n_self = cfg.n_layers - n_cross
+        if merged:
+            want["decode_attention_merged_bsd"] = n_self * steps
+            want["decode_attention_bhsd"] = n_cross * steps
+        else:
+            want["decode_attention_bhsd"] = cfg.n_layers * steps
+        assert launch_counts() == want, merged
+
+
+@pytest.mark.parametrize("variant", ["source", "qp", "kp", "vp"])
+def test_encoder_on_the_card_matches_the_cpu(variant):
+    """The reduced encoder at HuBERT's head dim 80 (d 160, 2 heads): the
+    kernels' forward (non-causal flash, D 80, one launch per layer) against
+    the plain forward on the CPU, float32, source and the three merges."""
+    dev = _cuda()
+    from repro_torch.core.merge import merge_skipless
+    from repro_torch.models import forward_seq, init_params
+
+    cfg = reduce_config(get_config("hubert-xlarge")).with_(
+        block_style="skipless", d_model=160, n_heads=2, n_kv_heads=2,
+        d_head=80)
+    params = init_params(cfg, seed=0, device="cpu")
+    if variant != "source":
+        params, cfg = merge_skipless(params, cfg, variant)
+    frames = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 77, 160)).astype(np.float32))
+    want, _, _ = forward_seq(params, cfg, frames)
+    reset_launch_counts()
+    got, _, _ = forward_seq(tree_map(lambda t: t.to(dev), params), cfg,
+                            frames.to(dev), impl="cuda")
+    assert launch_counts()["flash_attention_bhsd"] == cfg.n_layers
+    scale = float(want.abs().max())
+    assert 0 < scale and float((got.cpu() - want).abs().max()) <= 1e-4 * scale

@@ -242,8 +242,9 @@ def test_unsupported_inputs_raise():
     with pytest.raises(ValueError, match="destination"):
         tm.forward_prefill(params, tc, torch.zeros((1, 3), dtype=torch.long),
                            (1, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(tc.with_(family="audio"), device="cpu")
+    # every family of the reference is ported: an audio-family config
+    # initialises (its encoder path: tests/test_torch_audio.py)
+    assert "layers" in tm.init_params(tc.with_(family="audio"), device="cpu")
     with pytest.raises(KeyError, match="registered"):
         tm.backends.get_backend("paged_q4", "merged", "cuda")
     assert tm.backends.registered_backends() == [

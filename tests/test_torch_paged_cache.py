@@ -334,8 +334,10 @@ def test_paged_prefill_refuses_bad_destinations():
                                n_blocks=8, device="cpu")
     with pytest.raises(ValueError, match="attention-only"):
         tm.forward_step(p, ssm, torch.zeros(2, dtype=torch.long), c)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward_step(p, tc.with_(family="audio"),
+    # an encoder has no decode step (the reference's engine asserts a
+    # decoder)
+    with pytest.raises(ValueError, match="encoder"):
+        tm.forward_step(p, tc.with_(family="audio", causal=False),
                         torch.zeros(2, dtype=torch.long), c)
 
 

@@ -156,7 +156,22 @@ NVIDIA card.  Run from the repository root:
    then bf16 at 48 layers on B 4 x 1000 frames: 48 flash launches per
    forward (non-causal, D 80) and profiles of the source's and the
    merge's forward;
-12. the obs phase (``obs_path``, last: it turns on PyTorch's GPU trace
+12. training (``train_path``; the train step runs the plain PyTorch
+   forward and its autograd backward, none of the kernels): (a)
+   Llama-3.2-1B whole (16 layers, full width) in the Q/P-free
+   ``residual_qpfree`` style, bf16 compute over float32 params, AdamW,
+   remat, B 8 x S 1024, 30 ``Trainer`` steps: the loss falls by more
+   than 0.02; step time, tokens/s, model FLOPs share, peak memory, the
+   final checkpoint's size and write time, and a profiled step with
+   remat True, False and "dots" (B 4 where B 8 does not fit); (b) a
+   skipless Mistral-7B at full width and 4 calibrated float32 layers
+   trained 20 steps, saved and restored bit for bit through
+   ``training.checkpoint``, merged and served with its source through the
+   kernels: identical greedy streams and exact launch counts (else the
+   first mismatch, the per-block RMS, and 2 layers); (c) one train step
+   of every arch at ``reduce_config`` in every style it admits (and
+   ``grad_accum=2``) on the card against the CPU;
+13. the obs phase (``obs_path``, last: it turns on PyTorch's GPU trace
    hooks to count host syncs): merged bf16 Mistral-7B at 32 layers on the
    paged pool, roomy and tight, through ``Engine`` and
    ``ScheduledEngine`` with ``ServeConfig(obs=True)``: one terminal event
@@ -164,7 +179,7 @@ NVIDIA card.  Run from the repository root:
    requests, pool gauges equal to the allocator's counters, and the
    streams, launch counts and host syncs of the obs-off run; obs-on and
    obs-off tok/s side by side;
-13. prints one JSON line of per-kernel numbers, then, as the last line,
+14. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Everything printed to stdout is also written to ``build/chip_smoke.log``
@@ -2803,6 +2818,380 @@ def audio_path(summary):
     summary["audio"] = out
 
 
+# ---------------------------------------------------------------------------
+# training: the port's train step on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "llama3.2-1b"
+# (a) the Trainer at full width and depth on SyntheticLM
+TRAIN_RUN = dict(batch=8, seq_len=1024, steps=30, log_every=5, lr=3e-4,
+                 warmup=5)
+TRAIN_TIMED_FROM = 5  # the median step time is taken over steps 6-30
+# the profiled step's kernels by kind: float32 GEMMs on FMA units (the
+# tied unembedding multiplies in the float32 table's dtype, the plain
+# attention core's Q K^T in float32; TF32 off), the other GEMMs (bf16),
+# softmax, and elementwise kernels
+TRAIN_KERNEL_GROUPS = (("f32_gemm", ("sgemm", "f32f32_f32f32")),
+                       ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                       ("softmax", ("softmax",)),
+                       ("elementwise", ("elementwise",)))
+# (b) a trained skipless Mistral-7B stack, merged and served: the depths
+# tried in turn (float32 must hold merged == source on the trained stack)
+TRAIN_EQ_LAYERS = (4, 2)
+TRAIN_MERGE = dict(batch=4, seq_len=256, steps=20, lr=1e-4)
+# (c) every family's train step on the card against the CPU
+TRAIN_STYLES = ("standard", "skipless", "skipless_merged", "residual_qpfree")
+TRAIN_TOL = 1e-5  # loss and updated params: of their scale
+# the gradients that reach the optimizer: of each leaf's largest (the
+# port's CPU gradients sit within 1.3e-5 of jax.grad's on these stacks)
+TRAIN_GRAD_TOL = 1e-4
+
+
+def train_path(summary):
+    """Training through ``repro_torch.training`` on the card (the step
+    runs the plain PyTorch forward and its autograd backward: the kernels
+    have no backward, and the reference trains through its XLA cores):
+
+    (a) ``train_llama``: Llama-3.2-1B whole (16 layers, d 2048, 32/8 of
+        64, vocab 128,256, tied) in the paper's trainable Q/P-free style
+        (``residual_qpfree``, Fig. 4), bf16 compute over float32 params,
+        AdamW, remat, B 8 x S 1024 of ``SyntheticLM``, 30 ``Trainer``
+        steps: every logged loss finite and the last below the first by
+        more than 0.02; step time, tokens/s, model FLOPs share, peak
+        memory, the final checkpoint's size and write time, and one
+        profiled step with remat True, False and "dots";
+    (b) ``train_merge_serve``: a skipless Mistral-7B at full width and 4
+        calibrated float32 layers trained 20 steps, saved and restored
+        bit for bit through ``training.checkpoint``, merged
+        (``merge_skipless(..., "qp")``) and served with its source
+        through the kernels on the dense cache: identical greedy streams,
+        exact launch counts (rows 1 and 4 for the source, 2 and 5 for the
+        merge), else the first mismatch and per-block RMS and 2 layers;
+    (c) ``train_card_vs_cpu``: one ``make_train_step`` of every arch at
+        ``reduce_config`` in every style it admits (and ``grad_accum=2``
+        in its standard style) on the card and on the CPU from the same
+        params and batch: loss and updated params within ``TRAIN_TOL``
+        of their scale, the gradients within ``TRAIN_GRAD_TOL``."""
+    summary["train"] = {"llama": train_llama(),
+                        "merge": train_merge_serve(summary),
+                        "card_vs_cpu": train_card_vs_cpu()}
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def train_llama():
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+    from repro_torch.training import (DataConfig, Trainer, TrainerConfig,
+                                      make_train_step)
+
+    r = TRAIN_RUN
+    cfg = get_config(TRAIN_ARCH).with_(block_style="residual_qpfree")
+    cfg.validate_style()
+    ckdir = tempfile.mkdtemp(prefix="train_ckpt_",
+                             dir=os.path.join(ROOT, "build"))
+    tc = TrainerConfig(steps=r["steps"], log_every=r["log_every"],
+                       ckpt_every=r["steps"], ckpt_dir=ckdir, keep_ckpts=1,
+                       lr=r["lr"], warmup=r["warmup"], remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, DataConfig(global_batch=r["batch"],
+                                     seq_len=r["seq_len"], seed=0),
+                 device="cuda")
+    torch.cuda.synchronize()
+    log(f"train {cfg.name} {cfg.block_style} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, GQA {cfg.n_heads}/{cfg.n_kv_heads} of "
+        f"{cfg.d_head}, vocab {cfg.vocab_size}, {cfg.dtype} compute over "
+        f"{cfg.param_dtype} params, AdamW, remat, B {r['batch']} x S "
+        f"{r['seq_len']}): init {time.perf_counter() - t0:.1f} s")
+    saved = {}
+    save = tr.ckpt.save
+
+    def timed_save(*a, **kw):  # the final save; run() waits for its write
+        saved["t0"] = time.perf_counter()
+        save(*a, **kw)
+        saved["snapshot_s"] = time.perf_counter() - saved["t0"]
+
+    tr.ckpt.save = timed_save
+    tr.run()
+    write_s = time.perf_counter() - saved["t0"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    size = _dir_bytes(ckdir)
+    shutil.rmtree(ckdir)
+    losses = [m["loss"] for m in tr.metrics_log]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0] - 0.02:
+        raise AssertionError(f"{cfg.name}: logged losses {losses} do not "
+                             f"fall by 0.02")
+    step_s = statistics.median(tr.straggler.durations[TRAIN_TIMED_FROM:])
+    tokens = r["batch"] * r["seq_len"]
+    n = count_params(tr.params) - (0 if cfg.tie_embeddings else
+                                   tr.params["embed"]["table"].numel())
+    mfu = 6 * n * tokens / step_s / PEAK_FLOPS["torch.bfloat16"]
+    out = {"losses": losses, "step_s": step_s, "tok_s": tokens / step_s,
+           "n_params_flops": n, "model_flops_share": mfu, "peak_gb": peak,
+           "ckpt_gb": size / 1e9, "ckpt_snapshot_s": saved["snapshot_s"],
+           "ckpt_write_s": write_s}
+    log(f"  losses at steps {[m['step'] for m in tr.metrics_log]}: "
+        f"{[round(x, 4) for x in losses]}; step {step_s:.4f} s (median of "
+        f"steps {TRAIN_TIMED_FROM + 1}-{r['steps']}), {tokens / step_s:,.0f} "
+        f"tokens/s, model FLOPs share {100 * mfu:.1f}% (6 N tokens / step "
+        f"time / 989 TFLOP/s, N {n:,d}); peak device memory {peak:.1f} GB; "
+        f"final checkpoint {size / 1e9:.2f} GB, host snapshot "
+        f"{saved['snapshot_s']:.1f} s, written in {write_s:.1f} s")
+
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in tr.dataset.batch_at(r["steps"]).items()}
+    for remat in (True, False, "dots"):
+        step = make_train_step(cfg, tr.optimizer, remat=remat)
+        for B in (r["batch"], r["batch"] // 2):
+            b = {k: v[:B] for k, v in batch.items()}
+
+            def one():
+                tr.params, tr.opt_state, _ = step(tr.params, tr.opt_state, b)
+
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                one()  # warm-up: the allocator's pools for this remat
+            except torch.cuda.OutOfMemoryError:
+                fits = False
+            else:
+                fits = True
+            if fits:
+                prof = profiled(f"train step profile, {cfg.name}, remat="
+                                f"{remat!r}, B {B} x S {r['seq_len']}", one, 1,
+                                groups=TRAIN_KERNEL_GROUPS)
+                prof.update(batch=B, peak_gb=torch.cuda.max_memory_allocated()
+                            / 1e9)
+                log(f"    peak device memory {prof['peak_gb']:.1f} GB")
+                out[f"profile_remat_{remat}"] = prof
+                break
+            log(f"  remat={remat!r}: B {B} x S {r['seq_len']} does not fit "
+                f"on the card" + ("; trying B 4" if B == r["batch"] else ""))
+    del tr, batch, b, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def block_rms_tokens(cfg, params, tokens):
+    """``block_rms`` of a token-only stack."""
+    import torch
+    from repro_torch.models import block_sequence
+    from repro_torch.models.transformer import apply_block_seq, embed_inputs
+    x = torch.as_tensor(tokens, device="cuda")[None]
+    h = embed_inputs(params, cfg, x)
+    ctx = {"positions": torch.arange(x.shape[1], device="cuda")[None],
+           "impl": "cuda"}
+    out = []
+    for kind, lp, _ in block_sequence(params, cfg):
+        h, _, _, _ = apply_block_seq(lp, cfg, h, ctx, kind)
+        out.append(float(h.float().pow(2).mean().sqrt()))
+    return out
+
+
+def train_merge_serve(summary):
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import merge_skipless
+    from repro_torch.training import (DataConfig, SyntheticLM, checkpoint,
+                                      make_optimizer, make_train_step)
+
+    r = TRAIN_MERGE
+    out = {}
+    for L in TRAIN_EQ_LAYERS:
+        cfg, params, _, _ = build(L, calibrate=True)
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(0)  # the path phase's prompts
+        prompts = [rng.integers(0, cfg.vocab_size, n)
+                   for n in (16, 37, 100, 250)]
+        opt = make_optimizer("adamw", r["lr"], 2, r["steps"],
+                             weight_decay=0.0)
+        step = make_train_step(cfg, opt, remat=True)
+        state = opt.init(params)
+        data = SyntheticLM(DataConfig(global_batch=r["batch"],
+                                      seq_len=r["seq_len"], seed=0),
+                           cfg.vocab_size)
+        losses = []
+        t0 = time.perf_counter()
+        for s in range(r["steps"]):
+            batch = {k: torch.from_numpy(v).to("cuda")
+                     for k, v in data.batch_at(s).items()}
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        train_s = time.perf_counter() - t0
+        del state, opt, step
+        torch.cuda.empty_cache()
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{cfg.name} skipless: losses {losses}")
+        ckdir = tempfile.mkdtemp(prefix="train_ckpt_",
+                                 dir=os.path.join(ROOT, "build"))
+        t0 = time.perf_counter()
+        checkpoint.save(ckdir, r["steps"], {"params": params})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(ckdir, r["steps"],
+                                      {"params": params})["params"]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        size = _dir_bytes(ckdir)
+        shutil.rmtree(ckdir)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(restored), tree_leaves(params))):
+            raise AssertionError("the restored checkpoint differs from the "
+                                 "trained weights")
+        del params
+        torch.cuda.empty_cache()
+        log(f"  trained {cfg.name} skipless ({L} layers, float32) "
+            f"{r['steps']} steps of B {r['batch']} x S {r['seq_len']} in "
+            f"{train_s:.1f} s, losses {losses[0]:.4g} -> {losses[-1]:.4g}; "
+            f"checkpoint {size / 1e9:.2f} GB saved in {save_s:.1f} s, "
+            f"restored in {restore_s:.1f} s, bit for bit")
+        with torch.no_grad():
+            mparams, mcfg = merge_skipless(restored, cfg, "qp")
+            got = {}
+            for tag, c, p, merged in (("source", cfg, restored, False),
+                                      ("merged", mcfg, mparams, True)):
+                eng, res, counts, _ = serve(c, p, prompts, 16)
+                check_counts(f"trained {tag} float32 ({L} layers)", counts,
+                             eng, L, len(prompts), merged)
+                summary["launches"] = {k: summary["launches"][k] + counts[k]
+                                       for k in KERNELS}
+                got[tag] = streams(res)
+            out[f"losses_{L}_layers"] = losses
+            if got["merged"] == got["source"]:
+                log(f"  trained merged == source greedy streams ({L} layers,"
+                    f" float32): {[x[:6] for x in got['source']]} …")
+                out.update(eq_layers=L, train_s=train_s, ckpt_gb=size / 1e9,
+                           ckpt_save_s=save_s, ckpt_restore_s=restore_s)
+                break
+            i, j, margin = first_mismatch(cfg, restored, prompts,
+                                          got["source"], got["merged"])
+            rms = block_rms_tokens(cfg, restored, np.concatenate(
+                [prompts[i], np.asarray(got["source"][i][:j], np.int64)]))
+            log(f"  trained merged and source greedy streams differ ({L} "
+                f"layers, float32): prompt {i}, position {j}, source top-2 "
+                f"margin {margin:.3g}; the source stream's RMS after each "
+                f"block there: {', '.join(f'{x:.3g}' for x in rms)}")
+            out[f"mismatch_{L}_layers"] = dict(prompt=i, position=j,
+                                               margin=margin, rms=rms)
+            if L == TRAIN_EQ_LAYERS[-1]:
+                raise AssertionError(f"trained merged != source at {L} "
+                                     f"layers")
+        del restored, mparams, eng, p
+        torch.cuda.empty_cache()
+    del restored, mparams, eng, p
+    torch.cuda.empty_cache()
+    return out
+
+
+class RecordingOptimizer:
+    """Wraps an optimizer and keeps the gradients its ``update`` is given:
+    what reaches the optimizer (``None`` where the loss does not reach a
+    leaf; averaged over micro-batches under ``grad_accum``)."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.inner.update(grads, state, params)
+
+
+def train_step_card_vs_cpu(cfg, grad_accum):
+    """One ``make_train_step`` of ``cfg`` (reduced) on the card and on the
+    CPU from the same params and batch -> the largest relative errors of
+    the loss, the gradients that reach the optimizer (of each leaf's
+    largest) and the updated params (of each leaf's largest).  The
+    optimizer is AdamW with eps 1: at eps 1e-8 its first step is
+    lr * sign(g), and an element whose gradient sits at rounding level on
+    one side would move a whole 2 lr; eps 1 keeps the step smooth in the
+    gradient."""
+    import torch
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.models import init_params
+    from repro_torch.training import DataConfig, make_dataset, make_train_step
+    from repro_torch.training.optimizer import AdamW, constant_schedule
+
+    p0 = init_params(cfg, seed=0, device="cpu")
+    np_batch = make_dataset(cfg, DataConfig(global_batch=4, seq_len=16,
+                                            seed=0)).batch_at(0)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        opt = RecordingOptimizer(AdamW(lr=constant_schedule(1e-3), eps=1.0,
+                                       weight_decay=0.0))
+        step = make_train_step(cfg, opt, grad_accum=grad_accum, remat=True)
+        params = tree_map(lambda t: t.clone().to(dev), p0)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+        params, _, m = step(params, opt.init(params), batch)
+        res[dev] = (tree_leaves(tree_map(lambda t: t.cpu(), params)),
+                    [None if g is None else g.cpu()
+                     for g in tree_leaves(opt.grads)], float(m["loss"]))
+    (pc, gc, lc), (pg, gg, lg) = res["cpu"], res["cuda"]
+    worst = {"loss": abs(lg - lc) / max(abs(lc), 1e-30), "grads": 0.0,
+             "params": 0.0}
+
+    def rel(a, b):
+        diff = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        return diff / scale if scale else (0.0 if diff == 0 else math.inf)
+
+    for a, b in zip(pg, pc):
+        worst["params"] = max(worst["params"], rel(a, b))
+    for a, b in zip(gg, gc):
+        if (a is None) != (b is None):
+            worst["grads"] = math.inf
+        elif a is not None:
+            worst["grads"] = max(worst["grads"], rel(a, b))
+    return worst
+
+
+def train_card_vs_cpu():
+    from repro_torch.configs import get_config, list_archs, reduce_config
+
+    t0 = time.perf_counter()
+    worst = {"loss": 0.0, "grads": 0.0, "params": 0.0}
+    n = 0
+    for arch in list_archs():
+        for style in TRAIN_STYLES:
+            cfg = reduce_config(get_config(arch)).with_(block_style=style)
+            try:
+                cfg.validate_style()
+            except ValueError:
+                continue
+            for accum in (1, 2) if style == "standard" else (1,):
+                w = train_step_card_vs_cpu(cfg, accum)
+                n += 1
+                if w["loss"] > TRAIN_TOL or w["params"] > TRAIN_TOL or \
+                        w["grads"] > TRAIN_GRAD_TOL:
+                    raise AssertionError(
+                        f"train step card vs CPU, {arch} {style} grad_accum "
+                        f"{accum}: {w} (tolerances {TRAIN_TOL:g}, gradients "
+                        f"{TRAIN_GRAD_TOL:g})")
+                worst = {k: max(worst[k], w[k]) for k in worst}
+    log(f"train step card vs CPU: {n} steps (12 archs at reduce_config, "
+        f"every style each admits, grad_accum 2 in the standard style; TF32 "
+        f"off) agree: worst loss {worst['loss']:.2e}, updated params "
+        f"{worst['params']:.2e} (gates {TRAIN_TOL:g} of the scale), "
+        f"gradients {worst['grads']:.2e} of each leaf's largest (gate "
+        f"{TRAIN_GRAD_TOL:g}); {time.perf_counter() - t0:.1f} s")
+    return dict(worst, steps=n)
+
 
 _SYNC_SINK = []  # the Counter that ``sync_counted`` fills, while it counts
 
@@ -2990,13 +3379,16 @@ def obs_phase(cfg, params, prompts, max_new):
     return out
 
 
-def profiled(what, fn, steps, ranges=()):
+def profiled(what, fn, steps, ranges=(), groups=()):
     """torch.profiler over ``steps`` calls of ``fn``: device time by kernel
     name, kernel launches per call and the device busy share of the wall
     time, logged under ``what``.  For each name in ``ranges`` (a
     ``record_function`` range that ``fn`` opens), the device time of the
     kernels launched inside it per call, and its share of the device
-    time."""
+    time.  ``groups``: (label, name substrings) in order; each kernel
+    counts in the first group one of whose substrings its name holds
+    (the rest in "other"), and each group's device time per call and
+    share are given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3040,6 +3432,17 @@ def profiled(what, fn, steps, ranges=()):
            "kernels_per_step": sum(r[2] for r in rows) // steps,
            "top": [[k[:90], us / steps / 1e3, n // steps]
                    for us, k, n in rows[:8]]}
+    if groups:
+        sums = {label: 0.0 for label, _ in groups}
+        sums["other"] = 0.0
+        for us, key, _ in rows:
+            label = next((lb for lb, subs in groups
+                          if any(x in key for x in subs)), "other")
+            sums[label] += us
+        out["groups"] = {label: {"ms_per_step": us / steps / 1e3,
+                                 "share_of_device": us / 1e6 / busy
+                                 if busy else 0.0}
+                         for label, us in sums.items()}
     for name in ranges:
         # the CPU-side range row: device time of every kernel launched
         # inside it, children included
@@ -3063,6 +3466,9 @@ def profiled(what, fn, steps, ranges=()):
         log(f"    range {name}: {out[f'{name}_ms_per_step']:.3f} ms/call of "
             f"kernels, {100 * out[f'{name}_share_of_device']:.1f}% of the "
             f"kernels' time")
+    for label, g in out.get("groups", {}).items():
+        log(f"    kernels {label}: {g['ms_per_step']:.3f} ms/call, "
+            f"{100 * g['share_of_device']:.1f}% of the kernels' time")
     for k, ms, n in out["top"]:
         log(f"    {ms:8.3f} ms/call  {n:4d} calls/call  {k[:90]}")
     if not rows:
@@ -3238,15 +3644,13 @@ def run() -> int:
             f"{r['bytes_ms']:.5f}, flops {r['ops_ms']:.5f}; kernel at "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)")
 
-    summary = {}
-    path_phase(summary)
-    hybrid_path(summary)
-    mamba2_path(summary)
-    dense_configs_path(summary)
-    moe_path(summary)
-    vlm_path(summary)
-    audio_path(summary)
-    obs_path(summary)
+    summary = {"phase_s": {}}
+    for phase in (path_phase, hybrid_path, mamba2_path, dense_configs_path,
+                  moe_path, vlm_path, audio_path, train_path, obs_path):
+        t0 = time.perf_counter()
+        phase(summary)
+        summary["phase_s"][phase.__name__] = time.perf_counter() - t0
+        log(f"{phase.__name__}: {summary['phase_s'][phase.__name__]:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -9,11 +9,14 @@ from __future__ import annotations
 from typing import Any, Callable, List
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict (dicts are nodes)."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict (dicts are nodes); with
+    ``rest``, trees of the same structure, ``fn`` takes the leaves at one
+    place in all of them."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> List[Any]:

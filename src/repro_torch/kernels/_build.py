@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("decode_attention", "flash_attention", "ssd_scan")
@@ -145,16 +147,31 @@ HEAD_DIMS = {"flash_attention": (64, 80, 128),
              "decode_attention": (64, 128)}
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise RuntimeError where autograd would have to differentiate
+    through a kernel: none has a backward, and the output a wrapper builds
+    (``torch.empty_like``) carries no ``grad_fn``, so the gradient would
+    vanish without a word.  Train through ``impl="torch"``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, but the CUDA kernel has no "
+            "backward; run it under torch.no_grad() or train with "
+            "impl='torch'")
+
+
 def on_cuda(name: str, *tensors) -> bool:
     """True when every tensor lies on one CUDA device, False when every one
-    lies on the CPU (the wrapper then runs its plain version); mixed
-    devices raise."""
+    lies on the CPU (the wrapper then runs its plain version, which
+    autograd differentiates); mixed devices raise, and so do CUDA operands
+    that autograd would need to differentiate (``refuse_autograd``)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
     dev = devices.pop()
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda":
+        refuse_autograd(name, *tensors)
     return dev.type == "cuda"
 
 

@@ -58,6 +58,7 @@ second time for them; the blocks are the same, so are the states).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -525,10 +526,43 @@ def _logits(params, cfg: ModelConfig, h):
     return apply_unembedding(table, h)
 
 
+# the ops whose outputs remat="dots" keeps (the counterpart of JAX's
+# ``checkpoint_policies.dots_saveable``): every matmul the blocks run
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(block_fn, h, remat):
+    """``block_fn(h) -> (h, aux)`` under the activation checkpointing
+    ``remat`` asks for: False runs it as it is; True keeps only the
+    block's input and recomputes the rest in the backward pass; "dots"
+    also keeps every matmul output and recomputes the cheap elementwise
+    and softmax work between them."""
+    if not remat:
+        return block_fn(h)
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if remat == "dots":
+        return checkpoint(block_fn, h, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_saveable))
+    if remat is not True:
+        raise ValueError(f"remat must be False, True or 'dots', got "
+                         f"{remat!r}")
+    return checkpoint(block_fn, h, use_reentrant=False)
+
+
 def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
                vision=None, impl: str = "torch", collect: bool = False,
                merged_core: bool = False, cache_kind: str = "dense",
-               q8_block: int = 0, q8_true_len=None):
+               q8_block: int = 0, q8_true_len=None, remat=False):
     """Embed, every block, the logits -> (logits, aux, kvs, states):
     ``aux`` sums the layers' MoE load-balance losses (0.0 without
     experts).  With
@@ -536,7 +570,13 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
     without attention), followed on a VLM by its cross layers' K/V over
     the vision tokens, and ``states`` the SSM layers' ``SSMState``s,
     (L, B, …) each (None without SSM layers).  ``vision`` (B, nv, d) is
-    required by a VLM and refused by every other stack."""
+    required by a VLM and refused by every other stack.  ``remat``
+    (False, True or "dots", ``_remat_block``) checkpoints each block for
+    training; it collects nothing, so it cannot be combined with
+    ``collect``."""
+    if collect and remat:
+        raise ValueError("remat keeps no K/V or SSM state: it cannot be "
+                         "combined with collect")
     if (vision is not None) != (layer_plan(cfg)["kind"] == "vlm"):
         raise ValueError(
             f"{cfg.name}: vision tokens are " +
@@ -554,7 +594,15 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
     kv_layers, cross_layers, st_layers = [], [], []
     aux = 0.0
     for kind, lp, _ in block_sequence(params, cfg):
-        h, a, kv, st = apply_block_seq(lp, cfg, h, ctx, kind)
+        if remat:
+            # the checkpointed function returns only (h, aux), so that no
+            # block's K/V outlives its forward
+            h, a = _remat_block(
+                lambda x, lp=lp, kind=kind:
+                apply_block_seq(lp, cfg, x, ctx, kind)[:2], h, remat)
+            kv = st = None
+        else:
+            h, a, kv, st = apply_block_seq(lp, cfg, h, ctx, kind)
         aux = aux + a
         if collect and kv is not None:
             (cross_layers if kind == "cross" else kv_layers).append(kv)
@@ -571,7 +619,7 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
 def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
                 vision=None, impl: str = "torch", collect_kv: bool = False,
                 merged_core: bool = False, cache_kind: str = "dense",
-                q8_block: int = 0, q8_true_len=None):
+                q8_block: int = 0, q8_true_len=None, remat=False):
     """Full-sequence forward over int tokens (B,S), or an encoder's frames
     (B,S,d_model), -> (logits, aux, kvs).  A VLM takes ``vision``
     (B, nv, d_model) patch embeddings, which its cross layers attend; an
@@ -591,14 +639,46 @@ def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
     layer attend over its pool-granularity QUANTIZED K/V, and ``kvs`` is
     then those bits: (k ints, k scales, v ints, v scales), the ints
     (L, B, S, Hkv, Dh) int8 and the scales (L, B, S // q8_block, Hkv)
-    float32 (``_self_attention_seq``)."""
+    float32 (``_self_attention_seq``).
+    ``remat`` (False, True or "dots") checkpoints each block for training,
+    as the reference's ``_scan_blocks_seq`` does; with ``collect_kv`` it
+    raises ValueError."""
     logits, aux, kvs, _ = _run_stack(
         params, cfg, inputs, positions=positions, vision=vision, impl=impl,
         collect=collect_kv, merged_core=merged_core, cache_kind=cache_kind,
-        q8_block=q8_block, q8_true_len=q8_true_len)
+        q8_block=q8_block, q8_true_len=q8_true_len, remat=remat)
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, aux, kvs
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+            z_loss: float = 1e-4, ignore_index: int = -100,
+            vocab_size: int = 0) -> torch.Tensor:
+    """Token-mean cross entropy (float32) + z-loss ``z_loss * lse**2``;
+    labels (B, S) int, ``ignore_index`` positions left out of the mean.
+
+    ``vocab_size``: the logical vocab: logits of padded ids (>=
+    vocab_size) are masked out of the softmax (``ModelConfig.
+    padded_vocab``).  At a full vocab each float32 (B, S, V) buffer is
+    GBs: the masked copy is made only when there is padding, and what
+    autograd keeps is logsumexp's input and output."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    if vocab_size and vocab_size < V:
+        pad = torch.arange(V, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    mask = (labels != ignore_index).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------

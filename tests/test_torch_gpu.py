@@ -1334,3 +1334,126 @@ def test_encoder_on_the_card_matches_the_cpu(variant):
     assert launch_counts()["flash_attention_bhsd"] == cfg.n_layers
     scale = float(want.abs().max())
     assert 0 < scale and float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the plain forward and its autograd backward (the
+# kernels have no backward and refuse to run under autograd)
+# ---------------------------------------------------------------------------
+
+TRAIN_STYLES = ("standard", "skipless", "skipless_merged", "residual_qpfree")
+
+
+def _train_cases():
+    from repro_torch.configs import list_archs
+    out = []
+    for arch in list_archs():
+        for style in TRAIN_STYLES:
+            try:
+                get_config(arch).with_(block_style=style).validate_style()
+            except ValueError:
+                continue
+            out += [(arch, style, a)
+                    for a in ((1, 2) if style == "standard" else (1,))]
+    return out
+
+
+class _RecordingOptimizer:
+    """Keeps the gradients that reach the optimizer, then applies it."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.inner.update(grads, state, params)
+
+
+@pytest.mark.parametrize("arch,style,grad_accum", _train_cases())
+def test_train_step_on_the_card_matches_the_cpu(arch, style, grad_accum):
+    """One ``make_train_step`` (remat on) from the same params and batch on
+    the card and on the CPU: the loss and the updated params within 1e-5
+    of their scale, the gradients that reach the optimizer within 1e-4 of
+    each leaf's largest (``None`` on both sides alike).  AdamW with eps 1
+    keeps the step smooth in the gradient (at eps 1e-8 a first step is
+    lr * sign(g), and a gradient at rounding level would flip a whole
+    2 lr)."""
+    dev = _cuda()
+    from repro_torch._tree import tree_leaves
+    from repro_torch.models import init_params
+    from repro_torch.training import DataConfig, make_dataset, make_train_step
+    from repro_torch.training.optimizer import AdamW, constant_schedule
+
+    cfg = reduce_config(get_config(arch), block_style=style)
+    p0 = init_params(cfg, seed=0, device="cpu")
+    np_batch = make_dataset(cfg, DataConfig(global_batch=4, seq_len=16,
+                                            seed=0)).batch_at(0)
+    res = []
+    for d in (torch.device("cpu"), dev):
+        opt = _RecordingOptimizer(AdamW(lr=constant_schedule(1e-3), eps=1.0,
+                                        weight_decay=0.0))
+        step = make_train_step(cfg, opt, grad_accum=grad_accum, remat=True)
+        params = tree_map(lambda t: t.clone().to(d), p0)
+        batch = {k: torch.from_numpy(v).to(d) for k, v in np_batch.items()}
+        params, _, m = step(params, opt.init(params), batch)
+        res.append((tree_leaves(tree_map(lambda t: t.cpu(), params)),
+                    [None if g is None else g.cpu()
+                     for g in tree_leaves(opt.grads)], float(m["loss"])))
+    (pc, gc, lc), (pg, gg, lg) = res
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(pg, pc):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for a, b in zip(gg, gc):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _kernel_wrappers():
+    from repro_torch.kernels import ssd_scan as sk
+    return [(fk.flash_attention_bhsd, 3), (fk.flash_attention_bshd, 3),
+            (fk.flash_attention_merged_bsd, 3),
+            (fk.flash_attention_merged_q8_bsd, 5),
+            (dk.decode_attention_bhsd, 5), (dk.decode_attention_bshd, 5),
+            (dk.decode_attention_merged_bsd, 5),
+            (dk.decode_attention_paged_bhsd, 5),
+            (dk.decode_attention_paged_merged_bsd, 5),
+            (dk.decode_attention_paged_q8_bhsd, 7),
+            (dk.decode_attention_paged_q8_merged_bsd, 7),
+            (sk.ssd_chunk_scan, 5)]
+
+
+@pytest.mark.parametrize("fn,n_operands", _kernel_wrappers(),
+                         ids=lambda x: getattr(x, "__name__", str(x)))
+def test_kernel_wrappers_refuse_autograd_on_the_card(fn, n_operands):
+    """A wrapper given a CUDA operand that requires grad raises before it
+    launches: its output would carry no gradient."""
+    dev = _cuda()
+    args = [torch.zeros(1, 1, 1, 64, device=dev) for _ in range(n_operands)]
+    args[0].requires_grad_()
+    kw = {"chunk": 64} if fn.__name__ == "ssd_chunk_scan" else {}
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args, **kw)
+    assert sum(launch_counts().values()) == 0
+
+
+def test_forward_through_the_kernels_refuses_params_that_require_grad():
+    dev = _cuda()
+    from repro_torch.models import forward_seq, init_params
+
+    cfg = reduce_config(get_config("mistral-7b")).with_(
+        d_model=256, n_heads=4, n_kv_heads=2, d_head=64)  # D the kernels take
+    params = tree_map(lambda t: t.requires_grad_(),
+                      init_params(cfg, seed=0, device=dev))
+    x = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        forward_seq(params, cfg, x, impl="cuda")
+    with torch.no_grad():
+        forward_seq(params, cfg, x, impl="cuda")
+    lg, _, _ = forward_seq(params, cfg, x, impl="torch")
+    lg.sum().backward()
+    assert params["layers"]["attn"]["wk"].grad is not None

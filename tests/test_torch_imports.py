@@ -36,7 +36,11 @@ def test_no_module_imports_jax_or_the_jax_package():
     interpreter, with neither jax nor repro landing in sys.modules."""
     mods = _port_modules()
     assert {"repro_torch.kernels.ops", "repro_torch.serving.engine",
-            "repro_torch.core.merge", "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.core.merge", "repro_torch.launch.serve",
+            "repro_torch.launch.train", "repro_torch.training.checkpoint",
+            "repro_torch.training.data", "repro_torch.training.optimizer",
+            "repro_torch.training.fault_tolerance",
+            "repro_torch.training.train_loop"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"

@@ -1161,19 +1161,20 @@ SCHED_STARVED_PAGES = 28
 
 
 def serve(cfg, params, prompts, max_new, cache="dense", probe=None,
-          max_len=512, sched=False, vision=None, **serve_kw):
+          max_len=512, sched=False, vision=None, mesh=None, **serve_kw):
     """Serve ``prompts`` (a VLM: with ``vision``, one array per prompt) on
     a fresh 4-slot engine, the synchronous ``Engine`` or with ``sched``
-    the ``ScheduledEngine`` (``SCHED``); ``probe(eng)`` may wrap the
-    engine's manager before the run.  Returns (engine, results, the launch
-    counts of exactly this run, wall seconds)."""
+    the ``ScheduledEngine`` (``SCHED``), on a device ``mesh`` if given;
+    ``probe(eng)`` may wrap the engine's manager before the run.  Returns
+    (engine, results, the launch counts of exactly this run, wall
+    seconds)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import (Engine, SchedConfig, ScheduledEngine,
                                      ServeConfig)
     import torch
 
     sc = ServeConfig(n_slots=4, max_len=max_len, **serve_kw)
-    kw = dict(impl="cuda", cache=cache, device="cuda")
+    kw = dict(impl="cuda", cache=cache, device="cuda", mesh=mesh)
     eng = ScheduledEngine(cfg, params, sc, SchedConfig(**SCHED), **kw) \
         if sched else Engine(cfg, params, sc, **kw)
     if probe is not None:
@@ -2257,7 +2258,7 @@ def drop_counter():
 
     def counting(router, xg, k, cap):
         out = real(router, xg, k, cap)
-        if cap < xg.shape[0]:
+        if cap < xg.shape[-2]:
             rec.append(int((~out[3]).sum()))
         return out
 
@@ -2875,6 +2876,174 @@ def train_path(summary):
     summary["train"] = {"llama": train_llama(),
                         "merge": train_merge_serve(summary),
                         "card_vs_cpu": train_card_vs_cpu()}
+
+
+MESH_TRAIN_STEPS = 5
+MESH_TRAIN_RTOL = 1e-6
+
+
+def mesh_path(summary):
+    """The distribution layer on the card, at world size 1 over NCCL (the
+    process group's rendezvous file under ``build/``), on a (1, 1)
+    ("data", "model") ``DeviceMesh``:
+
+    (a) merged skipless Mistral-7B, full width, 32 layers, bf16, served on
+        the dense cache by ``Engine(mesh=)`` with ``impl="cuda"``: greedy
+        streams and the launch counts of rows 2 and 5 equal the engine's
+        without a mesh on the path phase's prompts; meshed and unmeshed
+        tok/s side by side (one run each, after a warm-up each);
+    (b) merged == source greedy streams at 4 calibrated float32 layers on
+        the mesh;
+    (c) ``Trainer(mesh=)`` on Llama-3.2-1B whole for ``MESH_TRAIN_STEPS``
+        steps: its losses equal the unmeshed trainer's within
+        ``MESH_TRAIN_RTOL`` relative;
+    (d) ``repro_torch.launch.dryrun --all --both-meshes`` on the meta
+        device, in a subprocess (six workers) on the host's CPU while
+        (a)-(c) hold the card: the counts of cells run, skipped and
+        failed; a failure fails the phase."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    dry_out = os.path.join(ROOT, "build", "dryrun")
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--jobs", "6", "--out", dry_out],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                           CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    pg = os.path.join(ROOT, "build", "mesh_pg")
+    if os.path.exists(pg):
+        os.remove(pg)
+    out = {}
+    try:
+        dist.init_process_group("nccl", init_method="file://" + pg, rank=0,
+                                world_size=1)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        log(f"mesh {mesh}")
+        out["serve"] = mesh_serve(mesh)
+        out["train"] = mesh_train(mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if os.path.exists(pg):
+            os.remove(pg)
+        try:
+            text, _ = dry.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            dry.kill()
+            text, _ = dry.communicate()
+    lines = text.splitlines()
+    counts = json.loads(lines[-1])["dryrun_cells"] if lines and \
+        lines[-1].startswith("{") else None
+    for ln in lines:
+        if "FAIL" in ln:
+            log(f"  dryrun {ln}")
+    log(f"  dryrun --all --both-meshes (meta device, subprocess): {counts}; "
+        f"exit {dry.returncode}")
+    if dry.returncode != 0 or counts is None or counts["failed"]:
+        raise AssertionError(f"the dry run failed: exit {dry.returncode}, "
+                             f"{counts}; last lines {lines[-5:]}")
+    out["dryrun"] = counts
+    summary["mesh"] = out
+
+
+def mesh_serve(mesh):
+    """(a) and (b) of ``mesh_path``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    lens = (16, 37, 100, 250)  # the path phase's prompts
+    prompts = [rng.integers(0, 32000, n) for n in lens]
+    max_new, n = 16, len(lens)
+    res = {}
+    with torch.no_grad():
+        _, _, mcfg, mparams = build(32, calibrate=False, dtype="bfloat16")
+        L = mcfg.n_layers
+        serve(mcfg, mparams, prompts, max_new)  # warm-up
+        eng, plain, counts, wall = serve(mcfg, mparams, prompts, max_new)
+        check_counts("merged bfloat16 dense, no mesh", counts, eng, L, n,
+                     merged=True)
+        res["unmeshed"] = report(f"merged bfloat16 dense ({L} layers), no "
+                                 "mesh", plain, wall)
+        serve(mcfg, mparams, prompts, max_new, mesh=mesh)  # warm-up
+        eng, meshed, mcounts, wall = serve(mcfg, mparams, prompts, max_new,
+                                           mesh=mesh)
+        check_counts("merged bfloat16 dense, (1, 1) mesh", mcounts, eng, L,
+                     n, merged=True)
+        if mcounts != counts:
+            raise AssertionError(f"meshed launch counts {mcounts} != "
+                                 f"unmeshed {counts}")
+        if streams(meshed) != streams(plain):
+            raise AssertionError("the meshed engine's greedy streams differ "
+                                 "from the unmeshed engine's")
+        res["meshed"] = report(f"merged bfloat16 dense ({L} layers), (1, 1) "
+                               "mesh", meshed, wall)
+        log(f"  (1, 1) mesh: streams and launch counts equal the unmeshed "
+            f"engine's; tok/s meshed {res['meshed']['tok_s']:.1f} vs "
+            f"unmeshed {res['unmeshed']['tok_s']:.1f} (one run each)")
+        del eng, mparams
+        torch.cuda.empty_cache()
+
+        cfg, params, mcfg, mparams = build(EQ_LAYERS, calibrate=True)
+        _, src, c_src, _ = serve(cfg, params, prompts, max_new, mesh=mesh)
+        _, mrg, c_mrg, _ = serve(mcfg, mparams, prompts, max_new, mesh=mesh)
+        if streams(src) != streams(mrg):
+            bad = first_mismatch(cfg, params, prompts, src, mrg)
+            raise AssertionError(
+                f"on the mesh, merged and source greedy streams differ: "
+                f"prompt {bad[0]}, position {bad[1]}, source top-2 margin "
+                f"{bad[2]:.3g}")
+        log(f"  (1, 1) mesh: merged == source greedy streams (float32, "
+            f"{EQ_LAYERS} calibrated layers); launches source "
+            f"{ {k: v for k, v in c_src.items() if v} }, merged "
+            f"{ {k: v for k, v in c_mrg.items() if v} }")
+        res["identity_f32"] = True
+        del params, mparams
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_train(mesh):
+    """(c) of ``mesh_path``."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.training import DataConfig, Trainer, TrainerConfig
+
+    r = TRAIN_RUN
+    cfg = get_config(TRAIN_ARCH).with_(block_style="residual_qpfree")
+    losses, secs = {}, {}
+    for tag, m in (("unmeshed", None), ("meshed", mesh)):
+        ckdir = tempfile.mkdtemp(prefix="mesh_ckpt_",
+                                 dir=os.path.join(ROOT, "build"))
+        tc = TrainerConfig(steps=MESH_TRAIN_STEPS, log_every=1,
+                           ckpt_every=10 ** 9, ckpt_dir=ckdir, keep_ckpts=1,
+                           lr=r["lr"], warmup=r["warmup"], remat=True)
+        tr = Trainer(cfg, tc, DataConfig(global_batch=r["batch"],
+                                         seq_len=r["seq_len"], seed=0),
+                     device="cuda", mesh=m)
+        tr._save = lambda step: None  # no 13 GB checkpoint here
+        tr.run()
+        shutil.rmtree(ckdir)
+        losses[tag] = [x["loss"] for x in tr.metrics_log]
+        secs[tag] = list(tr.straggler.durations)
+        del tr
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["meshed"],
+                                                   losses["unmeshed"]))
+    log(f"  Trainer {cfg.name} {cfg.block_style} whole (B {r['batch']} x S "
+        f"{r['seq_len']}), {MESH_TRAIN_STEPS} steps: losses meshed "
+        f"{losses['meshed']} vs unmeshed {losses['unmeshed']} (max rel "
+        f"{rel:.2e}); step s meshed {[round(x, 3) for x in secs['meshed']]} "
+        f"vs unmeshed {[round(x, 3) for x in secs['unmeshed']]}")
+    if len(losses["meshed"]) != MESH_TRAIN_STEPS or rel > MESH_TRAIN_RTOL:
+        raise AssertionError(f"meshed losses {losses['meshed']} vs "
+                             f"unmeshed {losses['unmeshed']}: rel {rel}")
+    return {"losses": losses, "step_s": secs, "max_rel": rel}
 
 
 def _dir_bytes(path) -> int:
@@ -3646,7 +3815,8 @@ def run() -> int:
 
     summary = {"phase_s": {}}
     for phase in (path_phase, hybrid_path, mamba2_path, dense_configs_path,
-                  moe_path, vlm_path, audio_path, train_path, obs_path):
+                  moe_path, vlm_path, audio_path, train_path, mesh_path,
+                  obs_path):
         t0 = time.perf_counter()
         phase(summary)
         summary["phase_s"][phase.__name__] = time.perf_counter() - t0

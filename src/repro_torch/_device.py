@@ -13,5 +13,7 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' (impl='torch') to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
+        # "meta" included: shapes come from ``models.param_shapes`` and
+        # ``launch.steps``, never from an entry point
         raise ValueError(f"unsupported device {device!r}")
     return dev

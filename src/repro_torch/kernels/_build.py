@@ -159,11 +159,24 @@ def refuse_autograd(name: str, *tensors) -> None:
             "impl='torch'")
 
 
+def refuse_placed(name: str, *args) -> None:
+    """Raise TypeError for a DTensor operand: a kernel takes the local
+    tensors of one rank (``distribution.placed.local_call``), and nothing
+    may gather a placed tensor quietly to run it."""
+    for a in args:
+        if type(a).__name__ == "DTensor":
+            raise TypeError(
+                f"{name}: got a DTensor; kernel wrappers take plain tensors "
+                "(under a mesh the attention cores hand them each rank's "
+                "local shards)")
+
+
 def on_cuda(name: str, *tensors) -> bool:
     """True when every tensor lies on one CUDA device, False when every one
     lies on the CPU (the wrapper then runs its plain version, which
     autograd differentiates); mixed devices raise, and so do CUDA operands
     that autograd would need to differentiate (``refuse_autograd``)."""
+    refuse_placed(name, *tensors)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")

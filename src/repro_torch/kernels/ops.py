@@ -32,8 +32,11 @@ scales as keywords, as the reference does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (
     decode_attention_bhsd, decode_attention_bshd, decode_attention_merged_bsd,
     decode_attention_paged_bhsd, decode_attention_paged_merged_bsd,
@@ -43,6 +46,16 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_merged_q8_bsd)
 from repro_torch.kernels.paging import paged_ring_active
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+
+
+def _plain_only(fn):
+    """A wrapper given a DTensor raises TypeError before any reshape
+    (``_build.refuse_placed``)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        _build.refuse_placed(fn.__name__, *args, *kw.values())
+        return fn(*args, **kw)
+    return wrapper
 
 
 def _no_kv_valid(kv_valid) -> None:
@@ -57,6 +70,7 @@ def _merged_heads(name, d, Hkv, D, n_kv_heads):
                          f"{n_kv_heads}), head dim {D}")
 
 
+@_plain_only
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, Hq, D)
     k: torch.Tensor,  # (B, Sk, Hkv, D)
@@ -73,6 +87,7 @@ def flash_attention(
                                 sliding_window=sliding_window)
 
 
+@_plain_only
 def flash_attention_merged(
     u: torch.Tensor,  # (B, Sq, d_model) — RoPE'd stream = merged query
     k: torch.Tensor,  # (B, Sk, Hkv, D) — K*, native layout
@@ -97,6 +112,7 @@ def flash_attention_merged(
     return out.reshape(B, Sq, d)
 
 
+@_plain_only
 def decode_attention(
     q: torch.Tensor,  # (B, Hq, D)
     k_cache: torch.Tensor,  # (B, S, Hkv, D)
@@ -118,6 +134,7 @@ def decode_attention(
     return out.reshape(B, Hq, D)
 
 
+@_plain_only
 def decode_attention_native(
     q: torch.Tensor,  # (B, Hq, D)
     k_cache: torch.Tensor,  # (B, S, Hkv, D), read in place
@@ -139,6 +156,7 @@ def decode_attention_native(
     return out.reshape(B, Hq, D)
 
 
+@_plain_only
 def decode_attention_merged(
     u: torch.Tensor,  # (B, d_model) — RoPE'd stream = merged query
     k_cache: torch.Tensor,  # (B, S, Hkv, D) — K*, native serving layout
@@ -162,6 +180,7 @@ def decode_attention_merged(
     return out.reshape(B, d)
 
 
+@_plain_only
 def decode_attention_paged(
     q: torch.Tensor,  # (B, Hq, D)
     k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — physical page pool
@@ -184,6 +203,7 @@ def decode_attention_paged(
     return out.reshape(B, Hq, D)
 
 
+@_plain_only
 def decode_attention_paged_merged(
     u: torch.Tensor,  # (B, d_model) — RoPE'd stream = merged query
     k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — K* page pool, native layout
@@ -213,6 +233,7 @@ def decode_attention_paged_merged(
 # int8 (paged_q8) wrappers: int8 pools + per-(page, head) float32 scales
 # ---------------------------------------------------------------------------
 
+@_plain_only
 def decode_attention_paged_q8(
     q: torch.Tensor,  # (B, Hq, D)
     k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 page pool
@@ -241,6 +262,7 @@ def decode_attention_paged_q8(
     return out.reshape(B, Hq, D)
 
 
+@_plain_only
 def decode_attention_paged_q8_merged(
     u: torch.Tensor,  # (B, d_model) — RoPE'd stream = merged query
     k_pool: torch.Tensor,  # (NB, bs, Hkv, D) int8 K* page pool
@@ -270,6 +292,7 @@ def decode_attention_paged_q8_merged(
     return out.reshape(B, d)
 
 
+@_plain_only
 def flash_attention_merged_q8(
     u: torch.Tensor,  # (B, Sq, d_model) — RoPE'd stream = merged query
     k: torch.Tensor,  # (B, Sk, Hkv, D) int8 — K* at pool quantization
@@ -317,6 +340,7 @@ def ssd_apply(scan, x, dt, A, Bm, Cm, *, chunk, D=None, **scan_kw):
     return y.to(x.dtype), fin
 
 
+@_plain_only
 def ssd_scan(
     x: torch.Tensor,  # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H) post-softplus

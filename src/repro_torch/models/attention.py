@@ -19,6 +19,14 @@ and defers to the fp core.
 
 GQA is computed grouped (q reshaped to (…, n_kv, group, d)): KV heads are
 never materialized repeated.
+
+Under a device mesh the operands are DTensors.  Where the mesh's model
+axis has size 1 every rank holds whole heads and sequences, so each core
+runs on its rank's local shards (``distribution.placed.local_call``: the
+batch rows of every dp rank), through the kernels on the card; a kernel
+never sees a DTensor.  A larger model axis splits heads or sequences: the
+"torch" route then runs on the DTensors, which propagate the sharding and
+insert the collectives, and the "cuda" route raises ValueError.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distribution.placed import local_call, on_shards
 from repro_torch.kernels import quant
 from repro_torch.kernels.paging import paged_ring_active
 from repro_torch.kernels.ref import ref_paged_gather as _paged_gather
@@ -85,6 +94,13 @@ def attention_core(
 ) -> torch.Tensor:
     """Exact softmax attention; returns (B, Sq, Hq, D) in v.dtype."""
     _check_impl(impl)
+    if on_shards(impl, q, k, v):
+        return local_call(
+            lambda q, k, v, qp, kp, kvv: attention_core(
+                q, k, v, q_positions=qp, kv_positions=kp, causal=causal,
+                sliding_window=sliding_window, kv_valid=kvv,
+                query_chunk=query_chunk, impl=impl),
+            (q, k, v, q_positions, kv_positions, kv_valid))
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     if Hq % Hkv:
@@ -142,6 +158,14 @@ def attention_core_merged(
     "cuda" route hands them to the dequantizing flash kernel, the "torch"
     route dequantizes the sequence into u's dtype and falls through."""
     _check_impl(impl)
+    if on_shards(impl, u, k, v):
+        return local_call(
+            lambda u, k, v, qp, kp, ks, vs: attention_core_merged(
+                u, k, v, q_positions=qp, kv_positions=kp,
+                n_kv_heads=n_kv_heads, causal=causal,
+                sliding_window=sliding_window, query_chunk=query_chunk,
+                impl=impl, cache_kind=cache_kind, k_scale=ks, v_scale=vs),
+            (u, k, v, q_positions, kv_positions, k_scale, v_scale))
     B, Sq, d = u.shape
     D = k.shape[3]
     kw = {} if k_scale is None else dict(k_scale=k_scale, v_scale=v_scale)
@@ -177,6 +201,13 @@ def decode_attention_core_merged(
     projection, and the (B, d_model) result is the FFN input.  Numerics
     equal ``decode_attention_core_positions`` on the head view."""
     _check_impl(impl)
+    if on_shards(impl, u, k_cache, v_cache):
+        return local_call(
+            lambda u, k, v, kp, qp: decode_attention_core_merged(
+                u, k, v, kv_positions=kp, q_position=qp,
+                n_kv_heads=n_kv_heads, sliding_window=sliding_window,
+                impl=impl),
+            (u, k_cache, v_cache, kv_positions, q_position))
     B, d = u.shape
     D = k_cache.shape[3]
     if impl == "cuda":
@@ -203,6 +234,12 @@ def decode_attention_core_positions(
     impl: str = "torch",
 ) -> torch.Tensor:
     _check_impl(impl)
+    if on_shards(impl, q, k_cache, v_cache):
+        return local_call(
+            lambda q, k, v, kp, qp: decode_attention_core_positions(
+                q, k, v, kv_positions=kp, q_position=qp,
+                sliding_window=sliding_window, impl=impl),
+            (q, k_cache, v_cache, kv_positions, q_position))
     B, Hq, D = q.shape
     Hkv = k_cache.shape[2]
     G = Hq // Hkv
@@ -242,6 +279,11 @@ def decode_attention_core_cross(
     (``kernels.ops.decode_attention_native``): it never changes after
     prefill, so a head-major copy per step would be pure traffic."""
     _check_impl(impl)
+    if on_shards(impl, q, k_cache, v_cache):
+        return local_call(
+            lambda q, k, v, kp, qp: decode_attention_core_cross(
+                q, k, v, kv_positions=kp, q_position=qp, impl=impl),
+            (q, k_cache, v_cache, kv_positions, q_position))
     if impl == "cuda":
         from repro_torch.kernels import ops as kops
 

@@ -31,7 +31,17 @@ def dtype_of(name: str) -> torch.dtype:
 # initializers (on the generator's device)
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where parameters are made on
+    the ``meta`` device (shapes and dtypes only, no values): the shape
+    helpers of ``launch.steps``."""
+
+    device = torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device)
 
 

@@ -28,9 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution.placed import local_call, on_shards
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ref_ssd_chunked
-from repro_torch.models.layers import apply_rmsnorm, dense_init, init_rmsnorm
+from repro_torch.models.layers import (_normal, apply_rmsnorm, dense_init,
+                                       init_rmsnorm)
 
 
 class SSMState(NamedTuple):
@@ -54,7 +56,7 @@ def init_mamba2(gen, cfg: ModelConfig, dtype=torch.float32):
     dt = np.exp(np.random.RandomState(0).uniform(np.log(1e-3), np.log(1e-1),
                                                  H))
     dt_bias = dt + np.log(-np.expm1(-dt))  # inverse softplus
-    kern = torch.randn((W, conv_channels(cfg)), generator=gen, device=dev)
+    kern = _normal(gen, (W, conv_channels(cfg)))
     return {
         "in_proj": dense_init(gen, d, d_in_proj, dtype),
         "conv_kernel": (kern / np.sqrt(W)).to(dtype),
@@ -89,6 +91,12 @@ def ssd_chunked(
     ``init_state`` raises there, as in the reference)."""
     S = x.shape[1]
     L = chunk if S % chunk == 0 else S
+    if on_shards(impl, x, Bm, Cm):  # under a mesh: on local batch rows
+        return local_call(
+            lambda x, dt, Bm, Cm, st, A, D: ssd_chunked(
+                x, dt, A, Bm, Cm, chunk=chunk, D=D, init_state=st,
+                impl=impl),
+            (x, dt, Bm, Cm, init_state), (A, D))
     if impl == "cuda":
         return kops.ssd_scan(x, dt, A, Bm, Cm, chunk=L, D=D,
                              init_state=init_state)

@@ -8,7 +8,10 @@ Counterpart of ``repro.models.moe``, with the same capacity semantics:
     on ties, so the port takes a stable descending sort);
   * dispatch group-wise: ``g = min(group_size, B·S)`` tokens per group, or
     one group when ``B·S`` is not a multiple of ``g``; with several groups
-    the aux loss is their mean (the reference's ``jax.lax.map``);
+    the aux loss is their mean (the reference's ``jax.lax.map``), and the
+    "scatter" dispatch runs every group in one pass (``_groups_scatter``:
+    each group keeps its own queues; the experts run over all of them at
+    once), the "einsum" dispatch one group at a time;
   * capacity ``_capacity(g, E, k, factor)`` per expert and group, or ``g``
     under ``dropless`` (serving's chunk and decode programs); priority is
     choice-major, then token order (a cumsum over the (k·g, E) one-hot);
@@ -64,28 +67,33 @@ def _capacity(group_size: int, n_experts: int, k: int, factor: float) -> int:
 
 
 def route(router, xg, k: int, cap: int):
-    """Routing of one group xg (g, d) -> (gate_vals (g, k) float32, idx
-    (g, k) int64, slot (g, k) int64, keep (g, k) bool, aux scalar): each
-    (token, choice)'s expert, its place in that expert's queue (clipped to
+    """Routing of xg (..., g, d), each group (its last two dims) on its
+    own -> (gate_vals (..., g, k) float32, idx (..., g, k) int64, slot
+    (..., g, k) int64, keep (..., g, k) bool, aux (...)): each (token,
+    choice)'s expert, its place in that expert's queue (clipped to
     ``cap - 1``) and whether it fits under ``cap``."""
-    g = xg.shape[0]
+    *lead, g, _ = xg.shape
+    # the group's dim, counted from the front: DTensor's cumsum over a
+    # sharded dim named by a negative index runs on each shard alone
+    n = len(lead)
     E = router.shape[1]
-    probs = torch.softmax(xg.float() @ router.float(), dim=-1)  # (g, E)
+    probs = torch.softmax(xg.float() @ router.float(), dim=-1)  # (..., g, E)
     # stable descending sort: equal probabilities keep ascending expert
     # order, so a tie goes to the lower index (jax.lax.top_k's rule)
     gate_vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, idx = gate_vals[:, :k], idx[:, :k]
+    gate_vals, idx = gate_vals[..., :k], idx[..., :k]
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-    onehot = F.one_hot(idx, E).float()  # (g, k, E)
+    onehot = F.one_hot(idx, E).float()  # (..., g, k, E)
     # position of each (token, choice) in its expert queue, priority by
     # (choice rank, token order)
-    flat = onehot.transpose(0, 1).reshape(k * g, E)  # choice-major
-    pos = (torch.cumsum(flat, dim=0) - flat).reshape(k, g, E).transpose(0, 1)
-    pos = pos.gather(-1, idx[..., None])[..., 0]  # (g, k)
+    flat = onehot.transpose(n, n + 1).reshape(*lead, k * g, E)  # choice-major
+    pos = (torch.cumsum(flat, dim=n) - flat).reshape(*lead, k, g, E) \
+        .transpose(n, n + 1)
+    pos = pos.gather(-1, idx[..., None])[..., 0]  # (..., g, k)
     keep = pos < cap
     slot = pos.clamp(0, cap - 1).long()
-    frac = onehot[:, 0, :].mean(dim=0)  # top-1 routing fraction
-    aux = E * torch.sum(frac * probs.mean(dim=0))
+    frac = onehot[..., 0, :].mean(dim=n)  # top-1 routing fraction
+    aux = E * torch.sum(frac * probs.mean(dim=n), dim=-1)
     return gate_vals, idx, slot, keep, aux
 
 
@@ -98,21 +106,31 @@ def _experts(params, expert_in, ffn_type: str):
     return torch.bmm(h, params["w_down"].to(cdt))
 
 
-def _group_scatter(params, xg, k: int, E: int, cap: int, ffn_type: str):
-    gate_vals, idx, slot, keep, aux = route(params["router"], xg, k, cap)
-    g, d = xg.shape
-    # destination row of each (token, choice): expert*C + slot; dropped
-    # pairs go to an overflow row that is sliced away.  Every kept row is
-    # written once onto zero, so the add is exact in any dtype
-    dest = torch.where(keep, idx * cap + slot, E * cap).reshape(g * k)
-    x_rep = xg.repeat_interleave(k, dim=0)  # (g*k, d): token per choice
-    buf = xg.new_zeros((E * cap + 1, d)).index_add_(0, dest, x_rep)
-    eo = _experts(params, buf[:E * cap].reshape(E, cap, d), ffn_type)
-    # combine: gather each pair's expert output, weight, sum over k
-    pair_out = eo.reshape(E * cap, -1)[dest.clamp(0, E * cap - 1)]
-    w = (gate_vals * keep.float()).reshape(g * k, 1)
-    out = (pair_out.float() * w).reshape(g, k, -1).sum(dim=1)
-    return out.to(xg.dtype), aux
+def _groups_scatter(params, xs, k: int, E: int, cap: int, ffn_type: str):
+    """The buffer dispatch of every group of xs (G, g, d) in one pass:
+    each group routes and fills its own expert queues (its own buffer
+    rows, each group's last row taking its dropped pairs), the experts run
+    once over all groups' queues, and each group gathers its pairs' expert
+    outputs back and combines them in float32.  Every kept row is written
+    once onto zero, so the add is exact in any dtype.  Returns (out (G, g,
+    d_out), aux (G,))."""
+    gate_vals, idx, slot, keep, aux = route(params["router"], xs, k, cap)
+    G, g, d = xs.shape
+    rows = E * cap + 1  # a group's queues and its overflow row
+    local = torch.where(keep, idx * cap + slot, E * cap)  # (G, g, k)
+    base = torch.arange(G, device=xs.device)[:, None, None] * rows
+    dest = (local + base).reshape(G * g * k)
+    x_rep = xs.reshape(G * g, d).repeat_interleave(k, dim=0)
+    buf = xs.new_zeros((G * rows, d)).index_add_(0, dest, x_rep)
+    ein = buf.reshape(G, rows, d)[:, :E * cap].reshape(G, E, cap, d)
+    eo = _experts(params, ein.transpose(0, 1).reshape(E, G * cap, d),
+                  ffn_type)  # (E, G*cap, d_out)
+    eo = eo.reshape(E, G, cap, -1).transpose(0, 1).reshape(G * E * cap, -1)
+    src = (local.clamp(0, E * cap - 1) + base // rows * (E * cap)) \
+        .reshape(G * g * k)
+    w = (gate_vals * keep.float()).reshape(G * g * k, 1)
+    out = (eo[src].float() * w).reshape(G, g, k, -1).sum(dim=2)
+    return out.to(xs.dtype), aux
 
 
 def _group_einsum(params, xg, k: int, E: int, cap: int, ffn_type: str):
@@ -149,11 +167,11 @@ def apply_moe(params, x, *, n_experts: int, experts_per_token: int,
     if tokens % g:
         g = tokens  # degenerate small inputs: one group
     cap = g if dropless else _capacity(g, E, k, capacity_factor)
-    one_group = _group_scatter if impl == "scatter" else _group_einsum
     groups = x.reshape(tokens // g, g, d)
-    if len(groups) == 1:
-        out, aux = one_group(params, groups[0], k, E, cap, ffn_type)
-        return out.reshape(B, S, -1), aux
-    outs, auxes = zip(*(one_group(params, xg, k, E, cap, ffn_type)
-                        for xg in groups))
-    return torch.cat(outs).reshape(B, S, -1), torch.stack(auxes).mean()
+    if impl == "scatter":  # every group in one pass
+        out, aux = _groups_scatter(params, groups, k, E, cap, ffn_type)
+    else:
+        outs, auxes = zip(*(_group_einsum(params, xg, k, E, cap, ffn_type)
+                            for xg in groups))
+        out, aux = torch.cat(outs), torch.stack(auxes)
+    return out.reshape(B, S, -1), aux.mean()

@@ -66,6 +66,9 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import sharding as shd
+from repro_torch.distribution.placed import (assign_, is_placed, put_,
+                                             reanchor, whole_dim)
 from repro_torch.kernels import paging, quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backends
@@ -73,6 +76,7 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
+    MetaGenerator,
     apply_conv_pos,
     apply_embedding,
     apply_rmsnorm,
@@ -247,7 +251,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     (n_groups, …); an encoder with ``conv_pos_width`` gets
     ``params["conv_pos"]``."""
     dev = resolve_device(device)
-    gen = torch.Generator(dev).manual_seed(seed)
+    return _init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """``init_params``' tree on the ``meta`` device: every leaf's shape and
+    dtype, no values and no allocation (the counterpart of
+    ``jax.eval_shape`` over ``init_params``)."""
+    return _init_params(cfg, MetaGenerator(), torch.device("meta"))
+
+
+def _init_params(cfg: ModelConfig, gen, dev) -> Dict[str, Any]:
     dtype = dtype_of(cfg.param_dtype)
     plan = layer_plan(cfg)
     params: Dict[str, Any] = {}
@@ -333,7 +347,7 @@ def _rope(cfg: ModelConfig, x, positions):
 def _self_attention_seq(lp, cfg: ModelConfig, u, positions, merged: bool,
                         impl: str, merged_core: bool = False,
                         cache_kind: str = "dense", q8_block: int = 0,
-                        q8_true_len=None):
+                        q8_true_len=None, qkv_sharding=None):
     """``merged_core`` selects the stream-as-query core (merged qp layouts:
     q is an identity view of u, so every tensor stays in its native
     layout — the prefill twin of the merged decode fast path).
@@ -345,8 +359,12 @@ def _self_attention_seq(lp, cfg: ModelConfig, u, positions, merged: bool,
     the prompt's logits see exactly the bits ``_finish_paged_q8`` stores.
     What is collected is then those bits, (k ints, k scales, v ints,
     v scales), not the float K/V: the finish step writes them as they
-    are."""
-    q, k, v = _project_qkv(lp, cfg, u, u, merged)
+    are.
+
+    ``qkv_sharding`` (a spec, under a mesh) re-anchors q/k/v to the head
+    placement: merged styles have no wq matmul to propagate it from."""
+    q, k, v = _qkv_reanchor(qkv_sharding, *_project_qkv(lp, cfg, u, u,
+                                                         merged))
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
     B, S = u.shape[0], u.shape[1]
@@ -382,6 +400,21 @@ def _self_attention_seq(lp, cfg: ModelConfig, u, positions, merged: bool,
         causal=cfg.causal, sliding_window=cfg.sliding_window, impl=impl,
         query_chunk=cfg.query_chunk or S)
     return out.reshape(B, S, cfg.attn_dim), (k, v)
+
+
+def _qkv_reanchor(spec, q, k, v):
+    """q/k/v redistributed to ``spec`` (``sharding.qkv_pspec``) when they
+    are DTensors: the counterpart of the reference's
+    ``with_sharding_constraint`` on merged layouts.  Where the kv heads do
+    not divide the model axis they stay whole, and so do the query heads:
+    a split of each kv head's query group is not a layout the grouped
+    attention below can keep (DTensor cannot flatten it)."""
+    if spec is None or not is_placed(k):
+        return q, k, v
+    kv_spec = shd.evenly(spec, k, k.device_mesh)
+    if kv_spec[2] is None:
+        spec = kv_spec
+    return reanchor(q, spec), reanchor(k, kv_spec), reanchor(v, kv_spec)
 
 
 def _cross_attention_seq(lp, cfg: ModelConfig, u, vision, merged: bool,
@@ -484,7 +517,8 @@ def apply_block_seq(p, cfg: ModelConfig, u, ctx, kind: Optional[str] = None):
             merged_core=ctx.get("merged_core", False),
             cache_kind=ctx.get("cache_kind", "dense"),
             q8_block=ctx.get("q8_block", 0),
-            q8_true_len=ctx.get("q8_true_len"))
+            q8_true_len=ctx.get("q8_true_len"),
+            qkv_sharding=ctx.get("qkv_sharding"))
         if kind == "hybrid":  # P stays: mean-fuse with the SSM heads
             return 0.5 * (_attn_out_proj(p["attn"], cat) + ssm_fn(x))
         return cat if merged else _attn_out_proj(p["attn"], cat)
@@ -562,7 +596,8 @@ def _remat_block(block_fn, h, remat):
 def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
                vision=None, impl: str = "torch", collect: bool = False,
                merged_core: bool = False, cache_kind: str = "dense",
-               q8_block: int = 0, q8_true_len=None, remat=False):
+               q8_block: int = 0, q8_true_len=None, remat=False,
+               qkv_sharding=None, stream_sharding=None):
     """Embed, every block, the logits -> (logits, aux, kvs, states):
     ``aux`` sums the layers' MoE load-balance losses (0.0 without
     experts).  With
@@ -573,7 +608,9 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
     required by a VLM and refused by every other stack.  ``remat``
     (False, True or "dots", ``_remat_block``) checkpoints each block for
     training; it collects nothing, so it cannot be combined with
-    ``collect``."""
+    ``collect``.  Under a mesh ``qkv_sharding`` re-anchors each layer's
+    q/k/v and ``stream_sharding`` the stream after each block (specs;
+    ``reanchor``)."""
     if collect and remat:
         raise ValueError("remat keeps no K/V or SSM state: it cannot be "
                          "combined with collect")
@@ -589,7 +626,7 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
     h = embed_inputs(params, cfg, inputs)
     ctx = {"positions": positions, "impl": impl, "merged_core": merged_core,
            "cache_kind": cache_kind, "q8_block": q8_block,
-           "q8_true_len": q8_true_len,
+           "q8_true_len": q8_true_len, "qkv_sharding": qkv_sharding,
            "vision": None if vision is None else vision.to(h.dtype)}
     kv_layers, cross_layers, st_layers = [], [], []
     aux = 0.0
@@ -603,6 +640,7 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
             kv = st = None
         else:
             h, a, kv, st = apply_block_seq(lp, cfg, h, ctx, kind)
+        h = reanchor(h, stream_sharding)
         aux = aux + a
         if collect and kv is not None:
             (cross_layers if kind == "cross" else kv_layers).append(kv)
@@ -619,7 +657,8 @@ def _run_stack(params, cfg: ModelConfig, inputs, *, positions=None,
 def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
                 vision=None, impl: str = "torch", collect_kv: bool = False,
                 merged_core: bool = False, cache_kind: str = "dense",
-                q8_block: int = 0, q8_true_len=None, remat=False):
+                q8_block: int = 0, q8_true_len=None, remat=False,
+                qkv_sharding=None, stream_sharding=None):
     """Full-sequence forward over int tokens (B,S), or an encoder's frames
     (B,S,d_model), -> (logits, aux, kvs).  A VLM takes ``vision``
     (B, nv, d_model) patch embeddings, which its cross layers attend; an
@@ -642,11 +681,13 @@ def forward_seq(params, cfg: ModelConfig, inputs, *, positions=None,
     float32 (``_self_attention_seq``).
     ``remat`` (False, True or "dots") checkpoints each block for training,
     as the reference's ``_scan_blocks_seq`` does; with ``collect_kv`` it
-    raises ValueError."""
+    raises ValueError.  ``qkv_sharding`` / ``stream_sharding``: specs that
+    re-anchor q/k/v and the stream under a mesh (``_run_stack``)."""
     logits, aux, kvs, _ = _run_stack(
         params, cfg, inputs, positions=positions, vision=vision, impl=impl,
         collect=collect_kv, merged_core=merged_core, cache_kind=cache_kind,
-        q8_block=q8_block, q8_true_len=q8_true_len, remat=remat)
+        q8_block=q8_block, q8_true_len=q8_true_len, remat=remat,
+        qkv_sharding=qkv_sharding, stream_sharding=stream_sharding)
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, aux, kvs
@@ -673,7 +714,10 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,
         pad = torch.arange(V, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    # a vocab split over the mesh is gathered for the label pick (DTensor
+    # cannot gather along a split dim)
+    gold = whole_dim(logits, -1).gather(
+        -1, labels.clamp_min(0).long()[..., None])[..., 0]
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse.square()
@@ -937,7 +981,8 @@ def _prefill_seq(params, cfg: ModelConfig, inputs, ctx, *,
     logits, _, kvs, states = _run_stack(
         params, cfg, inputs, vision=ctx.get("vision"),
         impl=ctx.get("impl", "torch"), collect=True,
-        merged_core=merged_core, cache_kind=cache_kind)
+        merged_core=merged_core, cache_kind=cache_kind,
+        qkv_sharding=ctx.get("qkv_sharding"))
     return logits, kvs, states
 
 
@@ -968,7 +1013,7 @@ def _finish_dense(params, cfg: ModelConfig, inputs, logits, kvs, states,
             return torch.roll(kept, shift, dims=2) if shift else kept
         out = kv_stacked.new_zeros(kv_stacked.shape[:2] + (Sc,) +
                                    kv_stacked.shape[3:])
-        out[:, :, :S] = kv_stacked
+        put_(out, (slice(None), slice(None), slice(0, S)), kv_stacked)
         return out
 
     ks, vs = kvs[:2]
@@ -1133,7 +1178,8 @@ backends.register_prefill_backend("paged_q8", "merged",
 
 
 def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
-                    vision=None, impl: str = "torch", true_len=None):
+                    vision=None, impl: str = "torch", true_len=None,
+                    qkv_sharding=None):
     """Cache-aware prefill: the single dispatcher over the PREFILL
     registry.  ``dest`` names the destination and selects the cache_kind
     axis of the registry key:
@@ -1158,7 +1204,8 @@ def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
     non-attention stack, paged batch > 1, too few mapped blocks, an int8
     prompt that is not a whole number of pages, a non-positive dense
     cache_len) raise ValueError; unknown (cache_kind, style, impl) combos
-    raise the registry's KeyError."""
+    raise the registry's KeyError.  ``qkv_sharding``: a spec re-anchoring
+    q/k/v under a mesh."""
     _require_decoder(cfg, "forward_prefill")
     B, S = int(inputs.shape[0]), int(inputs.shape[1])
     if vision is not None and tuple(vision.shape) != (
@@ -1196,7 +1243,8 @@ def forward_prefill(params, cfg: ModelConfig, inputs, dest, *,
             f"unknown prefill destination {type(dest).__name__!r}; expected "
             "DensePrefillDest, PagedPrefillDest or PagedQ8PrefillDest")
     backend = backends.get_prefill_backend(kind, prefill_style_key(cfg), impl)
-    ctx = {"impl": impl, "true_len": true_len, "vision": vision}
+    ctx = {"impl": impl, "true_len": true_len, "vision": vision,
+           "qkv_sharding": qkv_sharding}
     return backend.run(params, cfg, inputs, dest, ctx)
 
 
@@ -1215,8 +1263,8 @@ def _rope_and_insert(cfg: ModelConfig, q, k_new, v_new, k_layer, v_layer,
     B, Sc = k_layer.shape[0], k_layer.shape[1]
     rows = torch.arange(B, device=length.device)
     slot = (length % Sc).long()
-    k_layer[rows, slot] = k_new[:, 0].to(k_layer.dtype)
-    v_layer[rows, slot] = v_new[:, 0].to(v_layer.dtype)
+    put_(k_layer, (rows, slot), k_new[:, 0].to(k_layer.dtype))
+    put_(v_layer, (rows, slot), v_new[:, 0].to(v_layer.dtype))
     return q, k_layer, v_layer
 
 
@@ -1225,7 +1273,8 @@ def _attn_step_dense(lp, cfg: ModelConfig, u1, k_layer, v_layer, ctx):
     dictates.  u1 (B,1,d); k_layer/v_layer (B,Sc,Hkv,Dh)."""
     B, length = u1.shape[0], ctx["length"]
     merged = _is_merged(cfg.block_style)
-    q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, merged)
+    q, k_new, v_new = _qkv_reanchor(ctx.get("qkv_sharding"), *_project_qkv(
+        lp, cfg, u1, u1, merged))
     q, k_layer, v_layer = _rope_and_insert(cfg, q, k_new, v_new,
                                            k_layer, v_layer, length)
     out = attn_mod.decode_attention_core_positions(
@@ -1243,7 +1292,8 @@ def _attn_step_dense_merged(lp, cfg: ModelConfig, u1, k_layer, v_layer, ctx):
     native layout)."""
     B, length = u1.shape[0], ctx["length"]
     # variant "qp": _project_qkv returns the stream itself as q
-    q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, True)
+    q, k_new, v_new = _qkv_reanchor(ctx.get("qkv_sharding"), *_project_qkv(
+        lp, cfg, u1, u1, True))
     q, k_layer, v_layer = _rope_and_insert(cfg, q, k_new, v_new,
                                            k_layer, v_layer, length)
     out = attn_mod.decode_attention_core_merged(
@@ -1423,8 +1473,8 @@ def apply_block_step(p, cfg: ModelConfig, u1, k_layer, v_layer, ctx,
 
     def ssm_fn(x):
         out, new = m2.apply_mamba2_step(p["ssm"], x[:, 0], cfg, state)
-        state.ssm.copy_(new.ssm)
-        state.conv.copy_(new.conv)
+        assign_(state.ssm, new.ssm)
+        assign_(state.conv, new.conv)
         return out[:, None]
 
     if kind == "ssm":
@@ -1463,7 +1513,7 @@ def serving_style_key(cfg: ModelConfig) -> str:
 
 
 def forward_step(params, cfg: ModelConfig, token, cache, *,
-                 impl: str = "torch"):
+                 impl: str = "torch", qkv_sharding=None):
     """One decode step: token (B,) int -> (logits (B, V), cache).
 
     ``cache`` is a ``DecodeCache``, a ``PagedDecodeCache`` or a
@@ -1476,7 +1526,8 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
     a paged cache on a stack without attention only, or an encoder,
     raises ValueError.  The cache is updated in place: K/V rows,
     positions, and on ssm / hybrid stacks every layer's SSM state and conv
-    tail; a VLM's cross K/V are only read."""
+    tail; a VLM's cross K/V are only read.  ``qkv_sharding``: a spec
+    re-anchoring the step's q/k/v under a mesh."""
     paged_q8 = isinstance(cache, PagedQ8DecodeCache)
     paged = paged_q8 or isinstance(cache, PagedDecodeCache)
     if not paged and not isinstance(cache, DecodeCache):
@@ -1494,7 +1545,8 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
     # scale, merged embed_bias / input_proj)
     h = embed_inputs(params, cfg, token[:, None])
     length = cache.length
-    ctx = {"length": length, "impl": impl, "backend": backend}
+    ctx = {"length": length, "impl": impl, "backend": backend,
+           "qkv_sharding": qkv_sharding}
     if paged:
         ctx["block_tables"] = cache.block_tables
         ctx["append"] = paged_append_slots(cfg, cache.block_tables, length,
@@ -1504,7 +1556,7 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
         # to itself (ring slot = length % Sc under a sliding window)
         kv_pos = cache.kv_pos
         rows = torch.arange(kv_pos.shape[0], device=kv_pos.device)
-        kv_pos[rows, (length % kv_pos.shape[1]).long()] = length
+        put_(kv_pos, (rows, (length % kv_pos.shape[1]).long()), length)
         ctx["kv_pos"] = kv_pos
     if plan["kind"] == "vlm":  # every vision token, once per step
         B, nv = cache.cross_k.shape[1], cache.cross_k.shape[2]
@@ -1664,15 +1716,18 @@ def _chunk_dense(params, cfg: ModelConfig, chunk, dest: DenseChunkDest, ctx,
     dev = chunk.device
     pos = torch.arange(start, start + C, dtype=torch.int32,
                        device=dev)[None, :]  # (1, C)
-    cache.kv_pos[slot, start:start + C] = pos[0]
+    put_(cache.kv_pos, (slot, slice(start, start + C)), pos[0])
     kv_row = cache.kv_pos[slot:slot + 1]
     kv_eff = torch.where(kv_row >= 0, kv_row, _CHUNK_POS_SENTINEL)
 
     def chunk_attn(lp, cfg_, x, k_layer, v_layer, actx):
-        q, k_new, v_new = _project_qkv(lp, cfg_, x, x, merged)
+        q, k_new, v_new = _qkv_reanchor(ctx.get("qkv_sharding"),
+                                        *_project_qkv(lp, cfg_, x, x, merged))
         q, k_new = _chunk_rope(cfg_, q, k_new, pos)
-        k_layer[slot, start:start + C] = k_new[0].to(k_layer.dtype)
-        v_layer[slot, start:start + C] = v_new[0].to(v_layer.dtype)
+        put_(k_layer, (slot, slice(start, start + C)),
+             k_new[0].to(k_layer.dtype))
+        put_(v_layer, (slot, slice(start, start + C)),
+             v_new[0].to(v_layer.dtype))
         out = _chunk_core(cfg_, q, k_layer[slot:slot + 1],
                           v_layer[slot:slot + 1], pos, kv_eff, merged_core,
                           "dense")
@@ -1681,7 +1736,7 @@ def _chunk_dense(params, cfg: ModelConfig, chunk, dest: DenseChunkDest, ctx,
     h = embed_inputs(params, cfg, chunk)
     logits = _chunk_block_scan(params, cfg, h, chunk_attn, cache.k, cache.v,
                                ctx["impl"])
-    cache.length[slot] = min(start + C, true_len)
+    put_(cache.length, (slot,), min(start + C, true_len))
     return _chunk_last_logits(logits, start, true_len, C), cache
 
 
@@ -1832,7 +1887,7 @@ backends.register_chunk_backend("paged_q8", "merged", _chunk_paged_q8_merged,
 
 def forward_prefill_chunk(params, cfg: ModelConfig, chunk, dest, *,
                           start: int, true_len: int, impl: str = "torch",
-                          max_len: Optional[int] = None):
+                          max_len: Optional[int] = None, qkv_sharding=None):
     """One fixed-width prefill chunk against the SERVING cache: the single
     dispatcher over the ``models.backends`` CHUNK registry.
 
@@ -1899,5 +1954,6 @@ def forward_prefill_chunk(params, cfg: ModelConfig, chunk, dest, *,
             f"unknown chunk destination {type(dest).__name__!r}; expected "
             "DenseChunkDest, PagedChunkDest or PagedQ8ChunkDest")
     backend = backends.get_chunk_backend(kind, prefill_style_key(cfg), impl)
-    ctx = {"start": int(start), "true_len": int(true_len), "impl": impl}
+    ctx = {"start": int(start), "true_len": int(true_len), "impl": impl,
+           "qkv_sharding": qkv_sharding}
     return backend.run(params, cfg, chunk, dest, ctx)

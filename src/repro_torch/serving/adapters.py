@@ -23,6 +23,13 @@ kind:
     as -1, so the decode write drops) while the chunk program gets the
     true row; ``unshield`` exposes the slot only after the activating
     decode step.
+
+Under a device mesh ``place`` puts the cache on the mesh per ``pspecs``
+(``distribution.sharding.serving_cache_pspecs``) and the programs take a
+``qkv_sharding`` spec.  The dense cache runs on every mesh; the paged
+pools raise NotImplementedError there (their page writes gather rows
+through ``torch.nonzero`` and flat ``index_copy_``, which DTensors do not
+carry).
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import sharding as shd
+from repro_torch.distribution.placed import assign_, is_placed
 from repro_torch.models import (DenseChunkDest, DensePrefillDest,
                                 PagedChunkDest, PagedPrefillDest,
                                 PagedQ8ChunkDest, PagedQ8PrefillDest,
@@ -57,10 +66,20 @@ class KVCacheAdapter:
         """Allocate the device cache for (cfg, ServeConfig) on ``device``."""
         raise NotImplementedError
 
-    def build_prefill(self, impl: str) -> None:
+    def build_prefill(self, impl: str, qkv_sharding=None) -> None:
         """Bind this cache kind's prefill program (a
-        ``models.forward_prefill`` dispatch)."""
+        ``models.forward_prefill`` dispatch); ``qkv_sharding`` re-anchors
+        q/k/v under a mesh."""
         raise NotImplementedError
+
+    def pspecs(self, rules):
+        """Partition specs of the device cache (mesh serving)."""
+        return shd.serving_cache_pspecs(self.cfg, rules, self.device_cache())
+
+    def place(self, mesh, rules) -> None:
+        """Put the device cache on ``mesh`` per ``pspecs(rules)``."""
+        raise NotImplementedError(
+            f"the {self.kind!r} cache does not run under a device mesh yet")
 
     def device_cache(self):
         raise NotImplementedError
@@ -111,7 +130,8 @@ class KVCacheAdapter:
         ``device_cache()`` the scheduled engine ships."""
         raise NotImplementedError
 
-    def build_chunk(self, chunk_tokens: int, impl: str) -> None:
+    def build_chunk(self, chunk_tokens: int, impl: str,
+                    qkv_sharding=None) -> None:
         """Bind this cache kind's fixed-width chunk program
         (``models.forward_prefill_chunk``)."""
         raise NotImplementedError
@@ -168,13 +188,18 @@ class DenseCacheAdapter(KVCacheAdapter):
         self._cache = init_cache(cfg, sc.n_slots, sc.max_len, device=device)
         self._chunked = False
 
-    def build_prefill(self, impl):
+    def place(self, mesh, rules):
+        self._cache = shd.distribute_tree(self._cache, self.pspecs(rules),
+                                          mesh)
+
+    def build_prefill(self, impl, qkv_sharding=None):
         dest = DensePrefillDest(cache_len=self.sc.max_len)
         cfg = self.cfg
 
         def run(params, tokens, true_len, vision):
             return forward_prefill(params, cfg, tokens, dest, vision=vision,
-                                   impl=impl, true_len=true_len)
+                                   impl=impl, true_len=true_len,
+                                   qkv_sharding=qkv_sharding)
 
         self._prefill = run
 
@@ -188,6 +213,9 @@ class DenseCacheAdapter(KVCacheAdapter):
                 self._staged.synchronize()
             self._stage_np[:] = self._lengths
             length = self._cache.length
+            if is_placed(length):
+                assign_(length, self._stage.to(length.device))
+                return self._cache
             length.copy_(self._stage, non_blocking=True)
             if length.is_cuda:
                 self._staged = torch.cuda.Event()
@@ -236,14 +264,15 @@ class DenseCacheAdapter(KVCacheAdapter):
         self._stage_np = self._stage.numpy()
         self._staged = None
 
-    def build_chunk(self, chunk_tokens, impl):
+    def build_chunk(self, chunk_tokens, impl, qkv_sharding=None):
         cfg, max_len = self.cfg, self.sc.max_len
         self._chunk_tokens = chunk_tokens
 
         def run(params, tokens, start, true_len, slot):
             return forward_prefill_chunk(
                 params, cfg, tokens, DenseChunkDest(self._cache, slot),
-                start=start, true_len=true_len, impl=impl, max_len=max_len)
+                start=start, true_len=true_len, impl=impl, max_len=max_len,
+                qkv_sharding=qkv_sharding)
 
         self._chunk = run
 
@@ -300,7 +329,7 @@ class PagedCacheAdapter(KVCacheAdapter):
             n_blocks=n_blocks, prefix_retention=self._prefix_retention,
             device=device)
 
-    def build_prefill(self, impl):
+    def build_prefill(self, impl, qkv_sharding=None):
         cfg = self.cfg
 
         def run(params, tokens, true_len, block_ids):
@@ -354,7 +383,7 @@ class PagedCacheAdapter(KVCacheAdapter):
     def enable_chunked(self):
         pass  # the shields and frontiers live in the manager
 
-    def build_chunk(self, chunk_tokens, impl):
+    def build_chunk(self, chunk_tokens, impl, qkv_sharding=None):
         if chunk_tokens % self.pm.bs:
             raise ValueError(
                 f"chunk_tokens ({chunk_tokens}) must be a multiple of the "

@@ -62,6 +62,19 @@ that ends its work (a step's span closes after ``_sample``'s copy of the
 tokens to the host, a device sync), so turning the observer on changes no
 token, no kernel launch and no host sync.  The reference's
 ``compile_event`` has no counterpart here: the port compiles nothing.
+
+Under a device mesh (``mesh=``, a ``torch.distributed`` ``DeviceMesh``
+with "data" and "model" axes, one process per rank, every rank running
+the same requests) the engine places its params per
+``distribution.sharding.param_pspecs`` and its cache per the adapter's
+``pspecs`` (both after ``evenly``; the batch over the data axes, heads,
+FFN, vocab and the cache's sequence over the model axis), with rules for
+a batch of ``n_slots``, and runs every step on the DTensors
+(``distribution.placed``).  A merged model's q/k/v are re-anchored to the
+head placement.  Each rank samples from the whole logits, so every rank
+emits the same tokens.  ``impl="cuda"`` needs a model axis of size 1 (the
+kernels run on each rank's local batch rows); the paged pools raise
+NotImplementedError under a mesh.
 """
 from __future__ import annotations
 
@@ -74,6 +87,9 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import sharding as shd
+from repro_torch.distribution.placed import (full, local_tree, on_mesh,
+                                             shard_box)
 from repro_torch.models import (backends, forward_step, prefill_style_key,
                                 serving_style_key)
 from repro_torch.obs import NULL, MetricsRegistry, Observer
@@ -138,6 +154,11 @@ class RequestResult(list):
                 "ttft_s": self.ttft_s, "decode_tok_s": self.decode_tok_s}
 
 
+def _axis_size(mesh, name: str) -> int:
+    names = tuple(mesh.mesh_dim_names or ())
+    return int(mesh.size(names.index(name))) if name in names else 1
+
+
 def _timings_of(req: Request) -> Tuple[float, Optional[float]]:
     """(ttft_s, decode_tok_s); decode_tok_s is None — not 0.0 — when there
     is no decode phase to rate."""
@@ -161,10 +182,16 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
                  impl: str = "cuda",
                  cache: Union[str, KVCacheAdapter] = "dense",
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if not cfg.causal:
             raise ValueError("serving requires a decoder")
         cfg.validate_style()  # merged styles need a square Q basis
+        if mesh is not None and impl == "cuda" and \
+                _axis_size(mesh, "model") > 1:
+            raise ValueError(
+                "impl='cuda' needs a mesh whose model axis has size 1: the "
+                "kernels take whole heads and sequences (serve a larger "
+                "model axis with impl='torch')")
         dev = torch.device(device)
         if impl in _IMPL_DEVICE and _IMPL_DEVICE[impl] != dev.type:
             raise ValueError(
@@ -177,6 +204,7 @@ class Engine:
             raise ValueError(f"params lie on {table.device}, the engine "
                              f"serves on {self.device}")
         self.cfg, self.sc, self.params, self.impl = cfg, sc, params, impl
+        self.mesh, self.rules = mesh, None
         self.kv: KVCacheAdapter = (make_adapter(cache)
                                    if isinstance(cache, str) else cache)
         # resolve BOTH phases' backends now: an unknown (cache_kind, style,
@@ -221,12 +249,33 @@ class Engine:
                            and not cfg.ssm_state
                            and (self.paged or not cfg.sliding_window))
         self.kv.init(cfg, sc, self.device)
-        self.kv.build_prefill(impl)
+        self._qkv = self._local_params = None
+        if mesh is not None:
+            self._place_on(mesh)
+        self.kv.build_prefill(impl, qkv_sharding=self._qkv)
         self._last_token = np.zeros((sc.n_slots,), np.int32)
         # temperature sampling: each slot's request's private generator
         self._gens: List[Optional[torch.Generator]] = [None] * sc.n_slots
         # lifts the adapter's pool telemetry in as LAZY gauges (no-op off)
         self.obs.attach_engine(self)
+
+    def _place_on(self, mesh) -> None:
+        """Params and cache onto ``mesh`` (the reference's ``device_put``
+        with ``param_shardings`` and the cache shardings)."""
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh lies on {mesh.device_type!r}, the "
+                             f"engine serves on {self.device.type!r}")
+        self.rules = shd.make_rules(mesh, batch=self.sc.n_slots)
+        self.params = shd.distribute_tree(
+            self.params, shd.param_pspecs(self.params, self.rules), mesh)
+        self.kv.place(mesh, self.rules)
+        if self.merged_fast_path:
+            # K*/V*-only layout: no wq matmul anchors the head placement
+            self._qkv = shd.qkv_pspec(self.rules)
+        if _axis_size(mesh, "model") == 1:
+            # every rank holds whole params and whole cache rows: the decode
+            # step runs on local tensors (see ``_decode``)
+            self._local_params = local_tree(self.params)
 
     @property
     def stats(self) -> Dict[str, int]:
@@ -310,6 +359,10 @@ class Engine:
         A request with ``out_tokens`` already set is a RESUME (preempted
         earlier): its prompt and generated tokens but the last re-prefill,
         and decoding continues from its last token."""
+        with on_mesh(self.mesh):
+            return self._submit(req, vision)
+
+    def _submit(self, req: Request, vision) -> bool:
         if req.t_arrival is None:
             req.t_arrival = time.perf_counter()
         self._check_vision(vision)
@@ -339,7 +392,7 @@ class Engine:
         padded, n = self._bucket_pad(toks)
         vs = None if vision is None else self.host_to_device(
             vision, np.float32)[None]
-        logits = self.kv.prefill(self.params, slot,
+        logits = self.kv.prefill(self._prefill_params, slot,
                                  self.host_to_device(padded, np.int32)[None],
                                  n, n_shared, vs)
         if req.rid < 0:
@@ -383,14 +436,16 @@ class Engine:
     def step(self) -> Dict[int, int]:
         """One batched decode step for all active slots; returns
         slot -> token."""
+        with on_mesh(self.mesh):
+            return self._step()
+
+    def _step(self) -> Dict[int, int]:
         if not self.active:
             return {}
         t0 = self.obs.clock()  # the step span includes appendability
         self._make_appendable()
-        tokens = self.host_to_device(self._last_token, np.int32)
-        logits, new_cache = forward_step(self.params, self.cfg, tokens,
-                                         self.kv.device_cache(),
-                                         impl=self.impl)
+        logits, new_cache = self._decode(self._last_token,
+                                         self.kv.device_cache())
         self.kv.update(new_cache)
         self._c_steps.inc()
         slots = sorted(self.active)
@@ -412,6 +467,45 @@ class Engine:
         self.obs.step_done(t0, self.obs.clock(), n_active=len(self.active),
                            n_tokens=len(emitted))
         return emitted
+
+    @property
+    def _prefill_params(self):
+        """The params a whole-prompt prefill runs on: where the mesh's model
+        axis has size 1, each rank's local (whole) params, so the batch-1
+        prompt, the same on every rank, runs on plain tensors and only its
+        insert into the placed cache lands per owning rank
+        (``kv_cache.insert_request``)."""
+        return self.params if self._local_params is None \
+            else self._local_params
+
+    def _decode(self, last_token: np.ndarray, cache):
+        """One decode step over the host's (n_slots,) last tokens:
+        ``forward_step`` on plain tensors without a mesh, on the DTensors
+        under one (the tokens split over the data axes), or, where the
+        mesh's model axis has size 1, on each rank's local tensors: its
+        batch rows of the tokens and the cache against whole params, what
+        every op of the step would compute on the DTensors without a
+        collective, minus DTensor's dispatch on the host.  The cache is
+        written in place either way; the new lengths and the logits are
+        placed back with the cache's batch placement."""
+        tokens = self.host_to_device(last_token, np.int32)
+        if self.mesh is None:
+            return forward_step(self.params, self.cfg, tokens, cache,
+                                impl=self.impl)
+        if self._local_params is None:
+            tokens = shd.place(tokens, shd.P(self.rules.dp), self.mesh)
+            return forward_step(self.params, self.cfg, tokens, cache,
+                                impl=self.impl, qkv_sharding=self._qkv)
+        from torch.distributed.tensor import DTensor
+
+        lo, n = shard_box(cache.length)[0]
+        logits, new = forward_step(self._local_params, self.cfg,
+                                   tokens[lo:lo + n], local_tree(cache),
+                                   impl=self.impl)
+        mesh, batch = cache.length.device_mesh, cache.length.placements
+        return (DTensor.from_local(logits, mesh, batch, run_check=False),
+                cache._replace(length=DTensor.from_local(
+                    new.length, mesh, batch, run_check=False)))
 
     def _make_appendable(self) -> None:
         """Guarantee every active slot can write its next token (paged:
@@ -506,8 +600,9 @@ class Engine:
         scaled by 1/T and cut to the top k, and each row draws from ITS
         slot's generator (Gumbel-max on uniforms drawn on the device): a
         slot's generator advances only when its row samples.  The host
-        copy synchronises with the device."""
-        logits = logits[:, :self.cfg.vocab_size]
+        copy synchronises with the device.  Under a mesh the logits are
+        gathered whole first: every rank draws the same tokens."""
+        logits = full(logits)[:, :self.cfg.vocab_size]
         if self.sc.temperature <= 0:
             toks = logits.argmax(dim=-1).cpu().numpy()
             return toks if rows is None else toks[list(rows)]

@@ -14,25 +14,29 @@ Dh).
 """
 from __future__ import annotations
 
+from repro_torch.distribution.placed import put_
 from repro_torch.models.transformer import DecodeCache
+
+_ALL = slice(None)
 
 
 def insert_request(cache: DecodeCache, one: DecodeCache,
                    slot: int) -> DecodeCache:
     """Copy the batch-1 cache ``one`` into slot ``slot`` of ``cache``:
     K/V and positions where the stack has attention, the SSM state and
-    conv tail where it has SSM layers, a VLM's cross K/V."""
+    conv tail where it has SSM layers, a VLM's cross K/V.  Under a mesh
+    (DTensors) each rank writes the part of the slot in its own shard."""
     if cache.k is not None:
-        cache.k[:, slot].copy_(one.k[:, 0])
-        cache.v[:, slot].copy_(one.v[:, 0])
-        cache.kv_pos[slot].copy_(one.kv_pos[0])
+        put_(cache.k, (_ALL, slot), one.k[:, 0])
+        put_(cache.v, (_ALL, slot), one.v[:, 0])
+        put_(cache.kv_pos, (slot,), one.kv_pos[0])
     if cache.cross_k is not None:
-        cache.cross_k[:, slot].copy_(one.cross_k[:, 0])
-        cache.cross_v[:, slot].copy_(one.cross_v[:, 0])
+        put_(cache.cross_k, (_ALL, slot), one.cross_k[:, 0])
+        put_(cache.cross_v, (_ALL, slot), one.cross_v[:, 0])
     if cache.ssm is not None:
-        cache.ssm.ssm[:, slot].copy_(one.ssm.ssm[:, 0])
-        cache.ssm.conv[:, slot].copy_(one.ssm.conv[:, 0])
-    cache.length[slot] = one.length[0]
+        put_(cache.ssm.ssm, (_ALL, slot), one.ssm.ssm[:, 0])
+        put_(cache.ssm.conv, (_ALL, slot), one.ssm.conv[:, 0])
+    put_(cache.length, (slot,), one.length[0])
     return cache
 
 
@@ -42,6 +46,6 @@ def clear_slot(cache: DecodeCache, slot: int) -> DecodeCache:
     needs none either: the next request's insert overwrites all of it, and
     an idle slot's state is never read into a live stream."""
     if cache.kv_pos is not None:
-        cache.kv_pos[slot] = -1
-    cache.length[slot] = 0
+        put_(cache.kv_pos, (slot,), -1)
+    put_(cache.length, (slot,), 0)
     return cache

@@ -34,6 +34,9 @@ seeded from (seed, rid) with rids assigned in arrival order, and a
 request's generator advances only with its own draws, so greedy and
 sampled continuations match the synchronous engine's.
 
+Under a device mesh (``mesh=``) the chunk programs run on the placed
+cache as the base engine's steps do (``serving.engine``).
+
 Observability as in the reference: each iteration emits
 ``obs.sched_iteration`` (its span closes after the decode step's host
 read of the sampled tokens, a device sync) and each chunk
@@ -52,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution.placed import on_mesh
 from repro_torch.models import layer_plan
 from repro_torch.serving.adapters import KVCacheAdapter
 from repro_torch.serving.engine import (Engine, Request, RequestResult,
@@ -67,9 +71,9 @@ class ScheduledEngine(Engine):
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
                  scfg: Optional[SchedConfig] = None, impl: str = "cuda",
                  cache: Union[str, KVCacheAdapter] = "dense",
-                 device="cuda"):
+                 device="cuda", mesh=None):
         super().__init__(cfg, params, sc, impl=impl, cache=cache,
-                         device=device)
+                         device=device, mesh=mesh)
         self.scfg = scfg if scfg is not None else SchedConfig()
         # chunk programs are attention-only (SSM state has no mid-prompt
         # checkpoint): other stacks and binding-window dense take
@@ -83,7 +87,8 @@ class ScheduledEngine(Engine):
                     f"chunk_tokens ({self.scfg.chunk_tokens}): the final "
                     f"chunk's padded tail may not write past the cache")
             self.kv.enable_chunked()
-            self.kv.build_chunk(self.scfg.chunk_tokens, impl)
+            self.kv.build_chunk(self.scfg.chunk_tokens, impl,
+                                qkv_sharding=self._qkv)
         self.waiting: List[PrefillJob] = []  # FCFS; resumes at the front
         self.prefilling: List[PrefillJob] = []  # admitted, chunks landing
         self.last_schedule: Optional[Schedule] = None
@@ -179,7 +184,7 @@ class ScheduledEngine(Engine):
         if job.monolithic:
             padded, n = self._bucket_pad(job.toks)
             logits = self.kv.prefill(
-                self.params, job.slot,
+                self._prefill_params, job.slot,
                 self.host_to_device(padded, np.int32)[None], n, job.n_shared)
             self.kv.set_length(job.slot, n)
             job.cursor = job.total
@@ -243,6 +248,10 @@ class ScheduledEngine(Engine):
     def step(self) -> Dict[int, int]:
         """One scheduler ITERATION: admit -> plan -> chunks -> decode ->
         activate.  Returns slot -> token for the decode part."""
+        with on_mesh(self.mesh):
+            return self._iteration()
+
+    def _iteration(self) -> Dict[int, int]:
         while self.preempted:  # re-enter the queue at the front
             self.submit(self.preempted.pop(0))
         t0 = self.obs.clock()

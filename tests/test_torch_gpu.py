@@ -1457,3 +1457,97 @@ def test_forward_through_the_kernels_refuses_params_that_require_grad():
     lg, _, _ = forward_seq(params, cfg, x, impl="torch")
     lg.sum().backward()
     assert params["layers"]["attn"]["wk"].grad is not None
+
+
+# ---------------------------------------------------------------------------
+# the mesh path at world size 1 (NCCL), in a subprocess: no process group
+# lives in the test process
+# ---------------------------------------------------------------------------
+
+_MESH_SCRIPT = r"""
+import json, os, sys
+sys.path.insert(0, {src!r})
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.core import merge_skipless
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import init_params
+from repro_torch.serving import Engine, ScheduledEngine, SchedConfig, ServeConfig
+from repro_torch.training import DataConfig, Trainer, TrainerConfig
+
+dist.init_process_group("nccl", init_method="file://" + {pg!r}, rank=0,
+                        world_size=1)
+mesh = make_mesh((1, 1), ("data", "model"))
+out = {{}}
+cfg = reduce_config(get_config("mistral-7b")).with_(
+    block_style="skipless", d_model=256, n_heads=4, n_kv_heads=2,
+    d_head=64, dtype="float32", param_dtype="float32")
+params = init_params(cfg, seed=0, device="cuda")
+params["embed"]["table"].mul_(50.0)
+mp, mc = merge_skipless(params, cfg, "qp")
+rng = np.random.default_rng(0)
+prompts = [rng.integers(0, 128, n) for n in (5, 11, 3, 8)]
+sc = ServeConfig(n_slots=4, max_len=48)
+for name, (c, p) in (("source", (cfg, params)), ("merged", (mc, mp))):
+    for kind in ("engine", "sched"):
+        res = {{}}
+        for tag, m in (("plain", None), ("mesh", mesh)):
+            eng = (Engine(c, p, sc, impl="cuda", device="cuda", mesh=m)
+                   if kind == "engine" else
+                   ScheduledEngine(c, p, sc, SchedConfig(token_budget=16,
+                                                         chunk_tokens=8),
+                                   impl="cuda", device="cuda", mesh=m))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            outs = eng.generate(prompts, max_new_tokens=6)
+            torch.cuda.synchronize()
+            res[tag] = ([list(map(int, o)) for o in outs],
+                        {{k: v for k, v in launch_counts().items() if v}})
+        out[name + "/" + kind] = res
+tcfg_ = reduce_config(get_config("llama3.2-1b"))
+losses = {{}}
+for tag, m in (("plain", None), ("mesh", mesh)):
+    tr = Trainer(tcfg_, TrainerConfig(steps=3, log_every=1, ckpt_every=100,
+                                      ckpt_dir={ck!r} + tag, lr=1e-3,
+                                      warmup=1),
+                 DataConfig(global_batch=4, seq_len=16, seed=0),
+                 device="cuda", mesh=m)
+    tr.run()
+    losses[tag] = [x["loss"] for x in tr.metrics_log]
+out["train"] = losses
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_mesh_path_at_world_size_1_on_the_card(tmp_path):
+    """Engine and ScheduledEngine on a (1, 1) mesh through the kernels
+    (source: rows 1 and 4; merged: rows 2 and 5): the same greedy streams
+    and launch counts as without the mesh; a meshed Trainer's losses equal
+    the unmeshed one's within 1e-6 relative."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _cuda()
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    code = _MESH_SCRIPT.format(src=os.path.abspath(src),
+                               pg=str(tmp_path / "pg"),
+                               ck=str(tmp_path / "ck_"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    for key in ("source/engine", "source/sched", "merged/engine",
+                "merged/sched"):
+        plain, meshed = out[key]["plain"], out[key]["mesh"]
+        assert meshed == plain, key
+        assert sum(plain[1].values()) > 0, key
+    merged = out["merged/engine"]["plain"][1]
+    assert set(merged) == {"flash_attention_merged_bsd",
+                           "decode_attention_merged_bsd"}, merged
+    a, b = out["train"]["mesh"], out["train"]["plain"]
+    assert len(a) == 3 and all(abs(x - y) <= 1e-6 * abs(y)
+                               for x, y in zip(a, b)), (a, b)

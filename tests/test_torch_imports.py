@@ -40,7 +40,12 @@ def test_no_module_imports_jax_or_the_jax_package():
             "repro_torch.launch.train", "repro_torch.training.checkpoint",
             "repro_torch.training.data", "repro_torch.training.optimizer",
             "repro_torch.training.fault_tolerance",
-            "repro_torch.training.train_loop"} <= set(mods)
+            "repro_torch.training.train_loop",
+            "repro_torch.configs.shapes", "repro_torch.distribution",
+            "repro_torch.distribution.sharding",
+            "repro_torch.distribution.placed", "repro_torch.launch.mesh",
+            "repro_torch.launch.steps",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
@@ -94,6 +99,50 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         from repro_torch.launch.serve import main
         main(["--arch", "mistral-7b", "--smoke"])
+
+
+def test_importing_the_dry_run_changes_no_environment():
+    """Unlike the reference's (which sets XLA_FLAGS on import), the port's
+    dry run leaves the process environment as it found it."""
+    code = (
+        "import os, sys\n"
+        f"sys.path[:0] = [{SRC!r}]\n"
+        "before = dict(os.environ)\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.steps\n"
+        "import repro_torch.launch.mesh, repro_torch.distribution\n"
+        "assert dict(os.environ) == before\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT)
+    assert r.returncode == 0 and r.stdout.startswith("ok"), r.stdout + r.stderr
+
+
+def test_shape_helpers_build_on_meta_and_entry_points_refuse_it():
+    """``param_shapes`` / ``launch.steps`` make their trees on the meta
+    device; ``init_params``, ``init_cache`` and the engine refuse it."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch import steps
+    from repro_torch.models import init_cache, init_params, param_shapes
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.training import DataConfig, Trainer, TrainerConfig
+
+    cfg = reduce_config(get_config("mistral-7b"))
+    meta = param_shapes(cfg)
+    plain = init_params(cfg, device="cpu")
+    import repro_torch._tree as tr
+    assert [tuple(x.shape) for x in tr.tree_leaves(meta)] == \
+        [tuple(x.shape) for x in tr.tree_leaves(plain)]
+    assert all(x.device.type == "meta" for x in tr.tree_leaves(meta))
+    assert steps.cache_specs(cfg, 2, 16).k.device.type == "meta"
+    with pytest.raises(ValueError, match="meta"):
+        init_params(cfg, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        init_cache(cfg, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        Engine(cfg, plain, ServeConfig(), impl="torch", device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        Trainer(cfg, TrainerConfig(), DataConfig(global_batch=2, seq_len=8),
+                device="meta")
 
 
 def test_chip_smoke_fails_without_a_card():

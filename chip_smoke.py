@@ -171,15 +171,23 @@ NVIDIA card.  Run from the repository root:
    first mismatch, the per-block RMS, and 2 layers); (c) one train step
    of every arch at ``reduce_config`` in every style it admits (and
    ``grad_accum=2``) on the card against the CPU;
-13. the obs phase (``obs_path``, last: it turns on PyTorch's GPU trace
-   hooks to count host syncs): merged bf16 Mistral-7B at 32 layers on the
+13. the obs phase (``obs_path``, after every timed phase: it turns on
+   PyTorch's GPU trace hooks to count host syncs): merged bf16 Mistral-7B at 32 layers on the
    paged pool, roomy and tight, through ``Engine`` and
    ``ScheduledEngine`` with ``ServeConfig(obs=True)``: one terminal event
    per request, a valid Perfetto export, histograms counting the
    requests, pool gauges equal to the allocator's counters, and the
    streams, launch counts and host syncs of the obs-off run; obs-on and
    obs-off tok/s side by side;
-14. prints one JSON line of per-kernel numbers, then, as the last line,
+14. the lint phase (``lint_path``, after the obs phase, whose trace hooks
+   it reuses): ``python -m repro_torch.lint --device cuda`` (the sweep of
+   the 36 registered combos, the "cuda" ones traced on the card through
+   the kernels, and the aliasing, submit-path and retention audits on
+   CUDA engines) and the registered builders on full-width Mistral-7B
+   cut to 2 layers (18 kernel targets), all CLEAN, each kernel target
+   one kernel node and one launch per attention layer; a paged and an
+   int8 paged decode step make no host sync;
+15. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Everything printed to stdout is also written to ``build/chip_smoke.log``
@@ -3406,8 +3414,8 @@ def sync_counted(fn):
 
 def obs_path(summary):
     """The obs phase on merged bf16 Mistral-7B at 32 layers (uncalibrated,
-    as the path phase's bf16 runs), the path phase's prompts.  Last in the
-    script: it turns on the GPU trace hooks (``sync_counted``)."""
+    as the path phase's bf16 runs), the path phase's prompts.  After every
+    timed phase: it turns on the GPU trace hooks (``sync_counted``)."""
     import numpy as np
     import torch
     from repro_torch._tree import tree_map
@@ -3546,6 +3554,109 @@ def obs_phase(cfg, params, prompts, max_new):
             del eng, runs
     torch.cuda.empty_cache()
     return out
+
+
+LINT_LAYERS = 2  # the full-width lint's only cut: Mistral-7B at 2 layers
+
+
+def lint_kernel_targets(tag, targets):
+    """Each "cuda" decode and prefill target holds one ``repro_torch``
+    kernel node per attention layer and launched as many kernels during
+    its trace as it holds kernel nodes; chunk programs (the eager
+    positions core on every impl) and the "torch" route hold none."""
+    for t in targets:
+        want = t["n_attn_layers"] if t["impl"] == "cuda" and \
+            t["phase"] != "chunk" else 0
+        if not t["n_kernel_nodes"] == t["launches"] == want:
+            raise AssertionError(
+                f"lint {tag} {t['key']}: {t['n_kernel_nodes']} kernel nodes, "
+                f"{t['launches']} launches in its trace, want {want}")
+
+
+def lint_path(summary):
+    """The lint phase (``repro_torch.lint``): ``python -m repro_torch.lint
+    --device cuda``'s four parts — the sweep of the 36 registered combos
+    at reduced shape (the "cuda" combos traced on the card, their kernels
+    launching inside the trace; the "torch" combos on the host) and the
+    aliasing, submit-path and retention audits on CUDA engines with
+    ``impl="cuda"`` — then the registered builders once more on
+    full-width Mistral-7B, skipless and its qp merge in bf16, cut to
+    ``LINT_LAYERS`` layers (the sweep asserts its max_len collides with no
+    dimension of the config or the pool): its 18 "cuda" targets.  Every
+    report must be CLEAN, and every kernel target must pass
+    ``lint_kernel_targets`` (these launches are asserted here; they are
+    not the main path's, so the kernels line does not count them).  Then
+    the host syncs of one paged and one int8 paged decode step
+    (``forward_step`` alone, full width, idle rows included) through the
+    GPU trace hooks (``sync_counted``): none.  Last in the script, after
+    the obs phase has turned those hooks on."""
+    import importlib
+
+    import torch
+    from repro_torch.lint import report
+    from repro_torch.lint.__main__ import main as lint_main
+    from repro_torch.models import (forward_step, init_paged_cache,
+                                    init_paged_q8_cache)
+
+    sw = importlib.import_module("repro_torch.lint.sweep")
+    out = {}
+    t0 = time.perf_counter()
+    path = os.path.join(ROOT, "build", "lint_report.json")
+    if lint_main(["--device", "cuda", "--json", path]):
+        raise AssertionError("lint (reduced, card): violations above")
+    with open(path) as f:
+        doc = json.load(f)
+    lint_kernel_targets("reduced", doc["sweep"]["targets"])
+    out["reduced_s"] = time.perf_counter() - t0
+    out["reduced_targets"] = len(doc["sweep"]["targets"])
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cfg, params, mcfg, mparams = build(LINT_LAYERS, calibrate=False,
+                                           dtype="bfloat16")
+        rep = sw.sweep(device="cuda", impls=("cuda",),
+                       models={"generic": (cfg, params),
+                               "merged": (mcfg, mparams)})
+    report.render_sweep(rep, verbose=True)
+    targets = [t.to_dict() for t in rep.targets]
+    if not rep.ok or len(targets) != 18:
+        raise AssertionError(f"lint (full width, {LINT_LAYERS} layers): "
+                             f"{len(targets)} targets, findings "
+                             f"{[str(f) for f in rep.findings]}")
+    lint_kernel_targets("full width", targets)
+    out["full_width_s"] = time.perf_counter() - t0
+    out["kernel_nodes_full_width"] = sum(t["n_kernel_nodes"]
+                                         for t in targets)
+
+    syncs = {}
+    with torch.no_grad():
+        for kind, init in (("paged", init_paged_cache),
+                           ("paged_q8", init_paged_q8_cache)):
+            cache = init(mcfg, 64, 16, 4, 512, device="cuda")
+            tbl = torch.full(tuple(cache.block_tables.shape), -1,
+                             dtype=torch.int32)
+            tbl[1, :2], tbl[3, 0] = torch.tensor([3, 4]), 7
+            cache = cache._replace(
+                block_tables=tbl.cuda(),
+                length=torch.tensor([0, 20, 0, 9], dtype=torch.int32,
+                                    device="cuda"))
+            toks = torch.tensor([1, 2, 3, 4], dtype=torch.int32,
+                                device="cuda")
+            forward_step(mparams, mcfg, toks, cache, impl="cuda")
+            _, caught = sync_counted(lambda: forward_step(
+                mparams, mcfg, toks, cache, impl="cuda"))
+            syncs[kind] = sum(caught.values())
+            if syncs[kind]:
+                raise AssertionError(f"a {kind} decode step made host "
+                                     f"syncs: {dict(caught)}")
+    out["host_syncs_per_paged_step"] = syncs
+    del params, mparams, rep
+    torch.cuda.empty_cache()
+    log(f"  lint: reduced sweep (36 targets) + three audits CLEAN in "
+        f"{out['reduced_s']:.1f} s; full width ({LINT_LAYERS} layers) 18 "
+        f"kernel targets CLEAN in {out['full_width_s']:.1f} s; host syncs "
+        f"of one decode step: {syncs}")
+    summary["lint"] = out
 
 
 def profiled(what, fn, steps, ranges=(), groups=()):
@@ -3816,7 +3927,7 @@ def run() -> int:
     summary = {"phase_s": {}}
     for phase in (path_phase, hybrid_path, mamba2_path, dense_configs_path,
                   moe_path, vlm_path, audio_path, train_path, mesh_path,
-                  obs_path):
+                  obs_path, lint_path):
         t0 = time.perf_counter()
         phase(summary)
         summary["phase_s"][phase.__name__] = time.perf_counter() - t0

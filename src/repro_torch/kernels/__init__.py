@@ -3,8 +3,9 @@ pool and the int8 paged pool, and for the Mamba2 SSD scan, with their
 plain PyTorch versions (``ref``), the model-layout wrappers (``ops``) and
 the int8 pool's quantization (``quant``, plain torch on every route).
 
-Importing this package builds nothing and needs no card: a kernel is built
-from ``csrc/`` at its first launch (``_build``).
+Importing this package builds nothing and needs no card: it defines each
+kernel's operator (``torch.ops.repro_torch.<name>``, ``_build.define_op``);
+a kernel is built from ``csrc/`` at its first launch (``_build``).
 """
 from typing import Dict
 

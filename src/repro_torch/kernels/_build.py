@@ -11,6 +11,12 @@ by a hash of its source, so an edited source is rebuilt and an unchanged
 one is built once per checkout.  Nothing is built at import: the first
 wrapper call on a CUDA tensor builds what it needs; ``build_all`` starts one
 nvcc per source at once.  A failed build raises with nvcc's output.
+
+Each kernel entry point is an operator of the ``repro_torch`` namespace
+(``define_op``, ``torch.ops.repro_torch.<name>``): PyTorch's dispatcher
+runs the plain version on CPU tensors and the kernel launch on CUDA ones,
+and a traced program (``torch.fx``) holds each call as one node, as a
+jaxpr holds a ``pallas_call`` as one equation.
 """
 from __future__ import annotations
 
@@ -171,11 +177,14 @@ def refuse_placed(name: str, *args) -> None:
                 "local shards)")
 
 
-def on_cuda(name: str, *tensors) -> bool:
-    """True when every tensor lies on one CUDA device, False when every one
-    lies on the CPU (the wrapper then runs its plain version, which
-    autograd differentiates); mixed devices raise, and so do CUDA operands
-    that autograd would need to differentiate (``refuse_autograd``)."""
+def check_call(name: str, *tensors) -> None:
+    """What every wrapper checks in front of its operator: no DTensor
+    (``refuse_placed``), every tensor on one CUDA device or every one on
+    the CPU (mixed devices raise: the dispatcher would pick the CUDA
+    implementation and hand it host pointers), and no CUDA operand that
+    autograd would need to differentiate (``refuse_autograd``).  On the
+    CPU the operator runs its plain version, which autograd
+    differentiates (``define_op``)."""
     refuse_placed(name, *tensors)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -185,7 +194,68 @@ def on_cuda(name: str, *tensors) -> bool:
         raise ValueError(f"{name}: unsupported device {dev}")
     if dev.type == "cuda":
         refuse_autograd(name, *tensors)
-    return dev.type == "cuda"
+
+
+# --------------------------------------------------------------------------
+# each kernel entry point is one operator of the ``repro_torch`` namespace
+# --------------------------------------------------------------------------
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+#: the defined operators, ``torch.ops.repro_torch.<name>``, in order
+OPS: List[str] = []
+
+
+def define_op(name: str, schema: str, *, cpu, cuda, fake):
+    """Define the operator ``repro_torch::<name>`` with ``schema`` (its
+    arguments and results, e.g. ``"(Tensor q, *, int w=0) -> Tensor"``):
+    ``cpu`` (the plain version) runs on CPU tensors, ``cuda`` (checks and
+    the kernel launch, which counts it) on CUDA tensors, and ``fake``
+    gives the results' shapes and dtypes without data (fake and meta
+    tensors).  Returns ``torch.ops.repro_torch.<name>``.
+
+    The operator is functional: its results are fresh tensors and it
+    writes none of its inputs, so the layout plumbing around it (views,
+    transposes, ``.contiguous()``) stays ordinary aten ops of the
+    caller's.  Its gradient is the plain version's (``_plain_backward``):
+    on the CPU autograd differentiates the operator as it did the plain
+    version; CUDA operands that require grad are refused in front of it
+    (``check_call``), so a CUDA call skips autograd."""
+    _LIB.define(name + schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    qualname = f"repro_torch::{name}"
+    torch.library.register_fake(qualname, fake, lib=_LIB)
+    torch.library.register_autograd(qualname, _plain_backward(cpu),
+                                    setup_context=_save_inputs, lib=_LIB)
+    # CUDA operands that require grad never reach the operator: skip the
+    # (Python) autograd layer on CUDA calls, ~10 us of host time each
+    _LIB.impl(name, torch.library.fallthrough_kernel, "AutogradCUDA")
+    OPS.append(name)
+    return getattr(torch.ops.repro_torch, name)
+
+
+def _save_inputs(ctx, inputs, keyword_only_inputs, output):
+    ctx.save_for_backward(*inputs)
+    ctx.kw = keyword_only_inputs
+
+
+def _plain_backward(plain):
+    """The backward of an operator: the vector-Jacobian product of its
+    plain version ``plain``, recomputed from the saved inputs."""
+    def backward(ctx, *grads):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() if t.is_floating_point()
+                      and need else t.detach()
+                      for t, need in zip(ctx.saved_tensors,
+                                         ctx.needs_input_grad)]
+            out = plain(*leaves, **ctx.kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            wrt = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, g in zip(outs, grads) if g is not None], wrt,
+                [g for g in grads if g is not None], allow_unused=True))
+        return tuple(next(got) if t.requires_grad else None for t in leaves)
+    return backward
 
 
 def _check_layout(name: str, tensors, strided: bool = False) -> None:

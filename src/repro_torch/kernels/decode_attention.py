@@ -23,11 +23,12 @@ pairs:
     in the kernel as each row is loaded; the output takes the query's
     dtype.
 
-A tensor on the CPU runs the plain version (``kernels.ref``); a tensor on
-a CUDA device launches the kernel (built at first use) on the current
-stream, or raises — there is no fallback.  Each call is one kernel
-launch; ``launches`` counts them per wrapper.  See the CUDA source for the
-design.
+Each entry point is an operator ``torch.ops.repro_torch.<name>``
+(``_build.define_op``): on CPU tensors it runs the plain version
+(``kernels.ref``); on a CUDA device it launches the kernel (built at first
+use) on the current stream, or raises — there is no fallback.  Each call
+on the card is one kernel launch; ``launches`` counts them per kernel.
+See the CUDA source for the design.
 """
 from __future__ import annotations
 
@@ -176,20 +177,27 @@ def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
     return out
 
 
-def decode_attention_bhsd(
-    q: torch.Tensor,  # (B, Hkv, G, D) — grouped query heads
-    k: torch.Tensor,  # (B, Hkv, S, D)
-    v: torch.Tensor,  # (B, Hkv, S, D)
-    kv_positions: torch.Tensor,  # (B, S) int32; -1 marks empty slots
-    q_position: torch.Tensor,  # (B,) int32
-    *,
-    sliding_window: int = 0,
-) -> torch.Tensor:
-    """Generic decode attention -> (B, Hkv, G, D)."""
+# --------------------------------------------------------------------------
+# the operators: CUDA implementations (checks, then one launch), plain
+# versions on the CPU, and the output's shape and dtype for fake tensors
+# --------------------------------------------------------------------------
+
+_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor kv_positions, "
+           "Tensor q_position, *, int sliding_window=0) -> Tensor")
+_PAGED_SCHEMA = ("(Tensor q, Tensor k_pool, Tensor v_pool, "
+                 "Tensor block_tables, Tensor q_position, *, "
+                 "int sliding_window=0, int ring_blocks=0) -> Tensor")
+_Q8_SCHEMA = ("(Tensor q, Tensor k_pool, Tensor v_pool, Tensor k_scale, "
+              "Tensor v_scale, Tensor block_tables, Tensor q_position, *, "
+              "int sliding_window=0, int ring_blocks=0) -> Tensor")
+
+
+def _fake(q, *args, **kw):
+    return torch.empty_like(q)
+
+
+def _bhsd_cuda(q, k, v, kv_positions, q_position, *, sliding_window=0):
     name = "decode_attention_bhsd"
-    if not _build.on_cuda(name, q, k, v, kv_positions, q_position):
-        return ref_decode_attention(q, k, v, kv_positions, q_position,
-                                    sliding_window=sliding_window)
     B, Hkv, G, D = q.shape
     S = k.shape[2]
     if tuple(k.shape) != (B, Hkv, S, D) or k.shape != v.shape:
@@ -200,6 +208,117 @@ def decode_attention_bhsd(
                    q_strides=(Hkv * G * D, G * D),
                    k_strides=(Hkv * S * D, S * D, D),
                    Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
+
+
+def _bshd_cuda(q, k, v, kv_positions, q_position, *, sliding_window=0):
+    name = "decode_attention_bhsd"
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape:
+        raise ValueError(f"{name}: k/v must be (B, S, Hkv, D) = "
+                         f"{(B, S, Hkv, D)}, got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    return _launch(name, q, k, v, kv_positions, q_position,
+                   q_strides=(Hkv * G * D, G * D),
+                   k_strides=(S * Hkv * D, D, Hkv * D),
+                   Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
+
+
+def _bshd_plain(q, k, v, kv_positions, q_position, *, sliding_window=0):
+    return ref_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                kv_positions, q_position,
+                                sliding_window=sliding_window)
+
+
+def _merged_cuda(u, k, v, kv_positions, q_position, *, sliding_window=0):
+    name = "decode_attention_merged_bsd"
+    B, Hq, D = u.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
+            or Hq % Hkv:
+        raise ValueError(f"{name}: k/v must be (B, S, Hkv, D) with Hkv | "
+                         f"{Hq}, got {tuple(k.shape)}, {tuple(v.shape)}")
+    G = Hq // Hkv
+    return _launch(name, u, k, v, kv_positions, q_position,
+                   q_strides=(Hq * D, G * D),
+                   k_strides=(S * Hkv * D, D, Hkv * D),
+                   Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
+
+
+def _paged_cuda(name, grouped):
+    """The CUDA implementation of a paged operator: ``grouped`` queries
+    are (B, Hkv, G, D), the others the stream viewed (B, Hq, D); with
+    scales (``q8``) the pools are int8."""
+    def run(q, k_pool, v_pool, *rest, sliding_window=0, ring_blocks=0):
+        *scales, block_tables, q_position = rest
+        if grouped:
+            B, Hkv, G, D = q.shape
+            q_strides = (Hkv * G * D, G * D)
+        else:
+            B, Hq, D = q.shape
+            Hkv = k_pool.shape[2]
+            if Hq % Hkv:
+                raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv "
+                                 "heads")
+            G = Hq // Hkv
+            q_strides = (Hq * D, G * D)
+        return _launch_paged(name, q, k_pool, v_pool, block_tables,
+                             q_position, q_strides=q_strides, Hkv=Hkv, G=G,
+                             sliding_window=sliding_window,
+                             ring_blocks=ring_blocks, scales=tuple(scales))
+    return run
+
+
+_OPS = {
+    "decode_attention_bhsd": _build.define_op(
+        "decode_attention_bhsd", _SCHEMA, cpu=ref_decode_attention,
+        cuda=_bhsd_cuda, fake=_fake),
+    "decode_attention_bshd": _build.define_op(
+        "decode_attention_bshd", _SCHEMA, cpu=_bshd_plain, cuda=_bshd_cuda,
+        fake=_fake),
+    "decode_attention_merged_bsd": _build.define_op(
+        "decode_attention_merged_bsd", _SCHEMA,
+        cpu=ref_decode_attention_merged, cuda=_merged_cuda, fake=_fake),
+    "decode_attention_paged_bhsd": _build.define_op(
+        "decode_attention_paged_bhsd", _PAGED_SCHEMA,
+        cpu=ref_decode_attention_paged,
+        cuda=_paged_cuda("decode_attention_paged_bhsd", True), fake=_fake),
+    "decode_attention_paged_merged_bsd": _build.define_op(
+        "decode_attention_paged_merged_bsd", _PAGED_SCHEMA,
+        cpu=ref_decode_attention_paged_merged,
+        cuda=_paged_cuda("decode_attention_paged_merged_bsd", False),
+        fake=_fake),
+    "decode_attention_paged_q8_bhsd": _build.define_op(
+        "decode_attention_paged_q8_bhsd", _Q8_SCHEMA,
+        cpu=ref_decode_attention_paged_q8,
+        cuda=_paged_cuda("decode_attention_paged_q8_bhsd", True),
+        fake=_fake),
+    "decode_attention_paged_q8_merged_bsd": _build.define_op(
+        "decode_attention_paged_q8_merged_bsd", _Q8_SCHEMA,
+        cpu=ref_decode_attention_paged_q8_merged,
+        cuda=_paged_cuda("decode_attention_paged_q8_merged_bsd", False),
+        fake=_fake),
+}
+
+
+# --------------------------------------------------------------------------
+# the wrappers: the checks in front of each operator
+# --------------------------------------------------------------------------
+
+def decode_attention_bhsd(
+    q: torch.Tensor,  # (B, Hkv, G, D) — grouped query heads
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    kv_positions: torch.Tensor,  # (B, S) int32; -1 marks empty slots
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Generic decode attention -> (B, Hkv, G, D)."""
+    _build.check_call("decode_attention_bhsd", q, k, v, kv_positions,
+                      q_position)
+    return _OPS["decode_attention_bhsd"](q, k, v, kv_positions, q_position,
+                                         sliding_window=int(sliding_window))
 
 
 def decode_attention_bshd(
@@ -215,21 +334,10 @@ def decode_attention_bshd(
     -> (B, Hkv, G, D): the ``decode_attention_bhsd`` kernel launched on
     the cache's own strides (no head-major copy), counted under its
     key."""
-    name = "decode_attention_bhsd"
-    if not _build.on_cuda(name, q, k, v, kv_positions, q_position):
-        return ref_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
-                                    kv_positions, q_position,
-                                    sliding_window=sliding_window)
-    B, Hkv, G, D = q.shape
-    S = k.shape[1]
-    if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape:
-        raise ValueError(f"{name}: k/v must be (B, S, Hkv, D) = "
-                         f"{(B, S, Hkv, D)}, got {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    return _launch(name, q, k, v, kv_positions, q_position,
-                   q_strides=(Hkv * G * D, G * D),
-                   k_strides=(S * Hkv * D, D, Hkv * D),
-                   Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
+    _build.check_call("decode_attention_bhsd", q, k, v, kv_positions,
+                      q_position)
+    return _OPS["decode_attention_bshd"](q, k, v, kv_positions, q_position,
+                                         sliding_window=int(sliding_window))
 
 
 def decode_attention_merged_bsd(
@@ -242,21 +350,10 @@ def decode_attention_merged_bsd(
     sliding_window: int = 0,
 ) -> torch.Tensor:
     """Merged decode attention (stream-as-query) -> (B, Hq, D)."""
-    name = "decode_attention_merged_bsd"
-    if not _build.on_cuda(name, u, k, v, kv_positions, q_position):
-        return ref_decode_attention_merged(u, k, v, kv_positions, q_position,
-                                           sliding_window=sliding_window)
-    B, Hq, D = u.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
-            or Hq % Hkv:
-        raise ValueError(f"{name}: k/v must be (B, S, Hkv, D) with Hkv | "
-                         f"{Hq}, got {tuple(k.shape)}, {tuple(v.shape)}")
-    G = Hq // Hkv
-    return _launch(name, u, k, v, kv_positions, q_position,
-                   q_strides=(Hq * D, G * D),
-                   k_strides=(S * Hkv * D, D, Hkv * D),
-                   Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
+    _build.check_call("decode_attention_merged_bsd", u, k, v, kv_positions,
+                      q_position)
+    return _OPS["decode_attention_merged_bsd"](
+        u, k, v, kv_positions, q_position, sliding_window=int(sliding_window))
 
 
 def decode_attention_paged_bhsd(
@@ -272,15 +369,10 @@ def decode_attention_paged_bhsd(
     """Generic paged decode attention -> (B, Hkv, G, D).  The pool keeps
     the serving cache's native (…, bs, Hkv, D) page layout."""
     name = "decode_attention_paged_bhsd"
-    if not _build.on_cuda(name, q, k_pool, v_pool, block_tables, q_position):
-        return ref_decode_attention_paged(
-            q, k_pool, v_pool, block_tables, q_position,
-            sliding_window=sliding_window, ring_blocks=ring_blocks)
-    B, Hkv, G, D = q.shape
-    return _launch_paged(name, q, k_pool, v_pool, block_tables, q_position,
-                         q_strides=(Hkv * G * D, G * D), Hkv=Hkv, G=G,
-                         sliding_window=sliding_window,
-                         ring_blocks=ring_blocks)
+    _build.check_call(name, q, k_pool, v_pool, block_tables, q_position)
+    return _OPS[name](q, k_pool, v_pool, block_tables, q_position,
+                      sliding_window=int(sliding_window),
+                      ring_blocks=int(ring_blocks))
 
 
 def decode_attention_paged_merged_bsd(
@@ -295,19 +387,10 @@ def decode_attention_paged_merged_bsd(
 ) -> torch.Tensor:
     """Merged paged decode attention (stream-as-query) -> (B, Hq, D)."""
     name = "decode_attention_paged_merged_bsd"
-    if not _build.on_cuda(name, u, k_pool, v_pool, block_tables, q_position):
-        return ref_decode_attention_paged_merged(
-            u, k_pool, v_pool, block_tables, q_position,
-            sliding_window=sliding_window, ring_blocks=ring_blocks)
-    B, Hq, D = u.shape
-    Hkv = k_pool.shape[2]
-    if Hq % Hkv:
-        raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv heads")
-    G = Hq // Hkv
-    return _launch_paged(name, u, k_pool, v_pool, block_tables, q_position,
-                         q_strides=(Hq * D, G * D), Hkv=Hkv, G=G,
-                         sliding_window=sliding_window,
-                         ring_blocks=ring_blocks)
+    _build.check_call(name, u, k_pool, v_pool, block_tables, q_position)
+    return _OPS[name](u, k_pool, v_pool, block_tables, q_position,
+                      sliding_window=int(sliding_window),
+                      ring_blocks=int(ring_blocks))
 
 
 def decode_attention_paged_q8_bhsd(
@@ -325,16 +408,11 @@ def decode_attention_paged_q8_bhsd(
     """Generic paged decode over an int8 pool -> (B, Hkv, G, D) in q's
     dtype."""
     name = "decode_attention_paged_q8_bhsd"
-    if not _build.on_cuda(name, q, k_pool, v_pool, k_scale, v_scale,
-                          block_tables, q_position):
-        return ref_decode_attention_paged_q8(
-            q, k_pool, v_pool, k_scale, v_scale, block_tables, q_position,
-            sliding_window=sliding_window, ring_blocks=ring_blocks)
-    B, Hkv, G, D = q.shape
-    return _launch_paged(name, q, k_pool, v_pool, block_tables, q_position,
-                         q_strides=(Hkv * G * D, G * D), Hkv=Hkv, G=G,
-                         sliding_window=sliding_window,
-                         ring_blocks=ring_blocks, scales=(k_scale, v_scale))
+    _build.check_call(name, q, k_pool, v_pool, k_scale, v_scale,
+                      block_tables, q_position)
+    return _OPS[name](q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                      q_position, sliding_window=int(sliding_window),
+                      ring_blocks=int(ring_blocks))
 
 
 def decode_attention_paged_q8_merged_bsd(
@@ -352,17 +430,8 @@ def decode_attention_paged_q8_merged_bsd(
     """Merged paged decode over an int8 pool (stream-as-query) ->
     (B, Hq, D) in u's dtype."""
     name = "decode_attention_paged_q8_merged_bsd"
-    if not _build.on_cuda(name, u, k_pool, v_pool, k_scale, v_scale,
-                          block_tables, q_position):
-        return ref_decode_attention_paged_q8_merged(
-            u, k_pool, v_pool, k_scale, v_scale, block_tables, q_position,
-            sliding_window=sliding_window, ring_blocks=ring_blocks)
-    B, Hq, D = u.shape
-    Hkv = k_pool.shape[2]
-    if Hq % Hkv:
-        raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv heads")
-    G = Hq // Hkv
-    return _launch_paged(name, u, k_pool, v_pool, block_tables, q_position,
-                         q_strides=(Hq * D, G * D), Hkv=Hkv, G=G,
-                         sliding_window=sliding_window,
-                         ring_blocks=ring_blocks, scales=(k_scale, v_scale))
+    _build.check_call(name, u, k_pool, v_pool, k_scale, v_scale,
+                      block_tables, q_position)
+    return _OPS[name](u, k_pool, v_pool, k_scale, v_scale, block_tables,
+                      q_position, sliding_window=int(sliding_window),
+                      ring_blocks=int(ring_blocks))

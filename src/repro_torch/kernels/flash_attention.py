@@ -16,10 +16,11 @@ Counterparts of ``repro.kernels.flash_attention``'s three kernels:
     kernel as each tile is loaded; the output takes the stream's dtype.
 
 Positions are arange, as in the TPU kernel.  Any Sq / Sk runs: the kernel
-masks ragged tails itself.  A tensor on the CPU runs the plain version
-(``kernels.ref``); a tensor on a CUDA device launches the kernel (built at
-first use) on the current stream, or raises — there is no fallback.
-``launches`` counts kernel launches per wrapper.
+masks ragged tails itself.  Each entry point is an operator
+``torch.ops.repro_torch.<name>`` (``_build.define_op``): on CPU tensors it
+runs the plain version (``kernels.ref``); on a CUDA device it launches the
+kernel (built at first use) on the current stream, or raises — there is
+no fallback.  ``launches`` counts kernel launches per kernel.
 """
 from __future__ import annotations
 
@@ -72,19 +73,24 @@ def _launch(name, q, k, v, *, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
     return out
 
 
-def flash_attention_bhsd(
-    q: torch.Tensor,  # (B, Hq, Sq, D)
-    k: torch.Tensor,  # (B, Hkv, Sk, D)
-    v: torch.Tensor,  # (B, Hkv, Sk, D)
-    *,
-    causal: bool = True,
-    sliding_window: int = 0,
-) -> torch.Tensor:
-    """Generic flash attention -> (B, Hq, Sq, D)."""
+# --------------------------------------------------------------------------
+# the operators: CUDA implementations (checks, then one launch), plain
+# versions on the CPU, and the output's shape and dtype for fake tensors
+# --------------------------------------------------------------------------
+
+_SCHEMA = ("(Tensor q, Tensor k, Tensor v, *, bool causal=True, "
+           "int sliding_window=0) -> Tensor")
+_Q8_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor k_scale, "
+              "Tensor v_scale, *, bool causal=True, int sliding_window=0) "
+              "-> Tensor")
+
+
+def _fake(q, *args, **kw):
+    return q.new_empty(q.shape)
+
+
+def _bhsd_cuda(q, k, v, *, causal=True, sliding_window=0):
     name = "flash_attention_bhsd"
-    if not _build.on_cuda(name, q, k, v):
-        return ref_attention(q, k, v, causal=causal,
-                             sliding_window=sliding_window)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if tuple(k.shape) != (B, Hkv, Sk, D) or k.shape != v.shape:
@@ -96,22 +102,8 @@ def flash_attention_bhsd(
                    causal=causal, sliding_window=sliding_window)
 
 
-def flash_attention_bshd(
-    q: torch.Tensor,  # (B, Sq, Hq, D), any strides, D dense
-    k: torch.Tensor,  # (B, Sk, Hkv, D)
-    v: torch.Tensor,  # (B, Sk, Hkv, D)
-    *,
-    causal: bool = True,
-    sliding_window: int = 0,
-) -> torch.Tensor:
-    """Generic flash attention on sequence-major views -> (B, Sq, Hq, D):
-    the ``flash_attention_bhsd`` kernel launched on the tensors' own
-    strides (no head-major copies), counted under its key."""
+def _bshd_cuda(q, k, v, *, causal=True, sliding_window=0):
     name = "flash_attention_bhsd"
-    if not _build.on_cuda(name, q, k, v):
-        return ref_attention(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal,
-                             sliding_window=sliding_window).transpose(1, 2)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
 
@@ -132,6 +124,77 @@ def flash_attention_bshd(
                    strided=True)
 
 
+def _bshd_plain(q, k, v, *, causal=True, sliding_window=0):
+    return ref_attention(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal,
+                         sliding_window=sliding_window).transpose(1, 2)
+
+
+def _merged_cuda(u, k, v, *scales, causal=True, sliding_window=0):
+    name = "flash_attention_merged_q8_bsd" if scales \
+        else "flash_attention_merged_bsd"
+    B, Sq, Hq, D = u.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Sk, Hkv, D) or k.shape != v.shape:
+        raise ValueError(f"{name}: k/v must be (B, Sk, Hkv, D), got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return _launch(name, u, k, v, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk,
+                   q_strides=(Sq * Hq * D, Hq * D, D),
+                   k_strides=(Sk * Hkv * D, Hkv * D, D),
+                   causal=causal, sliding_window=sliding_window,
+                   scales=scales)
+
+
+_OPS = {
+    "flash_attention_bhsd": _build.define_op(
+        "flash_attention_bhsd", _SCHEMA, cpu=ref_attention, cuda=_bhsd_cuda,
+        fake=_fake),
+    "flash_attention_bshd": _build.define_op(
+        "flash_attention_bshd", _SCHEMA, cpu=_bshd_plain, cuda=_bshd_cuda,
+        fake=_fake),
+    "flash_attention_merged_bsd": _build.define_op(
+        "flash_attention_merged_bsd", _SCHEMA,
+        cpu=ref_flash_attention_merged, cuda=_merged_cuda, fake=_fake),
+    "flash_attention_merged_q8_bsd": _build.define_op(
+        "flash_attention_merged_q8_bsd", _Q8_SCHEMA,
+        cpu=ref_flash_attention_merged_q8, cuda=_merged_cuda, fake=_fake),
+}
+
+
+# --------------------------------------------------------------------------
+# the wrappers: the checks in front of each operator
+# --------------------------------------------------------------------------
+
+def flash_attention_bhsd(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,  # (B, Hkv, Sk, D)
+    *,
+    causal: bool = True,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Generic flash attention -> (B, Hq, Sq, D)."""
+    _build.check_call("flash_attention_bhsd", q, k, v)
+    return _OPS["flash_attention_bhsd"](q, k, v, causal=bool(causal),
+                                        sliding_window=int(sliding_window))
+
+
+def flash_attention_bshd(
+    q: torch.Tensor,  # (B, Sq, Hq, D), any strides, D dense
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Generic flash attention on sequence-major views -> (B, Sq, Hq, D):
+    the ``flash_attention_bhsd`` kernel launched on the tensors' own
+    strides (no head-major copies), counted under its key."""
+    _build.check_call("flash_attention_bhsd", q, k, v)
+    return _OPS["flash_attention_bshd"](q, k, v, causal=bool(causal),
+                                        sliding_window=int(sliding_window))
+
+
 def flash_attention_merged_bsd(
     u: torch.Tensor,  # (B, Sq, Hq, D) — RoPE'd stream viewed as heads
     k: torch.Tensor,  # (B, Sk, Hkv, D) — K*, native layout
@@ -141,19 +204,9 @@ def flash_attention_merged_bsd(
     sliding_window: int = 0,
 ) -> torch.Tensor:
     """Merged flash prefill (stream-as-query) -> (B, Sq, Hq, D)."""
-    name = "flash_attention_merged_bsd"
-    if not _build.on_cuda(name, u, k, v):
-        return ref_flash_attention_merged(u, k, v, causal=causal,
-                                          sliding_window=sliding_window)
-    B, Sq, Hq, D = u.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, Sk, Hkv, D) or k.shape != v.shape:
-        raise ValueError(f"{name}: k/v must be (B, Sk, Hkv, D), got "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    return _launch(name, u, k, v, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk,
-                   q_strides=(Sq * Hq * D, Hq * D, D),
-                   k_strides=(Sk * Hkv * D, Hkv * D, D),
-                   causal=causal, sliding_window=sliding_window)
+    _build.check_call("flash_attention_merged_bsd", u, k, v)
+    return _OPS["flash_attention_merged_bsd"](
+        u, k, v, causal=bool(causal), sliding_window=int(sliding_window))
 
 
 def flash_attention_merged_q8_bsd(
@@ -168,18 +221,8 @@ def flash_attention_merged_q8_bsd(
 ) -> torch.Tensor:
     """Merged flash prefill over int8 K*/V* (stream-as-query) ->
     (B, Sq, Hq, D) in u's dtype."""
-    name = "flash_attention_merged_q8_bsd"
-    if not _build.on_cuda(name, u, k, v, k_scale, v_scale):
-        return ref_flash_attention_merged_q8(u, k, v, k_scale, v_scale,
-                                             causal=causal,
-                                             sliding_window=sliding_window)
-    B, Sq, Hq, D = u.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, Sk, Hkv, D) or k.shape != v.shape:
-        raise ValueError(f"{name}: k/v must be (B, Sk, Hkv, D), got "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    return _launch(name, u, k, v, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk,
-                   q_strides=(Sq * Hq * D, Hq * D, D),
-                   k_strides=(Sk * Hkv * D, Hkv * D, D),
-                   causal=causal, sliding_window=sliding_window,
-                   scales=(k_scale, v_scale))
+    _build.check_call("flash_attention_merged_q8_bsd", u, k, v, k_scale,
+                      v_scale)
+    return _OPS["flash_attention_merged_q8_bsd"](
+        u, k, v, k_scale, v_scale, causal=bool(causal),
+        sliding_window=int(sliding_window))

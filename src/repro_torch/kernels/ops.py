@@ -21,7 +21,10 @@ The kernel wrappers still take CPU tensors, running the plain version
 (``tests/test_torch_kernels_ref.py``), which hold each wrapper's layout
 plumbing (the transposes and reshapes here) against the JAX package's
 kernels where no card is present.  On a CUDA tensor a wrapper launches its
-kernel or raises.
+kernel or raises.  Each kernel is one operator of the ``repro_torch``
+namespace (``_build.define_op``), whose dispatcher makes that choice by
+device; the plumbing here stays ordinary aten ops around it, so a traced
+program shows it, and the kernel call as one node.
 
 The paged wrappers hand the pools (NB, bs, Hkv, D) and the block table to
 the kernel as they are (generic and merged alike: the pool is never

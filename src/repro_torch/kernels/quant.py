@@ -93,29 +93,36 @@ def q8_dequant_seq(ints: torch.Tensor, scale: torch.Tensor,
 
 def q8_append_token(pool: torch.Tensor, scale: torch.Tensor,
                     new_tok: torch.Tensor, page: torch.Tensor,
-                    off: torch.Tensor) -> None:
-    """Quantize-on-write of one decode token per MAPPED batch row, in
-    place.
+                    off: torch.Tensor, live=None) -> None:
+    """Quantize-on-write of one decode token per write, in place.
 
     pool (NB, bs, Hkv, D) int8, scale (NB, Hkv) float32, new_tok
     (n, Hkv, D) float, page (n,) physical pages and off (n,) in-page
-    offsets of the n rows whose table entry is mapped (the caller selects
-    them: torch has no ``mode="drop"`` scatter,
-    ``models.transformer.paged_append_slots``).  Monotone scale merge: at
-    off == 0 the page is being (re-)entered (fresh page, ring recycle or
-    detach), so its stale scale is ignored and reset from this token; at
-    off > 0 the scale only grows (new = max(old, token's)) and the page's
-    stored ints are rescaled by old / new <= 1 (a no-op round when the
-    scale does not grow)."""
+    offsets.  Two writes may share a page and offset only if they carry
+    the same token (``models.transformer.paged_append_slots`` aims idle
+    batch rows so: torch has no ``mode="drop"`` scatter); they then write
+    the same bits.  ``live`` (a () bool tensor, default true): false
+    writes back what the pages hold, so a step with no mapped row changes
+    nothing without a host sync.  Monotone scale merge: at off == 0 the
+    page is being (re-)entered (fresh page, ring recycle or detach), so
+    its stale scale is ignored and reset from this token; at off > 0 the
+    scale only grows (new = max(old, token's)) and the page's stored ints
+    are rescaled by old / new <= 1 (a no-op round when the scale does not
+    grow)."""
     newf = new_tok.float()
     tok_scale = _absmax_scale(newf, -1)
     fresh = (off == 0)[:, None]  # (n, 1): first write of this page
-    base = torch.where(fresh, Q8_EPS, scale[page])
+    old_scale, old_ints = scale[page], pool[page]
+    base = torch.where(fresh, Q8_EPS, old_scale)
     new_scale = torch.maximum(base, tok_scale)  # (n, Hkv)
     ratio = torch.where(fresh, 1.0, base / new_scale)
-    ints = torch.clamp(torch.round(pool[page].float() *
+    ints = torch.clamp(torch.round(old_ints.float() *
                                    ratio[:, None, :, None]), -Q8_MAX, Q8_MAX)
     ints[torch.arange(len(page), device=page.device), off] = \
         _quantize(newf, new_scale[..., None])
-    pool[page] = ints.to(torch.int8)
+    ints = ints.to(torch.int8)
+    if live is not None:
+        ints = torch.where(live, ints, old_ints)
+        new_scale = torch.where(live, new_scale, old_scale)
+    pool[page] = ints
     scale[page] = new_scale

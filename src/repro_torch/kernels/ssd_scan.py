@@ -22,10 +22,11 @@ spans of whole 64-row tiles, the blocks of one thread-block cluster, which
 pass their states to each other inside the one launch (see the CUDA
 source).
 
-A tensor on the CPU runs the plain version; a tensor on a CUDA device
-launches the kernel (built at first use) on the current stream, or raises
-— there is no fallback.  ``launches`` counts kernel launches: one per
-call.
+The entry point is the operator ``torch.ops.repro_torch.ssd_chunk_scan``
+(``_build.define_op``): on CPU tensors it runs the plain version; on a
+CUDA device it launches the kernel (built at first use) on the current
+stream, or raises — there is no fallback.  ``launches`` counts kernel
+launches: one per call on the card.
 """
 from __future__ import annotations
 
@@ -71,19 +72,8 @@ def _max_offset(t: torch.Tensor) -> int:
     return sum((n - 1) * s for n, s in zip(t.shape, t.stride()) if n)
 
 
-def ssd_chunk_scan(
-    x: torch.Tensor,  # (B, S, H, P)
-    dt: torch.Tensor,  # (B, S, H) float32, post-softplus
-    a: torch.Tensor,  # (B, S, H) float32, = dt * A (<= 0)
-    Bm: torch.Tensor,  # (B, S, H, N)
-    Cm: torch.Tensor,  # (B, S, H, N), Bm's strides
-    *,
-    chunk: int,
-):
-    """Returns (y (B,S,H,P) float32, final_state (B,H,P,N) float32)."""
+def _scan_cuda(x, dt, a, Bm, Cm, *, chunk):
     name = "ssd_chunk_scan"
-    if not _build.on_cuda(name, x, dt, a, Bm, Cm):
-        return ref_ssd_chunked(x, dt, a, Bm, Cm, chunk=chunk)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     if tuple(dt.shape) != (B, S, H) or dt.shape != a.shape:
@@ -123,3 +113,29 @@ def ssd_chunk_scan(
     _build.check_launch(name, err)
     launches[name] += 1
     return y, fin
+
+
+def _scan_fake(x, dt, a, Bm, Cm, *, chunk):
+    B, S, H, P = x.shape
+    return (x.new_empty((B, S, H, P), dtype=torch.float32),
+            x.new_empty((B, H, P, Bm.shape[-1]), dtype=torch.float32))
+
+
+_OP = _build.define_op(
+    "ssd_chunk_scan", "(Tensor x, Tensor dt, Tensor a, Tensor Bm, Tensor Cm, "
+    "*, int chunk) -> (Tensor, Tensor)", cpu=ref_ssd_chunked,
+    cuda=_scan_cuda, fake=_scan_fake)
+
+
+def ssd_chunk_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) float32, post-softplus
+    a: torch.Tensor,  # (B, S, H) float32, = dt * A (<= 0)
+    Bm: torch.Tensor,  # (B, S, H, N)
+    Cm: torch.Tensor,  # (B, S, H, N), Bm's strides
+    *,
+    chunk: int,
+):
+    """Returns (y (B,S,H,P) float32, final_state (B,H,P,N) float32)."""
+    _build.check_call("ssd_chunk_scan", x, dt, a, Bm, Cm)
+    return _OP(x, dt, a, Bm, Cm, chunk=int(chunk))

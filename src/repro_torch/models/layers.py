@@ -7,6 +7,8 @@ parameters are made on.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -95,10 +97,18 @@ def rope_frequencies(d_rot: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, d_rot, 2, dtype=np.float64) / d_rot))
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(d_rot: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_frequencies`` as a float32 tensor on ``device``, copied there
+    once: a copy from pageable host memory per call would make the host
+    wait for the device's queue (a sync per RoPE call of every step)."""
+    return torch.as_tensor(rope_frequencies(d_rot, theta),
+                           dtype=torch.float32, device=device)
+
+
 def rope_cos_sin(positions: torch.Tensor, d_rot: int, theta: float):
     """positions (...,) int -> cos/sin of shape (..., d_rot//2), fp32."""
-    inv_freq = torch.as_tensor(rope_frequencies(d_rot, theta),
-                               dtype=torch.float32, device=positions.device)
+    inv_freq = _inv_freq(d_rot, float(theta), positions.device)
     angles = positions.float()[..., None] * inv_freq
     return torch.cos(angles), torch.sin(angles)
 

@@ -1306,42 +1306,57 @@ def _attn_step_dense_merged(lp, cfg: ModelConfig, u1, k_layer, v_layer, ctx):
 
 class AppendSlots(NamedTuple):
     """Where one decode step writes its new K/V rows
-    (``paged_append_slots``)."""
-    rows: torch.Tensor  # (n,) batch rows whose page is mapped
-    dst: torch.Tensor  # (n,) page * bs + off: row in a (NB*bs, Hkv, Dh) view
-    page: torch.Tensor  # (n,) physical page
-    off: torch.Tensor  # (n,) in-page offset
+    (``paged_append_slots``): one write per batch row, each (B,)."""
+    src: torch.Tensor  # (B,) batch row whose new K/V the write carries
+    dst: torch.Tensor  # (B,) page * bs + off: row in a (NB*bs, Hkv, Dh) view
+    page: torch.Tensor  # (B,) physical page
+    off: torch.Tensor  # (B,) in-page offset
+    live: torch.Tensor  # () bool: some batch row's page is mapped
 
 
 def paged_append_slots(cfg: ModelConfig, block_tables, length,
                        block_size: int) -> AppendSlots:
-    """Where this step's new K/V rows go in every layer's pool: the batch
-    rows whose page is mapped, with their page (table[length // bs], the
-    table index wrapping for ring-addressed windowed tables;
-    ``kernels.paging``), in-page offset and flat row.  Idle batch rows
-    (table all -1) are left out: torch has no ``mode="drop"``.  Computed
-    once per step (one host sync), not once per layer."""
+    """Where this step's new K/V rows go in every layer's pool, without
+    reading device data on the host: each batch row's page
+    (table[length // bs], the table index wrapping for ring-addressed
+    windowed tables; ``kernels.paging``), in-page offset and flat row.
+
+    JAX drops the writes of idle rows (table all -1) with ``mode="drop"``;
+    torch has no such scatter, and selecting the mapped rows
+    (``torch.nonzero``) would sync the host every step.  So every batch
+    row writes, and an idle row is aimed at the first mapped row's
+    destination with that row's K/V: duplicate indices carry identical
+    values, whichever lands last.  When no row is mapped (``live`` false)
+    every write goes to page 0 at one offset and carries what that row
+    already holds (``_rope_and_insert_paged``, ``quant.q8_append_token``).
+    Computed once per step, not once per layer."""
     MB = block_tables.shape[1]
     ring = paging.paged_ring_active(cfg.sliding_window, block_size, MB)
     lb = length.long() // block_size
     lb = lb % ring if ring else lb.clamp(max=MB - 1)
     blk = block_tables.long().gather(1, lb[:, None])[:, 0]
-    rows = torch.nonzero(blk >= 0).flatten()
-    page, off = blk[rows], length[rows].long() % block_size
-    return AppendSlots(rows, page * block_size + off, page, off)
+    valid = blk >= 0
+    rows = torch.arange(blk.shape[0], device=blk.device)
+    src = torch.where(valid, rows, valid.int().argmax())
+    page = blk[src].clamp_min(0)
+    off = length.long()[src] % block_size
+    return AppendSlots(src, page * block_size + off, page, off, valid.any())
 
 
 def _rope_and_insert_paged(cfg: ModelConfig, q, k_new, v_new, k_pool, v_pool,
                            length, append):
     """RoPE the step's q/k at position ``length`` and write the new k/v
-    rows of the mapped slots (``append`` = ``paged_append_slots``) into
-    the layer's pools, IN PLACE.  Returns (q, k_pool, v_pool)."""
+    rows (``append`` = ``paged_append_slots``) into the layer's pools, IN
+    PLACE: a step with no mapped row writes back what the target row
+    holds.  Returns (q, k_pool, v_pool)."""
     pos = length[:, None]
     q = _rope(cfg, q, pos)
     k_new = _rope(cfg, k_new, pos)
     for pool, new in ((k_pool, k_new), (v_pool, v_new)):
         flat = pool.view(-1, *pool.shape[2:])  # (NB*bs, Hkv, Dh)
-        flat.index_copy_(0, append.dst, new[append.rows, 0].to(pool.dtype))
+        rows = torch.where(append.live, new[append.src, 0].to(pool.dtype),
+                           flat[append.dst])
+        flat.index_copy_(0, append.dst, rows)
     return q, k_pool, v_pool
 
 
@@ -1381,16 +1396,16 @@ def _attn_step_paged_merged(lp, cfg: ModelConfig, u1, k_pool, v_pool, ctx):
 def _rope_and_insert_paged_q8(cfg: ModelConfig, q, k_new, v_new, k_store,
                               v_store, length, append):
     """``_rope_and_insert_paged`` over the int8 pool: RoPE, then quantize
-    the new token into each mapped row's page under the page's monotone
-    scale merge (``quant.q8_append_token``), ints and scale row in place.
+    the new token into each write's page under the page's monotone scale
+    merge (``quant.q8_append_token``), ints and scale row in place.
     The same torch ops on every route, so pool bits do not depend on
     ``impl``.  Returns q."""
     pos = length[:, None]
     q = _rope(cfg, q, pos)
     k_new = _rope(cfg, k_new, pos)
     for (pool, scale), new in ((k_store, k_new), (v_store, v_new)):
-        quant.q8_append_token(pool, scale, new[append.rows, 0], append.page,
-                              append.off)
+        quant.q8_append_token(pool, scale, new[append.src, 0], append.page,
+                              append.off, live=append.live)
     return q
 
 

@@ -116,6 +116,13 @@ class KVCacheAdapter:
     def release(self, slot: int) -> None:
         raise NotImplementedError
 
+    def host_mutable_buffers(self):
+        """Named host-side numpy buffers this adapter mutates across steps
+        (``repro_torch.lint.aliasing`` checks program inputs against
+        them).  A dense cache outside chunked mode lives on the device:
+        nothing to declare."""
+        return {}
+
     # -- chunked prefill (serving.sched) ----------------------------------
 
     @property
@@ -240,6 +247,12 @@ class DenseCacheAdapter(KVCacheAdapter):
         if self._chunked:
             self._lengths[slot] += 1
 
+    def host_mutable_buffers(self):
+        if self._chunked:
+            return {"dense._lengths": self._lengths,
+                    "dense._stage": self._stage_np}
+        return {}
+
     def release(self, slot):
         self._cache = kvc.clear_slot(self._cache, slot)
         if self._chunked:
@@ -347,6 +360,9 @@ class PagedCacheAdapter(KVCacheAdapter):
 
     def update(self, new):
         pass  # the step wrote the pools in place; tables live on the host
+
+    def host_mutable_buffers(self):
+        return self.pm.host_mutable_buffers()
 
     def admit(self, slot, tokens):
         return self.pm.admit(slot, tokens)

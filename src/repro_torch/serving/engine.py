@@ -298,6 +298,15 @@ class Engine:
         """The paged adapter's host-side ``PagedCacheManager``."""
         return self.kv.pm
 
+    def host_mutable_buffers(self) -> Dict[str, np.ndarray]:
+        """Named host-side numpy buffers this engine (and its adapter)
+        mutates across steps: ``repro_torch.lint.aliasing`` checks every
+        device program's CPU tensor inputs for shared memory with
+        these."""
+        named = {"engine._last_token": self._last_token}
+        named.update(self.kv.host_mutable_buffers())
+        return named
+
     def host_to_device(self, x, dtype=None) -> torch.Tensor:
         """The ONE host->device ingestion seam: always copies, so a caller
         that reuses its buffer (a prompt) or engine-mutated host state

@@ -304,6 +304,13 @@ class PagedCacheManager:
             block_tables=torch.from_numpy(tbl).to(dev),
             length=torch.from_numpy(self.lengths.copy()).to(dev))
 
+    def host_mutable_buffers(self):
+        """Named numpy buffers this manager mutates in place between steps:
+        the ones ``device_cache`` must copy before they reach the device
+        and ``repro_torch.lint.aliasing`` checks program inputs against."""
+        return {"pm.tables": self.tables, "pm.lengths": self.lengths,
+                "pm.allocator.ref": self.allocator.ref}
+
     @property
     def pool_bytes(self) -> int:
         """Resident bytes of the pools (and of their scales, if any)."""

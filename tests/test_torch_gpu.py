@@ -1551,3 +1551,141 @@ def test_mesh_path_at_world_size_1_on_the_card(tmp_path):
     a, b = out["train"]["mesh"], out["train"]["plain"]
     assert len(a) == 3 and all(abs(x - y) <= 1e-6 * abs(y)
                                for x, y in zip(a, b)), (a, b)
+
+
+# ---------------------------------------------------------------------------
+# the kernel operators (torch.library) and the lint on the card
+# ---------------------------------------------------------------------------
+
+def _op_cases(dev, dtype):
+    """(name, CUDA args, kwargs) of each ``repro_torch`` operator at
+    shapes the kernels take (D 64, G 2, 16-byte aligned)."""
+    g = torch.Generator().manual_seed(0)
+
+    def rn(*s, dt=dtype):
+        return torch.randn(*s, generator=g).to(dev, dt)
+
+    B, S, Hkv, G, D, NB, bs = 2, 64, 2, 2, 64, 6, 16
+    kvp = torch.arange(S, dtype=torch.int32, device=dev).expand(
+        B, S).contiguous()
+    qp = torch.tensor([63, 30], dtype=torch.int32, device=dev)
+    tbl = torch.tensor([[0, 1, 2, 3], [4, 5, -1, -1]], dtype=torch.int32,
+                       device=dev)
+    pool = rn(NB, bs, Hkv, D)
+    p8 = (rn(NB, bs, Hkv, D, dt=torch.float32) * 20).to(torch.int8)
+    # scales that keep the dequantized K/V, and so the outputs, O(1)
+    sc = (rn(NB, Hkv, dt=torch.float32).abs() + 0.01) * 0.02
+    k8 = (rn(B, S, Hkv, D, dt=torch.float32) * 20).to(torch.int8)
+    s8 = rn(B, 4, Hkv, dt=torch.float32).abs() * 0.01
+    qg, qm = rn(B, Hkv, G, D), rn(B, Hkv * G, D)
+    return [
+        ("decode_attention_bhsd", (qg, rn(B, Hkv, S, D), rn(B, Hkv, S, D),
+                                   kvp, qp), {"sliding_window": 16}),
+        ("decode_attention_bshd", (qg, rn(B, S, Hkv, D), rn(B, S, Hkv, D),
+                                   kvp, qp), {}),
+        ("decode_attention_merged_bsd", (qm, rn(B, S, Hkv, D),
+                                         rn(B, S, Hkv, D), kvp, qp), {}),
+        ("decode_attention_paged_bhsd", (qg, pool, pool, tbl, qp), {}),
+        ("decode_attention_paged_merged_bsd", (qm, pool, pool, tbl, qp),
+         {}),
+        ("decode_attention_paged_q8_bhsd", (qg, p8, p8, sc, sc, tbl, qp),
+         {}),
+        ("decode_attention_paged_q8_merged_bsd", (qm, p8, p8, sc, sc, tbl,
+                                                  qp), {}),
+        ("flash_attention_bhsd", (rn(B, 4, S, D), rn(B, Hkv, S, D),
+                                  rn(B, Hkv, S, D)), {}),
+        ("flash_attention_bshd", (rn(B, S, 4, D), rn(B, S, Hkv, D),
+                                  rn(B, S, Hkv, D)), {"sliding_window": 9}),
+        ("flash_attention_merged_bsd", (rn(B, S, 4, D), rn(B, S, Hkv, D),
+                                        rn(B, S, Hkv, D)), {}),
+        ("flash_attention_merged_q8_bsd", (rn(B, S, 4, D), k8, k8, s8, s8),
+         {}),
+        ("ssd_chunk_scan", (rn(1, S, 2, 16), rn(1, S, 2,
+                                                dt=torch.float32).abs(),
+                            -rn(1, S, 2, dt=torch.float32).abs(),
+                            rn(1, S, 2, 8), rn(1, S, 2, 8)), {"chunk": 64}),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_operators_on_the_card_equal_their_plain_versions(dtype):
+    """Each ``torch.ops.repro_torch`` operator on CUDA tensors launches its
+    kernel once and equals the same operator on the tensors moved to the
+    CPU (its plain version); its fake implementation gives the real
+    output's shapes and dtypes."""
+    dev = _cuda()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import _build
+    cases = _op_cases(dev, dtype)
+    assert sorted(n for n, _, _ in cases) == sorted(_build.OPS)
+    for name, args, kw in cases:
+        op = getattr(torch.ops.repro_torch, name)
+        reset_launch_counts()
+        got = op(*args, **kw)
+        torch.cuda.synchronize()
+        assert sum(launch_counts().values()) == 1, name
+        want = op(*[a.cpu() for a in args], **kw)
+        with FakeTensorMode() as mode:
+            fake = op(*[mode.from_tensor(a) for a in args], **kw)
+        got, want, fake = ((x,) if not isinstance(x, tuple) else x
+                           for x in (got, want, fake))
+        for a, b, f in zip(got, want, fake):
+            assert (a.shape, a.dtype) == (b.shape, b.dtype) == \
+                (f.shape, f.dtype), name
+            tol = 3e-5 * float(b.abs().max()) if name == "ssd_chunk_scan" \
+                else _tol(b)
+            assert float((a.float().cpu() - b.float()).abs().max()) <= tol, \
+                name
+
+
+def test_lint_sweep_on_the_card_is_clean():
+    """The sweep with the "cuda" combos traced on the card: CLEAN, each
+    decode and prefill kernel target one kernel node and one launch per
+    attention layer, the decode programs free of host syncs."""
+    _cuda()
+    from repro_torch.lint import sweep
+    rep = sweep(device="cuda")
+    assert rep.ok, [str(f) for f in rep.findings]
+    assert (rep.n_decode_targets, rep.n_prefill_targets,
+            rep.n_chunk_targets) == (12, 12, 12)
+    for t in rep.targets:
+        assert t.device == ("cuda" if t.impl == "cuda" else "cpu"), t.key
+        want = t.n_attn_layers if t.impl == "cuda" and t.phase != "chunk" \
+            else 0
+        assert t.n_kernel_nodes == t.launches == want, t.key
+        if t.phase == "decode":
+            assert t.host_syncs == [], t.key
+
+
+@pytest.mark.parametrize("kind", ["paged", "paged_q8", "dense"])
+def test_decode_step_on_the_card_makes_no_host_sync(kind):
+    """One decode step through the kernels, idle rows included, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises."""
+    dev = _cuda()
+    import importlib
+    from repro_torch.models import (forward_step, init_cache,
+                                    init_paged_cache, init_paged_q8_cache)
+    sw = importlib.import_module("repro_torch.lint.sweep")
+    cfg, params = sw.sweep_models(dev)["merged"]
+    if kind == "dense":
+        cache = init_cache(cfg, 4, 64, device=dev)
+    else:
+        init = init_paged_cache if kind == "paged" else init_paged_q8_cache
+        cache = init(cfg, 12, 8, 4, 64, device=dev)
+        tbl = torch.full((4, cache.block_tables.shape[1]), -1,
+                         dtype=torch.int32)
+        tbl[1, :2] = torch.tensor([3, 4])
+        tbl[3, :1] = 7
+        cache = cache._replace(
+            block_tables=tbl.to(dev),
+            length=torch.tensor([0, 9, 0, 5], dtype=torch.int32, device=dev))
+    toks = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        forward_step(params, cfg, toks, cache, impl="cuda")  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = forward_step(params, cfg, toks, cache, impl="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(logits.float()).all()

@@ -45,7 +45,12 @@ def test_no_module_imports_jax_or_the_jax_package():
             "repro_torch.distribution.sharding",
             "repro_torch.distribution.placed", "repro_torch.launch.mesh",
             "repro_torch.launch.steps",
-            "repro_torch.launch.dryrun"} <= set(mods)
+            "repro_torch.launch.dryrun", "repro_torch.lint",
+            "repro_torch.lint.walker", "repro_torch.lint.rules",
+            "repro_torch.lint.builtin", "repro_torch.lint.sweep",
+            "repro_torch.lint.aliasing", "repro_torch.lint.submitpath",
+            "repro_torch.lint.retention", "repro_torch.lint.report",
+            "repro_torch.lint.__main__"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
@@ -99,6 +104,27 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         from repro_torch.launch.serve import main
         main(["--arch", "mistral-7b", "--smoke"])
+
+
+def test_lint_cli_raises_without_a_card_unless_asked_for_the_cpu():
+    """``python -m repro_torch.lint`` runs on the card by default: without
+    one it raises before any work; ``--list-rules`` needs no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-m", "repro_torch.lint", "--sweep"],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=ROOT, env=env)
+    assert r.returncode != 0 and "RuntimeError" in r.stderr \
+        and "cuda" in r.stderr, r.stdout + r.stderr
+    assert "sweep" not in r.stdout
+    from repro_torch.lint.__main__ import main
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--retention"])
+    r = subprocess.run([sys.executable, "-m", "repro_torch.lint",
+                        "--list-rules"], capture_output=True, text=True,
+                       timeout=120, cwd=ROOT, env=env)
+    assert r.returncode == 0 and "NoForbiddenMatmul" in r.stdout
 
 
 def test_importing_the_dry_run_changes_no_environment():

@@ -2899,15 +2899,27 @@ def mesh_path(summary):
         the dense cache by ``Engine(mesh=)`` with ``impl="cuda"``: greedy
         streams and the launch counts of rows 2 and 5 equal the engine's
         without a mesh on the path phase's prompts; meshed and unmeshed
-        tok/s side by side (one run each, after a warm-up each);
-    (b) merged == source greedy streams at 4 calibrated float32 layers on
-        the mesh;
-    (c) ``Trainer(mesh=)`` on Llama-3.2-1B whole for ``MESH_TRAIN_STEPS``
+        tok/s side by side (one run each, after a warm-up each); then the
+        same model on the paged pool (rows 2 and 7) and the int8 pool
+        (rows 3 and 9): streams and launch counts equal the unmeshed
+        engine's, tok/s side by side (one run each, no warm-up of their
+        own: the path phase ran these kernels);
+    (b) ``ScheduledEngine(mesh=)`` on the paged pool with
+        ``SCHED_STARVED_PAGES`` pages and the path phase's prompts plus a
+        repeat of the longest (a shared prefix): its streams, launch
+        counts, deferrals and preemptions equal the unmeshed scheduler's;
+    (c) merged == source greedy streams at 4 calibrated float32 layers on
+        the mesh, on the dense cache and on the paged pool (rows 1, 2, 6
+        and 7);
+    (d) ``Trainer(mesh=)`` on Llama-3.2-1B whole for ``MESH_TRAIN_STEPS``
         steps: its losses equal the unmeshed trainer's within
         ``MESH_TRAIN_RTOL`` relative;
-    (d) ``repro_torch.launch.dryrun --all --both-meshes`` on the meta
+    (e) the host syncs of one decode step on the paged and on the int8
+        pool, meshed and unmeshed (``sync_counted``, which leaves PyTorch's
+        trace hooks on, so it runs after the timed parts): equal;
+    (f) ``repro_torch.launch.dryrun --all --both-meshes`` on the meta
         device, in a subprocess (six workers) on the host's CPU while
-        (a)-(c) hold the card: the counts of cells run, skipped and
+        (a)-(e) hold the card: the counts of cells run, skipped and
         failed; a failure fails the phase."""
     import torch
     import torch.distributed as dist
@@ -2929,8 +2941,16 @@ def mesh_path(summary):
                                 world_size=1)
         mesh = make_mesh((1, 1), ("data", "model"))
         log(f"mesh {mesh}")
+        t0 = time.perf_counter()
         out["serve"] = mesh_serve(mesh)
+        out["serve_s"] = time.perf_counter() - t0
         out["train"] = mesh_train(mesh)
+        t0 = time.perf_counter()
+        out["paged_step_syncs"] = mesh_paged_syncs(mesh)
+        out["paged_s"] = out["serve"].pop("paged_s") + \
+            time.perf_counter() - t0
+        log(f"  mesh phase: serving {out['serve_s']:.1f} s, of which the "
+            f"paged pools' checks with their syncs {out['paged_s']:.1f} s")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -2957,7 +2977,8 @@ def mesh_path(summary):
 
 
 def mesh_serve(mesh):
-    """(a) and (b) of ``mesh_path``."""
+    """(a)-(c) of ``mesh_path``; ``paged_s`` in the result: the seconds of
+    the paged pools' parts."""
     import numpy as np
     import torch
 
@@ -2991,6 +3012,10 @@ def mesh_serve(mesh):
         log(f"  (1, 1) mesh: streams and launch counts equal the unmeshed "
             f"engine's; tok/s meshed {res['meshed']['tok_s']:.1f} vs "
             f"unmeshed {res['unmeshed']['tok_s']:.1f} (one run each)")
+        t_paged = time.perf_counter()
+        res["paged"] = mesh_paged_serve(mesh, mcfg, mparams, prompts,
+                                        max_new)
+        paged_s = time.perf_counter() - t_paged
         del eng, mparams
         torch.cuda.empty_cache()
 
@@ -3008,9 +3033,121 @@ def mesh_serve(mesh):
             f"{ {k: v for k, v in c_src.items() if v} }, merged "
             f"{ {k: v for k, v in c_mrg.items() if v} }")
         res["identity_f32"] = True
-        del params, mparams
+        # (c) on the paged pool: rows 1 and 6 (source), 2 and 7 (merged)
+        t_paged = time.perf_counter()
+        e_src, src, c_src, _ = serve(cfg, params, prompts, max_new,
+                                     cache="paged", mesh=mesh)
+        check_counts("source float32 paged, (1, 1) mesh", c_src, e_src,
+                     EQ_LAYERS, n, merged=False)
+        e_mrg, mrg, c_mrg, _ = serve(mcfg, mparams, prompts, max_new,
+                                     cache="paged", mesh=mesh)
+        check_counts("merged float32 paged, (1, 1) mesh", c_mrg, e_mrg,
+                     EQ_LAYERS, n, merged=True)
+        if streams(src) != streams(mrg):
+            bad = first_mismatch(cfg, params, prompts, src, mrg)
+            raise AssertionError(
+                f"on the mesh, paged merged and source greedy streams "
+                f"differ: prompt {bad[0]}, position {bad[1]}, source top-2 "
+                f"margin {bad[2]:.3g}")
+        log(f"  (1, 1) mesh: paged merged == source greedy streams "
+            f"(float32, {EQ_LAYERS} calibrated layers)")
+        res["identity_f32_paged"] = True
+        res["paged_s"] = paged_s + time.perf_counter() - t_paged
+        del params, mparams, e_src, e_mrg
         torch.cuda.empty_cache()
     return res
+
+
+def mesh_paged_serve(mesh, mcfg, mparams, prompts, max_new):
+    """(a) on the paged and int8 pools and (b) of ``mesh_path``, on the
+    32-layer merged bfloat16 model."""
+    L, n = mcfg.n_layers, len(prompts)
+    res = {}
+    for cache in ("paged", "paged_q8"):
+        eng, plain, counts, wall = serve(mcfg, mparams, prompts, max_new,
+                                         cache=cache)
+        check_counts(f"merged bfloat16 {cache}, no mesh", counts, eng, L, n,
+                     merged=True)
+        unmeshed = report(f"merged bfloat16 {cache} ({L} layers), no mesh",
+                          plain, wall)
+        eng, meshed, mcounts, wall = serve(mcfg, mparams, prompts, max_new,
+                                           cache=cache, mesh=mesh)
+        check_counts(f"merged bfloat16 {cache}, (1, 1) mesh", mcounts, eng,
+                     L, n, merged=True)
+        if mcounts != counts or streams(meshed) != streams(plain):
+            raise AssertionError(
+                f"{cache}: meshed launch counts {mcounts} vs unmeshed "
+                f"{counts}, streams equal {streams(meshed) == streams(plain)}")
+        res[cache] = {"unmeshed": unmeshed, "meshed": report(
+            f"merged bfloat16 {cache} ({L} layers), (1, 1) mesh", meshed,
+            wall)}
+        log(f"  (1, 1) mesh, {cache}: streams and launch counts equal the "
+            f"unmeshed engine's; tok/s meshed "
+            f"{res[cache]['meshed']['tok_s']:.1f} vs unmeshed "
+            f"{res[cache]['unmeshed']['tok_s']:.1f} (one run each)")
+    # (b): the scheduler through a starved pool, a repeat of the longest
+    # prompt sharing its prefix
+    sp = list(prompts) + [prompts[3].copy()]
+    got = {}
+    for tag, m in (("unmeshed", None), ("meshed", mesh)):
+        eng, outs, counts, wall = serve(mcfg, mparams, sp, max_new, "paged",
+                                        sched=True, mesh=m,
+                                        n_blocks=SCHED_STARVED_PAGES)
+        check_sched_counts(f"merged bfloat16 paged, {SCHED_STARVED_PAGES} "
+                           f"pages, {tag}", counts, eng, merged=True)
+        got[tag] = (streams(outs), counts, eng.stats["n_deferred"],
+                    eng.stats["n_preempted"], eng.pm.allocator.n_shared_hits)
+    if got["meshed"] != got["unmeshed"] or not all(got["meshed"][2:4]):
+        raise AssertionError(
+            f"starved scheduled pool: meshed (deferred, preempted, prefix "
+            f"hits) {got['meshed'][2:]} vs unmeshed {got['unmeshed'][2:]}, "
+            f"streams equal {got['meshed'][0] == got['unmeshed'][0]}")
+    res["sched_starved"] = dict(zip(("deferred", "preempted", "prefix_hits"),
+                                    got["meshed"][2:]))
+    log(f"  (1, 1) mesh: ScheduledEngine, {SCHED_STARVED_PAGES} pages: "
+        f"streams, launch counts and {res['sched_starved']} equal the "
+        f"unmeshed scheduler's")
+    return res
+
+
+def mesh_paged_syncs(mesh):
+    """(e) of ``mesh_path``: one decode step's host syncs on the paged and
+    the int8 pool, meshed and unmeshed (merged bfloat16 Mistral-7B at two
+    full-width layers: the syncs do not depend on depth or weights), after
+    a step of warm-up each."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Engine, Request, ServeConfig
+
+    _, _, mcfg, mparams = build(2, calibrate=False, dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 32000, k) for k in (16, 37, 100, 250)]
+    out = {}
+    with torch.no_grad():
+        for cache in ("paged", "paged_q8"):
+            per = {}
+            for tag, m in (("unmeshed", None), ("meshed", mesh)):
+                eng = Engine(mcfg, mparams, ServeConfig(n_slots=4,
+                                                        max_len=512),
+                             impl="cuda", cache=cache, device="cuda", mesh=m)
+                for p in prompts:
+                    eng.submit(Request(prompt=np.asarray(p, np.int32),
+                                       max_new_tokens=8))
+                eng.step()
+                _, caught = sync_counted(eng.step)
+                per[tag] = dict(caught)
+            if sum(per["meshed"].values()) != sum(per["unmeshed"].values()):
+                raise AssertionError(f"{cache}: host syncs of a decode step "
+                                     f"meshed {per['meshed']} vs unmeshed "
+                                     f"{per['unmeshed']}")
+            out[cache] = {k: sum(v.values()) for k, v in per.items()}
+            log(f"  (1, 1) mesh, {cache}: host syncs of one decode step "
+                f"meshed {out[cache]['meshed']} == unmeshed "
+                f"{out[cache]['unmeshed']} (by call chain: "
+                f"{per['meshed']})")
+    del mparams
+    torch.cuda.empty_cache()
+    return out
 
 
 def mesh_train(mesh):

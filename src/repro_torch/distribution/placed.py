@@ -20,11 +20,22 @@ Three seams need more than propagation, and live here:
   * ``reanchor``: the counterpart of the reference's
     ``with_sharding_constraint`` (q/k/v of merged layouts, the training
     stream).
+  * the paged pools: their page axis splits over the model axis
+    (``sharding.paged_cache_pspecs``), so each rank reads and writes the
+    pages it holds on its local tensor (``local_pages``, ``own_pages``),
+    a copy-on-write page travels from the rank that holds it
+    (``copy_page_``), and attention over the pages is a partial softmax
+    state per rank, combined across the model axis by an all-reduce MAX
+    then SUM (``combine_softmax``: the reference's "each chip scores the
+    pages it owns and XLA combines softmax stats").  Host bookkeeping
+    that every rank holds whole (block tables, lengths) is placed by
+    keeping each rank's own shard (``place_local``), and a batch split
+    over the data axes is gathered back whole with ``row_gather``.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -268,3 +279,120 @@ def local_call(fn: Callable, batch: Sequence[Any], other: Sequence[Any] = (),
         return type(out)(*map(wrap, out)) if hasattr(out, "_fields") \
             else tuple(map(wrap, out))
     return wrap(out)
+
+
+# ---------------------------------------------------------------------------
+# paged pools on a mesh
+# ---------------------------------------------------------------------------
+
+def local_pages(pool, dim: int = 1):
+    """(this rank's tensor, its first page, its page count) of a page pool
+    or its scales, whose dim ``dim`` counts pages: a plain tensor is all
+    its own; a DTensor's rank holds the pages of its shard of that dim
+    (all of them where no mesh dim splits it)."""
+    if not isinstance(pool, DTensor):
+        return pool, 0, int(pool.shape[dim])
+    lo, n = shard_box(pool)[dim]
+    return pool.to_local(), int(lo), int(n)
+
+
+def own_pages(ids, lo: int, n: int):
+    """Global page ids -> this rank's indices: ``ids - lo`` where the rank
+    holds the page (``lo <= id < lo + n``), -1 elsewhere and where ``ids``
+    is -1."""
+    return torch.where((ids >= lo) & (ids < lo + n), ids - lo, -1)
+
+
+def split_group(x, dim: int):
+    """The process group of the mesh dim that splits dim ``dim`` of ``x``
+    (None for a plain tensor or where no mesh dim of size > 1 splits
+    it)."""
+    if not isinstance(x, DTensor):
+        return None
+    for d, p in enumerate(x.placements):
+        if p.is_shard(dim % x.ndim) and x.device_mesh.size(d) > 1:
+            return x.device_mesh.get_group(d)
+    return None
+
+
+def combine_softmax(m, l, o, group=None):
+    """Attention from partial softmax states over disjoint key ranges:
+    ``m`` (...) a range's running max of the scores, ``l`` (...) its sum of
+    exp(score - m) and ``o`` (..., D) its unnormalised sum of
+    exp(score - m) v, float32.  Without ``group`` the ranges are stacked on
+    a leading dim; with one (the model axis's process group) each rank
+    holds its own range, and the states are all-reduced, MAX then SUM.
+    Returns (..., D) float32: sum_r e^(m_r - M) o_r / sum_r e^(m_r - M) l_r,
+    M the max over ranges.  A range with nothing to attend to (every
+    score at the -1e30 mask) weighs e^(-1e30 - M) = 0 beside one that has
+    a real score."""
+    if group is None:
+        top = m.amax(0)
+        w = torch.exp(m - top)
+        return (o * w[..., None]).sum(0) / (l * w).sum(0)[..., None]
+    import torch.distributed as dist
+
+    top = m.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(m - top)
+    both = torch.cat([(o * w[..., None]).reshape(-1), (l * w).reshape(-1)])
+    dist.all_reduce(both, group=group)
+    n = o.numel()
+    return both[:n].view(o.shape) / both[n:].view(l.shape)[..., None]
+
+
+def copy_page_(pool, src: int, dst: int) -> None:
+    """``pool[:, dst] = pool[:, src]`` in place, for a plain page pool (or
+    its scales) or a DTensor whose dim 1, the page axis, may be split over
+    the model axis.  Where one shard holds both pages (always, where
+    nothing splits the pages) the rank that holds them copies and the
+    others have nothing to do; otherwise the page travels from the rank
+    that holds ``src`` to the one that holds ``dst`` by a broadcast over
+    the mesh dim that splits the pages, device to device.  Every rank of
+    that group runs the same host bookkeeping, so all of them take the
+    same branch (the shards are equal: ``sharding.evenly``)."""
+    local, lo, n = local_pages(pool)
+    if src // n == dst // n:
+        if lo <= src < lo + n:
+            local[:, dst - lo].copy_(local[:, src - lo])
+        return
+    import torch.distributed as dist
+
+    group = split_group(pool, 1)
+    has_src = lo <= src < lo + n
+    buf = local[:, src - lo].contiguous() if has_src \
+        else torch.empty_like(local[:, 0])
+    dist.broadcast(buf, src=dist.get_global_rank(group, src // n),
+                   group=group)
+    if lo <= dst < lo + n:
+        local[:, dst - lo].copy_(buf)
+
+
+def place_local(x, mesh, placements):
+    """A tensor that every rank holds whole and equal (host bookkeeping
+    copied to the device) as a DTensor with ``placements``: each rank keeps
+    its own shard, so no collective runs."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    shape, offset = compute_local_shape_and_global_offset(
+        x.shape, mesh, placements)
+    local = x[tuple(slice(o, o + s) for o, s in zip(offset, shape))]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def row_gather(like) -> Optional[Callable]:
+    """For a batch laid out like the DTensor ``like`` (its dim 0 split
+    over some mesh dims): a function taking this rank's rows of a plain
+    tensor to the whole batch, an all-gather over those dims.  None where
+    every rank holds the whole batch (a plain ``like`` too)."""
+    if not isinstance(like, DTensor):
+        return None
+    mesh = like.device_mesh
+    place = [Shard(0) if p.is_shard(0) and mesh.size(d) > 1 else Replicate()
+             for d, p in enumerate(like.placements)]
+    if all(p == Replicate() for p in place):
+        return None
+    return lambda x: DTensor.from_local(x, mesh, place,
+                                        run_check=False).full_tensor()

@@ -108,7 +108,13 @@ def q8_append_token(pool: torch.Tensor, scale: torch.Tensor,
     its stale scale is ignored and reset from this token; at off > 0 the
     scale only grows (new = max(old, token's)) and the page's stored ints
     are rescaled by old / new <= 1 (a no-op round when the scale does not
-    grow)."""
+    grow).
+
+    Where a mesh's model axis splits the pool, the caller passes the
+    rank's own pages and their scale rows (the local tensors) and page ids
+    as local indices; a write whose page lies on another rank is aimed
+    like an idle row's (``paged_append_slots``), so the ints and the
+    scale row of a page change together, on the rank that holds it."""
     newf = new_tok.float()
     tok_scale = _absmax_scale(newf, -1)
     fresh = (off == 0)[:, None]  # (n, 1): first write of this page

@@ -23,10 +23,16 @@ never materialized repeated.
 Under a device mesh the operands are DTensors.  Where the mesh's model
 axis has size 1 every rank holds whole heads and sequences, so each core
 runs on its rank's local shards (``distribution.placed.local_call``: the
-batch rows of every dp rank), through the kernels on the card; a kernel
-never sees a DTensor.  A larger model axis splits heads or sequences: the
-"torch" route then runs on the DTensors, which propagate the sharding and
-insert the collectives, and the "cuda" route raises ValueError.
+batch rows of every dp rank; a paged pool goes in as it lies, whole on
+every rank), through the kernels on the card; a kernel never sees a
+DTensor.  A larger model axis splits heads or sequences: the "torch"
+route then runs on the DTensors, which propagate the sharding and insert
+the collectives, and the "cuda" route raises ValueError.  The paged
+pools split their PAGES over it instead: each rank attends over the
+pages it holds (``paged_partial_states``: table entries for other ranks'
+pages are masked after the positions are derived from the global table)
+and the partial softmax states are combined across the model axis
+(``distribution.placed.combine_softmax``), as in the reference.
 """
 from __future__ import annotations
 
@@ -34,7 +40,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distribution.placed import local_call, on_shards
+from repro_torch.distribution.placed import (combine_softmax, is_placed,
+                                             local_call, on_shards,
+                                             own_pages, shard_box,
+                                             split_group)
 from repro_torch.kernels import quant
 from repro_torch.kernels.paging import paged_ring_active
 from repro_torch.kernels.ref import ref_paged_gather as _paged_gather
@@ -296,12 +305,120 @@ def decode_attention_core_cross(
 
 
 # ---------------------------------------------------------------------------
+# partial softmax states (key ranges held by different ranks)
+# ---------------------------------------------------------------------------
+
+def attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: torch.Tensor):
+    """Softmax state of q (B, Sq, Hq, D) over k/v (B, Sk, Hkv, D) under the
+    additive ``bias`` (B, 1, Sq, Sk) (0 or ``NEG_INF``): (m, l, o) in
+    float32, m and l (B, Hkv, G, Sq), o (B, Hkv, G, Sq, D) unnormalised,
+    for ``placed.combine_softmax``.  The scores are ``attention_core``'s."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) \
+        * (1.0 / (D ** 0.5)) + bias[:, :, None]
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(-1), torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+
+
+def combined_heads(states, group=None) -> torch.Tensor:
+    """``placed.combine_softmax`` of ``attention_partial`` states (stacked
+    on a leading dim without ``group``) -> (B, Sq, Hq, D) float32."""
+    o = combine_softmax(*states, group=group)
+    B, Hkv, G, Sq, D = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hkv * G, D)
+
+
+def paged_partial_states(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pool: torch.Tensor,  # (n, bs, Hkv, D): pages [first_page, +n)
+    v_pool: torch.Tensor,
+    *,
+    block_tables: torch.Tensor,  # (B, MB) GLOBAL page ids, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int
+    first_page: int = 0,
+    sliding_window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,  # (n, Hkv) float32 (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """One decode token's softmax state (``attention_partial``) over the
+    pages ``first_page .. first_page + n - 1`` of a pool, which
+    ``k_pool``/``v_pool`` hold (int8 with ``k_scale``/``v_scale``): what
+    one rank computes where the model axis splits the pool.  The
+    positions, ring positions included, come from the GLOBAL table before
+    its ids become this range's indices (``placed.own_pages``); entries
+    of other pages are then masked.  Combined over ranges that cover the
+    pool (``combined_heads``), the states give the whole-pool cores'
+    output, except on a row with nothing to attend to (an idle slot, its
+    output discarded), which averages another view."""
+    bs = k_pool.shape[1]
+    ring = paged_ring_active(sliding_window, bs, block_tables.shape[1])
+    pos = paged_kv_positions(block_tables, bs, q_position, ring)
+    local = own_pages(block_tables, first_page, k_pool.shape[0])
+    pos = torch.where(local.repeat_interleave(bs, dim=1) >= 0, pos, -1)
+    if k_scale is None:
+        k, v = _paged_gather(k_pool, local), _paged_gather(v_pool, local)
+    else:
+        k = _paged_gather_q8(k_pool, k_scale, local, q.dtype)
+        v = _paged_gather_q8(v_pool, v_scale, local, q.dtype)
+    ok = (pos >= 0) & (pos <= q_position[:, None])
+    if sliding_window > 0:
+        ok &= q_position[:, None] - pos < sliding_window
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    bias = torch.where(ok, zero, NEG_INF)[:, None, None, :]
+    return attention_partial(q[:, None], k, v, bias)
+
+
+def _paged_on_mesh(core, q, pools, block_tables, q_position, kw):
+    """A paged decode ``core`` whose pool is a DTensor.  Model axis 1:
+    ``core`` on this rank's batch rows (``local_call``; the pool, whole
+    on every rank, goes in as an ``other`` operand), so the kernels see
+    local tensors.  A larger model axis ("torch" only; ``on_shards``
+    raises for "cuda"): this rank's rows with whole heads attend over the
+    pages it holds, and the states are combined across the model axis;
+    where no mesh dim splits the pages (``sharding.evenly`` keeps a pool
+    whole whose page count the model axis does not divide), ``core`` runs
+    on the local tensors.  ``pools``: (k, v) or (k, v, k_scale,
+    v_scale)."""
+    if on_shards(kw["impl"], q, *pools):
+        return local_call(
+            lambda q, bt, qp, *p: core(q, *p, block_tables=bt,
+                                       q_position=qp, **kw),
+            (q, block_tables, q_position), pools)
+    from torch.distributed.tensor import DTensor
+
+    mesh, place = pools[0].device_mesh, block_tables.placements
+    ql = q.redistribute(mesh, place).to_local()
+    local = [p.to_local() for p in pools]
+    bt, qp = block_tables.to_local(), q_position.to_local()
+    group = split_group(pools[0], 0)
+    if group is None:
+        out = core(ql, *local, block_tables=bt, q_position=qp, **kw)
+        return DTensor.from_local(out, mesh, place, run_check=False)
+    shape, D = ql.shape, local[0].shape[-1]
+    scales = {} if len(local) == 2 else dict(k_scale=local[2],
+                                              v_scale=local[3])
+    states = paged_partial_states(
+        ql.reshape(shape[0], -1, D), local[0], local[1], block_tables=bt,
+        q_position=qp, first_page=shard_box(pools[0])[0][0],
+        sliding_window=kw["sliding_window"], **scales)
+    dtype = ql.dtype if scales else local[1].dtype
+    out = combined_heads(states, group)[:, 0]
+    return DTensor.from_local(out.to(dtype).reshape(shape), mesh, place,
+                              run_check=False)
+
+
+# ---------------------------------------------------------------------------
 # paged decode cores (block-table gather over a physical page pool)
 # ---------------------------------------------------------------------------
 #
 # ``paged_kv_positions`` and ``_paged_gather`` are the plain versions'
 # (``kernels.ref``): one definition of the gather and of the ring
-# positions for the oracle and this route.
+# positions for the oracle and this route.  A DTensor pool (a mesh) goes
+# through ``_paged_on_mesh``.
 
 def decode_attention_core_paged(
     q: torch.Tensor,  # (B, Hq, D)
@@ -321,6 +438,10 @@ def decode_attention_core_paged(
     addressing is derived from the window and the table width
     (``kernels.paging``)."""
     _check_impl(impl)
+    if is_placed(k_pool):
+        return _paged_on_mesh(decode_attention_core_paged, q,
+                              (k_pool, v_pool), block_tables, q_position,
+                              dict(sliding_window=sliding_window, impl=impl))
     if impl == "cuda":
         from repro_torch.kernels import ops as kops
 
@@ -350,6 +471,11 @@ def decode_attention_core_paged_merged(
     """Merged (Q/P-removed) decode attention over a paged KV pool: the
     stream is the query and the (B, d_model) output is the FFN input."""
     _check_impl(impl)
+    if is_placed(k_pool):
+        return _paged_on_mesh(decode_attention_core_paged_merged, u,
+                              (k_pool, v_pool), block_tables, q_position,
+                              dict(n_kv_heads=n_kv_heads,
+                                   sliding_window=sliding_window, impl=impl))
     B, d = u.shape
     D = k_pool.shape[3]
     if impl == "cuda":
@@ -401,6 +527,11 @@ def decode_attention_core_paged_q8(
     the slot's view dequantized page by page into q's dtype and defers to
     the dense positions core, as ``decode_attention_core_paged`` does."""
     _check_impl(impl)
+    if is_placed(k_pool):
+        return _paged_on_mesh(decode_attention_core_paged_q8, q,
+                              (k_pool, v_pool, k_scale, v_scale),
+                              block_tables, q_position,
+                              dict(sliding_window=sliding_window, impl=impl))
     if impl == "cuda":
         from repro_torch.kernels import ops as kops
 
@@ -433,6 +564,12 @@ def decode_attention_core_paged_q8_merged(
     """Merged (Q/P-removed) decode attention over an int8 paged pool: the
     stream is the query and the (B, d_model) output is the FFN input."""
     _check_impl(impl)
+    if is_placed(k_pool):
+        return _paged_on_mesh(decode_attention_core_paged_q8_merged, u,
+                              (k_pool, v_pool, k_scale, v_scale),
+                              block_tables, q_position,
+                              dict(n_kv_heads=n_kv_heads,
+                                   sliding_window=sliding_window, impl=impl))
     B, d = u.shape
     D = k_pool.shape[3]
     if impl == "cuda":

@@ -67,8 +67,10 @@ from repro_torch._device import resolve_device
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distribution import sharding as shd
-from repro_torch.distribution.placed import (assign_, is_placed, put_,
-                                             reanchor, whole_dim)
+from repro_torch.distribution.placed import (assign_, full, is_placed,
+                                             local_pages, own_pages, put_,
+                                             reanchor, split_group,
+                                             whole_dim)
 from repro_torch.kernels import paging, quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backends
@@ -371,8 +373,10 @@ def _self_attention_seq(lp, cfg: ModelConfig, u, positions, merged: bool,
     if q8_block:
         valid = None if q8_true_len is None else \
             positions < q8_true_len[:, None]
-        kq, ksc = quant.q8_quantize_seq(k, q8_block, valid)
-        vq, vsc = quant.q8_quantize_seq(v, q8_block, valid)
+        # whole K/V under a mesh: page-sized blocks of a sequence that
+        # DTensor may hold split (or as a pending sum) do not reshape
+        kq, ksc = quant.q8_quantize_seq(full(k), q8_block, valid)
+        vq, vsc = quant.q8_quantize_seq(full(v), q8_block, valid)
         if merged_core:
             out = attn_mod.attention_core_merged(
                 q.reshape(B, S, cfg.attn_dim), kq, vq, q_positions=positions,
@@ -1040,22 +1044,36 @@ def _finish_paged(cfg: ModelConfig, logits, kvs, dest: PagedPrefillDest, ctx,
     ``mode="drop"``; torch has no such mode (an out-of-range index raises
     or corrupts), so only the blocks with a destination >= 0 are selected
     and written: shared-prefix pages, bucket-padding blocks and
-    out-of-window blocks are never touched."""
+    out-of-window blocks are never touched.  Under a mesh the pools are
+    DTensors and each rank writes the pages it holds (``_kept_pages``)
+    from the whole prompt KV."""
     k_pool, v_pool, block_ids = dest
     last_logits, _ = _last_logits_and_length(logits, ctx.get("true_len"), B, S)
-    ks, vs = kvs  # (L, 1, S, Hkv, Dh)
+    ks, vs = (full(x) for x in kvs)  # (L, 1, S, Hkv, Dh)
     L, bs = k_pool.shape[0], k_pool.shape[2]
     nbk = block_ids.shape[0]
-    keep = torch.nonzero(block_ids >= 0).flatten()  # one sync per prefill
-    dst = block_ids[keep].long()
+    (k_l, v_l), keep, dst = _kept_pages((k_pool, v_pool), block_ids)
 
     def blocks(x):  # (L, 1, S, Hkv, Dh) -> the kept (L, n, bs, Hkv, Dh)
         x = torch.nn.functional.pad(x[:, 0], (0, 0, 0, 0, 0, nbk * bs - S))
         return x.reshape(L, nbk, bs, *x.shape[2:])[:, keep]
 
-    k_pool[:, dst] = blocks(ks).to(k_pool.dtype)
-    v_pool[:, dst] = blocks(vs).to(v_pool.dtype)
+    k_l[:, dst] = blocks(ks).to(k_l.dtype)
+    v_l[:, dst] = blocks(vs).to(v_l.dtype)
     return last_logits, (k_pool, v_pool)
+
+
+def _kept_pages(pools, block_ids):
+    """What a prefill or a chunk writes on this rank: the local tensors of
+    ``pools`` (stacked (L, NB, ...) pools and scales), the indices of the
+    blocks whose destination this rank holds (``keep``) and their local
+    pages (``dst``).  A plain pool holds every page, so ``keep`` is the
+    blocks with a destination >= 0.  One host sync (``nonzero``)."""
+    local, lo, n = zip(*(local_pages(p) for p in pools))
+    ids = own_pages(block_ids, lo[0], n[0]) if is_placed(pools[0]) \
+        else block_ids
+    keep = torch.nonzero(ids >= 0).flatten()
+    return local, keep, ids[keep].long()
 
 
 def _finish_paged_q8(cfg: ModelConfig, logits, kvs, dest: PagedQ8PrefillDest,
@@ -1071,9 +1089,10 @@ def _finish_paged_q8(cfg: ModelConfig, logits, kvs, dest: PagedQ8PrefillDest,
                                              B, S)
     L, bs = k_pool.shape[0], k_pool.shape[2]
     nbk, npb = block_ids.shape[0], S // bs
-    keep = torch.nonzero(block_ids >= 0).flatten()  # one sync per prefill
-    dst = block_ids[keep].long()
-    kq, ksc, vq, vsc = kvs  # (L, 1, S, Hkv, Dh) int8, (L, 1, S/bs, Hkv)
+    (k_pool, v_pool, k_scale, v_scale), keep, dst = _kept_pages(
+        dest[:4], block_ids)
+    # (L, 1, S, Hkv, Dh) int8, (L, 1, S/bs, Hkv)
+    kq, ksc, vq, vsc = (full(x) for x in kvs)
 
     def blocks(ints, sc):  # -> the kept (L, n, bs, Hkv, Dh), (L, n, Hkv)
         ints = ints[:, 0].reshape(L, npb, bs, *ints.shape[3:])
@@ -1086,7 +1105,7 @@ def _finish_paged_q8(cfg: ModelConfig, logits, kvs, dest: PagedQ8PrefillDest,
     for pool, scale, ints, sc in ((k_pool, k_scale, kq, ksc),
                                   (v_pool, v_scale, vq, vsc)):
         pool[:, dst], scale[:, dst] = blocks(ints, sc)
-    return last_logits, (k_pool, v_pool, k_scale, v_scale)
+    return last_logits, tuple(dest[:4])
 
 
 def _prefill_dense_generic(params, cfg: ModelConfig, inputs, dest, ctx):
@@ -1315,11 +1334,14 @@ class AppendSlots(NamedTuple):
 
 
 def paged_append_slots(cfg: ModelConfig, block_tables, length,
-                       block_size: int) -> AppendSlots:
+                       block_size: int, pages=None) -> AppendSlots:
     """Where this step's new K/V rows go in every layer's pool, without
     reading device data on the host: each batch row's page
     (table[length // bs], the table index wrapping for ring-addressed
     windowed tables; ``kernels.paging``), in-page offset and flat row.
+    ``pages`` = (lo, n): the pool is split (a mesh) and this rank holds
+    pages lo .. lo + n - 1; a row whose page lies elsewhere counts as
+    idle here, and ``page``/``dst`` are indices into the rank's pages.
 
     JAX drops the writes of idle rows (table all -1) with ``mode="drop"``;
     torch has no such scatter, and selecting the mapped rows
@@ -1335,6 +1357,8 @@ def paged_append_slots(cfg: ModelConfig, block_tables, length,
     lb = length.long() // block_size
     lb = lb % ring if ring else lb.clamp(max=MB - 1)
     blk = block_tables.long().gather(1, lb[:, None])[:, 0]
+    if pages is not None:
+        blk = own_pages(blk, *pages)
     valid = blk >= 0
     rows = torch.arange(blk.shape[0], device=blk.device)
     src = torch.where(valid, rows, valid.int().argmax())
@@ -1344,17 +1368,22 @@ def paged_append_slots(cfg: ModelConfig, block_tables, length,
 
 
 def _rope_and_insert_paged(cfg: ModelConfig, q, k_new, v_new, k_pool, v_pool,
-                           length, append):
+                           length, append, whole):
     """RoPE the step's q/k at position ``length`` and write the new k/v
     rows (``append`` = ``paged_append_slots``) into the layer's pools, IN
     PLACE: a step with no mapped row writes back what the target row
-    holds.  Returns (q, k_pool, v_pool)."""
+    holds.  ``whole`` takes the new rows to the whole batch (under a mesh:
+    gathered over the data axes, so every replica of the pool takes every
+    row; ``forward_step``); the write lands on this rank's pages.
+    Returns (q, k_pool, v_pool)."""
     pos = length[:, None]
     q = _rope(cfg, q, pos)
     k_new = _rope(cfg, k_new, pos)
     for pool, new in ((k_pool, k_new), (v_pool, v_new)):
-        flat = pool.view(-1, *pool.shape[2:])  # (NB*bs, Hkv, Dh)
-        rows = torch.where(append.live, new[append.src, 0].to(pool.dtype),
+        local = local_pages(pool, 0)[0]
+        flat = local.view(-1, *local.shape[2:])  # (NB*bs, Hkv, Dh)
+        rows = torch.where(append.live,
+                           whole(new)[append.src, 0].to(local.dtype),
                            flat[append.dst])
         flat.index_copy_(0, append.dst, rows)
     return q, k_pool, v_pool
@@ -1367,7 +1396,8 @@ def _attn_step_paged(lp, cfg: ModelConfig, u1, k_pool, v_pool, ctx):
     merged = _is_merged(cfg.block_style)
     q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, merged)
     q, k_pool, v_pool = _rope_and_insert_paged(cfg, q, k_new, v_new, k_pool,
-                                               v_pool, length, ctx["append"])
+                                               v_pool, length, ctx["append"],
+                                               ctx["whole"])
     out = attn_mod.decode_attention_core_paged(
         q[:, 0], k_pool, v_pool, block_tables=ctx["block_tables"],
         q_position=length, sliding_window=cfg.sliding_window,
@@ -1384,7 +1414,8 @@ def _attn_step_paged_merged(lp, cfg: ModelConfig, u1, k_pool, v_pool, ctx):
     # variant "qp": _project_qkv returns the stream itself as q
     q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, True)
     q, k_pool, v_pool = _rope_and_insert_paged(cfg, q, k_new, v_new, k_pool,
-                                               v_pool, length, ctx["append"])
+                                               v_pool, length, ctx["append"],
+                                               ctx["whole"])
     out = attn_mod.decode_attention_core_paged_merged(
         q.reshape(B, cfg.attn_dim), k_pool, v_pool,
         block_tables=ctx["block_tables"], q_position=length,
@@ -1394,17 +1425,20 @@ def _attn_step_paged_merged(lp, cfg: ModelConfig, u1, k_pool, v_pool, ctx):
 
 
 def _rope_and_insert_paged_q8(cfg: ModelConfig, q, k_new, v_new, k_store,
-                              v_store, length, append):
+                              v_store, length, append, whole):
     """``_rope_and_insert_paged`` over the int8 pool: RoPE, then quantize
     the new token into each write's page under the page's monotone scale
     merge (``quant.q8_append_token``), ints and scale row in place.
     The same torch ops on every route, so pool bits do not depend on
-    ``impl``.  Returns q."""
+    ``impl``.  ``whole`` as in ``_rope_and_insert_paged``: the write
+    lands on this rank's pages and their scale rows.  Returns q."""
     pos = length[:, None]
     q = _rope(cfg, q, pos)
     k_new = _rope(cfg, k_new, pos)
     for (pool, scale), new in ((k_store, k_new), (v_store, v_new)):
-        quant.q8_append_token(pool, scale, new[append.src, 0], append.page,
+        quant.q8_append_token(local_pages(pool, 0)[0],
+                              local_pages(scale, 0)[0],
+                              whole(new)[append.src, 0], append.page,
                               append.off, live=append.live)
     return q
 
@@ -1417,7 +1451,7 @@ def _attn_step_paged_q8(lp, cfg: ModelConfig, u1, k_store, v_store, ctx):
     merged = _is_merged(cfg.block_style)
     q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, merged)
     q = _rope_and_insert_paged_q8(cfg, q, k_new, v_new, k_store, v_store,
-                                  length, ctx["append"])
+                                  length, ctx["append"], ctx["whole"])
     out = attn_mod.decode_attention_core_paged_q8(
         q[:, 0], k_store[0], v_store[0], k_store[1], v_store[1],
         block_tables=ctx["block_tables"], q_position=length,
@@ -1435,7 +1469,7 @@ def _attn_step_paged_q8_merged(lp, cfg: ModelConfig, u1, k_store, v_store,
     # variant "qp": _project_qkv returns the stream itself as q
     q, k_new, v_new = _project_qkv(lp, cfg, u1, u1, True)
     q = _rope_and_insert_paged_q8(cfg, q, k_new, v_new, k_store, v_store,
-                                  length, ctx["append"])
+                                  length, ctx["append"], ctx["whole"])
     out = attn_mod.decode_attention_core_paged_q8_merged(
         q.reshape(B, cfg.attn_dim), k_store[0], v_store[0], k_store[1],
         v_store[1], block_tables=ctx["block_tables"], q_position=length,
@@ -1528,7 +1562,7 @@ def serving_style_key(cfg: ModelConfig) -> str:
 
 
 def forward_step(params, cfg: ModelConfig, token, cache, *,
-                 impl: str = "torch", qkv_sharding=None):
+                 impl: str = "torch", qkv_sharding=None, rows=None):
     """One decode step: token (B,) int -> (logits (B, V), cache).
 
     ``cache`` is a ``DecodeCache``, a ``PagedDecodeCache`` or a
@@ -1542,7 +1576,16 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
     raises ValueError.  The cache is updated in place: K/V rows,
     positions, and on ssm / hybrid stacks every layer's SSM state and conv
     tail; a VLM's cross K/V are only read.  ``qkv_sharding``: a spec
-    re-anchoring the step's q/k/v under a mesh."""
+    re-anchoring the step's q/k/v under a mesh.
+
+    A paged cache under a mesh: the pools are DTensors whose pages may
+    split over the model axis, the tables and lengths DTensors split over
+    the data axes; every rank writes the step's new rows of the WHOLE
+    batch into the pages it holds (the data ranks hold replicas of the
+    pool, which stay bitwise equal).  ``rows`` (``placed.row_gather``) is
+    for a step on this rank's local rows of a placed paged cache (the
+    engine's model-axis-1 route): it gathers a plain tensor's rows to the
+    whole batch."""
     paged_q8 = isinstance(cache, PagedQ8DecodeCache)
     paged = paged_q8 or isinstance(cache, PagedDecodeCache)
     if not paged and not isinstance(cache, DecodeCache):
@@ -1564,8 +1607,16 @@ def forward_step(params, cfg: ModelConfig, token, cache, *,
            "qkv_sharding": qkv_sharding}
     if paged:
         ctx["block_tables"] = cache.block_tables
-        ctx["append"] = paged_append_slots(cfg, cache.block_tables, length,
-                                           cache.k.shape[2])
+
+        def whole(x):  # the whole batch of a step's rows
+            return full(x) if is_placed(x) else x if rows is None \
+                else rows(x)
+
+        pages = local_pages(cache.k)[1:] if is_placed(cache.k) else None
+        ctx["whole"] = whole
+        ctx["append"] = paged_append_slots(
+            cfg, whole(cache.block_tables), whole(length), cache.k.shape[2],
+            pages)
     elif cache.kv_pos is not None:
         # mark the new token's slot valid BEFORE attention so it attends
         # to itself (ring slot = length % Sc under a sliding window)
@@ -1755,15 +1806,30 @@ def _chunk_dense(params, cfg: ModelConfig, chunk, dest: DenseChunkDest, ctx,
     return _chunk_last_logits(logits, start, true_len, C), cache
 
 
+class _ChunkPages(NamedTuple):
+    """A paged chunk's view of its pools on this rank
+    (``_chunk_paged_common``)."""
+    pos: Any  # (1, C) the chunk's positions
+    kv_eff: Any  # (1, MB*bs) kv positions of the page view, sentinel off it
+    keep: Any  # indices of the chunk's blocks this rank writes
+    dst: Any  # their local pages
+    table: Any  # (1, MB) the table row as this rank's page indices
+    group: Any  # the model axis's process group where it splits the pages
+
+
 def _chunk_paged_common(cfg: ModelConfig, chunk, table, block_ids, bs: int,
-                        start: int):
+                        start: int, pools):
     """What both paged chunk bodies share: the chunk's positions (1, C),
     the kv positions of the slot's densified page view with the sentinel
     on unmapped entries, and the blocks to write (``keep``: indices of the
     chunk's blocks whose destination is >= 0, ``dst``: their pages).
     JAX drops the -1 destinations with ``mode="drop"``; torch has none,
     so only the kept blocks are selected and written (one host sync per
-    chunk)."""
+    chunk).  ``pools`` (the stacked pools, and scales) may be DTensors
+    whose pages split over the model axis: the positions come from the
+    GLOBAL table, then the pages this rank does not hold leave its view
+    (sentinel) and its writes.  Returns the local pools and a
+    ``_ChunkPages``."""
     C = chunk.shape[1]
     dev = chunk.device
     MB = table.shape[1]
@@ -1772,9 +1838,40 @@ def _chunk_paged_common(cfg: ModelConfig, chunk, table, block_ids, bs: int,
     ring = paging.paged_ring_active(cfg.sliding_window, bs, MB)
     q_last = torch.full((1,), start + C - 1, dtype=torch.int32, device=dev)
     kvpos = attn_mod.paged_kv_positions(table, bs, q_last, ring)
+    local, keep, dst = _kept_pages(pools, block_ids)
+    group = split_group(pools[0], 1)
+    if group is not None:
+        _, lo, n = local_pages(pools[0])
+        table = own_pages(table, lo, n)
+        kvpos = torch.where(table.repeat_interleave(bs, dim=1) >= 0, kvpos,
+                            -1)
     kv_eff = torch.where(kvpos >= 0, kvpos, _CHUNK_POS_SENTINEL)
-    keep = torch.nonzero(block_ids >= 0).flatten()
-    return pos, kv_eff, keep, block_ids[keep].long()
+    return local, _ChunkPages(pos, kv_eff, keep, dst, table, group)
+
+
+def _chunk_attend(cfg: ModelConfig, q, k_view, v_view, cp: _ChunkPages,
+                  merged_core: bool, cache_kind: str):
+    """The chunk's attention over the slot's page view (``_chunk_core``);
+    where the model axis splits the pages, over the pages this rank holds
+    (q gathered to whole heads), the partial states combined across the
+    model axis and the result, the same on every rank, placed back as a
+    replicated DTensor."""
+    if cp.group is None:
+        return _chunk_core(cfg, q, k_view, v_view, cp.pos, cp.kv_eff,
+                           merged_core, cache_kind)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = q.device_mesh
+    ql = full(q)
+    C = ql.shape[1]
+    bias = attn_mod._mask_bias(cp.pos, cp.kv_eff, causal=cfg.causal,
+                               sliding_window=cfg.sliding_window,
+                               kv_valid=None)
+    states = attn_mod.attention_partial(
+        ql.reshape(1, C, -1, cfg.d_head), k_view, v_view, bias)
+    out = attn_mod.combined_heads(states, cp.group).to(v_view.dtype)
+    return DTensor.from_local(out.reshape(1, C, cfg.attn_dim), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
 
 
 def _chunk_paged(params, cfg: ModelConfig, chunk, dest: PagedChunkDest, ctx,
@@ -1793,21 +1890,24 @@ def _chunk_paged(params, cfg: ModelConfig, chunk, dest: PagedChunkDest, ctx,
     nbk = C // bs
     Hkv, Dh = cfg.n_kv_heads, cfg.d_head
     merged = _is_merged(cfg.block_style)
-    pos, kv_eff, keep, dst = _chunk_paged_common(cfg, chunk, table, bids, bs,
-                                                 start)
+    (k_l, v_l), cp = _chunk_paged_common(cfg, chunk, table, bids, bs, start,
+                                         (k_pool, v_pool))
+    qkv = ctx.get("qkv_sharding")
 
     def chunk_attn(lp, cfg_, x, kp, vp, actx):
-        q, k_new, v_new = _project_qkv(lp, cfg_, x, x, merged)
-        q, k_new = _chunk_rope(cfg_, q, k_new, pos)
-        kp[dst] = k_new[0].to(kp.dtype).reshape(nbk, bs, Hkv, Dh)[keep]
-        vp[dst] = v_new[0].to(vp.dtype).reshape(nbk, bs, Hkv, Dh)[keep]
-        out = _chunk_core(cfg_, q, attn_mod._paged_gather(kp, table),
-                          attn_mod._paged_gather(vp, table), pos, kv_eff,
-                          merged_core, "paged")
+        q, k_new, v_new = _qkv_reanchor(qkv, *_project_qkv(lp, cfg_, x, x,
+                                                            merged))
+        q, k_new = _chunk_rope(cfg_, q, k_new, cp.pos)
+        for pool, new in ((kp, k_new), (vp, v_new)):
+            pool[cp.dst] = full(new)[0].to(pool.dtype).reshape(
+                nbk, bs, Hkv, Dh)[cp.keep]
+        out = _chunk_attend(cfg_, q, attn_mod._paged_gather(kp, cp.table),
+                            attn_mod._paged_gather(vp, cp.table), cp,
+                            merged_core, "paged")
         return out, kp, vp
 
     h = embed_inputs(params, cfg, chunk)
-    logits = _chunk_block_scan(params, cfg, h, chunk_attn, k_pool, v_pool,
+    logits = _chunk_block_scan(params, cfg, h, chunk_attn, k_l, v_l,
                                ctx["impl"])
     return _chunk_last_logits(logits, start, true_len, C), (k_pool, v_pool)
 
@@ -1828,27 +1928,29 @@ def _chunk_paged_q8(params, cfg: ModelConfig, chunk, dest: PagedQ8ChunkDest,
     nbk = C // bs
     Hkv, Dh = cfg.n_kv_heads, cfg.d_head
     merged = _is_merged(cfg.block_style)
-    pos, kv_eff, keep, dst = _chunk_paged_common(cfg, chunk, table, bids, bs,
-                                                 start)
-    valid = pos < true_len  # (1, C)
+    (k_l, v_l, ks_l, vs_l), cp = _chunk_paged_common(
+        cfg, chunk, table, bids, bs, start, (k_pool, v_pool, k_scale,
+                                             v_scale))
+    valid = cp.pos < true_len  # (1, C)
+    qkv = ctx.get("qkv_sharding")
 
     def chunk_attn(lp, cfg_, x, kst, vst, actx):
-        q, k_new, v_new = _project_qkv(lp, cfg_, x, x, merged)
-        q, k_new = _chunk_rope(cfg_, q, k_new, pos)
+        q, k_new, v_new = _qkv_reanchor(qkv, *_project_qkv(lp, cfg_, x, x,
+                                                            merged))
+        q, k_new = _chunk_rope(cfg_, q, k_new, cp.pos)
         gathered = []
         for (pool, scale), new in ((kst, k_new), (vst, v_new)):
-            ints, sc = quant.q8_quantize_seq(new, bs, valid)
-            pool[dst] = ints[0].reshape(nbk, bs, Hkv, Dh)[keep]
-            scale[dst] = sc[0][keep]
-            gathered.append(attn_mod._paged_gather_q8(pool, scale, table,
-                                                      x.dtype))
-        out = _chunk_core(cfg_, q, *gathered, pos, kv_eff, merged_core,
-                          "paged_q8")
+            ints, sc = quant.q8_quantize_seq(full(new), bs, valid)
+            pool[cp.dst] = ints[0].reshape(nbk, bs, Hkv, Dh)[cp.keep]
+            scale[cp.dst] = sc[0][cp.keep]
+            gathered.append(attn_mod._paged_gather_q8(
+                pool, scale, cp.table, x.dtype))
+        out = _chunk_attend(cfg_, q, *gathered, cp, merged_core, "paged_q8")
         return out, kst, vst
 
     h = embed_inputs(params, cfg, chunk)
-    logits = _chunk_block_scan(params, cfg, h, chunk_attn, (k_pool, k_scale),
-                               (v_pool, v_scale), ctx["impl"])
+    logits = _chunk_block_scan(params, cfg, h, chunk_attn, (k_l, ks_l),
+                               (v_l, vs_l), ctx["impl"])
     return (_chunk_last_logits(logits, start, true_len, C),
             (k_pool, v_pool, k_scale, v_scale))
 

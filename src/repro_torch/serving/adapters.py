@@ -25,11 +25,18 @@ kind:
     decode step.
 
 Under a device mesh ``place`` puts the cache on the mesh per ``pspecs``
-(``distribution.sharding.serving_cache_pspecs``) and the programs take a
-``qkv_sharding`` spec.  The dense cache runs on every mesh; the paged
-pools raise NotImplementedError there (their page writes gather rows
-through ``torch.nonzero`` and flat ``index_copy_``, which DTensors do not
-carry).
+(``distribution.sharding.serving_cache_pspecs``, after ``evenly``) and
+the programs take a ``qkv_sharding`` spec.  The dense cache splits its
+batch over the data axes and its sequence over the model axis.  The
+paged pools (and the int8 pool's scales) split their PAGE axis over the
+model axis and are replicated over the data axes; the host-built tables
+and lengths ship batch-sharded (``pm.device_cache``).  Every page write
+(prefill, chunk, decode append, copy-on-write) lands on the rank that
+holds the page, on its local tensor, so the data ranks' replicas stay
+bitwise equal: the prefill and each chunk are the same on every rank,
+and a decode step gathers its new rows over the data axes first
+(``models.forward_step``).  Host block ids and table rows go to the
+pools' device.  ``cache_bytes`` is the cache's global device bytes.
 """
 from __future__ import annotations
 
@@ -78,8 +85,13 @@ class KVCacheAdapter:
 
     def place(self, mesh, rules) -> None:
         """Put the device cache on ``mesh`` per ``pspecs(rules)``."""
-        raise NotImplementedError(
-            f"the {self.kind!r} cache does not run under a device mesh yet")
+        raise NotImplementedError
+
+    @property
+    def cache_bytes(self) -> int:
+        """Device bytes of the cache's K/V (and scales): the global bytes
+        under a mesh, as the reference's ``.size`` counts them."""
+        raise NotImplementedError
 
     def device_cache(self):
         raise NotImplementedError
@@ -198,6 +210,11 @@ class DenseCacheAdapter(KVCacheAdapter):
     def place(self, mesh, rules):
         self._cache = shd.distribute_tree(self._cache, self.pspecs(rules),
                                           mesh)
+
+    @property
+    def cache_bytes(self):
+        k, v = self._cache.k, self._cache.v
+        return 0 if k is None else (k.numel() + v.numel()) * k.element_size()
 
     def build_prefill(self, impl, qkv_sharding=None):
         dest = DensePrefillDest(cache_len=self.sc.max_len)
@@ -342,12 +359,20 @@ class PagedCacheAdapter(KVCacheAdapter):
             n_blocks=n_blocks, prefix_retention=self._prefix_retention,
             device=device)
 
+    def place(self, mesh, rules):
+        self.pm.place(mesh, self.pspecs(rules))
+
+    @property
+    def cache_bytes(self):
+        return self.pm.pool_bytes
+
     def build_prefill(self, impl, qkv_sharding=None):
         cfg = self.cfg
 
         def run(params, tokens, true_len, block_ids):
             return forward_prefill(params, cfg, tokens, self._dest(block_ids),
-                                   impl=impl, true_len=true_len)
+                                   impl=impl, true_len=true_len,
+                                   qkv_sharding=qkv_sharding)
 
         self._prefill = run
 
@@ -374,11 +399,11 @@ class PagedCacheAdapter(KVCacheAdapter):
                              "prefill needs the dense cache")
         # the shared pages are the slot's first ``first_owned`` blocks:
         # prefill_block_ids marks them -1, so they are not rewritten
-        dev = padded_row.device
         bids = self.pm.prefill_block_ids(slot, padded_row.shape[1])
-        tl = torch.full((1,), true_n, dtype=torch.int32, device=dev)
+        tl = torch.full((1,), true_n, dtype=torch.int32,
+                        device=padded_row.device)
         logits, _ = self._prefill(params, padded_row, tl,
-                                  torch.from_numpy(bids).to(dev))
+                                  torch.from_numpy(bids).to(self.pm.k.device))
         return logits
 
     def ensure_appendable(self, slot):
@@ -414,7 +439,8 @@ class PagedCacheAdapter(KVCacheAdapter):
         def run(params, tokens, start, true_len, table_row, block_ids):
             return forward_prefill_chunk(
                 params, cfg, tokens, self._chunk_dest(table_row, block_ids),
-                start=start, true_len=true_len, impl=impl)
+                start=start, true_len=true_len, impl=impl,
+                qkv_sharding=qkv_sharding)
 
         self._chunk = run
 
@@ -431,7 +457,7 @@ class PagedCacheAdapter(KVCacheAdapter):
 
     def chunk_step(self, params, slot, chunk_row, start, true_len):
         C = self._chunk_tokens
-        dev = chunk_row.device
+        dev = self.pm.k.device  # the pools' device
         bids = self.pm.chunk_block_ids(slot, start, start + C, true_len)
         # the TRUE table row (the decode view masks shielded slots), copied:
         # the manager mutates its tables between steps

@@ -68,13 +68,20 @@ with "data" and "model" axes, one process per rank, every rank running
 the same requests) the engine places its params per
 ``distribution.sharding.param_pspecs`` and its cache per the adapter's
 ``pspecs`` (both after ``evenly``; the batch over the data axes, heads,
-FFN, vocab and the cache's sequence over the model axis), with rules for
-a batch of ``n_slots``, and runs every step on the DTensors
+FFN, vocab and the dense cache's sequence over the model axis; the paged
+pools' pages over the model axis, replicated over the data axes, their
+tables and lengths over the data axes), with rules for a batch of
+``n_slots``, and runs every step on the DTensors
 (``distribution.placed``).  A merged model's q/k/v are re-anchored to the
 head placement.  Each rank samples from the whole logits, so every rank
-emits the same tokens.  ``impl="cuda"`` needs a model axis of size 1 (the
-kernels run on each rank's local batch rows); the paged pools raise
-NotImplementedError under a mesh.
+emits the same tokens.  ``impl="cuda"`` needs a model axis of size 1:
+there every rank holds whole params and a whole pool, so the decode step
+and the whole-prompt prefill run on local tensors through the kernels
+(each rank's batch rows; a paged step gathers its new K/V rows over the
+data axes before it writes them, so the pool replicas stay equal).  A
+larger model axis runs ``impl="torch"`` on the DTensors; a paged pool
+then attends per rank over the pages it holds and combines the softmax
+states across the model axis (``models.attention``).
 """
 from __future__ import annotations
 
@@ -89,7 +96,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distribution import sharding as shd
 from repro_torch.distribution.placed import (full, local_tree, on_mesh,
-                                             shard_box)
+                                             row_gather, shard_box)
 from repro_torch.models import (backends, forward_step, prefill_style_key,
                                 serving_style_key)
 from repro_torch.obs import NULL, MetricsRegistry, Observer
@@ -479,11 +486,12 @@ class Engine:
 
     @property
     def _prefill_params(self):
-        """The params a whole-prompt prefill runs on: where the mesh's model
-        axis has size 1, each rank's local (whole) params, so the batch-1
-        prompt, the same on every rank, runs on plain tensors and only its
-        insert into the placed cache lands per owning rank
-        (``kv_cache.insert_request``)."""
+        """The params a whole-prompt prefill (and a paged chunk) runs on:
+        where the mesh's model axis has size 1, each rank's local (whole)
+        params, so the batch-1 prompt, the same on every rank, runs on
+        plain tensors and only its insert into the placed cache lands per
+        owning rank (``kv_cache.insert_request``; the paged pools: every
+        rank's whole local pool)."""
         return self.params if self._local_params is None \
             else self._local_params
 
@@ -494,9 +502,11 @@ class Engine:
         mesh's model axis has size 1, on each rank's local tensors: its
         batch rows of the tokens and the cache against whole params, what
         every op of the step would compute on the DTensors without a
-        collective, minus DTensor's dispatch on the host.  The cache is
-        written in place either way; the new lengths and the logits are
-        placed back with the cache's batch placement."""
+        collective, minus DTensor's dispatch on the host.  A paged step
+        there writes the whole batch's new rows into every rank's pool
+        (``row_gather`` over the data axes).  The cache is written in place
+        either way; the new lengths and the logits are placed back with
+        the cache's batch placement."""
         tokens = self.host_to_device(last_token, np.int32)
         if self.mesh is None:
             return forward_step(self.params, self.cfg, tokens, cache,
@@ -508,9 +518,10 @@ class Engine:
         from torch.distributed.tensor import DTensor
 
         lo, n = shard_box(cache.length)[0]
+        rows = row_gather(cache.length) if self.paged else None
         logits, new = forward_step(self._local_params, self.cfg,
                                    tokens[lo:lo + n], local_tree(cache),
-                                   impl=self.impl)
+                                   impl=self.impl, rows=rows)
         mesh, batch = cache.length.device_mesh, cache.length.placements
         return (DTensor.from_local(logits, mesh, batch, run_check=False),
                 cache._replace(length=DTensor.from_local(

@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution.placed import copy_page_, place_local
 from repro_torch.models.transformer import (PagedDecodeCache,
                                             init_paged_cache,
                                             init_paged_q8_cache, layer_plan,
@@ -87,9 +88,12 @@ from repro_torch.serving.radix_tree import RadixPrefixTree
 def copy_block(k_pool: torch.Tensor, v_pool: torch.Tensor, src: int,
                dst: int) -> None:
     """Copy-on-write: duplicate physical page ``src`` into ``dst`` in
-    every layer of the (L, NB, bs, Hkv, Dh) pools, in place."""
-    k_pool[:, dst].copy_(k_pool[:, src])
-    v_pool[:, dst].copy_(v_pool[:, src])
+    every layer of the (L, NB, bs, Hkv, Dh) pools, in place.  On placed
+    pools whose pages split over the model axis the page travels from the
+    rank that holds ``src`` to the one that holds ``dst``
+    (``placed.copy_page_``); nothing is read on the host."""
+    copy_page_(k_pool, src, dst)
+    copy_page_(v_pool, src, dst)
 
 
 def copy_block_q8(k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -97,10 +101,11 @@ def copy_block_q8(k_pool: torch.Tensor, v_pool: torch.Tensor,
                   dst: int) -> None:
     """Copy-on-write on the int8 pool: a page's ints and its (L, Hkv)
     scale rows are one unit, copied together in place (a copy without its
-    scales would dequantize under the wrong scale)."""
+    scales would dequantize under the wrong scale); split the same way,
+    the scale rows travel with their page."""
     copy_block(k_pool, v_pool, src, dst)
-    k_scale[:, dst].copy_(k_scale[:, src])
-    v_scale[:, dst].copy_(v_scale[:, src])
+    copy_page_(k_scale, src, dst)
+    copy_page_(v_scale, src, dst)
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +251,7 @@ class PagedCacheManager:
             else 0
         self.n_slots = n_slots
         self._init_pools(cfg, n_blocks, block_size, n_slots, max_len, device)
+        self._placed = None  # (mesh, table placements, length placements)
         self.tables = np.full((n_slots, self.table_blocks), -1, np.int32)
         self.lengths = np.zeros((n_slots,), np.int32)
         self.allocator = BlockAllocator(n_blocks)
@@ -277,6 +283,22 @@ class PagedCacheManager:
         """Copy-on-write of page ``src`` into ``dst`` on the device."""
         copy_block(self.k, self.v, src, dst)
 
+    def place(self, mesh, specs) -> None:
+        """Put the pools (and scales) on ``mesh`` per ``specs``, a spec tree
+        of the device cache (``sharding.paged_cache_pspecs`` or
+        ``paged_q8_cache_pspecs``; after ``evenly``): their page axis over
+        the model axis.  Every later ``device_cache`` ships its tables and
+        lengths with their specs' placements (batch over the data axes)."""
+        from repro_torch.distribution import sharding as shd
+
+        specs = shd.evenly(specs, self._pools, mesh)
+        self._pools = shd.distribute_tree(
+            self._pools, specs._replace(block_tables=None, length=None),
+            mesh)
+        tm = shd.torch_mesh(mesh)
+        self._placed = (tm, shd.placements(specs.block_tables, tm),
+                        shd.placements(specs.length, tm))
+
     # -- device view ----------------------------------------------------
 
     @property
@@ -292,7 +314,9 @@ class PagedCacheManager:
         from the int8 manager) with a COPY of the host tables and lengths
         on the pools' device: the manager mutates its numpy arrays between
         steps, and ``torch.from_numpy(...).to("cpu")`` would share their
-        memory."""
+        memory.  On a mesh (``place``) each rank keeps its rows of the
+        tables and lengths, placed batch-sharded; every rank's host copy
+        is the same, so no collective runs."""
         dev = self.k.device
         tbl = self.tables.copy()
         if self.shielded:
@@ -300,9 +324,13 @@ class PagedCacheManager:
             # drops and its output for them is discarded; the true rows
             # stay on the host and feed the chunk programs
             tbl[sorted(self.shielded), :] = -1
-        return self._pools._replace(
-            block_tables=torch.from_numpy(tbl).to(dev),
-            length=torch.from_numpy(self.lengths.copy()).to(dev))
+        tables = torch.from_numpy(tbl).to(dev)
+        length = torch.from_numpy(self.lengths.copy()).to(dev)
+        if self._placed is not None:
+            mesh, tp, lp = self._placed
+            tables = place_local(tables, mesh, tp)
+            length = place_local(length, mesh, lp)
+        return self._pools._replace(block_tables=tables, length=length)
 
     def host_mutable_buffers(self):
         """Named numpy buffers this manager mutates in place between steps:
@@ -313,7 +341,8 @@ class PagedCacheManager:
 
     @property
     def pool_bytes(self) -> int:
-        """Resident bytes of the pools (and of their scales, if any)."""
+        """Resident bytes of the pools (and of their scales, if any); on a
+        mesh, of the whole (global) pools, as the reference counts them."""
         return sum(t.numel() * t.element_size()
                    for name, t in self._pools._asdict().items()
                    if name not in ("block_tables", "length"))

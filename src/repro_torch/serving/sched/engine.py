@@ -35,7 +35,12 @@ request's generator advances only with its own draws, so greedy and
 sampled continuations match the synchronous engine's.
 
 Under a device mesh (``mesh=``) the chunk programs run on the placed
-cache as the base engine's steps do (``serving.engine``).
+cache as the base engine's steps do (``serving.engine``), on the dense
+cache and on the paged pools: a paged chunk, the same on every rank,
+writes the pages each rank holds, runs on local params where the model
+axis has size 1 and, where it splits the pages, attends per rank and
+combines the softmax states.  Admission, deferral, preemption and prefix
+sharing are host bookkeeping, the same on every rank.
 
 Observability as in the reference: each iteration emits
 ``obs.sched_iteration`` (its span closes after the decode step's host
@@ -198,8 +203,11 @@ class ScheduledEngine(Engine):
                 return None
         row = np.zeros((self.scfg.chunk_tokens,), np.int32)
         row[:cp.end - cp.start] = job.toks[cp.start:cp.end]
+        # a paged chunk writes its pages on local tensors: at model axis
+        # 1 it runs on the local params, as a whole-prompt prefill does
+        params = self._prefill_params if self.paged else self.params
         logits = self.kv.chunk_step(
-            self.params, job.slot, self.host_to_device(row, np.int32)[None],
+            params, job.slot, self.host_to_device(row, np.int32)[None],
             cp.start, job.total)
         job.cursor = cp.end
         return logits

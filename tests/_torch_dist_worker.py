@@ -145,8 +145,13 @@ def _serve_models(data):
     return spec, out
 
 
+def _streams(outs):
+    return [list(map(int, o)) for o in outs]
+
+
 def task_serve(data, tag, mesh, res):
-    """Engine and ScheduledEngine, source and merged, dense cache."""
+    """Engine and ScheduledEngine, source and merged, on the dense cache,
+    the paged pool and the int8 pool (``_serve_paged``)."""
     from repro_torch.serving import (Engine, SchedConfig, ScheduledEngine,
                                      ServeConfig)
 
@@ -156,26 +161,206 @@ def task_serve(data, tag, mesh, res):
     for name, (cfg, params) in models.items():
         sc = ServeConfig(n_slots=spec["n_slots"], max_len=spec["max_len"])
         eng = Engine(cfg, params, sc, impl="torch", device="cpu", mesh=mesh)
-        out[f"{name}/engine"] = [list(map(int, o)) for o in eng.generate(
-            prompts, max_new_tokens=spec["max_new"])]
+        out[f"{name}/engine"] = _streams(eng.generate(
+            prompts, max_new_tokens=spec["max_new"]))
         out[f"{name}/engine_fast_path"] = eng.merged_fast_path
         eng = ScheduledEngine(cfg, params, sc, SchedConfig(**spec["sched"]),
                               impl="torch", device="cpu", mesh=mesh)
-        out[f"{name}/sched"] = [list(map(int, o)) for o in eng.generate(
-            prompts, max_new_tokens=spec["max_new"])]
+        out[f"{name}/sched"] = _streams(eng.generate(
+            prompts, max_new_tokens=spec["max_new"]))
         out[f"{name}/placements"] = {
             "k": str(eng.kv.device_cache().k.placements),
             "wk": str(eng.params["layers"]["attn"]["wk"].placements)}
     res["serve"] = out
+    res["paged"] = _serve_paged(spec, models, prompts, mesh)
+
+
+def _redistributed_shapes(step):
+    """``step()``, and the global shapes of every DTensor redistributed
+    while it ran (explicit ``redistribute``/``full_tensor`` and the
+    dispatcher's implicit ones all reach ``redistribute_local_tensor``)."""
+    import torch.distributed.tensor._api as api
+    import torch.distributed.tensor._dispatch as dispatch
+    import torch.distributed.tensor._redistribute as redist
+
+    orig, shapes = redist.redistribute_local_tensor, []
+
+    def spy(local, current, target, *a, **kw):
+        shapes.append(list(current.shape))
+        return orig(local, current, target, *a, **kw)
+
+    mods = (api, dispatch, redist)
+    for m in mods:
+        m.redistribute_local_tensor = spy
+    try:
+        step()
+    finally:
+        for m in mods:
+            m.redistribute_local_tensor = orig
+    return shapes
+
+
+def _local_digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.to_local().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _cow_on_placed_pools(mesh, src, dst):
+    """Copy-on-write from page ``src`` to page ``dst`` on int8 pools and
+    their scales placed over "model" (4 pages: where it has two ranks,
+    pages 0-1 lie on one and 2-3 on the other): the placements, and
+    whether the page and its scale rows arrived and nothing else
+    changed."""
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.serving.paged_kv_cache import copy_block_q8
+
+    L, NB = 2, 4
+    want = [torch.arange(L * NB * 2 * 6, dtype=torch.float32).reshape(
+        L, NB, 2, 1, 6) * (i + 1) for i in range(2)]
+    want += [torch.arange(L * NB, dtype=torch.float32).reshape(L, NB, 1)
+             * (i + 3) for i in range(2)]
+    placed = [shd.place(w.clone(), shd.P(None, "model",
+                                         *[None] * (w.ndim - 2)), mesh)
+              for w in want]
+    copy_block_q8(*placed, src, dst)
+    for w in want:
+        w[:, dst] = w[:, src]
+    return {"split": [str(p.placements) for p in placed],
+            "equal": all(torch.equal(p.full_tensor(), w)
+                         for p, w in zip(placed, want))}
+
+
+def _dtensor_vs_local(eng):
+    """Model axis 1: the next decode step's logits on the engine's local
+    route and on the DTensors (the paged cores take their ``local_call``
+    seam, the pool an ``other`` operand); the largest difference.  Both
+    write the same rows at the same positions, so the second write
+    changes nothing."""
+    from repro_torch.distribution.placed import full, on_mesh
+
+    tokens, cache = eng._last_token.copy(), eng.kv.device_cache()
+    with on_mesh(eng.mesh):
+        local = full(eng._decode(tokens, cache)[0])
+        saved, eng._local_params = eng._local_params, None
+        try:
+            placed = full(eng._decode(tokens, cache)[0])
+        finally:
+            eng._local_params = saved
+    return float((local - placed).abs().max() / local.abs().max())
+
+
+def _serve_paged(spec, models, prompts, mesh):
+    """The paged pools on the mesh: each model on ``paged`` and
+    ``paged_q8``, through ``Engine`` and ``ScheduledEngine``; the source on
+    the shared-prefix traffic through a starved ``Engine`` pool (prefix
+    retention on: deferral, preemption, copy-on-write), then the pools'
+    placements and, gathered from every rank, the digest of each rank's
+    local pools; the shapes redistributed during one decode step; and a
+    copy-on-write across ranks."""
+    import torch.distributed as dist
+    from repro_torch.serving import (Engine, Request, SchedConfig,
+                                     ScheduledEngine, ServeConfig)
+
+    pspec = spec["paged"]
+    out = {}
+    for kind in ("paged", "paged_q8"):
+        for name, (cfg, params) in models.items():
+            sc = ServeConfig(n_slots=spec["n_slots"], max_len=spec["max_len"],
+                             block_size=pspec["block_size"])
+            kw = dict(impl="torch", device="cpu", cache=kind, mesh=mesh)
+            out[f"{kind}/{name}/engine"] = _streams(Engine(
+                cfg, params, sc, **kw).generate(
+                    prompts, max_new_tokens=spec["max_new"]))
+            out[f"{kind}/{name}/sched"] = _streams(ScheduledEngine(
+                cfg, params, sc, SchedConfig(**spec["sched"]), **kw).generate(
+                    prompts, max_new_tokens=spec["max_new"]))
+        cfg, params = models["source"]
+        sc = ServeConfig(n_slots=spec["n_slots"], max_len=spec["max_len"],
+                         block_size=pspec["block_size"],
+                         n_blocks=pspec["starved_blocks"])
+        eng = Engine(cfg, params, sc, impl="torch", device="cpu", cache=kind,
+                     mesh=mesh)
+        out[f"{kind}/prefix"] = _streams(eng.generate(
+            [np.asarray(p, np.int32) for p in pspec["prefix_prompts"]],
+            max_new_tokens=spec["max_new"]))
+        pm = eng.pm
+        out[f"{kind}/prefix_stats"] = dict(
+            eng.stats, cow=int(pm.allocator.n_cow),
+            hits=int(pm.allocator.n_shared_hits))
+        pools = [pm.k, pm.v] + ([pm.k_scale, pm.v_scale]
+                                if kind == "paged_q8" else [])
+        dc = pm.device_cache()
+        out[f"{kind}/placements"] = {
+            "k": str(pm.k.placements), "v": str(pm.v.placements),
+            "tables": str(dc.block_tables.placements),
+            "length": str(dc.length.placements),
+            "local_k": list(pm.k.to_local().shape),
+            "global_k": list(pm.k.shape)}
+        if kind == "paged_q8":
+            out[f"{kind}/placements"].update(
+                k_scale=str(pm.k_scale.placements),
+                v_scale=str(pm.v_scale.placements))
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, (mesh.get_coordinate(),
+                                         _local_digest(pools)))
+        out[f"{kind}/digests"] = digests
+        # one decode step of a full engine, its redistributions recorded
+        eng = Engine(cfg, params, ServeConfig(
+            n_slots=spec["n_slots"], max_len=spec["max_len"],
+            block_size=pspec["block_size"]), impl="torch", device="cpu",
+            cache=kind, mesh=mesh)
+        for p in prompts[:spec["n_slots"]]:
+            assert eng.submit(Request(prompt=p, max_new_tokens=4))
+        out[f"{kind}/step_redistributed"] = _redistributed_shapes(eng.step)
+        out[f"{kind}/pool_shapes"] = [list(eng.pm.k.shape),
+                                      list(eng.pm.k.shape[1:])]
+        if eng._local_params is not None:
+            out[f"{kind}/dtensor_vs_local"] = _dtensor_vs_local(eng)
+    out["cow_across_ranks"] = _cow_on_placed_pools(mesh, 0, 3)
+    # one rank holds both pages: the other rank of the model axis must
+    # not wait for a page it is not sent
+    out["cow_within_a_shard"] = [_cow_on_placed_pools(mesh, s, d)
+                                 for s, d in ((0, 1), (3, 2))]
+    if dict(zip(mesh.mesh_dim_names, mesh.shape))["model"] > 1:
+        out.update(_serve_whole_pool(spec, models, prompts, mesh))
+    return out
+
+
+def _serve_whole_pool(spec, models, prompts, mesh):
+    """A pool whose page count the model axis does not divide stays whole
+    on every rank (``sharding.evenly``): the source through ``Engine``
+    and ``ScheduledEngine`` on both kinds, with the pool's placements."""
+    from repro_torch.serving import (Engine, SchedConfig, ScheduledEngine,
+                                     ServeConfig)
+
+    pspec, out = spec["paged"], {}
+    cfg, params = models["source"]
+    sc = ServeConfig(n_slots=spec["n_slots"], max_len=spec["max_len"],
+                     block_size=pspec["block_size"],
+                     n_blocks=pspec["odd_blocks"])
+    for kind in ("paged", "paged_q8"):
+        kw = dict(impl="torch", device="cpu", cache=kind, mesh=mesh)
+        eng = Engine(cfg, params, sc, **kw)
+        out[f"{kind}/odd/engine"] = _streams(eng.generate(
+            prompts, max_new_tokens=spec["max_new"]))
+        out[f"{kind}/odd/placements"] = str(eng.pm.k.placements)
+        out[f"{kind}/odd/sched"] = _streams(ScheduledEngine(
+            cfg, params, sc, SchedConfig(**spec["sched"]), **kw).generate(
+                prompts, max_new_tokens=spec["max_new"]))
+    return out
 
 
 def task_families(data, tag, mesh, res):
     """The other families on this mesh, on the dense cache: MoE, hybrid,
     SSM and the VLM with its vision tokens, from the JAX package's weights
     (``families.pkl``); their greedy streams, which the test holds against
-    the JAX engine's and the unmeshed port's.  Then the refusals: the
-    paged pools (NotImplementedError), ``impl="cuda"`` (ValueError) and a
-    kernel wrapper given a DTensor (TypeError)."""
+    the JAX engine's and the unmeshed port's.  Then the refusals:
+    ``impl="cuda"`` (ValueError) and a kernel wrapper given a DTensor
+    (TypeError)."""
     import pickle
 
     from repro_torch.configs import get_config, reduce_config
@@ -195,13 +380,6 @@ def task_families(data, tag, mesh, res):
             vision=spec["vision"] if cfg.n_vision_tokens else None)]
     cfg = reduce_config(get_config("mistral-7b"))
     params = init_params(cfg, seed=0, device="cpu")
-    for kind in ("paged", "paged_q8"):
-        try:
-            Engine(cfg, params, sc, impl="torch", device="cpu", cache=kind,
-                   mesh=mesh)
-            out[kind] = "ran"
-        except NotImplementedError as e:
-            out[kind] = "NotImplementedError: " + str(e)
     try:
         Engine(cfg, params, sc, impl="cuda", device="cpu", mesh=mesh)
         out["cuda"] = "ran"

@@ -13,12 +13,26 @@ package without a mesh and the port without one:
   * ``Engine`` and ``ScheduledEngine`` on (1, 1), (1, 2), (2, 1) and
     (2, 2), dense cache, the source and the qp-merged skipless Mistral-7B
     (reduced): greedy streams equal to the JAX ``Engine``'s;
+  * the same on the paged pool and the int8 pool (``paged``,
+    ``paged_q8``; pages of 8 tokens, 24 pages, split 12 a rank where the
+    model axis has 2): greedy streams equal to the JAX ``Engine``'s and
+    ``ScheduledEngine``'s on the same cache kind; shared-prefix traffic
+    through a starved pool of 8 pages (prefix retention on: deferral,
+    preemption, copy-on-write) equal to the JAX engine's; on (2, 2) the
+    pools, scales and tables placed per ``paged_cache_pspecs`` /
+    ``paged_q8_cache_pspecs`` with half the pages on each rank; on (2, 1)
+    and (2, 2) the data ranks' local pools bitwise equal after the run;
+    on (1, 2) and (2, 2) no redistribution of the whole pool's shape
+    during a decode step, a copy-on-write page (with its scale rows)
+    carried from one rank to another, and a 25-page pool, which "model"
+    does not split, giving the JAX engines' streams; on every mesh a
+    copy-on-write within one rank's pages; on (1, 1) and (2, 1) a decode
+    step on the DTensors equal to the engine's local route;
   * the other families on the dense cache on those meshes (MoE, hybrid,
     SSM, the VLM with its vision tokens), from the JAX package's weights:
     greedy streams equal to the JAX ``Engine``'s and the unmeshed port's;
-    the paged and int8 pools raise NotImplementedError; ``impl="cuda"``
-    with a model axis larger than 1 raises ValueError at construction; a
-    kernel wrapper given a DTensor raises TypeError;
+    ``impl="cuda"`` with a model axis larger than 1 raises ValueError at
+    construction; a kernel wrapper given a DTensor raises TypeError;
   * ``python -m repro_torch.launch.train --mesh 2x2 --smoke --device cpu``
     under ``torchrun --standalone`` (four processes; its rendezvous
     binds a free localhost port itself).
@@ -45,6 +59,10 @@ from repro import training as jtr
 from repro.core import merge_skipless as jax_merge
 from repro.models import init_params as jax_init_params
 from repro.serving import Engine as JaxEngine
+from repro.serving import PagedCacheAdapter as JaxPagedAdapter
+from repro.serving import PagedQ8CacheAdapter as JaxQ8Adapter
+from repro.serving import SchedConfig as JaxSchedConfig
+from repro.serving import ScheduledEngine as JaxScheduledEngine
 from repro.serving import ServeConfig as JaxServeConfig
 from repro_torch import configs as tcfg
 from repro_torch._tree import tree_leaves, tree_map
@@ -75,6 +93,17 @@ SERVE = {"n_slots": 4, "max_len": 48, "max_new": 6,
          "sched": dict(token_budget=16, chunk_tokens=8),
          "prompts": [[(3 * i + 7 * j) % 128 for j in range(n)]
                      for i, n in enumerate((5, 11, 3, 8, 14))]}
+# the paged pools: 8-token pages, the default pool (n_slots * max_len /
+# 8 = 24 pages: 12 a rank on a model axis of 2) for the streams, and 8
+# pages (4 a rank) for the shared-prefix traffic: five prompts behind one
+# 13-token prefix and a repeat, which defer, preempt and copy on write;
+# and 25 pages, which a model axis of 2 does not split
+_PREFIX = [(5 * j + 1) % 128 for j in range(13)]
+PAGED = {"block_size": 8, "starved_blocks": 8, "odd_blocks": 25,
+         "prefix_prompts": [_PREFIX + [(11 * i + j) % 128 for j in range(n)]
+                            for i, n in enumerate((2, 5, 0, 7, 3))]}
+PAGED["prefix_prompts"].append(list(PAGED["prefix_prompts"][1]))
+PAGED_KINDS = {"paged": JaxPagedAdapter, "paged_q8": JaxQ8Adapter}
 # the other families: (arch, block style, embedding gain), the weights as
 # the JAX package's own tests of each family make them
 FAMILIES = {"phi3.5-moe-42b-a6.6b": ("skipless", 1.0),
@@ -171,7 +200,7 @@ def run(tmp_path_factory):
                           merged_variant=c.merged_variant)
         mistral[name] = (c, p)
     with open(os.path.join(data, "serve.json"), "w") as f:
-        json.dump(dict(SERVE, cfgs=cfgs), f)
+        json.dump(dict(SERVE, cfgs=cfgs, paged=PAGED), f)
     families, fspec = _families(data)
 
     procs = []
@@ -187,10 +216,36 @@ def run(tmp_path_factory):
     # port's streams of the other families, and the unmeshed port resuming
     # the same checkpoint (its train step's loss at step 1 first)
     prompts = [np.asarray(p, np.int32) for p in SERVE["prompts"]]
-    want = {name: _streams(JaxEngine(c, p, JaxServeConfig(
-        n_slots=SERVE["n_slots"], max_len=SERVE["max_len"])).generate(
-            prompts, max_new_tokens=SERVE["max_new"]))
+    jsc = JaxServeConfig(n_slots=SERVE["n_slots"], max_len=SERVE["max_len"])
+    want = {name: _streams(JaxEngine(c, p, jsc).generate(
+        prompts, max_new_tokens=SERVE["max_new"]))
         for name, (c, p) in mistral.items()}
+    # the JAX engines on the paged pools: Engine and ScheduledEngine of
+    # each model, then the source through the starved pool
+    bs, new = PAGED["block_size"], SERVE["max_new"]
+    for kind, adapter in PAGED_KINDS.items():
+        for name, (c, p) in mistral.items():
+            want[f"{kind}/{name}/engine"] = _streams(JaxEngine(
+                c, p, jsc, cache=adapter(block_size=bs)).generate(
+                    prompts, max_new_tokens=new))
+            want[f"{kind}/{name}/sched"] = _streams(JaxScheduledEngine(
+                c, p, jsc, scfg=JaxSchedConfig(**SERVE["sched"]),
+                impl="xla", cache=adapter(block_size=bs)).generate(
+                    prompts, max_new_tokens=new))
+        eng = JaxEngine(*mistral["source"], jsc, cache=adapter(
+            block_size=bs, n_blocks=PAGED["starved_blocks"]))
+        want[f"{kind}/prefix"] = _streams(eng.generate(
+            [np.asarray(x, np.int32) for x in PAGED["prefix_prompts"]],
+            max_new_tokens=new))
+        want[f"{kind}/prefix_stats"] = eng.stats
+        c, p = mistral["source"]
+        odd = adapter(block_size=bs, n_blocks=PAGED["odd_blocks"])
+        want[f"{kind}/odd/engine"] = _streams(JaxEngine(
+            c, p, jsc, cache=odd).generate(prompts, max_new_tokens=new))
+        want[f"{kind}/odd/sched"] = _streams(JaxScheduledEngine(
+            c, p, jsc, scfg=JaxSchedConfig(**SERVE["sched"]), impl="xla",
+            cache=adapter(block_size=bs, n_blocks=PAGED["odd_blocks"])
+        ).generate(prompts, max_new_tokens=new))
     jax_fam, port_fam = {}, {}
     for arch, (jc_, tc_, p) in families.items():
         vis = fspec["vision"] if tc_.n_vision_tokens else None
@@ -345,11 +400,110 @@ def test_other_families_on_a_mesh_equal_the_unmeshed_port(run, group, arch):
     assert _group(run, group)["families"][arch] == run["port_families"][arch]
 
 
-@pytest.mark.parametrize("kind", ["paged", "paged_q8"])
+@pytest.mark.parametrize("engine", ["engine", "sched"])
+@pytest.mark.parametrize("model", ["source", "merged"])
+@pytest.mark.parametrize("kind", sorted(PAGED_KINDS))
 @pytest.mark.parametrize("group", SERVE_GROUPS)
-def test_paged_pools_refuse_a_mesh(run, group, kind):
-    got = _group(run, group)["families"][kind]
-    assert got.startswith("NotImplementedError") and kind in got, got
+def test_paged_pools_on_a_mesh_give_the_jax_engine_streams(run, group, kind,
+                                                           model, engine):
+    key = f"{kind}/{model}/{engine}"
+    assert _group(run, group)["paged"][key] == run["jax_streams"][key]
+
+
+@pytest.mark.parametrize("kind", sorted(PAGED_KINDS))
+@pytest.mark.parametrize("group", SERVE_GROUPS)
+def test_paged_pools_on_a_mesh_share_prefixes_defer_and_preempt(run, group,
+                                                                kind):
+    """Shared-prefix traffic through a starved pool with prefix
+    retention: the JAX engine's streams, with deferral, preemption,
+    prefix hits and copy-on-write on the mesh too."""
+    res = _group(run, group)["paged"]
+    assert res[f"{kind}/prefix"] == run["jax_streams"][f"{kind}/prefix"]
+    stats, jstats = res[f"{kind}/prefix_stats"],         run["jax_streams"][f"{kind}/prefix_stats"]
+    assert stats["n_preempted"] > 0 and stats["n_deferred"] > 0, stats
+    assert stats["hits"] > 0 and stats["cow"] > 0, stats
+    assert (stats["n_preempted"], stats["n_deferred"]) == \
+        (jstats["n_preempted"], jstats["n_deferred"])
+
+
+@pytest.mark.parametrize("kind", sorted(PAGED_KINDS))
+def test_the_paged_pools_are_placed_per_the_specs(run, kind):
+    """(2, 2): the pools' page axis (and the int8 scales') over "model",
+    replicated over "data"; tables and lengths over "data"; each rank
+    holds half of the starved pool's 8 pages."""
+    got = _group(run, "g22")["paged"][f"{kind}/placements"]
+    split = "(Replicate(), Shard(dim=1))"
+    assert got["k"] == got["v"] == split
+    if kind == "paged_q8":
+        assert got["k_scale"] == got["v_scale"] == split
+    assert got["tables"] == "(Shard(dim=0), Replicate())"
+    assert got["length"] == "(Shard(dim=0), Replicate())"
+    L, NB = got["global_k"][:2]
+    assert NB == 8 and got["local_k"] == [L, NB // 2] + got["global_k"][2:]
+
+
+@pytest.mark.parametrize("kind", sorted(PAGED_KINDS))
+@pytest.mark.parametrize("group", ["g21", "g22"])
+def test_data_rank_replicas_of_the_pools_stay_bitwise_equal(run, group,
+                                                            kind):
+    """After the shared-prefix run, the ranks that hold the same model
+    shard hold the same bytes (pools and scales)."""
+    digests = _group(run, group)["paged"][f"{kind}/digests"]
+    by_shard = {}
+    for (d, m), h in digests:
+        by_shard.setdefault(m, set()).add(h)
+    assert len(digests) == {"g21": 2, "g22": 4}[group]
+    assert all(len(h) == 1 for h in by_shard.values()), by_shard
+
+
+@pytest.mark.parametrize("kind", sorted(PAGED_KINDS))
+@pytest.mark.parametrize("group", ["g12", "g22"])
+def test_a_paged_decode_step_redistributes_no_whole_pool(run, group, kind):
+    """Where the model axis splits the pages, a decode step attends per
+    rank and combines: nothing it redistributes has the pool's shape
+    (stacked or one layer's)."""
+    res = _group(run, group)["paged"]
+    shapes = res[f"{kind}/step_redistributed"]
+    assert shapes, "the step on DTensors redistributes something"
+    assert not [s for s in shapes if s in res[f"{kind}/pool_shapes"]]
+
+
+@pytest.mark.parametrize("kind", sorted(PAGED_KINDS))
+@pytest.mark.parametrize("group", ["g11", "g21"])
+def test_paged_step_on_dtensors_equals_the_local_route(run, group, kind):
+    """Model axis 1: a decode step on the DTensors (the paged cores'
+    ``local_call`` seam) gives the local route's logits."""
+    assert _group(run, group)["paged"][f"{kind}/dtensor_vs_local"] <= RTOL
+
+
+@pytest.mark.parametrize("group", ["g12", "g22"])
+def test_copy_on_write_carries_a_page_across_ranks(run, group):
+    got = _group(run, group)["paged"]["cow_across_ranks"]
+    assert all("Shard(dim=1)" in p for p in got["split"]), got
+    assert got["equal"], got
+
+
+@pytest.mark.parametrize("group", SERVE_GROUPS)
+def test_copy_on_write_within_one_rank_s_pages(run, group):
+    """Source and destination on one rank's pages: that rank copies, and
+    the other rank of the model axis goes on (no broadcast it would wait
+    in for nothing)."""
+    for got in _group(run, group)["paged"]["cow_within_a_shard"]:
+        assert got["equal"], got
+
+
+@pytest.mark.parametrize("engine", ["engine", "sched"])
+@pytest.mark.parametrize("kind", sorted(PAGED_KINDS))
+@pytest.mark.parametrize("group", ["g12", "g22"])
+def test_a_pool_the_model_axis_does_not_divide_stays_whole(run, group, kind,
+                                                           engine):
+    """25 pages on a model axis of 2: ``evenly`` keeps the pool whole on
+    every rank, and the source's streams are the JAX engine's on the same
+    pool."""
+    res = _group(run, group)["paged"]
+    assert "Shard" not in res[f"{kind}/odd/placements"], res
+    key = f"{kind}/odd/{engine}"
+    assert res[key] == run["jax_streams"][key]
 
 
 @pytest.mark.parametrize("group", SERVE_GROUPS)

@@ -6,7 +6,8 @@ sliding window (a ring table), merged and source, through a pool small
 enough to defer and preempt (with the same deferral and preemption counts
 as the JAX engine, both with prefix retention off), and through the
 staggered prefix-sharing and window-rollover scenarios of
-``tests/test_paged_prefill.py``."""
+``tests/test_paged_prefill.py``; and each adapter's ``cache_bytes``
+against the JAX adapter's for the same config."""
 import jax
 import numpy as np
 import pytest
@@ -14,14 +15,16 @@ import pytest
 from repro import configs as jcfg
 from repro.core import merge_skipless as jax_merge
 from repro.models import init_params as jax_init_params
+from repro.serving import DenseCacheAdapter as JaxDenseAdapter
 from repro.serving import Engine as JaxEngine
 from repro.serving import PagedCacheAdapter as JaxPagedAdapter
+from repro.serving import PagedQ8CacheAdapter as JaxQ8Adapter
 from repro.serving import Request as JaxRequest
 from repro.serving import ServeConfig as JaxServeConfig
 from repro_torch import configs as tcfg
 from repro_torch.convert import to_torch
 from repro_torch.serving import (Engine, PagedCacheAdapter, Request,
-                                 ServeConfig)
+                                 ServeConfig, make_adapter)
 
 STYLES = ("generic", "qp")
 
@@ -186,3 +189,21 @@ def test_launcher_serves_paged_like_dense(capsys):
                                            "--n-blocks", "5"])]
     assert paged == dense
     assert "'n_preempted': " in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["dense", "paged", "paged_q8"])
+def test_cache_bytes_equal_the_jax_adapters(kind, dtype):
+    """Dense: the bytes of k and v; the pools: ``pm.pool_bytes`` (int8
+    pages and their float32 scales), as the JAX adapters count them."""
+    jc = jcfg.reduce_config(jcfg.get_config("mistral-7b")).with_(
+        dtype=dtype, param_dtype=dtype)
+    tc = tcfg.reduce_config(tcfg.get_config("mistral-7b")).with_(
+        dtype=dtype, param_dtype=dtype)
+    kw = dict(n_slots=4, max_len=64, block_size=8, n_blocks=12)
+    jax_adapter = {"dense": JaxDenseAdapter, "paged": JaxPagedAdapter,
+                   "paged_q8": JaxQ8Adapter}[kind]()
+    jax_adapter.init(jc, JaxServeConfig(**kw))
+    port = make_adapter(kind)
+    port.init(tc, ServeConfig(**kw), "cpu")
+    assert port.cache_bytes == jax_adapter.cache_bytes > 0

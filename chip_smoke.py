@@ -47,7 +47,8 @@ NVIDIA card.  Run from the repository root:
    6-9 also run with one batch row SHIELDED (``shielded_phase``: its table
    all -1 at a length > 0, as the scheduler ships a slot mid-chunked-
    prefill): that row must be exactly zero, the others the plain
-   versions';
+   versions'; and rows 4-9 in the partial-state mode over the boxes of
+   model axes 2 and 4 (``split_k_phase``): combined, the whole kernel;
 5. path phase, Mistral-7B: builds a skipless Mistral-7B at full width on
    the card from a seeded generator, merges it exactly
    (``merge_skipless(..., "qp")``) and serves 4 prompts (16, 37, 100, 250
@@ -136,8 +137,9 @@ NVIDIA card.  Run from the repository root:
    forward; at the configs' capacity 1.25 merged == source, the merge's
    removed weights == ``weight_table``'s, the pairs dropped per prefill
    and the scheduled (dropless chunks) agreement printed; then bf16 at
-   ``MOE_DEPTH`` layers (Phi 12 of 32, Moonshot 24 of 48: the source and
-   its merge fit together) exact launch counts on the three caches and
+   ``MOE_DEPTH`` layers (Phi 6 of 32, Moonshot 12 of 48: the source and
+   its merge fit together, and the script keeps its time margin) exact
+   launch counts on the three caches and
    the scheduler, tok/s, TTFT, peak memory, and a decode profile with the
    MoE blocks' share of the device time beside ``decode_speedup``;
 10. the VLM (``vlm_path``): Llama-3.2-Vision-11B at full width, skipless
@@ -171,15 +173,20 @@ NVIDIA card.  Run from the repository root:
    first mismatch, the per-block RMS, and 2 layers); (c) one train step
    of every arch at ``reduce_config`` in every style it admits (and
    ``grad_accum=2``) on the card against the CPU;
-13. the obs phase (``obs_path``, after every timed phase: it turns on
-   PyTorch's GPU trace hooks to count host syncs): merged bf16 Mistral-7B at 32 layers on the
+13. the mesh phase: a (1, 1) mesh over NCCL (``mesh_path``);
+14. the obs phase (``obs_path``, after every timed phase: it turns on
+   PyTorch's GPU trace hooks to count host syncs): merged bf16 Mistral-7B at 8 layers on the
    paged pool, roomy and tight, through ``Engine`` and
    ``ScheduledEngine`` with ``ServeConfig(obs=True)``: one terminal event
    per request, a valid Perfetto export, histograms counting the
    requests, pool gauges equal to the allocator's counters, and the
    streams, launch counts and host syncs of the obs-off run; obs-on and
    obs-off tok/s side by side;
-14. the lint phase (``lint_path``, after the obs phase, whose trace hooks
+15. the model-axis phase: a model axis of 2 in two processes over gloo
+   (``model_axis_path``: the kernel route's split-K decode and head-split
+   prefill, streams and per-rank launches against the unmeshed engine),
+   and meanwhile, in this process, the lint phase (``lint_path``, after
+   the obs phase, whose trace hooks
    it reuses): ``python -m repro_torch.lint --device cuda`` (the sweep of
    the 36 registered combos, the "cuda" ones traced on the card through
    the kernels, and the aliasing, submit-path and retention audits on
@@ -187,7 +194,7 @@ NVIDIA card.  Run from the repository root:
    cut to 2 layers (18 kernel targets), all CLEAN, each kernel target
    one kernel node and one launch per attention layer; a paged and an
    int8 paged decode step make no host sync;
-15. prints one JSON line of per-kernel numbers, then, as the last line,
+16. prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Everything printed to stdout is also written to ``build/chip_smoke.log``
@@ -200,6 +207,7 @@ before printing anything else.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -823,6 +831,191 @@ def paged_phase(rng, rows, q8, attn=None):
             del us, kps, vps, khs, vhs
 
 
+MODEL_AXES = (2, 4)  # model axes whose split-K the partial-state mode serves
+SPLIT_QPOS = (40, 300, 777, 1000)  # the split phase's dense rows; row 3 idle
+
+
+def model_boxes(n, m):
+    """(offset, size) of each rank's shard of a dim of ``n`` split over a
+    model axis of ``m``, as ``distribution.placed.shard_box`` gives it for
+    a DTensor's ``Shard``: ceil(n / m) per rank, the last ones shorter
+    (or empty) where m does not divide n."""
+    size = -(-n // m)
+    return [(min(r * size, n), max(0, min(size, n - r * size)))
+            for r in range(m)]
+
+
+def split_k_phase(rng, out, attn=None):
+    """The decode kernel's partial-state mode (rows 4-9) at the path
+    phase's shapes: Mistral-7B's attention (or ``attn``: ChatGLM3-6B's
+    G 16), B 4, bfloat16 and float32, the dense cache of 512 slots (no
+    window; window 64) with row 0 early (its keys in the first box) and
+    row 3 idle (every position -1), and ``paged_tables``' absolute and
+    ring tables with row 3's table made all -1 (idle).  For model axes 2
+    and 4 the cache (its sequence) or the pool (its pages, with their
+    int8 scale rows) is cut into ``model_boxes``; each box runs the
+    partial-state kernel (a box's table: the global table's width with
+    other boxes' pages -1, ``placed.own_pages``).  Each box's (m, l, o)
+    must equal the plain version's on the same box (5e-5 of the largest,
+    or absolute), and the states, stacked and combined
+    (``placed.combine_softmax``), the whole kernel's output within
+    ``tolerance``, the idle row exactly 0.  At Mistral's shape, no window
+    and the absolute table, the box with the most attended keys is timed
+    (``cuda_ms``) beside the whole kernel, with its bound: its attended
+    K/V rows, the query, the positions or table and the three float32
+    state outputs over 3.35 TB/s.  Appends one record per (row, dtype,
+    case, axis) to ``out``."""
+    import numpy as np
+    import torch
+    from repro_torch.distribution.placed import combine_softmax, own_pages
+    from repro_torch.kernels import decode_attention as dk, quant, ref
+    from repro_torch.kernels.paging import paged_ring_active
+
+    Hq, Hkv, D = attn or MISTRAL_ATTN
+    G, B, S = Hq // Hkv, 4, 512
+    dev = torch.device("cuda")
+    geom = f" Hq={Hq} Hkv={Hkv} D={D}" if attn else ""
+    plain_of = {"decode_attention_bhsd": ref.ref_decode_states,
+                "decode_attention_merged_bsd": ref.ref_decode_states_merged,
+                "decode_attention_paged_bhsd": ref.ref_decode_states_paged,
+                "decode_attention_paged_merged_bsd":
+                    ref.ref_decode_states_paged_merged,
+                "decode_attention_paged_q8_bhsd":
+                    ref.ref_decode_states_paged_q8,
+                "decode_attention_paged_q8_merged_bsd":
+                    ref.ref_decode_states_paged_q8_merged}
+
+    def rand(*shape, dt):
+        return torch.from_numpy(rng.standard_normal(
+            shape, np.float32)).to(dev, dt)
+
+    def check(name, dtype, case, q, whole_args, box_args, n_att, kw, el,
+              timed):
+        """``box_args(lo, n)``: the kernel's operands over box [lo, lo+n)
+        and its attended keys; ``whole_args``: the whole kernel's."""
+        whole = getattr(dk, name)(q, *whole_args, **kw)
+        for m in MODEL_AXES:
+            boxes = model_boxes(n_att[1], m)
+            states, n_keys = [], []
+            for lo, n in boxes:
+                args, keys = box_args(lo, n)
+                got = dk.decode_states(name, q, *args, **kw)
+                want = plain_of[name](q, *args, **kw)
+                for a, b in zip(got, want):
+                    tol = 5e-5 * max(1.0, float(b.abs().max()))
+                    err = float((a - b).abs().max())
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"{name} {dtype} {case} axis {m} box {lo}: "
+                            f"states err {err} > {tol}")
+                states.append(got)
+                n_keys.append(keys)
+            comb = combine_softmax(*(torch.stack(x) for x in zip(*states)))
+            comb = comb.to(dtype).reshape(whole.shape)
+            err = float((comb.float() - whole.float()).abs().max())
+            tol = tolerance(whole, dtype)
+            if not err <= tol or not torch.equal(
+                    comb[3], torch.zeros_like(comb[3])):
+                raise AssertionError(f"{name} {dtype} {case} axis {m}: "
+                                     f"combined err {err} > {tol} or the "
+                                     "idle row is not 0")
+            rec = dict(name=name, dtype=str(dtype), case=case, axis=m,
+                       max_abs_err=err, tol=tol,
+                       empty_boxes=sum(k == 0 for k in n_keys))
+            if timed:
+                r = int(np.argmax(n_keys))
+                args, keys = box_args(*boxes[r])
+                nbytes = (2 * keys * Hkv * D * el + q.numel() *
+                          q.element_size() + 2 * B * Hq * 4 + B * Hq * D * 4
+                          + n_att[2](boxes[r][1]))
+                bound = bound_ms(nbytes, 4 * D * Hq * keys, dtype)
+                rec.update(
+                    box=r, box_keys=keys, whole_keys=n_att[0],
+                    ms=cuda_ms(lambda i: dk.decode_states(name, q, *args,
+                                                          **kw), 1)[0],
+                    whole_ms=cuda_ms(lambda i: getattr(dk, name)(
+                        q, *whole_args, **kw), 1)[0], **bound)
+            out.append(rec)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        el = torch.tensor([], dtype=dtype).element_size()
+        u = rand(B, Hq, D, dt=dtype)
+        for window in (0, 64):
+            case = f"dense S={S} " + (f"window {window}" if window
+                                      else "no window") + geom
+            pos = ring_positions(rng, S, SPLIT_QPOS, 0.0)
+            pos[3] = -1
+            kvp = torch.from_numpy(pos).to(dev)
+            qp = torch.tensor(SPLIT_QPOS, dtype=torch.int32, device=dev)
+            ok = (kvp >= 0) & (kvp <= qp[:, None])
+            if window:
+                ok &= qp[:, None] - kvp < window
+            k, v = rand(B, S, Hkv, D, dt=dtype), rand(B, S, Hkv, D, dt=dtype)
+            kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+            kw = dict(sliding_window=window)
+            for name in ("decode_attention_bhsd",
+                         "decode_attention_merged_bsd"):
+                merged = name.endswith("merged_bsd")
+
+                def box_args(lo, n, merged=merged):
+                    sl = slice(lo, lo + n)
+                    kv = (k[:, sl].contiguous(), v[:, sl].contiguous()) \
+                        if merged else (kh[:, :, sl].contiguous(),
+                                        vh[:, :, sl].contiguous())
+                    return (*kv, kvp[:, sl].contiguous(), qp), \
+                        int(ok[:, sl].sum())
+
+                q = u if merged else u.reshape(B, Hkv, G, D)
+                whole = (k, v, kvp, qp) if merged else (kh, vh, kvp, qp)
+                check(name, dtype, case, q, whole, box_args,
+                      (int(ok.sum()), S, lambda n: B * n * 4 + B * 4), kw,
+                      el, timed=not attn and not window)
+        for q8 in (False, True):
+            kind = "paged_q8" if q8 else "paged"
+            kv_el = 1 if q8 else el
+            for label, window, bt_np, qp_np in paged_tables():
+                bt_np = bt_np.copy()
+                bt_np[3] = -1
+                MB = bt_np.shape[1]
+                bt = torch.from_numpy(bt_np).to(dev)
+                qp = torch.from_numpy(qp_np).to(dev)
+                ring = paged_ring_active(window, PAGE, MB)
+                kvp = ref.ref_paged_positions(bt, PAGE, qp, ring)
+                ok = (kvp >= 0) & (kvp <= qp[:, None])
+                if window:
+                    ok &= qp[:, None] - kvp < window
+                page_of = bt.long().repeat_interleave(PAGE, dim=1)
+                if q8:
+                    pools = [quant.q8_quantize_pages(rand(
+                        NB_POOL, PAGE, Hkv, D, dt=torch.float32))
+                        for _ in range(2)]
+                    pools = (pools[0][0], pools[1][0], pools[0][1],
+                             pools[1][1])
+                else:
+                    pools = tuple(rand(NB_POOL, PAGE, Hkv, D, dt=dtype)
+                                  for _ in range(2))
+                kw = dict(sliding_window=window, ring_blocks=ring)
+                case = f"bs={PAGE} {kind} {label}{geom}"
+                for merged in (True, False):
+                    name = f"decode_attention_{kind}_" + \
+                        ("merged_bsd" if merged else "bhsd")
+
+                    def box_args(lo, n):
+                        held = (page_of >= lo) & (page_of < lo + n)
+                        return (*(p[lo:lo + n] for p in pools),
+                                own_pages(bt, lo, n), qp), \
+                            int((ok & held).sum())
+
+                    q = u if merged else u.reshape(B, Hkv, G, D)
+                    # the table and positions, and on the int8 pool
+                    # both scales of every (page, kv head) of the box
+                    check(name, dtype, case, q, (*pools, bt, qp), box_args,
+                          (int(ok.sum()), NB_POOL,
+                           lambda n: B * MB * 4 + B * 4
+                           + (2 * n * Hkv * 4 if q8 else 0)), kw, kv_el,
+                          timed=not attn and not window)
+
+
 SHIELD_QPOS = (15, 64, 300, 511)  # row 1: a slot shielded at frontier 64
 
 
@@ -1172,7 +1365,8 @@ def serve(cfg, params, prompts, max_new, cache="dense", probe=None,
           max_len=512, sched=False, vision=None, mesh=None, **serve_kw):
     """Serve ``prompts`` (a VLM: with ``vision``, one array per prompt) on
     a fresh 4-slot engine, the synchronous ``Engine`` or with ``sched``
-    the ``ScheduledEngine`` (``SCHED``), on a device ``mesh`` if given;
+    the ``ScheduledEngine`` (``SCHED``, or ``sched``'s ``SchedConfig``
+    fields), on a device ``mesh`` if given;
     ``probe(eng)`` may wrap the engine's manager before the run.  Returns
     (engine, results, the launch counts of exactly this run, wall
     seconds)."""
@@ -1183,7 +1377,8 @@ def serve(cfg, params, prompts, max_new, cache="dense", probe=None,
 
     sc = ServeConfig(n_slots=4, max_len=max_len, **serve_kw)
     kw = dict(impl="cuda", cache=cache, device="cuda", mesh=mesh)
-    eng = ScheduledEngine(cfg, params, sc, SchedConfig(**SCHED), **kw) \
+    eng = ScheduledEngine(cfg, params, sc, SchedConfig(
+        **(SCHED if sched is True else sched)), **kw) \
         if sched else Engine(cfg, params, sc, **kw)
     if probe is not None:
         probe(eng)
@@ -2135,9 +2330,11 @@ def mamba2_path(summary):
 DENSE_ARCHS = ("llama3.2-1b", "phi3-medium-14b", "qwen2.5-32b",
                "pythia-6.9b", "chatglm3-6b")
 # bf16 layers served per config after the 4-layer checks: the full depth,
-# except Qwen2.5-32B, whose 64 layers take ~65 GB alone; at 32 the source
-# and its merge (~34 + ~31 GB) are resident together on the 80 GB card
-CONFIG_DEPTH = {"qwen2.5-32b": 32}
+# except Qwen2.5-32B (64 layers take ~65 GB alone) and Phi-3-medium-14B,
+# cut to half their layers (16 of 64 and 20 of 40) so that the script,
+# with its model-axis phase, keeps a margin under its time limit: their
+# random weights take ~20 s each to draw on the card at 32 and 40 layers
+CONFIG_DEPTH = {"qwen2.5-32b": 16, "phi3-medium-14b": 20}
 
 
 def dense_configs_path(summary):
@@ -2251,8 +2448,9 @@ def dense_configs_path(summary):
 
 MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")
 # bf16 depth cuts at full width, so that the source and its merge fit on
-# the card together (PERF.md section 4)
-MOE_DEPTH = {"phi3.5-moe-42b-a6.6b": 12, "moonshot-v1-16b-a3b": 24}
+# the card together, halved again (from 12 and 24) for the script's time
+# margin (PERF.md section 4)
+MOE_DEPTH = {"phi3.5-moe-42b-a6.6b": 6, "moonshot-v1-16b-a3b": 12}
 
 
 def drop_counter():
@@ -2890,7 +3088,21 @@ MESH_TRAIN_STEPS = 5
 MESH_TRAIN_RTOL = 1e-6
 
 
-def mesh_path(summary):
+def start_dryrun():
+    """``repro_torch.launch.dryrun --all --both-meshes`` on the meta device
+    in a subprocess (six workers) on the host's CPU, no card: started
+    before the dense-config phase so that it runs beside the card's
+    phases; ``mesh_path`` collects it."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--jobs", "6", "--out",
+         os.path.join(ROOT, "build", "dryrun")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                           CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def mesh_path(summary, dry):
     """The distribution layer on the card, at world size 1 over NCCL (the
     process group's rendezvous file under ``build/``), on a (1, 1)
     ("data", "model") ``DeviceMesh``:
@@ -2917,21 +3129,13 @@ def mesh_path(summary):
     (e) the host syncs of one decode step on the paged and on the int8
         pool, meshed and unmeshed (``sync_counted``, which leaves PyTorch's
         trace hooks on, so it runs after the timed parts): equal;
-    (f) ``repro_torch.launch.dryrun --all --both-meshes`` on the meta
-        device, in a subprocess (six workers) on the host's CPU while
-        (a)-(e) hold the card: the counts of cells run, skipped and
-        failed; a failure fails the phase."""
+    (f) the dry run ``dry`` (``start_dryrun``, running on the host's CPU
+        since the dense-config phase): the counts of cells run, skipped
+        and failed; a failure fails the phase."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
 
-    dry_out = os.path.join(ROOT, "build", "dryrun")
-    dry = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--both-meshes", "--jobs", "6", "--out", dry_out],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                           CUDA_VISIBLE_DEVICES=""),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     pg = os.path.join(ROOT, "build", "mesh_pg")
     if os.path.exists(pg):
         os.remove(pg)
@@ -2974,6 +3178,605 @@ def mesh_path(summary):
                              f"{counts}; last lines {lines[-5:]}")
     out["dryrun"] = counts
     summary["mesh"] = out
+
+
+MODEL_AXIS_TIMEOUT = 600  # seconds the two ranks of the model-axis phase get
+# new tokens a request of the model-axis phase: a decode step on
+# DTensors takes ~40 ms of host time per layer (over a second at 32)
+MODEL_AXIS_NEW = 8
+# the model-axis phase's scheduler: chunks of 256 (each chunk on DTensors
+# costs host time per layer, whatever its length)
+MODEL_AXIS_SCHED = dict(token_budget=512, chunk_tokens=256)
+# the model-axis phase's pools: 32 pages, of which its four requests take
+# 29, so that both ranks' halves hold pages the requests attend (the
+# default pool's 128 pages would keep them all in rank 0's half)
+MODEL_AXIS_PAGES = 32
+
+
+def pool_size(cache) -> dict:
+    """``serve`` keywords of the model-axis phase for ``cache``."""
+    return {} if cache == "dense" else {"n_blocks": MODEL_AXIS_PAGES}
+
+
+def gloo_cuda_all_gather() -> None:
+    """Route DTensor's functional all-gather (``funcol.all_gather_tensor``)
+    through c10d's ``all_gather_into_tensor`` on the same group.  Gloo
+    carries CUDA tensors for c10d's all-reduce, broadcast, all-gather,
+    reduce-scatter and all-to-all in the card's PyTorch build, but the
+    functional all-gather that DTensor's Shard -> Replicate
+    redistributions run segfaults in its ``wait_tensor`` there (the
+    functional all-reduce does not).  NCCL, across cards, needs no such
+    shim; it changes where the gathered bytes travel, not what arrives."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    import torch.distributed.distributed_c10d as c10d
+
+    def all_gather_tensor(self, gather_dim, group, tag=""):
+        pg = c10d._resolve_process_group(funcol._resolve_group_name(group,
+                                                                     tag))
+        n = pg.size()
+        x = self.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=pg)
+        if gather_dim != 0:
+            out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+        return out
+
+    funcol.all_gather_tensor = all_gather_tensor
+
+
+def model_axis_path(summary, meanwhile=None):
+    """The kernel route on a mesh whose model axis is 2, on the one card:
+    two processes (``python3 chip_smoke.py --model-axis-rank R``, R 0 and
+    1) in a gloo process group (rendezvous file ``build/model_axis_pg``;
+    NCCL will not put two ranks on one device), a (1, 2) ("data",
+    "model") ``DeviceMesh`` on CUDA, DTensor's all-gather routed through
+    c10d's (``gloo_cuda_all_gather``).  Each rank (``model_axis_rank``):
+
+    (a) at ``EQ_LAYERS`` calibrated float32 layers, merged skipless
+        Mistral-7B at full width and its source served by
+        ``Engine(mesh=, impl="cuda")`` on the dense cache, the paged pool
+        and the int8 pool, ``MODEL_AXIS_NEW`` new tokens a request
+        (``model_axis_f32``): on the fp caches greedy streams equal the
+        unmeshed engine's and merged == source; on the int8 pool the
+        cause of the streams' parting is shown and the int8 prefill and
+        split-K decode are gated in float32 (``q8_on_the_mesh``);
+    (b) at 32 bfloat16 layers, the merged model through ``Engine`` and
+        ``ScheduledEngine`` on the three caches, ``MODEL_AXIS_NEW`` new
+        tokens a request: each rank's launches are
+        the unmeshed engine's, one flash (rows 2, 2, 3) per layer and
+        prefill, one decode (rows 5, 7, 9, in the partial-state mode) per
+        layer and step; the tokens each stream shares with the unmeshed
+        engine's before they part (bf16: the model axis's row-parallel
+        sums round in another order).
+    The phase fails if a rank exits non-zero; the ranks' launch counts
+    join the summary's.  ``meanwhile(summary)``, a phase that measures no
+    time (the lint), runs in this process while the ranks run, its
+    seconds recorded under its name."""
+    import torch
+
+    torch.cuda.empty_cache()
+    pg = os.path.join(ROOT, "build", "model_axis_pg")
+    if os.path.exists(pg):
+        os.remove(pg)
+    procs = []
+    for r in range(2):
+        log_path = os.path.join(ROOT, "build", f"model_axis_{r}.log")
+        procs.append((r, log_path, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--model-axis-rank",
+             str(r)], cwd=ROOT, stdout=open(log_path, "w"),
+            stderr=subprocess.STDOUT)))
+    try:
+        if meanwhile is not None:
+            t0 = time.perf_counter()
+            meanwhile(summary)
+            summary["phase_s"][meanwhile.__name__] = time.perf_counter() - t0
+            log(f"{meanwhile.__name__} (beside the model-axis ranks): "
+                f"{summary['phase_s'][meanwhile.__name__]:.1f} s")
+    finally:  # the ranks end either way
+        codes = wait_ranks(procs)
+    if os.path.exists(pg):
+        os.remove(pg)
+    for r, log_path, _ in procs:
+        for ln in open(log_path).read().splitlines():
+            if r == 0 or codes[r] != 0:
+                log(f"  [rank {r}] {ln}")
+    if codes != [0, 0]:
+        raise AssertionError(f"model-axis phase: the ranks exited {codes}")
+    res = [json.load(open(os.path.join(ROOT, "build",
+                                       f"model_axis_{r}.json")))
+           for r in range(2)]
+    if res[0]["streams"] != res[1]["streams"]:
+        raise AssertionError("model-axis phase: the two ranks emitted "
+                             "different tokens")
+    summary["launches"] = {k: summary["launches"][k] + sum(
+        x["launches"][k] for x in res) for k in summary["launches"]}
+    summary["model_axis"] = {k: v for k, v in res[0].items()
+                             if k not in ("streams", "launches")}
+
+
+def wait_ranks(procs):
+    """The ranks' exit codes, each given ``MODEL_AXIS_TIMEOUT`` seconds
+    (killed past it)."""
+    codes = []
+    for r, log_path, p in procs:
+        try:
+            codes.append(p.wait(timeout=MODEL_AXIS_TIMEOUT))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            codes.append(p.wait())
+    return codes
+
+
+def model_axis_rank(rank: int) -> int:
+    """One rank of ``model_axis_path``; writes ``build/model_axis_<rank>
+    .json``: its checks' results, the streams it emitted and its launch
+    counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        ROOT, "build", "model_axis_pg"), rank=rank, world_size=2)
+    gloo_cuda_all_gather()
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, 32000, n) for n in (16, 37, 100, 250)]
+        out = {"rank": rank, "streams": {}}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out["f32"] = model_axis_f32(mesh, prompts, out["streams"])
+            out["f32_s"] = time.perf_counter() - t0
+            out.update(model_axis_bf16(mesh, prompts, out["streams"]))
+        out["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(ROOT, "build", f"model_axis_{rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def prefill_logits(sink):
+    """A ``serve`` probe: each prefill's logits (the real vocabulary,
+    gathered whole under a mesh) appended to ``sink``."""
+    from repro_torch.distribution.placed import full
+
+    def probe(eng):
+        sample = eng._sample
+
+        def recording(logits, slots, rows=None):
+            if rows is None:
+                sink.append(full(logits)[0, :eng.cfg.vocab_size].float())
+            return sample(logits, slots, rows)
+
+        eng._sample = recording
+    return probe
+
+
+MESH_LOGIT_RTOL = 1e-4  # meshed vs unmeshed float32 prefill logits, of
+# the max |logit| (the fp caches measure ~1e-5: the row-parallel sums)
+Q8_SCALE_RTOL = 1e-6  # an int8 scale's own rounding, of the scale
+
+
+def place_params(params, mesh):
+    """``params`` placed on ``mesh`` as ``Engine(mesh=)`` places them for
+    4 slots: an engine given them places nothing again, so the engines of
+    the model-axis phase share one placement (over gloo a placement moves
+    the weights through host memory)."""
+    from repro_torch.distribution import sharding as shd
+    return shd.distribute_tree(params, shd.param_pspecs(
+        params, shd.make_rules(mesh, batch=4)), mesh)
+
+
+def prefill_gap(got, want) -> float:
+    """Max |got - want| over ``prefill_logits`` records, of max |want|."""
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want))
+
+
+def model_axis_f32(mesh, prompts, emitted):
+    """(a) of ``model_axis_path``: per cache, the merged model served
+    meshed and unmeshed, then the source meshed.  On the fp caches the
+    meshed prefill logits are within ``MESH_LOGIT_RTOL`` of the unmeshed
+    engine's, the greedy streams equal, and the source's on the mesh
+    equal the merged model's.  On the int8 pool a float32 rounding
+    difference (the model axis's row-parallel sums) moves some K/V values
+    across an int8 rounding boundary, and the streams part where the
+    unmeshed logits are near a tie: ``q8_on_the_mesh`` shows that cause
+    and gates the int8 prefill and decode in float32 instead, for both
+    models; the streams' agreement is reported."""
+    import torch
+
+    cfg, params, mcfg, mparams = build(EQ_LAYERS, calibrate=True)
+    placed, mplaced = place_params(params, mesh), place_params(mparams, mesh)
+    n, res = len(prompts), {}
+    for cache in ("dense", "paged"):
+        want, got = [], []
+        _, plain, _, _ = serve(mcfg, mparams, prompts, MODEL_AXIS_NEW,
+                               cache=cache, probe=prefill_logits(want),
+                               **pool_size(cache))
+        eng, mrg, counts, _ = serve(mcfg, mplaced, prompts, MODEL_AXIS_NEW,
+                                    cache=cache, mesh=mesh,
+                                    probe=prefill_logits(got),
+                                    **pool_size(cache))
+        check_counts(f"merged float32 {cache}, (1, 2) mesh", counts, eng,
+                     EQ_LAYERS, n, merged=True)
+        emitted[f"f32/{cache}"] = streams(mrg)
+        gap = prefill_gap(got, want)
+        res[cache] = {"prefill_logit_gap": gap,
+                      "agree_unmeshed": agreement(streams(mrg),
+                                                  streams(plain))}
+        if streams(mrg) != streams(plain) or not gap <= MESH_LOGIT_RTOL:
+            bad = first_mismatch(mcfg, mparams, prompts, plain, mrg)
+            raise AssertionError(f"{cache}: meshed and unmeshed float32 "
+                                 f"streams differ at {bad} or the prefill "
+                                 f"logit gap {gap:.3g} > {MESH_LOGIT_RTOL}")
+        eng, src, counts, _ = serve(cfg, placed, prompts, MODEL_AXIS_NEW,
+                                    cache=cache, mesh=mesh,
+                                    **pool_size(cache))
+        check_counts(f"source float32 {cache}, (1, 2) mesh", counts, eng,
+                     EQ_LAYERS, n, merged=False)
+        if streams(src) != streams(mrg):
+            bad = first_mismatch(cfg, params, prompts, src, mrg)
+            raise AssertionError(f"{cache}: on the (1, 2) mesh, merged "
+                                 f"and source streams differ at {bad}")
+        res[cache]["merged_eq_source"] = True
+        log(f"  (1, 2) mesh, float32 {EQ_LAYERS} layers, {cache}: prefill "
+            f"logits within {gap:.3g} of the unmeshed engine's; meshed == "
+            f"unmeshed and merged == source greedy streams")
+    q8, out = {}, {}
+    for tag, c, p, pl in (("merged", mcfg, mparams, mplaced),
+                          ("source", cfg, params, placed)):
+        q8[tag], out[tag] = q8_on_the_mesh(tag, c, p, pl, mesh, prompts)
+    emitted["f32/paged_q8"] = out["merged"]
+    q8["merged_vs_source_agree"] = agreement(out["merged"], out["source"])
+    res["paged_q8"] = q8
+    log(f"  (1, 2) mesh, float32 {EQ_LAYERS} layers, paged_q8: merged vs "
+        f"source tokens shared {q8['merged_vs_source_agree']} (of "
+        f"{MODEL_AXIS_NEW} each; they part unmeshed too)")
+    del params, mparams, placed, mplaced, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def patched(obj, name, wrap):
+    """``obj.<name>`` replaced by ``wrap(original)`` inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches inside the block leave the launch counts as they
+    were (a comparison's launches are not the path's)."""
+    from repro_torch import kernels
+    before = kernels.launch_counts()
+    try:
+        yield
+    finally:
+        for c in kernels._COUNTERS:
+            for k in c:
+                c[k] = before[k]
+
+
+def q8_recorder(sink):
+    """``patched`` wrapper of ``quant.q8_quantize_seq`` (the int8
+    prefill's quantiser, called on whole K then V per layer): appends
+    (float input after the padding mask, int8 output, scales) per call."""
+    import torch
+
+    def wrap(orig):
+        def q8_quantize_seq(kv, block_size, valid=None):
+            ints, scale = orig(kv, block_size, valid)
+            x = kv.float() if valid is None else torch.where(
+                valid[..., None, None], kv.float(), 0.0)
+            sink.append((x, ints, scale))
+            return ints, scale
+        return q8_quantize_seq
+    return wrap
+
+
+def q8_replay(record):
+    """``patched`` wrapper of ``quant.q8_quantize_seq`` returning, call by
+    call, what another run's quantiser returned (``q8_recorder``'s
+    ``record``), of the same shapes."""
+    calls = iter(record)
+
+    def wrap(orig):
+        def q8_quantize_seq(kv, block_size, valid=None):
+            ints, scale = orig(kv, block_size, valid)
+            _, q, s = next(calls)
+            if q.shape != ints.shape or s.shape != scale.shape:
+                raise AssertionError(f"int8 replay: shapes {tuple(q.shape)}"
+                                     f" {tuple(s.shape)} for "
+                                     f"{tuple(ints.shape)} "
+                                     f"{tuple(scale.shape)}")
+            return q.clone(), s.clone()
+        return q8_quantize_seq
+    return wrap
+
+
+def prefill_pages(sink, ids=None):
+    """A ``serve`` probe on a paged engine: after each prefill, the pages
+    its slot's table maps, gathered whole, (k, v, k_scale, v_scale) with
+    the layers leading, and their ids added to ``ids``."""
+    from repro_torch.distribution.placed import full
+
+    def probe(eng):
+        sample = eng._sample
+
+        def recording(logits, slots, rows=None):
+            if rows is None:
+                pm = eng.pm
+                idx = [int(b) for b in pm.tables[slots[0]] if b >= 0]
+                if ids is not None:
+                    ids.extend(idx)
+                sink.append(tuple(full(t)[:, idx] for t in (
+                    pm.k, pm.v, pm.k_scale, pm.v_scale)))
+            return sample(logits, slots, rows)
+
+        eng._sample = recording
+    return probe
+
+
+def probes(*ps):
+    """Several ``serve`` probes as one."""
+    def probe(eng):
+        for p in ps:
+            p(eng)
+    return probe
+
+
+def split_k_gate(sink):
+    """``patched`` wrapper of ``models.attention._paged_on_mesh``: each
+    meshed paged decode core's output (the partial-state kernel on this
+    rank's pages, combined across the model axis) held against the
+    whole-pool kernel on the gathered operands, i.e. what the unmeshed
+    engine computes from the meshed engine's state, within
+    ``TOL_F32`` of the largest |output| (at least 1); appends each call's
+    max |error|.  The whole kernel's launches are not counted."""
+    from repro_torch.distribution.placed import full, split_group
+
+    def wrap(orig):
+        def _paged_on_mesh(core, q, pools, block_tables, q_position, kw):
+            if split_group(pools[0], 0) is None:
+                raise AssertionError("the model axis does not split the "
+                                     "pool's pages")
+            out = orig(core, q, pools, block_tables, q_position, kw)
+            with uncounted():
+                want = core(full(q), *[full(p) for p in pools],
+                            block_tables=full(block_tables),
+                            q_position=full(q_position), **kw).float()
+            err = float((full(out).float() - want).abs().max())
+            tol = TOL_F32 * max(1.0, float(want.abs().max()))
+            if not err <= tol:
+                raise AssertionError(f"split-K paged decode on the mesh: "
+                                     f"{err:.3g} from the whole-pool kernel "
+                                     f"(tol {tol:.3g})")
+            sink.append(err)
+            return out
+        return _paged_on_mesh
+    return wrap
+
+
+def q8_on_the_mesh(tag, cfg, params, placed, mesh, prompts):
+    """One model on the int8 pool in float32: served on the (1, 2) mesh
+    (each decode core's split-K output gated by ``split_k_gate``), then
+    unmeshed twice: free, and with its quantiser replaying the meshed
+    run's int8 values and scales.  Asserts (``q8_rounding_cause``) that
+    each run's pool pages hold what its quantiser wrote, that equal float
+    K/V quantise equal, and that where a request's float K/V first differ
+    the int8 values differ by one step at most, each across a rounding
+    boundary within the float gap, and each scale by no more than its
+    page's float gap / 127 (and ``Q8_SCALE_RTOL`` of rounding);
+    and that the replayed prefill logits are within ``MESH_LOGIT_RTOL`` of
+    the meshed ones.  Returns (findings, meshed streams)."""
+    from repro_torch.kernels import quant
+    from repro_torch.models import attention
+
+    n, merged = len(prompts), cfg.block_style == "skipless_merged"
+    kw = dict(cache="paged_q8", **pool_size("paged_q8"))
+    rec_m, pages_m, ids, lg_m, errs = [], [], [], [], []
+    with patched(quant, "q8_quantize_seq", q8_recorder(rec_m)), \
+            patched(attention, "_paged_on_mesh", split_k_gate(errs)):
+        eng, meshed, counts, _ = serve(
+            cfg, placed, prompts, MODEL_AXIS_NEW, mesh=mesh,
+            probe=probes(prefill_logits(lg_m), prefill_pages(pages_m, ids)),
+            **kw)
+    check_counts(f"{tag} float32 paged_q8, (1, 2) mesh", counts, eng,
+                 EQ_LAYERS, n, merged=merged)
+    halves = sorted({2 * i // MODEL_AXIS_PAGES for i in ids})
+    if halves != [0, 1]:
+        raise AssertionError(f"{tag} paged_q8: the prefills' pages lie in "
+                             f"the halves {halves} of the pool only")
+    del eng
+    rec_u, pages_u, lg_u, lg_r = [], [], [], []
+    with patched(quant, "q8_quantize_seq", q8_recorder(rec_u)):
+        _, plain, _, _ = serve(cfg, params, prompts, MODEL_AXIS_NEW,
+                               probe=probes(prefill_logits(lg_u),
+                                            prefill_pages(pages_u)), **kw)
+    with patched(quant, "q8_quantize_seq", q8_replay(rec_m)):
+        _, replay, _, _ = serve(cfg, params, prompts, MODEL_AXIS_NEW,
+                                probe=prefill_logits(lg_r), **kw)
+    res = q8_rounding_cause(cfg.n_layers, n, rec_u, rec_m, pages_u, pages_m)
+    res.update(
+        prefill_logit_gap=prefill_gap(lg_m, lg_u),
+        replayed_prefill_logit_gap=prefill_gap(lg_m, lg_r),
+        split_k_calls=len(errs), split_k_max_abs_err=max(errs),
+        agree_unmeshed=agreement(streams(meshed), streams(plain)),
+        agree_replayed=agreement(streams(meshed), streams(replay)))
+    if len(errs) != EQ_LAYERS * (MODEL_AXIS_NEW - 1) or \
+            not res["replayed_prefill_logit_gap"] <= MESH_LOGIT_RTOL:
+        raise AssertionError(f"{tag} paged_q8 on the mesh: {len(errs)} "
+                             f"gated decode calls, replayed prefill logit "
+                             f"gap {res['replayed_prefill_logit_gap']:.3g}")
+    first = [c and (c["layer"], c["kv"], c["flips"], c["float_gap_rel"])
+             for c in res["first_float_difference"]]
+    log(f"  (1, 2) mesh, float32 {EQ_LAYERS} layers, paged_q8, {tag}: "
+        f"{res['int8_differing']:,d} of {res['int8_entries']:,d} prefill "
+        f"int8 entries differ from the unmeshed run's (per layer "
+        f"{res['int8_differing_per_layer']}, max step "
+        f"{res['int8_max_step']}); per request, where the float K/V first "
+        f"differ (layer, k/v, int8 flips, float gap of max |x|): {first}; "
+        f"prefill logits within {res['prefill_logit_gap']:.3g} free, "
+        f"{res['replayed_prefill_logit_gap']:.3g} with the meshed int8 "
+        f"values replayed; split-K decode within "
+        f"{res['split_k_max_abs_err']:.3g} of the whole-pool kernel over "
+        f"{len(errs)} calls; tokens shared with the unmeshed engine "
+        f"{res['agree_unmeshed']}, with the replayed one "
+        f"{res['agree_replayed']} (of {MODEL_AXIS_NEW} each)")
+    return res, streams(meshed)
+
+
+def q8_rounding_cause(L, n_req, rec_u, rec_m, pages_u, pages_m):
+    """The int8 prefills of an unmeshed (``_u``) and a meshed (``_m``) run
+    from ``q8_recorder`` (2 calls per layer and request) and
+    ``prefill_pages`` (one record per request): see ``q8_on_the_mesh``.
+    Returns the counts and, per request, where its float K/V first differ
+    (None if never)."""
+    import torch
+
+    if not (len(rec_u) == len(rec_m) == 2 * L * n_req and
+            len(pages_u) == len(pages_m) == n_req):
+        raise AssertionError(f"int8 prefills: {len(rec_u)} / {len(rec_m)} "
+                             f"quantiser calls, {len(pages_u)} / "
+                             f"{len(pages_m)} prefills")
+    out = {"int8_entries": 0, "int8_differing": 0, "int8_max_step": 0,
+           "int8_differing_per_layer": [0] * L, "first_float_difference": []}
+    for r in range(n_req):
+        first = None
+        for i in range(2 * L * r, 2 * L * (r + 1)):
+            layer, j = (i // 2) % L, i % 2
+            where = f"request {r} layer {layer} {'kv'[j]}"
+            for side, rec, pages in (("unmeshed", rec_u, pages_u),
+                                     ("meshed", rec_m, pages_m)):
+                _, q, s = rec[i]  # the bucket's pages; the table maps
+                n = pages[r][j].shape[1]  # those the prompt fills
+                if not (torch.equal(pages[r][j][layer], q[0].reshape(
+                        s.shape[1], -1, *q.shape[2:])[:n]) and
+                        torch.equal(pages[r][2 + j][layer], s[0, :n])):
+                    raise AssertionError(f"{side} int8 pool, {where}: its "
+                                         f"pages hold other values than "
+                                         f"the quantiser wrote")
+            (xu, qu, su), (xm, qm, sm) = rec_u[i], rec_m[i]
+            diff = qu != qm
+            step = int((qu.int() - qm.int()).abs().max())
+            out["int8_entries"] += qu.numel()
+            out["int8_differing"] += int(diff.sum())
+            out["int8_differing_per_layer"][layer] += int(diff.sum())
+            out["int8_max_step"] = max(out["int8_max_step"], step)
+            if torch.equal(xu, xm):
+                if diff.any() or not torch.equal(su, sm):
+                    raise AssertionError(f"int8 prefill, {where}: equal "
+                                         f"float K/V quantised differently")
+                continue
+            if first is not None:
+                continue
+            nb, Hkv = su.shape[1:]
+            bs = qu.shape[1] // nb
+            tu = xu / su.repeat_interleave(bs, dim=1)[..., None]
+            tm = xm / sm.repeat_interleave(bs, dim=1)[..., None]
+            gap = (tu - tm).abs()
+            edge = (tu.abs() % 1 - 0.5).abs()  # distance to a boundary
+            off = diff & ~(edge <= gap + 1e-6)
+            # a scale (absmax / 127) moves at most its page's float gap
+            # / 127, and one rounding
+            dx = (xm - xu).abs().reshape(1, nb, bs, Hkv, -1).amax((2, 4))
+            sgap = (sm - su).abs() - dx / 127 - 2 * Q8_SCALE_RTOL * su
+            srel = float(((sm - su).abs() / su).max())
+            if step > 1 or (sgap > 0).any() or off.any():
+                raise AssertionError(
+                    f"int8 prefill, {where} (the float K/V's first "
+                    f"difference): step {step}, scales within {srel:.3g} "
+                    f"({int((sgap > 0).sum())} past their page's float "
+                    f"gap), {int(off.sum())} differing entries away from "
+                    f"a rounding boundary")
+            first = dict(layer=layer, kv="kv"[j], flips=int(diff.sum()),
+                         float_gap_rel=float((xm - xu).abs().max()
+                                             / xu.abs().max()),
+                         scale_rel=srel, max_t_gap=float(gap.max()))
+        out["first_float_difference"].append(first)
+    return out
+
+
+def model_axis_bf16(mesh, prompts, emitted):
+    """(b) of ``model_axis_path``: the results and the meshed runs'
+    launch counts.  The ranks build the model in turns (a build holds the
+    source and its merge, ~28 GB): rank 1 builds while rank 0 serves the
+    unmeshed references."""
+    import torch
+    import torch.distributed as dist
+
+    # barrier 1: rank 0 has built (rank 1 starts its build); barrier 2:
+    # rank 1 has built
+    rank = dist.get_rank()
+    if rank == 1:
+        dist.barrier()
+    mcfg, mparams = build(32, calibrate=False, dtype="bfloat16")[2:]
+    torch.cuda.empty_cache()  # the source's bytes, for the peer
+    dist.barrier()
+    unmeshed = {c: serve(mcfg, mparams, prompts, MODEL_AXIS_NEW,
+                         cache=c, **pool_size(c))[1:]
+                for c in ("dense", "paged", "paged_q8")}
+    if rank == 0:
+        dist.barrier()
+    placed = place_params(mparams, mesh)
+    del mparams
+    torch.cuda.empty_cache()
+    L, n = mcfg.n_layers, len(prompts)
+    res = {"launches": {k: 0 for k in KERNELS}, "bf16": {}}
+    for cache in ("dense", "paged", "paged_q8"):
+        plain, pcounts, pwall = unmeshed[cache]
+        eng, meshed, counts, wall = serve(mcfg, placed, prompts,
+                                          MODEL_AXIS_NEW, cache=cache,
+                                          mesh=mesh, **pool_size(cache))
+        check_counts(f"merged bfloat16 {cache}, (1, 2) mesh", counts, eng, L,
+                     n, merged=True)
+        if counts != pcounts:
+            raise AssertionError(f"{cache}: meshed launches {counts} != "
+                                 f"unmeshed {pcounts}")
+        del eng  # its cache, before the next engine allocates its own
+        torch.cuda.empty_cache()
+        seng, sched, scounts, swall = serve(mcfg, placed, prompts,
+                                            MODEL_AXIS_NEW, cache=cache,
+                                            sched=MODEL_AXIS_SCHED,
+                                            mesh=mesh, **pool_size(cache))
+        check_sched_counts(f"merged bfloat16 {cache}, (1, 2) mesh",
+                           scounts, seng, merged=True)
+        del seng
+        torch.cuda.empty_cache()
+        for k in KERNELS:
+            res["launches"][k] += counts[k] + scounts[k]
+        emitted[f"bf16/{cache}"] = [streams(meshed), streams(sched)]
+        res["bf16"][cache] = {
+            "agree_unmeshed": agreement(streams(meshed), streams(plain)),
+            "agree_sched": agreement(streams(sched), streams(meshed)),
+            "unmeshed": report(f"merged bfloat16 {cache} ({L} layers), no "
+                               "mesh", plain, pwall),
+            "meshed": report(f"merged bfloat16 {cache} ({L} layers), (1, 2) "
+                             "mesh", meshed, wall),
+            "sched_wall_s": swall}
+        log(f"  (1, 2) mesh, bfloat16 {L} layers, {cache}: tokens shared "
+            f"with the unmeshed engine {res['bf16'][cache]['agree_unmeshed']}"
+            f", scheduler with the engine "
+            f"{res['bf16'][cache]['agree_sched']} (of {MODEL_AXIS_NEW} "
+            f"each)")
+    del placed
+    torch.cuda.empty_cache()
+    return res
 
 
 def mesh_serve(mesh):
@@ -3549,10 +4352,17 @@ def sync_counted(fn):
     return out, caught
 
 
+# depth of the obs phase's model: its checks (obs on == off in streams,
+# launches and host syncs) do not depend on depth; cut from 32 so that
+# the script, with its model-axis phase, keeps a margin under its limit
+OBS_LAYERS = 8
+
+
 def obs_path(summary):
-    """The obs phase on merged bf16 Mistral-7B at 32 layers (uncalibrated,
-    as the path phase's bf16 runs), the path phase's prompts.  After every
-    timed phase: it turns on the GPU trace hooks (``sync_counted``)."""
+    """The obs phase on merged bf16 Mistral-7B at ``OBS_LAYERS`` layers
+    (uncalibrated, as the path phase's bf16 runs), the path phase's
+    prompts.  After every timed phase: it turns on the GPU trace hooks
+    (``sync_counted``)."""
     import numpy as np
     import torch
     from repro_torch._tree import tree_map
@@ -3560,7 +4370,7 @@ def obs_path(summary):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 32000, n) for n in (16, 37, 100, 250)]
     with torch.no_grad():
-        _, params, mcfg, mparams = build(32, calibrate=False)
+        _, params, mcfg, mparams = build(OBS_LAYERS, calibrate=False)
         del params
         bcfg = mcfg.with_(dtype="bfloat16", param_dtype="bfloat16")
         bparams = tree_map(lambda t: t.to(torch.bfloat16), mparams)
@@ -4043,6 +4853,25 @@ def run() -> int:
     # the VLM's and HuBERT's shapes: non-causal flash with Sk != Sq and at
     # D 80, the cross step's decode read in place
     cross_phase(rng, rows)
+    # the partial-state mode over the boxes of model axes 2 and 4
+    t0 = time.perf_counter()
+    split_rows = []
+    split_k_phase(rng, split_rows)
+    split_k_phase(rng, split_rows, attn=CHATGLM_ATTN)
+    log(f"split-K phase ({card}; rows 4-9 in the partial-state mode over "
+        f"the boxes of model axes {MODEL_AXES}, combined, against the whole "
+        f"kernel; times in ms from a CUDA graph of 30 calls on one input "
+        f"set, L2 warm: the box with the most attended keys beside the "
+        f"whole kernel; {time.perf_counter() - t0:.1f} s):")
+    for r in split_rows:
+        t = "" if "ms" not in r else (
+            f"  box {r['box']} ({r['box_keys']} of {r['whole_keys']} keys) "
+            f"{r['ms']:.4f} ms, whole {r['whole_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}; box at "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)")
+        log(f"  {r['name']:36s} {r['dtype']:15s} {r['case']:50s} axis "
+            f"{r['axis']}: err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}), "
+            f"{r['empty_boxes']} empty box(es){t}")
     log(f"kernel phase ({card}; times in ms, L2 cold, per call from a CUDA "
         f"graph of 30 calls: median [three replays], then the eager timer "
         f"of earlier runs; bound = the larger of the bytes at 3.35 TB/s and "
@@ -4062,13 +4891,29 @@ def run() -> int:
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)")
 
     summary = {"phase_s": {}}
-    for phase in (path_phase, hybrid_path, mamba2_path, dense_configs_path,
-                  moe_path, vlm_path, audio_path, train_path, mesh_path,
-                  obs_path, lint_path):
+
+    def timed(phase, *args):
         t0 = time.perf_counter()
-        phase(summary)
+        phase(summary, *args)
         summary["phase_s"][phase.__name__] = time.perf_counter() - t0
         log(f"{phase.__name__}: {summary['phase_s'][phase.__name__]:.1f} s")
+
+    for phase in (path_phase, hybrid_path, mamba2_path):
+        timed(phase)
+    # the dry run's CPU work runs beside the next phases on the card
+    dry = start_dryrun()
+    try:
+        for phase in (dense_configs_path, moe_path, vlm_path, audio_path,
+                      train_path):
+            timed(phase)
+    except BaseException:
+        dry.kill()
+        dry.communicate()
+        raise
+    timed(mesh_path, dry)
+    timed(obs_path)
+    # the lint measures no time: it runs beside the model-axis ranks
+    timed(model_axis_path, lint_path)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -4092,4 +4937,6 @@ def run() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--model-axis-rank"]:  # a rank of model_axis_path
+        sys.exit(model_axis_rank(int(sys.argv[2])))
     sys.exit(main())

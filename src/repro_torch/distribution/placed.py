@@ -17,6 +17,14 @@ Three seams need more than propagation, and live here:
     batch rows), through the hand-written kernels on the card, and the
     serving engine runs its decode step and whole-prompt prefill so.  A kernel wrapper never
     sees a DTensor (``kernels.ops`` raises ``TypeError`` for one).
+  * ``heads_call`` / ``split_k_call``: where the model axis is larger than
+    1, the kernel route (``impl="cuda"``) of the attention cores and the
+    SSD scan runs on each rank's local tensors all the same: a prefill,
+    a VLM's cross decode and the scan on the rank's query (SSM) heads and
+    the kv heads they read (``heads_call``), a decode step over the
+    rank's slice of the cache's sequence, whose partial softmax states
+    are combined across the model axis (``split_k_call``, then
+    ``combine_softmax``).  Neither gathers a cache or a pool.
   * ``reanchor``: the counterpart of the reference's
     ``with_sharding_constraint`` (q/k/v of merged layouts, the training
     stream).
@@ -84,19 +92,21 @@ def model_axis_size(x) -> int:
 def on_shards(impl: str, *tensors) -> bool:
     """True when an operand is a DTensor on a mesh whose model axis has
     size 1: the attention cores and the SSD scan then run on local shards
-    (``local_call``).  A larger model axis splits heads or sequences: the
-    kernels ("cuda") raise ValueError there, and the "torch" route runs on
-    the DTensors, which propagate the sharding."""
+    (``local_call``), on either route.  A larger model axis splits heads
+    or sequences: the "torch" route runs on the DTensors, which propagate
+    the sharding, and the kernels ("cuda") on each rank's heads or slice
+    (``model_split``)."""
     placed = [t for t in tensors if isinstance(t, DTensor)]
-    if not placed:
-        return False
-    if model_axis_size(placed[0]) > 1:
-        if impl == "cuda":
-            raise ValueError("impl='cuda' under a mesh whose model axis is "
-                             "larger than 1: the kernels take whole heads "
-                             "and sequences; serve with impl='torch'")
-        return False
-    return True
+    return bool(placed) and model_axis_size(placed[0]) == 1
+
+
+def model_split(impl: str, *tensors) -> bool:
+    """True for the kernel route (``impl="cuda"``) when an operand is a
+    DTensor on a mesh whose model axis is larger than 1: the cores then
+    run the kernels through ``heads_call`` or ``split_k_call``."""
+    placed = [t for t in tensors if isinstance(t, DTensor)]
+    return impl == "cuda" and bool(placed) and \
+        model_axis_size(placed[0]) > 1
 
 
 def shard_box(dst: DTensor):
@@ -157,9 +167,11 @@ def put_(dst, index, value) -> None:
             if step != 1:
                 raise ValueError("put_: slices must have step 1")
             a, b = max(start, lo), min(stop, hi)
+            if b <= a:
+                return  # the slice misses this rank's shard
             rshape.append(stop - start)
-            out_dims.append((a - start, max(b - a, 0)))
-            loc_index.append(slice(a - lo, max(b, a) - lo))
+            out_dims.append((a - start, b - a))
+            loc_index.append(slice(a - lo, b - lo))
     value = torch.as_tensor(value, device=local.device)
     value = value.to(local.dtype).expand(rshape)
     for k, (off, n) in enumerate(out_dims):
@@ -244,11 +256,9 @@ def local_call(fn: Callable, batch: Sequence[Any], other: Sequence[Any] = (),
     mesh = placed[0].device_mesh
     if model_axis_size(placed[0]) > 1:
         raise ValueError("local_call: the model axis splits heads or "
-                         "sequences; only DTensor propagation runs there")
+                         "sequences; run heads_call or split_k_call there")
     sizes = [int(s) for s in mesh.shape]
-    dp = [d for d in range(mesh.ndim) if sizes[d] > 1 and any(
-        isinstance(t, DTensor) and t.placements[d] == Shard(0)
-        for t in batch)]
+    dp = _batch_dims(mesh, batch)
 
     def local(t, is_batch):
         if t is None or not torch.is_tensor(t):
@@ -279,6 +289,140 @@ def local_call(fn: Callable, batch: Sequence[Any], other: Sequence[Any] = (),
         return type(out)(*map(wrap, out)) if hasattr(out, "_fields") \
             else tuple(map(wrap, out))
     return wrap(out)
+
+
+def _batch_dims(mesh, batch, skip=None):
+    """The mesh dims of size > 1 (but ``skip``) on which one of the
+    ``batch`` operands is split on its dim 0: the batch rows each rank
+    takes."""
+    return [d for d in range(mesh.ndim) if d != skip and mesh.size(d) > 1
+            and any(isinstance(t, DTensor) and t.placements[d] == Shard(0)
+                    for t in batch)]
+
+
+def _model_dim(mesh) -> int:
+    return list(mesh.mesh_dim_names).index("model")
+
+
+def _as_placed(t, mesh):
+    """A plain tensor (made inside ``on_mesh``) as the replicated DTensor
+    it counts as."""
+    if t is None or isinstance(t, DTensor) or not torch.is_tensor(t):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _wrap(out, mesh, place):
+    """A function's local output(s) as DTensors with ``place`` (one
+    placement list, or one per output of a tuple)."""
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, p, run_check=False)
+                     for o, p in zip(out, place))
+    return DTensor.from_local(out, mesh, place, run_check=False)
+
+
+def heads_call(fn: Callable, operands: Sequence, out_heads, *,
+               n_heads: int, group: int = 1):
+    """``fn`` on this rank's local tensors where the mesh's model axis (of
+    size m > 1) splits heads: rank r takes query (or SSM) heads
+    [r n, (r + 1) n), n = ``n_heads`` / m, and the kv heads they read
+    (head h reads kv head h // ``group``).
+
+    ``operands``: (tensor, batch, head dim, kv) each: ``batch`` says its
+    dim 0 is the batch (taken per data rank, as ``local_call`` does), the
+    head dim is None for an operand without heads (positions), and ``kv``
+    says the dim counts kv heads.  An operand that the model axis splits
+    on its head dim at the rank's range is taken as it lies; one it keeps
+    whole (``sharding.evenly``: kv heads that the axis does not divide) is
+    replicated and sliced.  Where the axis does not divide the query
+    heads, or a rank's heads would read part of a kv head's group and part
+    of another's, every rank runs ``fn`` on whole heads.  ``out_heads``:
+    each output's head dim (an int, or one per output of a tuple); the
+    outputs are placed split there over the model axis (whole, where the
+    heads are), and over the data axes on their batch dim."""
+    placed = [t for t, *_ in operands if isinstance(t, DTensor)]
+    mesh = placed[0].device_mesh
+    md = _model_dim(mesh)
+    m, r = mesh.size(md), mesh.get_local_rank(md)
+    n = n_heads // m
+    split = n_heads % m == 0 and (n % group == 0 or group % n == 0)
+    dp = _batch_dims(mesh, [t for t, batch, *_ in operands if batch], md)
+
+    def local(t, batch, hdim, kv):
+        t = _as_placed(t, mesh)
+        if not isinstance(t, DTensor):
+            return t
+        count = n_heads // group if kv else n_heads
+        lo, hi = (r * n // group, (r * n + n - 1) // group + 1) if kv \
+            else (r * n, r * n + n)
+        heads = split and hdim is not None
+        sharded = heads and count % m == 0  # the rank's range is its shard
+        want = [(Shard(hdim) if sharded else Replicate()) if d == md else
+                Shard(0) if batch and d in dp else
+                t.placements[d] if mesh.size(d) == 1 else Replicate()
+                for d in range(mesh.ndim)]
+        if list(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        x = t.to_local()
+        return x.narrow(hdim, lo, hi - lo) if heads and not sharded else x
+
+    out = fn(*[local(*o) for o in operands])
+
+    def place(hdim):
+        return [(Shard(hdim) if split else Replicate()) if d == md else
+                Shard(0) if d in dp else Replicate()
+                for d in range(mesh.ndim)]
+
+    return _wrap(out, mesh, [place(h) for h in out_heads]
+                 if isinstance(out_heads, (tuple, list)) else
+                 place(out_heads))
+
+
+def split_k_call(states_fn: Callable, whole_fn: Callable, q, kv, batch,
+                 out_dtype):
+    """A decode step's attention where the model axis may split the
+    sequence of the cache: ``q`` (its heads gathered whole: a small
+    (B, Hq, D) or (B, d)), ``kv`` the cache operands whose dim 1 is the
+    sequence (k, v, their positions), ``batch`` the other per-row operands
+    (the query positions).  Each rank runs ``states_fn(q, *kv, *batch)``
+    on its batch rows and its slice of the sequence, a partial softmax
+    state (m, l, o), and the states are combined across the model axis
+    (``combine_softmax``) into ``q``'s shape in ``out_dtype``; the cache
+    is read where it lies.  Where no mesh dim splits the sequence
+    (``sharding.evenly`` keeps it whole), ``whole_fn`` runs on the local
+    tensors instead.  The output is placed over the data axes on its
+    batch dim, replicated over the rest."""
+    mesh = next(t for t in (q, *kv) if isinstance(t, DTensor)).device_mesh
+    dp = _batch_dims(mesh, (q, *kv, *batch))
+    seq = [d for d in range(mesh.ndim) if mesh.size(d) > 1 and
+           isinstance(kv[0], DTensor) and kv[0].placements[d] == Shard(1)]
+    if len(seq) > 1:
+        raise ValueError("split_k_call: the sequence splits over one mesh "
+                         f"dim, got {kv[0].placements}")
+    group = mesh.get_group(seq[0]) if seq else None
+
+    def local(t, keep_seq):
+        t = _as_placed(t, mesh)
+        if not isinstance(t, DTensor):
+            return t
+        want = [Shard(0) if d in dp else
+                Shard(1) if keep_seq and d in seq else Replicate()
+                for d in range(mesh.ndim)]
+        if list(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        return t.to_local()
+
+    ql = local(q, False)
+    args = [ql] + [local(t, True) for t in kv] + \
+        [local(t, False) for t in batch]
+    if group is None:
+        out = whole_fn(*args)
+    else:
+        out = combine_softmax(*states_fn(*args), group=group)
+        out = out.to(out_dtype).reshape(ql.shape)
+    place = [Shard(0) if d in dp else Replicate() for d in range(mesh.ndim)]
+    return DTensor.from_local(out, mesh, place, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -325,11 +469,13 @@ def combine_softmax(m, l, o, group=None):
     Returns (..., D) float32: sum_r e^(m_r - M) o_r / sum_r e^(m_r - M) l_r,
     M the max over ranges.  A range with nothing to attend to (every
     score at the -1e30 mask) weighs e^(-1e30 - M) = 0 beside one that has
-    a real score."""
+    a real score; where no range has one and every l is 0 (the decode
+    kernel's states of an idle row: m at the mask, l = 0, o = 0) the
+    result is 0, as the unsplit kernel writes, not 0/0."""
     if group is None:
         top = m.amax(0)
         w = torch.exp(m - top)
-        return (o * w[..., None]).sum(0) / (l * w).sum(0)[..., None]
+        return _normalised((o * w[..., None]).sum(0), (l * w).sum(0))
     import torch.distributed as dist
 
     top = m.clone()
@@ -338,7 +484,11 @@ def combine_softmax(m, l, o, group=None):
     both = torch.cat([(o * w[..., None]).reshape(-1), (l * w).reshape(-1)])
     dist.all_reduce(both, group=group)
     n = o.numel()
-    return both[:n].view(o.shape) / both[n:].view(l.shape)[..., None]
+    return _normalised(both[:n].view(o.shape), both[n:].view(l.shape))
+
+
+def _normalised(o, l):
+    return o / torch.where(l == 0, 1.0, l)[..., None]
 
 
 def copy_page_(pool, src: int, dst: int) -> None:

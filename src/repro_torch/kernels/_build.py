@@ -43,11 +43,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "decode_attention": {
-        "decode_attention_launch": [_I, _I] + [_P] * 6 + [_I] * 12 + [_P],
+        # ... then the partial-state outputs (m, l, o) and the stream
+        "decode_attention_launch": [_I, _I] + [_P] * 6 + [_I] * 12
+        + [_P] * 4,
         "decode_attention_paged_launch": [_I, _I] + [_P] * 6 + [_I] * 11
-        + [_P],
+        + [_P] * 4,
         "decode_attention_paged_q8_launch": [_I, _I] + [_P] * 8
-        + [_I] * 11 + [_P],
+        + [_I] * 11 + [_P] * 4,
         "decode_attention_occupancy": [_I] * 5 + [_P],
     },
     "flash_attention": {

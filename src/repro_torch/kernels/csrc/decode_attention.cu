@@ -83,6 +83,15 @@
 //     distributed shared memory, and writes them normalised.  No workspace,
 //     no second kernel, no host decision on device data: the launch is
 //     capture-safe;
+//   * the partial-state mode (a launch given st_m, st_l, st_o) skips that
+//     normalisation: it writes the combined softmax state of the keys it
+//     was given, float32, per (batch, query head): the running max m, the
+//     sum l of exp(score - m) and the unnormalised output o (D wide).  A
+//     rank that holds a slice of the sequence or of the pages (a mesh
+//     whose model axis splits them) launches it on its slice, and the
+//     ranks' states are combined across the axis
+//     (distribution.placed.combine_softmax).  Keys with nothing to attend
+//     give m = NEG, l = 0, o = 0;
 //   * occupancy: a stage holds the K and V tiles of TK keys, at most 32 KB
 //     (TK = 32 for float32 at D = 128), and the static shared memory is
 //     under 8 KB, so a block takes at most ~72 KB and three fit on an SM
@@ -195,6 +204,11 @@ struct DecodeArgs {
   const float* v_scale;
   const int* q_pos;  // (B,)
   void* out;  // same strides as q
+  // partial-state mode (else null): m, l (B, Hkv, G) and o (B, Hkv, G, D),
+  // float32, contiguous; out is then not written
+  float* st_m;
+  float* st_l;
+  float* st_o;
   int B, Hkv, G, S, window, n_split, chunk;
   int n_part;  // parts of the query group: ceil(G / MAX_G)
   int MB, bs, ring;  // paged: table width, page size, ring slots (0: absolute)
@@ -528,7 +542,10 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(DecodeArgs a) {
 
   // combine: split r of n writes outputs r*NT + tid, stepping n*NT
   const int n = static_cast<int>(cluster.num_blocks());
-  T* out = static_cast<T*>(a.out) + b * a.q_sb + h * a.q_sh + g0 * D;
+  T* out = a.st_o != nullptr
+               ? nullptr
+               : static_cast<T*>(a.out) + b * a.q_sb + h * a.q_sh + g0 * D;
+  const long long st = (static_cast<long long>(b) * a.Hkv + h) * a.G + g0;
   for (int e = split * NT + tid; e < G * D; e += n * NT) {
     const int g = e / D;
     float m_r[MAX_SPLIT];
@@ -547,7 +564,15 @@ __global__ void __launch_bounds__(NT, 3) decode_kernel(DecodeArgs a) {
         o += *cluster.map_shared_rank(&s_out[e], r) * w;
       }
     }
-    out[e] = from_f<T>(o / (L == 0.f ? 1.f : L));
+    if (a.st_o != nullptr) {  // partial-state mode: the state, unnormalised
+      a.st_o[st * D + e] = o;
+      if (e - g * D == 0) {
+        a.st_m[st + g] = M;
+        a.st_l[st + g] = L;
+      }
+    } else {
+      out[e] = from_f<T>(o / (L == 0.f ? 1.f : L));
+    }
   }
   cluster.sync();  // peers may still read this block's shared memory
 }
@@ -633,22 +658,39 @@ bool bad_common(int dtype, int D, int G, int n_split, int chunk) {
          chunk < 1 || chunk % 64 != 0;
 }
 
+// the three state outputs are all set or all null; without them out is set
+bool bad_states(const void* out, const void* m, const void* l, const void* o) {
+  const int n = (m != nullptr) + (l != nullptr) + (o != nullptr);
+  return (n != 0 && n != 3) || (n == 0 && out == nullptr);
+}
+
+void set_states(DecodeArgs& a, void* m, void* l, void* o) {
+  a.st_m = static_cast<float*>(m);
+  a.st_l = static_cast<float*>(l);
+  a.st_o = static_cast<float*>(o);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D must be 64 or 128, G at most 16,
 // n_split at most 8 (a cluster), chunk a whole number of 64-key tiles;
-// K/V 16-byte aligned.  Each launch function returns a cudaError_t (0 on
-// success); the Python wrapper raises on any other value.
+// K/V 16-byte aligned.  st_m, st_l and st_o are null (out takes the
+// normalised output) or all three set (the partial-state mode: out is not
+// written and may be null).  Each launch function returns a cudaError_t (0
+// on success); the Python wrapper raises on any other value.
 
 // Dense: position-tagged cache, strides as in DecodeArgs.
 extern "C" int decode_attention_launch(
     int dtype, int D, const void* q, const void* k, const void* v,
     const void* kv_pos, const void* q_pos, void* out, int B, int Hkv, int G,
     int S, int q_sb, int q_sh, int k_sb, int k_sh, int k_ss, int window,
-    int n_split, int chunk, void* stream) {
-  if (bad_common(dtype, D, G, n_split, chunk))
+    int n_split, int chunk, void* st_m, void* st_l, void* st_o,
+    void* stream) {
+  if (bad_common(dtype, D, G, n_split, chunk) ||
+      bad_states(out, st_m, st_l, st_o))
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a = {};
+  set_states(a, st_m, st_l, st_o);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -681,10 +723,13 @@ int paged(int dtype, int D, const void* q, const void* k_pool,
           const void* v_pool, const void* k_scale, const void* v_scale,
           const void* block_tables, const void* q_pos, void* out, int B,
           int Hkv, int G, int MB, int bs, int ring, int q_sb, int q_sh,
-          int window, int n_split, int chunk, void* stream) {
-  if (bad_common(dtype, D, G, n_split, chunk) || MB < 1 || bs < 1 || ring < 0)
+          int window, int n_split, int chunk, void* st_m, void* st_l,
+          void* st_o, void* stream) {
+  if (bad_common(dtype, D, G, n_split, chunk) || MB < 1 || bs < 1 ||
+      ring < 0 || bad_states(out, st_m, st_l, st_o))
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a = {};
+  set_states(a, st_m, st_l, st_o);
   a.q = q;
   a.k = k_pool;
   a.v = v_pool;
@@ -718,10 +763,11 @@ extern "C" int decode_attention_paged_launch(
     int dtype, int D, const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* q_pos, void* out, int B, int Hkv,
     int G, int MB, int bs, int ring, int q_sb, int q_sh, int window,
-    int n_split, int chunk, void* stream) {
+    int n_split, int chunk, void* st_m, void* st_l, void* st_o,
+    void* stream) {
   return paged<false>(dtype, D, q, k_pool, v_pool, nullptr, nullptr,
                       block_tables, q_pos, out, B, Hkv, G, MB, bs, ring, q_sb,
-                      q_sh, window, n_split, chunk, stream);
+                      q_sh, window, n_split, chunk, st_m, st_l, st_o, stream);
 }
 
 // q8: int8 pools, float32 scales (NB, Hkv); dtype is the query's.
@@ -730,10 +776,10 @@ extern "C" int decode_attention_paged_q8_launch(
     const void* k_scale, const void* v_scale, const void* block_tables,
     const void* q_pos, void* out, int B, int Hkv, int G, int MB, int bs,
     int ring, int q_sb, int q_sh, int window, int n_split, int chunk,
-    void* stream) {
+    void* st_m, void* st_l, void* st_o, void* stream) {
   return paged<true>(dtype, D, q, k_pool, v_pool, k_scale, v_scale,
                      block_tables, q_pos, out, B, Hkv, G, MB, bs, ring, q_sb,
-                     q_sh, window, n_split, chunk, stream);
+                     q_sh, window, n_split, chunk, st_m, st_l, st_o, stream);
 }
 
 // Residency of one instantiation (kind 0 dense, 1 paged, 2 paged q8) for a

@@ -23,6 +23,17 @@ pairs:
     in the kernel as each row is loaded; the output takes the query's
     dtype.
 
+Each entry point but ``decode_attention_bshd`` (whose caller, the VLM's
+cross decode, splits heads and not keys) has a partial-state twin,
+``<name>_states`` (the operator ``torch.ops.repro_torch.<name>_states``):
+the same launch in the kernel's partial-state mode, which returns the
+float32 softmax state of the keys it is given, (m, l, o): m and l of the
+query's shape without its head dim, o of the query's shape.  A rank of a mesh whose model axis
+splits the cache's sequence or the pool's pages launches it on its slice
+(``models.attention``), and the states are combined across the axis
+(``distribution.placed.combine_softmax``).  It counts under its twin's
+name in ``launches``.
+
 Each entry point is an operator ``torch.ops.repro_torch.<name>``
 (``_build.define_op``): on CPU tensors it runs the plain version
 (``kernels.ref``); on a CUDA device it launches the kernel (built at first
@@ -42,7 +53,13 @@ from repro_torch.kernels.ref import (ref_decode_attention,
                                      ref_decode_attention_paged,
                                      ref_decode_attention_paged_merged,
                                      ref_decode_attention_paged_q8,
-                                     ref_decode_attention_paged_q8_merged)
+                                     ref_decode_attention_paged_q8_merged,
+                                     ref_decode_states,
+                                     ref_decode_states_merged,
+                                     ref_decode_states_paged,
+                                     ref_decode_states_paged_merged,
+                                     ref_decode_states_paged_q8,
+                                     ref_decode_states_paged_q8_merged)
 
 launches = {"decode_attention_bhsd": 0, "decode_attention_merged_bsd": 0,
             "decode_attention_paged_bhsd": 0,
@@ -117,28 +134,47 @@ def _checks(name, q, data, ints, *, G, index, index_shape, scales=()):
     return code
 
 
+def _state_buffers(q):
+    """The partial-state mode's outputs (m, l, o), float32: m and l of
+    ``q``'s shape without its last dim, o of ``q``'s shape."""
+    return (q.new_empty(q.shape[:-1], dtype=torch.float32),
+            q.new_empty(q.shape[:-1], dtype=torch.float32),
+            q.new_empty(q.shape, dtype=torch.float32))
+
+
+def _outputs(q, states: bool):
+    """(result, out pointer, state pointers) of a launch: the normalised
+    output, like ``q``; or, in the partial-state mode, the state buffers
+    and no normalised output (a null pointer)."""
+    if not states:
+        out = torch.empty_like(q)
+        return out, out.data_ptr(), (None, None, None)
+    res = _state_buffers(q)
+    return res, None, tuple(t.data_ptr() for t in res)
+
+
 def _launch(name, q, k, v, kv_positions, q_position, *, q_strides,
-            k_strides, Hkv, G, S, sliding_window):
+            k_strides, Hkv, G, S, sliding_window, states=False):
     B, D = q.shape[0], q.shape[-1]
     code = _checks(name, q, (q, k, v), (kv_positions, q_position), G=G,
                    index=kv_positions, index_shape=(B, S))
     _build.check_aligned(name, (k, v))
     n_split, chunk = kv_split(B, Hkv, S, G)
-    out = torch.empty_like(q)
+    res, out, st = _outputs(q, states)
     lib = _build.library("decode_attention")
     err = lib.decode_attention_launch(
         code, D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_positions.data_ptr(), q_position.data_ptr(), out.data_ptr(),
+        kv_positions.data_ptr(), q_position.data_ptr(), out,
         B, Hkv, G, S, *q_strides, *k_strides, int(sliding_window), n_split,
-        chunk, torch.cuda.current_stream(q.device).cuda_stream)
+        chunk, *st, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(name, err)
     launches[name] += 1
-    return out
+    return res
 
 
 def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
                   q_strides, Hkv, G, sliding_window, ring_blocks,
-                  scales=()):
+                  scales=(), states=False):
     """Launch the paged body: fp pools, or int8 pools with their
     ``scales`` (k_scale, v_scale), each (NB, Hkv)."""
     B, D = q.shape[0], q.shape[-1]
@@ -159,7 +195,7 @@ def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
                    scales=scales)
     _build.check_aligned(name, (k_pool, v_pool))
     n_split, chunk = kv_split(B, Hkv, MB * bs, G)
-    out = torch.empty_like(q)
+    res, out, st = _outputs(q, states)
     lib = _build.library("decode_attention")
     pools = [k_pool.data_ptr(), v_pool.data_ptr()]
     if scales:
@@ -168,13 +204,13 @@ def _launch_paged(name, q, k_pool, v_pool, block_tables, q_position, *,
     else:
         fn = lib.decode_attention_paged_launch
     err = fn(code, D, q.data_ptr(), *pools, block_tables.data_ptr(),
-             q_position.data_ptr(), out.data_ptr(), B, Hkv, G, MB, bs,
+             q_position.data_ptr(), out, B, Hkv, G, MB, bs,
              int(ring_blocks),
-             *q_strides, int(sliding_window), n_split, chunk,
+             *q_strides, int(sliding_window), n_split, chunk, *st,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(name, err)
     launches[name] += 1
-    return out
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -196,7 +232,12 @@ def _fake(q, *args, **kw):
     return torch.empty_like(q)
 
 
-def _bhsd_cuda(q, k, v, kv_positions, q_position, *, sliding_window=0):
+def _fake_states(q, *args, **kw):
+    return _state_buffers(q)
+
+
+def _bhsd_cuda(q, k, v, kv_positions, q_position, *, sliding_window=0,
+               states=False):
     name = "decode_attention_bhsd"
     B, Hkv, G, D = q.shape
     S = k.shape[2]
@@ -207,7 +248,8 @@ def _bhsd_cuda(q, k, v, kv_positions, q_position, *, sliding_window=0):
     return _launch(name, q, k, v, kv_positions, q_position,
                    q_strides=(Hkv * G * D, G * D),
                    k_strides=(Hkv * S * D, S * D, D),
-                   Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
+                   Hkv=Hkv, G=G, S=S, sliding_window=sliding_window,
+                   states=states)
 
 
 def _bshd_cuda(q, k, v, kv_positions, q_position, *, sliding_window=0):
@@ -230,7 +272,8 @@ def _bshd_plain(q, k, v, kv_positions, q_position, *, sliding_window=0):
                                 sliding_window=sliding_window)
 
 
-def _merged_cuda(u, k, v, kv_positions, q_position, *, sliding_window=0):
+def _merged_cuda(u, k, v, kv_positions, q_position, *, sliding_window=0,
+                 states=False):
     name = "decode_attention_merged_bsd"
     B, Hq, D = u.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -242,13 +285,15 @@ def _merged_cuda(u, k, v, kv_positions, q_position, *, sliding_window=0):
     return _launch(name, u, k, v, kv_positions, q_position,
                    q_strides=(Hq * D, G * D),
                    k_strides=(S * Hkv * D, D, Hkv * D),
-                   Hkv=Hkv, G=G, S=S, sliding_window=sliding_window)
+                   Hkv=Hkv, G=G, S=S, sliding_window=sliding_window,
+                   states=states)
 
 
-def _paged_cuda(name, grouped):
+def _paged_cuda(name, grouped, states=False):
     """The CUDA implementation of a paged operator: ``grouped`` queries
     are (B, Hkv, G, D), the others the stream viewed (B, Hq, D); with
-    scales (``q8``) the pools are int8."""
+    scales (``q8``) the pools are int8; ``states``: the partial-state
+    mode."""
     def run(q, k_pool, v_pool, *rest, sliding_window=0, ring_blocks=0):
         *scales, block_tables, q_position = rest
         if grouped:
@@ -265,7 +310,8 @@ def _paged_cuda(name, grouped):
         return _launch_paged(name, q, k_pool, v_pool, block_tables,
                              q_position, q_strides=q_strides, Hkv=Hkv, G=G,
                              sliding_window=sliding_window,
-                             ring_blocks=ring_blocks, scales=tuple(scales))
+                             ring_blocks=ring_blocks, scales=tuple(scales),
+                             states=states)
     return run
 
 
@@ -299,6 +345,29 @@ _OPS = {
         cuda=_paged_cuda("decode_attention_paged_q8_merged_bsd", False),
         fake=_fake),
 }
+
+# the partial-state twins: (name, plain version, CUDA implementation);
+# each counts its launches under the twin's name
+_STATES_SCHEMA = {"": _SCHEMA, "paged": _PAGED_SCHEMA, "q8": _Q8_SCHEMA}
+for _name, _schema, _plain, _cuda in (
+        ("decode_attention_bhsd", "", ref_decode_states,
+         lambda *a, **k: _bhsd_cuda(*a, states=True, **k)),
+        ("decode_attention_merged_bsd", "", ref_decode_states_merged,
+         lambda *a, **k: _merged_cuda(*a, states=True, **k)),
+        ("decode_attention_paged_bhsd", "paged", ref_decode_states_paged,
+         _paged_cuda("decode_attention_paged_bhsd", True, True)),
+        ("decode_attention_paged_merged_bsd", "paged",
+         ref_decode_states_paged_merged,
+         _paged_cuda("decode_attention_paged_merged_bsd", False, True)),
+        ("decode_attention_paged_q8_bhsd", "q8", ref_decode_states_paged_q8,
+         _paged_cuda("decode_attention_paged_q8_bhsd", True, True)),
+        ("decode_attention_paged_q8_merged_bsd", "q8",
+         ref_decode_states_paged_q8_merged,
+         _paged_cuda("decode_attention_paged_q8_merged_bsd", False, True))):
+    _OPS[_name + "_states"] = _build.define_op(
+        _name + "_states", _STATES_SCHEMA[_schema].replace(
+            "-> Tensor", "-> (Tensor, Tensor, Tensor)"),
+        cpu=_plain, cuda=_cuda, fake=_fake_states)
 
 
 # --------------------------------------------------------------------------
@@ -435,3 +504,17 @@ def decode_attention_paged_q8_merged_bsd(
     return _OPS[name](u, k_pool, v_pool, k_scale, v_scale, block_tables,
                       q_position, sliding_window=int(sliding_window),
                       ring_blocks=int(ring_blocks))
+
+
+def decode_states(name: str, *args, sliding_window: int = 0,
+                  ring_blocks: int = 0):
+    """The partial-state twin of the wrapper ``name`` (one of the six
+    above with a twin, e.g. ``"decode_attention_paged_merged_bsd"``) on
+    the same operands: (m, l, o) float32, the softmax state of the keys
+    (pages) it is given (``ref_decode_states``).  One launch on the card, counted
+    under ``name``; the plain version on the CPU."""
+    _build.check_call(name, *args)
+    kw = {"sliding_window": int(sliding_window)}
+    if "paged" in name:
+        kw["ring_blocks"] = int(ring_blocks)
+    return _OPS[name + "_states"](*args, **kw)

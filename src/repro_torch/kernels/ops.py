@@ -32,6 +32,16 @@ transposed) and derive ring addressing from the window and the table
 width (``kernels.paging``), so callers never pass a ring flag.  The q8
 wrappers take the int8 pools (or the int8 prompt K*/V*) with their float32
 scales as keywords, as the reference does.
+
+Each decode wrapper but the native one has a partial-state twin
+(``*_states``: the same operands and the same plumbing helper): it
+returns the float32 softmax state (m, l, o) of the keys or pages it is
+given, m and l (B, Hq), o (B, Hq, D), from the decode kernel's
+partial-state mode.  A rank of a mesh whose model axis
+splits the cache's sequence (or the pool's pages) calls it on its slice
+(a paged table whose other ranks' pages are -1, ``placed.own_pages``,
+keeping the global width) and the states are combined across the axis
+(``placed.combine_softmax``).
 """
 from __future__ import annotations
 
@@ -43,7 +53,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (
     decode_attention_bhsd, decode_attention_bshd, decode_attention_merged_bsd,
     decode_attention_paged_bhsd, decode_attention_paged_merged_bsd,
-    decode_attention_paged_q8_bhsd, decode_attention_paged_q8_merged_bsd)
+    decode_attention_paged_q8_bhsd, decode_attention_paged_q8_merged_bsd,
+    decode_states)
 from repro_torch.kernels.flash_attention import (
     flash_attention_bshd, flash_attention_merged_bsd,
     flash_attention_merged_q8_bsd)
@@ -115,6 +126,80 @@ def flash_attention_merged(
     return out.reshape(B, Sq, d)
 
 
+# ---------------------------------------------------------------------------
+# decode wrappers and their partial-state twins
+# ---------------------------------------------------------------------------
+#
+# One plumbing helper per layout (dense, merged, paged) hands a wrapper's
+# operands to ``run``: the kernel's entry point (the whole wrapper) or
+# ``_twin(name)``, its partial-state mode (the twin), which returns the
+# float32 state (m, l, o) of the keys or pages it is given in place of
+# the normalised output.
+
+def _twin(name):
+    """``run`` for a partial-state twin: ``decode_states`` of the entry
+    point ``name``."""
+    return functools.partial(decode_states, name)
+
+
+def _name(run) -> str:
+    return getattr(run, "__name__", None) or run.args[0]
+
+
+def _heads(states, B, Hq, D):
+    m, l, o = states
+    return m.reshape(B, Hq), l.reshape(B, Hq), o.reshape(B, Hq, D)
+
+
+def _dense(run, q, k_cache, v_cache, kv_positions, q_position,
+           sliding_window):
+    """The generic dense decode's plumbing: the grouped query and the
+    reference's head-major copies of the cache."""
+    B, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    return run(q.reshape(B, Hkv, Hq // Hkv, D).contiguous(),
+               k_cache.transpose(1, 2).contiguous(),
+               v_cache.transpose(1, 2).contiguous(),
+               kv_positions.to(torch.int32).contiguous(),
+               q_position.to(torch.int32).contiguous(),
+               sliding_window=sliding_window)
+
+
+def _merged(run, u, k_cache, v_cache, kv_positions, q_position, n_kv_heads,
+            sliding_window):
+    """The merged dense decode's plumbing: the stream viewed (B, Hq, D),
+    the native cache as is."""
+    B, d = u.shape
+    Hkv, D = k_cache.shape[2], k_cache.shape[3]
+    _merged_heads(_name(run), d, Hkv, D, n_kv_heads)
+    return run(u.reshape(B, d // D, D).contiguous(), k_cache.contiguous(),
+               v_cache.contiguous(), kv_positions.to(torch.int32).contiguous(),
+               q_position.to(torch.int32).contiguous(),
+               sliding_window=sliding_window)
+
+
+def _paged(run, q, pools, block_tables, q_position, sliding_window,
+           n_kv_heads=None):
+    """The paged decodes' plumbing: ``pools`` (k, v) or (k, v, k_scale,
+    v_scale); ``n_kv_heads`` given, ``q`` is the merged stream (B,
+    d_model) viewed (B, Hq, D), else the grouped query; ring addressing
+    from the window and the table width."""
+    B = q.shape[0]
+    Hkv, D = pools[0].shape[2], pools[0].shape[3]
+    if n_kv_heads is None:
+        query = q.reshape(B, Hkv, q.shape[1] // Hkv, D)
+    else:
+        _merged_heads(_name(run), q.shape[1], Hkv, D, n_kv_heads)
+        query = q.reshape(B, q.shape[1] // D, D)
+    ring = paged_ring_active(sliding_window, pools[0].shape[1],
+                             block_tables.shape[1])
+    return run(query.contiguous(), *[p.contiguous() for p in pools[:2]],
+               *[s.float().contiguous() for s in pools[2:]],
+               block_tables.to(torch.int32).contiguous(),
+               q_position.to(torch.int32).contiguous(),
+               sliding_window=sliding_window, ring_blocks=ring)
+
+
 @_plain_only
 def decode_attention(
     q: torch.Tensor,  # (B, Hq, D)
@@ -125,16 +210,18 @@ def decode_attention(
     q_position: torch.Tensor,  # (B,) int32
     sliding_window: int = 0,
 ) -> torch.Tensor:
-    B, Hq, D = q.shape
-    Hkv = k_cache.shape[2]
-    out = decode_attention_bhsd(
-        q.reshape(B, Hkv, Hq // Hkv, D).contiguous(),
-        k_cache.transpose(1, 2).contiguous(),
-        v_cache.transpose(1, 2).contiguous(),
-        kv_positions.to(torch.int32).contiguous(),
-        q_position.to(torch.int32).contiguous(),
-        sliding_window=sliding_window)
-    return out.reshape(B, Hq, D)
+    return _dense(decode_attention_bhsd, q, k_cache, v_cache, kv_positions,
+                  q_position, sliding_window).reshape(q.shape)
+
+
+@_plain_only
+def decode_attention_states(q, k_cache, v_cache, *, kv_positions,
+                            q_position, sliding_window: int = 0):
+    """``decode_attention``'s state over a slice of the cache: q (B, Hq,
+    D), k/v (B, S, Hkv, D) with their positions (B, S)."""
+    return _heads(_dense(_twin("decode_attention_bhsd"), q, k_cache,
+                         v_cache, kv_positions, q_position, sliding_window),
+                  *q.shape)
 
 
 @_plain_only
@@ -172,15 +259,19 @@ def decode_attention_merged(
 ) -> torch.Tensor:
     """Merged (Q/P-removed) decode -> (B, d_model) FFN-input stream; the
     (B, Hq, D) view of the stream is free and the cache is read as is."""
-    B, d = u.shape
-    Hkv, D = k_cache.shape[2], k_cache.shape[3]
-    _merged_heads("decode_attention_merged", d, Hkv, D, n_kv_heads)
-    out = decode_attention_merged_bsd(
-        u.reshape(B, d // D, D).contiguous(), k_cache.contiguous(),
-        v_cache.contiguous(), kv_positions.to(torch.int32).contiguous(),
-        q_position.to(torch.int32).contiguous(),
-        sliding_window=sliding_window)
-    return out.reshape(B, d)
+    return _merged(decode_attention_merged_bsd, u, k_cache, v_cache,
+                   kv_positions, q_position, n_kv_heads,
+                   sliding_window).reshape(u.shape)
+
+
+@_plain_only
+def decode_attention_merged_states(u, k_cache, v_cache, *, kv_positions,
+                                   q_position, n_kv_heads: int,
+                                   sliding_window: int = 0):
+    """``decode_attention_merged``'s state: u (B, d_model), the native
+    cache slice."""
+    return _merged(_twin("decode_attention_merged_bsd"), u, k_cache, v_cache,
+                   kv_positions, q_position, n_kv_heads, sliding_window)
 
 
 @_plain_only
@@ -194,16 +285,17 @@ def decode_attention_paged(
     sliding_window: int = 0,
 ) -> torch.Tensor:
     """Generic decode attention over a paged KV pool -> (B, Hq, D)."""
-    B, Hq, D = q.shape
-    Hkv = k_pool.shape[2]
-    ring = paged_ring_active(sliding_window, k_pool.shape[1],
-                             block_tables.shape[1])
-    out = decode_attention_paged_bhsd(
-        q.reshape(B, Hkv, Hq // Hkv, D).contiguous(), k_pool.contiguous(),
-        v_pool.contiguous(), block_tables.to(torch.int32).contiguous(),
-        q_position.to(torch.int32).contiguous(),
-        sliding_window=sliding_window, ring_blocks=ring)
-    return out.reshape(B, Hq, D)
+    return _paged(decode_attention_paged_bhsd, q, (k_pool, v_pool),
+                  block_tables, q_position, sliding_window).reshape(q.shape)
+
+
+@_plain_only
+def decode_attention_paged_states(q, k_pool, v_pool, *, block_tables,
+                                  q_position, sliding_window: int = 0):
+    """``decode_attention_paged``'s state over the pages the table maps."""
+    return _heads(_paged(_twin("decode_attention_paged_bhsd"), q,
+                         (k_pool, v_pool), block_tables, q_position,
+                         sliding_window), *q.shape)
 
 
 @_plain_only
@@ -219,17 +311,19 @@ def decode_attention_paged_merged(
 ) -> torch.Tensor:
     """Merged (Q/P-removed) decode over a paged KV pool -> (B, d_model)
     FFN-input stream."""
-    B, d = u.shape
-    Hkv, D = k_pool.shape[2], k_pool.shape[3]
-    _merged_heads("decode_attention_paged_merged", d, Hkv, D, n_kv_heads)
-    ring = paged_ring_active(sliding_window, k_pool.shape[1],
-                             block_tables.shape[1])
-    out = decode_attention_paged_merged_bsd(
-        u.reshape(B, d // D, D).contiguous(), k_pool.contiguous(),
-        v_pool.contiguous(), block_tables.to(torch.int32).contiguous(),
-        q_position.to(torch.int32).contiguous(),
-        sliding_window=sliding_window, ring_blocks=ring)
-    return out.reshape(B, d)
+    return _paged(decode_attention_paged_merged_bsd, u, (k_pool, v_pool),
+                  block_tables, q_position, sliding_window,
+                  n_kv_heads).reshape(u.shape)
+
+
+@_plain_only
+def decode_attention_paged_merged_states(u, k_pool, v_pool, *, block_tables,
+                                         q_position, n_kv_heads: int,
+                                         sliding_window: int = 0):
+    """``decode_attention_paged_merged``'s state: u (B, d_model)."""
+    return _paged(_twin("decode_attention_paged_merged_bsd"), u,
+                  (k_pool, v_pool), block_tables, q_position, sliding_window,
+                  n_kv_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -251,18 +345,19 @@ def decode_attention_paged_q8(
     """Generic decode attention over an int8 paged pool -> (B, Hq, D): the
     table gather and ring rule of ``decode_attention_paged``, each page
     dequantized in the kernel from its (page, head) scale."""
-    B, Hq, D = q.shape
-    Hkv = k_pool.shape[2]
-    ring = paged_ring_active(sliding_window, k_pool.shape[1],
-                             block_tables.shape[1])
-    out = decode_attention_paged_q8_bhsd(
-        q.reshape(B, Hkv, Hq // Hkv, D).contiguous(), k_pool.contiguous(),
-        v_pool.contiguous(), k_scale.float().contiguous(),
-        v_scale.float().contiguous(),
-        block_tables.to(torch.int32).contiguous(),
-        q_position.to(torch.int32).contiguous(),
-        sliding_window=sliding_window, ring_blocks=ring)
-    return out.reshape(B, Hq, D)
+    return _paged(decode_attention_paged_q8_bhsd, q,
+                  (k_pool, v_pool, k_scale, v_scale), block_tables,
+                  q_position, sliding_window).reshape(q.shape)
+
+
+@_plain_only
+def decode_attention_paged_q8_states(q, k_pool, v_pool, *, k_scale, v_scale,
+                                     block_tables, q_position,
+                                     sliding_window: int = 0):
+    """``decode_attention_paged_q8``'s state over the int8 pages mapped."""
+    return _heads(_paged(_twin("decode_attention_paged_q8_bhsd"), q,
+                         (k_pool, v_pool, k_scale, v_scale), block_tables,
+                         q_position, sliding_window), *q.shape)
 
 
 @_plain_only
@@ -280,19 +375,20 @@ def decode_attention_paged_q8_merged(
 ) -> torch.Tensor:
     """Merged (Q/P-removed) decode over an int8 paged pool -> (B, d_model)
     FFN-input stream: one byte per attended pooled element."""
-    B, d = u.shape
-    Hkv, D = k_pool.shape[2], k_pool.shape[3]
-    _merged_heads("decode_attention_paged_q8_merged", d, Hkv, D, n_kv_heads)
-    ring = paged_ring_active(sliding_window, k_pool.shape[1],
-                             block_tables.shape[1])
-    out = decode_attention_paged_q8_merged_bsd(
-        u.reshape(B, d // D, D).contiguous(), k_pool.contiguous(),
-        v_pool.contiguous(), k_scale.float().contiguous(),
-        v_scale.float().contiguous(),
-        block_tables.to(torch.int32).contiguous(),
-        q_position.to(torch.int32).contiguous(),
-        sliding_window=sliding_window, ring_blocks=ring)
-    return out.reshape(B, d)
+    return _paged(decode_attention_paged_q8_merged_bsd, u,
+                  (k_pool, v_pool, k_scale, v_scale), block_tables,
+                  q_position, sliding_window, n_kv_heads).reshape(u.shape)
+
+
+@_plain_only
+def decode_attention_paged_q8_merged_states(u, k_pool, v_pool, *, k_scale,
+                                            v_scale, block_tables,
+                                            q_position, n_kv_heads: int,
+                                            sliding_window: int = 0):
+    """``decode_attention_paged_q8_merged``'s state: u (B, d_model)."""
+    return _paged(_twin("decode_attention_paged_q8_merged_bsd"), u,
+                  (k_pool, v_pool, k_scale, v_scale), block_tables,
+                  q_position, sliding_window, n_kv_heads)
 
 
 @_plain_only
@@ -409,6 +505,15 @@ def attention_kernel(phase: str, cache_kind: str, style: str):
 # the decode view of the unified table
 DECODE_KERNELS = {(ck, st): fn for (ph, ck, st), fn in ATTENTION_KERNELS.items()
                   if ph == "decode"}
+
+# the partial-state twin of each paged decode entry, keyed (cache_kind,
+# style) like ``DECODE_KERNELS`` (the dense cores call their twins by name)
+DECODE_STATES = {
+    ("paged", "generic"): decode_attention_paged_states,
+    ("paged", "merged"): decode_attention_paged_merged_states,
+    ("paged_q8", "generic"): decode_attention_paged_q8_states,
+    ("paged_q8", "merged"): decode_attention_paged_q8_merged_states,
+}
 
 
 def decode_kernel(cache_kind: str, style: str):

@@ -10,8 +10,11 @@ go to ``NEG`` before the softmax and their probabilities are then zeroed,
 so a row with nothing to attend to is exactly zero.  The paged versions
 gather a slot's pages into a dense view and defer to the dense decode
 version (``ref_decode_attention_paged*``); the int8 versions dequantize
-in float32 (``ints * scale``) and defer to the fp ones.  The SSD scan has
-two: the sequential recurrence ``ref_ssd`` (the ground truth) and the
+in float32 (``ints * scale``) and defer to the fp ones.  Each decode
+version has a partial-state twin (``ref_decode_states*``): the float32
+softmax state (max, sum, unnormalised output) of the keys it is given,
+what the decode kernel writes in its partial-state mode for a rank's
+slice of the sequence or the pages.  The SSD scan has two: the sequential recurrence ``ref_ssd`` (the ground truth) and the
 chunked scan ``ref_ssd_chunked`` (what the CUDA kernel computes, tiled as
 the reference's XLA path tiles it).
 """
@@ -87,6 +90,63 @@ def ref_decode_attention(
     p = torch.where(ok, p, 0.0)
     o = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
     return o.to(q.dtype)
+
+
+def ref_decode_states(
+    q: torch.Tensor,  # (B, Hkv, G, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    kv_positions: torch.Tensor,  # (B, S) int32, -1 empty
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+):
+    """``ref_decode_attention``'s softmax state over the keys given,
+    unnormalised, in float32: m (B, Hkv, G) the max of the attendable
+    scores, l (B, Hkv, G) the sum of exp(score - m) over them, o (B, Hkv,
+    G, D) the sum of exp(score - m) v.  With nothing to attend (S may be
+    0): m = ``NEG``, l = 0, o = 0.  ``o / l`` is the decode output where
+    l > 0; ``distribution.placed.combine_softmax`` combines the states of
+    disjoint key ranges."""
+    B, Hkv, G, D = q.shape
+    if k.shape[2] == 0:
+        z = q.new_zeros((B, Hkv, G), dtype=torch.float32)
+        return z + NEG, z, q.new_zeros(q.shape, dtype=torch.float32)
+    s = torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float()) / (D ** 0.5)
+    qpos = q_position.reshape(-1)[:, None]
+    ok = (kv_positions >= 0) & (kv_positions <= qpos)
+    if sliding_window > 0:
+        ok &= qpos - kv_positions < sliding_window
+    ok = ok[:, None, None, :]
+    s = torch.where(ok, s, NEG)
+    m = s.amax(-1)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(-1), torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+
+
+def _stream_states(states, B, Hq, D):
+    """Grouped (B, Hkv, G[, D]) states as the stream's (B, Hq[, D])."""
+    m, l, o = states
+    return m.reshape(B, Hq), l.reshape(B, Hq), o.reshape(B, Hq, D)
+
+
+def ref_decode_states_merged(
+    u: torch.Tensor,  # (B, Hq, D)
+    k: torch.Tensor,  # (B, S, Hkv, D)
+    v: torch.Tensor,  # (B, S, Hkv, D)
+    kv_positions: torch.Tensor,  # (B, S) int32, -1 empty
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+):
+    """``ref_decode_states`` of the merged query over the native cache:
+    m, l (B, Hq), o (B, Hq, D)."""
+    B, Hq, D = u.shape
+    Hkv = k.shape[2]
+    return _stream_states(ref_decode_states(
+        u.reshape(B, Hkv, Hq // Hkv, D), k.transpose(1, 2),
+        v.transpose(1, 2), kv_positions, q_position,
+        sliding_window=sliding_window), B, Hq, D)
 
 
 def ref_decode_attention_merged(
@@ -170,6 +230,47 @@ def ref_decode_attention_paged(
                                 sliding_window=sliding_window)
 
 
+def ref_decode_states_paged(
+    q: torch.Tensor,  # (B, Hkv, G, D)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D)
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D)
+    block_tables: torch.Tensor,  # (B, MB) int32, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+):
+    """``ref_decode_states`` over the pages a table maps: a rank's pool
+    and its table of the GLOBAL width, other ranks' pages marked -1
+    (``placed.own_pages``), so that positions, ring positions included,
+    come from the table slot as on the whole pool."""
+    bs = k_pool.shape[1]
+    k = ref_paged_gather(k_pool, block_tables).transpose(1, 2)
+    v = ref_paged_gather(v_pool, block_tables).transpose(1, 2)
+    kv_pos = ref_paged_positions(block_tables, bs, q_position, ring_blocks)
+    return ref_decode_states(q, k, v, kv_pos, q_position,
+                             sliding_window=sliding_window)
+
+
+def ref_decode_states_paged_merged(
+    u: torch.Tensor,  # (B, Hq, D)
+    k_pool: torch.Tensor,  # (NB, bs, Hkv, D)
+    v_pool: torch.Tensor,  # (NB, bs, Hkv, D)
+    block_tables: torch.Tensor,  # (B, MB) int32, -1 unmapped
+    q_position: torch.Tensor,  # (B,) int32
+    *,
+    sliding_window: int = 0,
+    ring_blocks: int = 0,
+):
+    """``ref_decode_states_paged`` of the merged query -> (B, Hq) states."""
+    B, Hq, D = u.shape
+    Hkv = k_pool.shape[2]
+    return _stream_states(ref_decode_states_paged(
+        u.reshape(B, Hkv, Hq // Hkv, D), k_pool, v_pool, block_tables,
+        q_position, sliding_window=sliding_window, ring_blocks=ring_blocks),
+        B, Hq, D)
+
+
 def ref_decode_attention_paged_merged(
     u: torch.Tensor,  # (B, Hq, D) — RoPE'd stream viewed as heads
     k_pool: torch.Tensor,  # (NB, bs, Hkv, D) — K* page pool
@@ -235,6 +336,28 @@ def ref_decode_attention_paged_q8_merged(
 ) -> torch.Tensor:
     """Merged q8 paged decode -> (B, Hq, D)."""
     return ref_decode_attention_paged_merged(
+        u, ref_q8_dequant_pool(k_pool, k_scale),
+        ref_q8_dequant_pool(v_pool, v_scale), block_tables, q_position,
+        sliding_window=sliding_window, ring_blocks=ring_blocks)
+
+
+def ref_decode_states_paged_q8(q, k_pool, v_pool, k_scale, v_scale,
+                               block_tables, q_position, *,
+                               sliding_window: int = 0, ring_blocks: int = 0):
+    """``ref_decode_states_paged`` over int8 pages (dequantized in
+    float32)."""
+    return ref_decode_states_paged(
+        q, ref_q8_dequant_pool(k_pool, k_scale),
+        ref_q8_dequant_pool(v_pool, v_scale), block_tables, q_position,
+        sliding_window=sliding_window, ring_blocks=ring_blocks)
+
+
+def ref_decode_states_paged_q8_merged(u, k_pool, v_pool, k_scale, v_scale,
+                                      block_tables, q_position, *,
+                                      sliding_window: int = 0,
+                                      ring_blocks: int = 0):
+    """``ref_decode_states_paged_merged`` over int8 pages."""
+    return ref_decode_states_paged_merged(
         u, ref_q8_dequant_pool(k_pool, k_scale),
         ref_q8_dequant_pool(v_pool, v_scale), block_tables, q_position,
         sliding_window=sliding_window, ring_blocks=ring_blocks)

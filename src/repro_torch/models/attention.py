@@ -27,12 +27,19 @@ batch rows of every dp rank; a paged pool goes in as it lies, whole on
 every rank), through the kernels on the card; a kernel never sees a
 DTensor.  A larger model axis splits heads or sequences: the "torch"
 route then runs on the DTensors, which propagate the sharding and insert
-the collectives, and the "cuda" route raises ValueError.  The paged
-pools split their PAGES over it instead: each rank attends over the
-pages it holds (``paged_partial_states``: table entries for other ranks'
-pages are masked after the positions are derived from the global table)
-and the partial softmax states are combined across the model axis
-(``distribution.placed.combine_softmax``), as in the reference.
+the collectives.  The "cuda" route runs the kernels on each rank's local
+tensors there too: a prefill and a VLM's cross decode on the rank's
+query heads and the kv heads they read (``placed.heads_call``); a dense
+decode step over the rank's slice of the cache's sequence, the decode
+kernel's partial softmax states combined across the model axis
+(``placed.split_k_call``, the reference's flash-decoding split-K).  The
+paged pools split their PAGES over it instead: each rank attends over the
+pages it holds (table entries for other ranks' pages are masked after
+the positions are derived from the table of global width: the partial-
+state twin of the paged decode kernel, its plain version on either
+route's CPU tensors) and the partial softmax states are combined across
+the model axis (``distribution.placed.combine_softmax``), as in the
+reference.  No step gathers a cache or a pool.
 """
 from __future__ import annotations
 
@@ -40,10 +47,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distribution.placed import (combine_softmax, is_placed,
-                                             local_call, on_shards,
+from repro_torch.distribution.placed import (combine_softmax, heads_call,
+                                             is_placed, local_call,
+                                             model_split, on_shards,
                                              own_pages, shard_box,
-                                             split_group)
+                                             split_group, split_k_call)
 from repro_torch.kernels import quant
 from repro_torch.kernels.paging import paged_ring_active
 from repro_torch.kernels.ref import ref_paged_gather as _paged_gather
@@ -67,15 +75,18 @@ def _mask_bias(
     sliding_window: int,
     kv_valid: Optional[torch.Tensor],  # (B, Sk) bool
 ) -> torch.Tensor:
-    """Additive bias (B, 1, Sq, Sk) fp32: 0 where attendable, NEG_INF else."""
+    """Additive bias (B, 1, Sq, Sk) fp32: 0 where attendable, NEG_INF else.
+    Out of place: ``kv_pos`` may be a DTensor whose keys the model axis
+    splits (a chunk over a sequence-split cache), which an in-place ``&=``
+    into the plain mask cannot take."""
     ok = torch.ones((q_pos.shape[0], q_pos.shape[1], kv_pos.shape[1]),
                     dtype=torch.bool, device=q_pos.device)
     if causal:
-        ok &= kv_pos[:, None, :] <= q_pos[:, :, None]
+        ok = ok & (kv_pos[:, None, :] <= q_pos[:, :, None])
     if sliding_window > 0:
-        ok &= q_pos[:, :, None] - kv_pos[:, None, :] < sliding_window
+        ok = ok & (q_pos[:, :, None] - kv_pos[:, None, :] < sliding_window)
     if kv_valid is not None:
-        ok &= kv_valid[:, None, :]
+        ok = ok & kv_valid[:, None, :]
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, NEG_INF)[:, None, :, :]
 
@@ -110,6 +121,17 @@ def attention_core(
                 sliding_window=sliding_window, kv_valid=kvv,
                 query_chunk=query_chunk, impl=impl),
             (q, k, v, q_positions, kv_positions, kv_valid))
+    if model_split(impl, q, k, v):  # the kernel on this rank's heads
+        return heads_call(
+            lambda q, k, v, qp, kp, kvv: attention_core(
+                q, k, v, q_positions=qp, kv_positions=kp, causal=causal,
+                sliding_window=sliding_window, kv_valid=kvv,
+                query_chunk=query_chunk, impl=impl),
+            [(q, True, 2, False), (k, True, 2, True), (v, True, 2, True),
+             (q_positions, True, None, False),
+             (kv_positions, True, None, False),
+             (kv_valid, True, None, False)],
+            2, n_heads=q.shape[2], group=q.shape[2] // k.shape[2])
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     if Hq % Hkv:
@@ -177,6 +199,21 @@ def attention_core_merged(
             (u, k, v, q_positions, kv_positions, k_scale, v_scale))
     B, Sq, d = u.shape
     D = k.shape[3]
+    if model_split(impl, u, k, v):  # the kernel on this rank's heads
+        Hq = d // D
+        out = heads_call(
+            lambda u, k, v, qp, kp, ks, vs: attention_core_merged(
+                u.reshape(u.shape[0], Sq, -1), k, v, q_positions=qp,
+                kv_positions=kp, n_kv_heads=k.shape[2], causal=causal,
+                sliding_window=sliding_window, query_chunk=query_chunk,
+                impl=impl, cache_kind=cache_kind, k_scale=ks,
+                v_scale=vs).reshape(u.shape),
+            [(u.reshape(B, Sq, Hq, D), True, 2, False), (k, True, 2, True),
+             (v, True, 2, True), (q_positions, True, None, False),
+             (kv_positions, True, None, False), (k_scale, True, 2, True),
+             (v_scale, True, 2, True)],
+            2, n_heads=Hq, group=Hq // k.shape[2])
+        return out.reshape(B, Sq, d)
     kw = {} if k_scale is None else dict(k_scale=k_scale, v_scale=v_scale)
     if impl == "cuda":
         from repro_torch.kernels import ops as kops
@@ -217,6 +254,18 @@ def decode_attention_core_merged(
                 n_kv_heads=n_kv_heads, sliding_window=sliding_window,
                 impl=impl),
             (u, k_cache, v_cache, kv_positions, q_position))
+    if model_split(impl, u, k_cache, v_cache):  # split-K over the sequence
+        from repro_torch.kernels import ops as kops
+
+        return split_k_call(
+            lambda u, k, v, kp, qp: kops.decode_attention_merged_states(
+                u, k, v, kv_positions=kp, q_position=qp,
+                n_kv_heads=n_kv_heads, sliding_window=sliding_window),
+            lambda u, k, v, kp, qp: decode_attention_core_merged(
+                u, k, v, kv_positions=kp, q_position=qp,
+                n_kv_heads=n_kv_heads, sliding_window=sliding_window,
+                impl=impl),
+            u, (k_cache, v_cache, kv_positions), (q_position,), u.dtype)
     B, d = u.shape
     D = k_cache.shape[3]
     if impl == "cuda":
@@ -249,6 +298,17 @@ def decode_attention_core_positions(
                 q, k, v, kv_positions=kp, q_position=qp,
                 sliding_window=sliding_window, impl=impl),
             (q, k_cache, v_cache, kv_positions, q_position))
+    if model_split(impl, q, k_cache, v_cache):  # split-K over the sequence
+        from repro_torch.kernels import ops as kops
+
+        return split_k_call(
+            lambda q, k, v, kp, qp: kops.decode_attention_states(
+                q, k, v, kv_positions=kp, q_position=qp,
+                sliding_window=sliding_window),
+            lambda q, k, v, kp, qp: decode_attention_core_positions(
+                q, k, v, kv_positions=kp, q_position=qp,
+                sliding_window=sliding_window, impl=impl),
+            q, (k_cache, v_cache, kv_positions), (q_position,), q.dtype)
     B, Hq, D = q.shape
     Hkv = k_cache.shape[2]
     G = Hq // Hkv
@@ -293,6 +353,14 @@ def decode_attention_core_cross(
             lambda q, k, v, kp, qp: decode_attention_core_cross(
                 q, k, v, kv_positions=kp, q_position=qp, impl=impl),
             (q, k_cache, v_cache, kv_positions, q_position))
+    if model_split(impl, q, k_cache, v_cache):  # this rank's heads
+        return heads_call(
+            lambda q, k, v, kp, qp: decode_attention_core_cross(
+                q, k, v, kv_positions=kp, q_position=qp, impl=impl),
+            [(q, True, 1, False), (k_cache, True, 2, True),
+             (v_cache, True, 2, True), (kv_positions, True, None, False),
+             (q_position, True, None, False)],
+            1, n_heads=q.shape[1], group=q.shape[1] // k_cache.shape[2])
     if impl == "cuda":
         from repro_torch.kernels import ops as kops
 
@@ -332,57 +400,19 @@ def combined_heads(states, group=None) -> torch.Tensor:
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hkv * G, D)
 
 
-def paged_partial_states(
-    q: torch.Tensor,  # (B, Hq, D)
-    k_pool: torch.Tensor,  # (n, bs, Hkv, D): pages [first_page, +n)
-    v_pool: torch.Tensor,
-    *,
-    block_tables: torch.Tensor,  # (B, MB) GLOBAL page ids, -1 unmapped
-    q_position: torch.Tensor,  # (B,) int
-    first_page: int = 0,
-    sliding_window: int = 0,
-    k_scale: Optional[torch.Tensor] = None,  # (n, Hkv) float32 (int8 pool)
-    v_scale: Optional[torch.Tensor] = None,
-):
-    """One decode token's softmax state (``attention_partial``) over the
-    pages ``first_page .. first_page + n - 1`` of a pool, which
-    ``k_pool``/``v_pool`` hold (int8 with ``k_scale``/``v_scale``): what
-    one rank computes where the model axis splits the pool.  The
-    positions, ring positions included, come from the GLOBAL table before
-    its ids become this range's indices (``placed.own_pages``); entries
-    of other pages are then masked.  Combined over ranges that cover the
-    pool (``combined_heads``), the states give the whole-pool cores'
-    output, except on a row with nothing to attend to (an idle slot, its
-    output discarded), which averages another view."""
-    bs = k_pool.shape[1]
-    ring = paged_ring_active(sliding_window, bs, block_tables.shape[1])
-    pos = paged_kv_positions(block_tables, bs, q_position, ring)
-    local = own_pages(block_tables, first_page, k_pool.shape[0])
-    pos = torch.where(local.repeat_interleave(bs, dim=1) >= 0, pos, -1)
-    if k_scale is None:
-        k, v = _paged_gather(k_pool, local), _paged_gather(v_pool, local)
-    else:
-        k = _paged_gather_q8(k_pool, k_scale, local, q.dtype)
-        v = _paged_gather_q8(v_pool, v_scale, local, q.dtype)
-    ok = (pos >= 0) & (pos <= q_position[:, None])
-    if sliding_window > 0:
-        ok &= q_position[:, None] - pos < sliding_window
-    zero = torch.zeros((), dtype=torch.float32, device=q.device)
-    bias = torch.where(ok, zero, NEG_INF)[:, None, None, :]
-    return attention_partial(q[:, None], k, v, bias)
-
-
 def _paged_on_mesh(core, q, pools, block_tables, q_position, kw):
     """A paged decode ``core`` whose pool is a DTensor.  Model axis 1:
     ``core`` on this rank's batch rows (``local_call``; the pool, whole
     on every rank, goes in as an ``other`` operand), so the kernels see
-    local tensors.  A larger model axis ("torch" only; ``on_shards``
-    raises for "cuda"): this rank's rows with whole heads attend over the
-    pages it holds, and the states are combined across the model axis;
-    where no mesh dim splits the pages (``sharding.evenly`` keeps a pool
-    whole whose page count the model axis does not divide), ``core`` runs
-    on the local tensors.  ``pools``: (k, v) or (k, v, k_scale,
-    v_scale)."""
+    local tensors.  A larger model axis: this rank's rows with whole
+    heads attend over the pages it holds, and the states are combined
+    across the model axis: the partial-state twin of the decode kernel
+    (``kernels.ops.DECODE_STATES``; on CPU tensors, either route's, its
+    plain version) over the rank's pool and the table of global width
+    whose other ranks' pages are -1.  Where no mesh dim splits the pages
+    (``sharding.evenly`` keeps a pool whole whose page count the model
+    axis does not divide), ``core`` runs on the local tensors.  ``pools``:
+    (k, v) or (k, v, k_scale, v_scale)."""
     if on_shards(kw["impl"], q, *pools):
         return local_call(
             lambda q, bt, qp, *p: core(q, *p, block_tables=bt,
@@ -398,16 +428,22 @@ def _paged_on_mesh(core, q, pools, block_tables, q_position, kw):
     if group is None:
         out = core(ql, *local, block_tables=bt, q_position=qp, **kw)
         return DTensor.from_local(out, mesh, place, run_check=False)
-    shape, D = ql.shape, local[0].shape[-1]
     scales = {} if len(local) == 2 else dict(k_scale=local[2],
                                               v_scale=local[3])
-    states = paged_partial_states(
-        ql.reshape(shape[0], -1, D), local[0], local[1], block_tables=bt,
-        q_position=qp, first_page=shard_box(pools[0])[0][0],
-        sliding_window=kw["sliding_window"], **scales)
+    from repro_torch.kernels import ops as kops
+
+    merged = "n_kv_heads" in kw
+    twin = kops.DECODE_STATES[("paged_q8" if scales else "paged",
+                               "merged" if merged else "generic")]
+    heads = {"n_kv_heads": kw["n_kv_heads"]} if merged else {}
+    out = combine_softmax(*twin(
+        ql, local[0], local[1], **scales,
+        block_tables=own_pages(bt, shard_box(pools[0])[0][0],
+                               local[0].shape[0]),
+        q_position=qp, sliding_window=kw["sliding_window"], **heads),
+        group=group)
     dtype = ql.dtype if scales else local[1].dtype
-    out = combined_heads(states, group)[:, 0]
-    return DTensor.from_local(out.to(dtype).reshape(shape), mesh, place,
+    return DTensor.from_local(out.to(dtype).reshape(ql.shape), mesh, place,
                               run_check=False)
 
 

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distribution.placed import local_call, on_shards
+from repro_torch.distribution.placed import (heads_call, local_call,
+                                             model_split, on_shards)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ref_ssd_chunked
 from repro_torch.models.layers import (_normal, apply_rmsnorm, dense_init,
@@ -88,7 +89,10 @@ def ssd_chunked(
 ):
     """Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) float32).
     ``impl="cuda"`` launches the kernel or raises (a non-zero
-    ``init_state`` raises there, as in the reference)."""
+    ``init_state`` raises there, as in the reference).  Under a mesh whose
+    model axis is larger than 1 it runs on each rank's SSM heads (whole
+    heads where the axis does not divide them; B and C come broadcast to
+    every head of their group)."""
     S = x.shape[1]
     L = chunk if S % chunk == 0 else S
     if on_shards(impl, x, Bm, Cm):  # under a mesh: on local batch rows
@@ -97,6 +101,15 @@ def ssd_chunked(
                 x, dt, A, Bm, Cm, chunk=chunk, D=D, init_state=st,
                 impl=impl),
             (x, dt, Bm, Cm, init_state), (A, D))
+    if model_split(impl, x, Bm, Cm):  # the kernel on this rank's heads
+        return heads_call(
+            lambda x, dt, Bm, Cm, st, A, D: ssd_chunked(
+                x, dt, A, Bm, Cm, chunk=chunk, D=D, init_state=st,
+                impl=impl),
+            [(x, True, 2, False), (dt, True, 2, False), (Bm, True, 2, False),
+             (Cm, True, 2, False), (init_state, True, 1, False),
+             (A, False, 0, False), (D, False, 0, False)],
+            (2, 1), n_heads=x.shape[2])
     if impl == "cuda":
         return kops.ssd_scan(x, dt, A, Bm, Cm, chunk=L, D=D,
                              init_state=init_state)

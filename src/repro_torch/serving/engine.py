@@ -74,14 +74,19 @@ tables and lengths over the data axes), with rules for a batch of
 ``n_slots``, and runs every step on the DTensors
 (``distribution.placed``).  A merged model's q/k/v are re-anchored to the
 head placement.  Each rank samples from the whole logits, so every rank
-emits the same tokens.  ``impl="cuda"`` needs a model axis of size 1:
-there every rank holds whole params and a whole pool, so the decode step
-and the whole-prompt prefill run on local tensors through the kernels
-(each rank's batch rows; a paged step gathers its new K/V rows over the
-data axes before it writes them, so the pool replicas stay equal).  A
-larger model axis runs ``impl="torch"`` on the DTensors; a paged pool
-then attends per rank over the pages it holds and combines the softmax
-states across the model axis (``models.attention``).
+emits the same tokens.  Where the model axis has size 1 every rank holds
+whole params and a whole pool, so the decode step and the whole-prompt
+prefill run on local tensors (each rank's batch rows; a paged step
+gathers its new K/V rows over the data axes before it writes them, so
+the pool replicas stay equal), through the kernels on ``impl="cuda"``.
+A larger model axis runs the step and the prefill on the DTensors on
+either route: ``impl="torch"`` lets DTensor propagate the sharding
+through the attention cores, and ``impl="cuda"`` runs the kernels on each
+rank's local tensors there (``models.attention``): a prefill, a VLM's
+cross decode and the SSD scan on the rank's heads, a decode step over
+the rank's slice of the dense cache's sequence or the pages it holds,
+whose partial softmax states are combined across the model axis.  No
+step gathers a cache or a pool.
 """
 from __future__ import annotations
 
@@ -193,12 +198,6 @@ class Engine:
         if not cfg.causal:
             raise ValueError("serving requires a decoder")
         cfg.validate_style()  # merged styles need a square Q basis
-        if mesh is not None and impl == "cuda" and \
-                _axis_size(mesh, "model") > 1:
-            raise ValueError(
-                "impl='cuda' needs a mesh whose model axis has size 1: the "
-                "kernels take whole heads and sequences (serve a larger "
-                "model axis with impl='torch')")
         dev = torch.device(device)
         if impl in _IMPL_DEVICE and _IMPL_DEVICE[impl] != dev.type:
             raise ValueError(

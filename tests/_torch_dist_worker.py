@@ -149,6 +149,34 @@ def _streams(outs):
     return [list(map(int, o)) for o in outs]
 
 
+# the logits each engine of the "torch" route sampled from, by case: the
+# kernel route's are held against them (``task_kernels``)
+_TORCH_LOGITS = {}
+
+
+def _recording(eng, sink, every=None, prefill=None):
+    """``eng`` with the rows of every logits batch it samples from
+    appended to ``sink`` (the real vocabulary): a prefill's row, a decode
+    step's active slots' rows (an idle slot's row is another view on
+    each route); with ``every``, each whole batch, idle slots included,
+    appended to it; with ``prefill``, each prefill's row to it."""
+    from repro_torch.distribution.placed import full
+
+    sample = eng._sample
+
+    def rec(logits, slots, rows=None):
+        x = full(logits)[:, :eng.cfg.vocab_size].float().clone()
+        sink.append(x if rows is None else x[list(rows)])
+        if every is not None:
+            every.append(x)
+        if prefill is not None and rows is None:
+            prefill.append(x[0].tolist())
+        return sample(logits, slots, rows)
+
+    eng._sample = rec
+    return eng
+
+
 def task_serve(data, tag, mesh, res):
     """Engine and ScheduledEngine, source and merged, on the dense cache,
     the paged pool and the int8 pool (``_serve_paged``)."""
@@ -160,7 +188,9 @@ def task_serve(data, tag, mesh, res):
     out = {}
     for name, (cfg, params) in models.items():
         sc = ServeConfig(n_slots=spec["n_slots"], max_len=spec["max_len"])
-        eng = Engine(cfg, params, sc, impl="torch", device="cpu", mesh=mesh)
+        eng = _recording(Engine(cfg, params, sc, impl="torch", device="cpu",
+                                mesh=mesh),
+                         _TORCH_LOGITS.setdefault(f"dense/{name}", []))
         out[f"{name}/engine"] = _streams(eng.generate(
             prompts, max_new_tokens=spec["max_new"]))
         out[f"{name}/engine_fast_path"] = eng.merged_fast_path
@@ -272,9 +302,10 @@ def _serve_paged(spec, models, prompts, mesh):
             sc = ServeConfig(n_slots=spec["n_slots"], max_len=spec["max_len"],
                              block_size=pspec["block_size"])
             kw = dict(impl="torch", device="cpu", cache=kind, mesh=mesh)
-            out[f"{kind}/{name}/engine"] = _streams(Engine(
-                cfg, params, sc, **kw).generate(
-                    prompts, max_new_tokens=spec["max_new"]))
+            out[f"{kind}/{name}/engine"] = _streams(_recording(Engine(
+                cfg, params, sc, **kw), _TORCH_LOGITS.setdefault(
+                    f"{kind}/{name}", [])).generate(
+                        prompts, max_new_tokens=spec["max_new"]))
             out[f"{kind}/{name}/sched"] = _streams(ScheduledEngine(
                 cfg, params, sc, SchedConfig(**spec["sched"]), **kw).generate(
                     prompts, max_new_tokens=spec["max_new"]))
@@ -359,8 +390,8 @@ def task_families(data, tag, mesh, res):
     SSM and the VLM with its vision tokens, from the JAX package's weights
     (``families.pkl``); their greedy streams, which the test holds against
     the JAX engine's and the unmeshed port's.  Then the refusals:
-    ``impl="cuda"`` (ValueError) and a kernel wrapper given a DTensor
-    (TypeError)."""
+    ``impl="cuda"`` on CPU tensors (the device rule's ValueError, on every
+    mesh) and a kernel wrapper given a DTensor (TypeError)."""
     import pickle
 
     from repro_torch.configs import get_config, reduce_config
@@ -373,8 +404,9 @@ def task_families(data, tag, mesh, res):
     sc = ServeConfig(**spec["sc"])
     out = {}
     for arch, (cfg, w) in spec["models"].items():
-        eng = Engine(cfg, to_torch(w, device="cpu"), sc, impl="torch",
-                     device="cpu", mesh=mesh)
+        eng = _recording(Engine(cfg, to_torch(w, device="cpu"), sc,
+                                impl="torch", device="cpu", mesh=mesh),
+                         _TORCH_LOGITS.setdefault(arch, []))
         out[arch] = [list(map(int, o)) for o in eng.generate(
             spec["prompts"], max_new_tokens=spec["max_new"],
             vision=spec["vision"] if cfg.n_vision_tokens else None)]
@@ -402,8 +434,120 @@ def task_families(data, tag, mesh, res):
     res["families"] = out
 
 
+def task_kernels(data, tag, mesh, res):
+    """The kernel route (``impl="cuda"``) on this mesh, whose model axis
+    is 2, run on CPU tensors: the device rule is lifted for the task
+    (``serving.engine._IMPL_DEVICE``), so every kernel wrapper runs its
+    plain version on each rank's local shards (heads for a prefill, the
+    cross decode and the SSD scan; the sequence or pages for a decode
+    step, combined across the model axis).  ``Engine`` and
+    ``ScheduledEngine`` on the Mistral models (dense cache, paged and int8
+    pools), ``Engine`` on the 25-page pools "model" keeps whole and on the
+    other families: streams, the largest logit difference from the
+    "torch" route's engine (``_TORCH_LOGITS``, relative to its largest
+    logit), whether every logit (idle slots' too) is finite, the prefill
+    logits of each request (for the JAX forward), and the kernel wrappers
+    and partial-state twins each run reached."""
+    import pickle
+
+    from repro_torch.convert import to_torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.serving import (Engine, SchedConfig, ScheduledEngine,
+                                     ServeConfig)
+    from repro_torch.serving import engine as serving_engine
+
+    spec, models = _serve_models(data)
+    prompts = [np.asarray(p, np.int32) for p in spec["prompts"]]
+    with open(os.path.join(data, "families.pkl"), "rb") as f:
+        fspec = pickle.load(f)
+    calls = {}
+    check_call, decode_states = _build.check_call, ops.decode_states
+
+    def counted(name, *a, **k):
+        calls[name] = calls.get(name, 0) + 1
+        return check_call(name, *a, **k)
+
+    def counted_states(name, *a, **k):
+        calls[name + "_states"] = calls.get(name + "_states", 0) + 1
+        return decode_states(name, *a, **k)
+
+    def run(key, make, generate):
+        calls.clear()
+        logits, every, prefill = [], [], []
+        eng = _recording(make(), logits, every, prefill)
+        got = {"streams": _streams(generate(eng))}
+        want = _TORCH_LOGITS.get(key)
+        if want is not None:
+            a, b = torch.cat(logits), torch.cat(want)
+            got["logits_rel"] = float((a - b).abs().max() / b.abs().max()) \
+                if a.shape == b.shape else None
+        got["finite"] = all(bool(torch.isfinite(x).all()) for x in every)
+        got["prefill"] = prefill
+        got["calls"] = dict(calls)
+        return got
+
+    out = {}
+    lifted = dict(serving_engine._IMPL_DEVICE)
+    serving_engine._IMPL_DEVICE["cuda"] = "cpu"
+    _build.check_call, ops.decode_states = counted, counted_states
+    try:
+        pspec, new = spec["paged"], spec["max_new"]
+        for kind in ("dense", "paged", "paged_q8"):
+            for name, (cfg, params) in models.items():
+                sc = ServeConfig(n_slots=spec["n_slots"],
+                                 max_len=spec["max_len"],
+                                 block_size=pspec["block_size"])
+                kw = dict(impl="cuda", device="cpu", cache=kind, mesh=mesh)
+                out[f"{kind}/{name}/engine"] = run(
+                    f"{kind}/{name}", lambda: Engine(cfg, params, sc, **kw),
+                    lambda e: e.generate(prompts, max_new_tokens=new))
+                out[f"{kind}/{name}/sched"] = run(
+                    None, lambda: ScheduledEngine(
+                        cfg, params, sc, SchedConfig(**spec["sched"]), **kw),
+                    lambda e: e.generate(prompts, max_new_tokens=new))
+            if kind != "dense":
+                cfg, params = models["source"]
+                sc = ServeConfig(n_slots=spec["n_slots"],
+                                 max_len=spec["max_len"],
+                                 block_size=pspec["block_size"],
+                                 n_blocks=pspec["odd_blocks"])
+                out[f"{kind}/odd/engine"] = run(
+                    None, lambda: Engine(cfg, params, sc, impl="cuda",
+                                         device="cpu", cache=kind,
+                                         mesh=mesh),
+                    lambda e: e.generate(prompts, max_new_tokens=new))
+        # no window: the scheduler chunks the dense cache, whose sequence
+        # the model axis splits (a chunk's writes miss one rank's shard)
+        cfg, params = models["source"]
+        cfg = cfg.with_(sliding_window=0)
+        sc = ServeConfig(n_slots=spec["n_slots"], max_len=spec["max_len"])
+        sched = SchedConfig(**spec["sched"])
+        for impl in ("torch", "cuda"):
+            kw = dict(impl=impl, device="cpu", mesh=mesh)
+            eng = ScheduledEngine(cfg, params, sc, sched, **kw)
+            out[f"nowindow/{impl}/chunked"] = eng._chunked
+            out[f"nowindow/{impl}/sched"] = _streams(eng.generate(
+                prompts, max_new_tokens=new))
+        out["nowindow/torch/engine"] = _streams(Engine(
+            cfg, params, sc, impl="torch", device="cpu", mesh=mesh).generate(
+                prompts, max_new_tokens=new))
+        sc = ServeConfig(**fspec["sc"])
+        for arch, (cfg, w) in fspec["models"].items():
+            vis = fspec["vision"] if cfg.n_vision_tokens else None
+            out[arch] = run(
+                arch, lambda: Engine(cfg, to_torch(w, device="cpu"), sc,
+                                     impl="cuda", device="cpu", mesh=mesh),
+                lambda e: e.generate(fspec["prompts"],
+                                     max_new_tokens=fspec["max_new"],
+                                     vision=vis))
+    finally:
+        serving_engine._IMPL_DEVICE.update(lifted)
+        _build.check_call, ops.decode_states = check_call, decode_states
+    res["kernels"] = out
+
+
 TASKS = {"train": task_train, "elastic": task_elastic, "serve": task_serve,
-         "families": task_families}
+         "families": task_families, "kernels": task_kernels}
 
 
 def main():

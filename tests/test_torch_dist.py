@@ -31,8 +31,22 @@ package without a mesh and the port without one:
   * the other families on the dense cache on those meshes (MoE, hybrid,
     SSM, the VLM with its vision tokens), from the JAX package's weights:
     greedy streams equal to the JAX ``Engine``'s and the unmeshed port's;
-    ``impl="cuda"`` with a model axis larger than 1 raises ValueError at
-    construction; a kernel wrapper given a DTensor raises TypeError;
+    ``impl="cuda"`` on CPU tensors raises the device rule's ValueError on
+    every mesh (none about the model axis); a kernel wrapper given a
+    DTensor raises TypeError;
+  * the kernel route (``impl="cuda"``) on (1, 2) and (2, 2), its device
+    rule lifted so that the kernel wrappers run their plain versions on
+    each rank's local shards (heads for a prefill, the cross decode and
+    the SSD scan; the sequence or the pages for a decode step, through
+    the partial-state twins, combined across the model axis): ``Engine``
+    and ``ScheduledEngine`` on the Mistral models, dense cache and both
+    pools, the 25-page pools and the other families give the JAX engines'
+    streams; every logit the engine samples from equals the "torch"
+    route's engine's within ``RTOL`` of the largest, idle slots' rows
+    finite; the prefill logits equal the JAX forward's; the wrappers and
+    the partial-state twins were reached; without the window, the
+    scheduler chunks the sequence-split dense cache on both routes and
+    gives ``Engine``'s streams;
   * ``python -m repro_torch.launch.train --mesh 2x2 --smoke --device cpu``
     under ``torchrun --standalone`` (four processes; its rendezvous
     binds a free localhost port itself).
@@ -57,6 +71,7 @@ import pytest
 from repro import configs as jcfg
 from repro import training as jtr
 from repro.core import merge_skipless as jax_merge
+from repro.models import forward_seq as jax_forward_seq
 from repro.models import init_params as jax_init_params
 from repro.serving import Engine as JaxEngine
 from repro.serving import PagedCacheAdapter as JaxPagedAdapter
@@ -80,11 +95,12 @@ TIMEOUT = 300
 GROUPS = {  # name: (mesh, world, tasks)
     "g11": ("1x1", 1, "train,serve,families"),
     "g21": ("2x1", 2, "train,serve,families"),
-    "g12": ("1x2", 2, "train,serve,families"),
-    "g22": ("2x2", 4, "train,serve,families,elastic"),
+    "g12": ("1x2", 2, "train,serve,families,kernels"),
+    "g22": ("2x2", 4, "train,serve,families,kernels,elastic"),
     "g222": ("2x2x2", 8, "train"),
 }
 SERVE_GROUPS = ["g11", "g12", "g21", "g22"]
+KERNEL_GROUPS = ["g12", "g22"]  # model axis 2: the kernel route's task
 TRAIN = {"steps": 3,
          "trainer": dict(log_every=1, ckpt_every=1, keep_ckpts=10, lr=1e-3,
                          warmup=1),
@@ -220,6 +236,11 @@ def run(tmp_path_factory):
     want = {name: _streams(JaxEngine(c, p, jsc).generate(
         prompts, max_new_tokens=SERVE["max_new"]))
         for name, (c, p) in mistral.items()}
+    # each prompt's last logits from the JAX forward: the prefill logits
+    for name, (c, p) in mistral.items():
+        want[f"prefill/{name}"] = [np.asarray(jax_forward_seq(
+            p, c, jax.numpy.asarray(x)[None])[0][0, -1, :c.vocab_size],
+            np.float32) for x in prompts]
     # the JAX engines on the paged pools: Engine and ScheduledEngine of
     # each model, then the source through the starved pool
     bs, new = PAGED["block_size"], SERVE["max_new"]
@@ -507,11 +528,115 @@ def test_a_pool_the_model_axis_does_not_divide_stays_whole(run, group, kind,
 
 
 @pytest.mark.parametrize("group", SERVE_GROUPS)
-def test_cuda_refuses_a_model_axis_larger_than_1(run, group):
+def test_cuda_on_cpu_tensors_raises_the_device_rule_on_every_mesh(run,
+                                                                  group):
+    """``Engine(impl="cuda", device="cpu", mesh=)``: the kernels run on
+    CUDA tensors, so the device rule refuses it, whatever the mesh; no
+    mesh shape is refused (no message mentions the model axis)."""
     got = _group(run, group)["families"]["cuda"]
     assert got.startswith("ValueError"), got
-    # a model axis of 1 gets past that check (to the device check)
-    assert ("model axis" in got) == (group in ("g12", "g22")), got
+    assert "runs on 'cuda' tensors" in got, got
+    assert "model axis" not in got, got
+
+
+def _kernels(run, group, key):
+    return _group(run, group)["kernels"][key]
+
+
+def _reached(calls, cache, model, prefill=True):
+    """The kernel wrappers a served model reaches on a model axis of 2:
+    the flash prefill (not the scheduler's chunks: their core is the
+    chunk program's own, on every route) and the decode rows'
+    partial-state twins."""
+    merged = model == "merged"
+    flash = ("flash_attention_merged_q8_bsd" if cache == "paged_q8"
+             else "flash_attention_merged_bsd") if merged \
+        else "flash_attention_bhsd"
+    infix = {"dense": "", "paged": "_paged", "paged_q8": "_paged_q8"}[cache]
+    decode = f"decode_attention{infix}_" + ("merged_bsd" if merged
+                                             else "bhsd") + "_states"
+    return calls.get(decode, 0) > 0 and (calls.get(flash, 0) > 0
+                                         or not prefill)
+
+
+@pytest.mark.parametrize("engine", ["engine", "sched"])
+@pytest.mark.parametrize("model", ["source", "merged"])
+@pytest.mark.parametrize("kind", ["dense"] + sorted(PAGED_KINDS))
+@pytest.mark.parametrize("group", KERNEL_GROUPS)
+def test_kernel_route_on_a_model_axis_of_2_gives_the_jax_streams(
+        run, group, kind, model, engine):
+    got = _kernels(run, group, f"{kind}/{model}/{engine}")
+    key = model if kind == "dense" else f"{kind}/{model}/{engine}"
+    assert got["streams"] == run["jax_streams"][key]
+    assert got["finite"]
+    assert _reached(got["calls"], kind, model, engine == "engine"), \
+        got["calls"]
+
+
+@pytest.mark.parametrize("model", ["source", "merged"])
+@pytest.mark.parametrize("kind", ["dense"] + sorted(PAGED_KINDS))
+@pytest.mark.parametrize("group", KERNEL_GROUPS)
+def test_kernel_route_logits_equal_the_torch_route(run, group, kind, model):
+    """Every logits batch ``Engine`` samples from (prefills and decode
+    steps, idle slots' rows included) on the kernel route equals the
+    "torch" route's engine's on the same mesh."""
+    got = _kernels(run, group, f"{kind}/{model}/engine")
+    assert got["logits_rel"] is not None and got["logits_rel"] <= RTOL, got
+    assert got["finite"]
+
+
+@pytest.mark.parametrize("model", ["source", "merged"])
+@pytest.mark.parametrize("group", KERNEL_GROUPS)
+def test_kernel_route_prefill_logits_equal_the_jax_forward(run, group,
+                                                           model):
+    got = _kernels(run, group, f"dense/{model}/engine")["prefill"]
+    want = run["jax_streams"][f"prefill/{model}"]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        err = np.abs(np.asarray(a, np.float32) - b).max() / np.abs(b).max()
+        assert err <= RTOL, err
+
+
+@pytest.mark.parametrize("kind", sorted(PAGED_KINDS))
+@pytest.mark.parametrize("group", KERNEL_GROUPS)
+def test_kernel_route_on_a_pool_the_model_axis_keeps_whole(run, group,
+                                                           kind):
+    """25 pages: every rank runs the whole-pool kernel on its local pool."""
+    got = _kernels(run, group, f"{kind}/odd/engine")
+    assert got["streams"] == run["jax_streams"][f"{kind}/odd/engine"]
+    assert not [n for n in got["calls"] if n.endswith("_states")], got
+    assert got["calls"].get(f"decode_attention_{kind}_bhsd", 0) > 0, got
+
+
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+@pytest.mark.parametrize("group", KERNEL_GROUPS)
+def test_scheduler_chunks_a_sequence_split_dense_cache(run, group, impl):
+    """The source without its window: ``ScheduledEngine`` chunks the dense
+    cache, whose sequence the model axis splits (a chunk's writes fall in
+    one rank's shard and miss the other's), on both routes: the streams
+    of ``Engine`` on the same mesh."""
+    res = _group(run, group)["kernels"]
+    assert res[f"nowindow/{impl}/chunked"]
+    assert res[f"nowindow/{impl}/sched"] == res["nowindow/torch/engine"]
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+@pytest.mark.parametrize("group", KERNEL_GROUPS)
+def test_kernel_route_serves_the_other_families(run, group, arch):
+    """MoE, hybrid, SSM and the VLM on the dense cache: the JAX engine's
+    streams, the "torch" route's logits, and the kernels of the stack
+    reached (the SSD scan on its heads, the flash prefill on its heads,
+    the decode rows' partial-state twin, the VLM's cross decode)."""
+    got = _kernels(run, group, arch)
+    assert got["streams"] == run["jax_families"][arch]
+    assert got["logits_rel"] is not None and got["logits_rel"] <= RTOL, got
+    assert got["finite"]
+    calls = got["calls"]
+    if arch != "mamba2-2.7b":
+        assert calls.get("flash_attention_bhsd", 0) > 0, calls
+        assert calls.get("decode_attention_bhsd_states", 0) > 0, calls
+    if arch in ("hymba-1.5b", "mamba2-2.7b"):
+        assert calls.get("ssd_chunk_scan", 0) > 0, calls
 
 
 @pytest.mark.parametrize("group", SERVE_GROUPS)

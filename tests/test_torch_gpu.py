@@ -1095,6 +1095,118 @@ def test_decode_shielded_paged_row_is_zero(dtype, kind):
                                    rtol=0, atol=_tol(want[rows]))
 
 
+STATE_ROWS = ("bhsd", "merged", "paged", "paged_merged", "paged_q8",
+              "paged_q8_merged")
+
+
+def _states_case(rng, row, Hkv, G, D, ring, dtype, dev):
+    """(query, K/V operands, keywords, the kv axis to cut) of a decode row
+    at the path's shapes (B 4, 512 keys or 16-token pages), with row 0's
+    keys all in the first quarter (the other ranges of a cut have nothing
+    for it), row 3 idle (no key); ``ring``: a windowed ring table (window
+    64: 5 slots) on the paged rows, a window of 64 on the dense ones."""
+    B, S, bs = 4, 512, 16
+    t = lambda x, dt=dtype: torch.from_numpy(x).to(dev, dt)  # noqa: E731
+    q_pos = np.array([100, 300, 511, 511], np.int32)
+    u = t(rng.standard_normal((B, Hkv * G, D), np.float32))
+    q = u.reshape(B, Hkv * G * D) if row.endswith("merged") else u
+    kw = dict(q_position=t(q_pos, torch.int32),
+              sliding_window=64 if ring else 0)
+    if row.endswith("merged"):
+        kw["n_kv_heads"] = Hkv
+    if not row.startswith("paged"):
+        pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+        pos[3] = -1
+        kw["kv_positions"] = t(pos, torch.int32)
+        kv = [t(rng.standard_normal((B, S, Hkv, D), np.float32))
+              for _ in range(2)]
+        return q, kv, kw, S
+    MB = 5 if ring else S // bs
+    NB = 4 * MB + 8
+    bt = np.full((B, MB), -1, np.int32)
+    pages = iter(rng.permutation(NB))
+    for b in range(3):
+        lb = q_pos[b] // bs
+        for j in range(MB):
+            if (lb - (lb + MB - j) % MB >= 0) if ring else j <= lb:
+                bt[b, j] = next(pages)
+    kw["block_tables"] = t(bt, torch.int32)
+    if row.startswith("paged_q8"):
+        kv = [t(rng.integers(-127, 128, (NB, bs, Hkv, D)).astype(np.int8),
+                torch.int8) for _ in range(2)]
+        kw.update(k_scale=t(rng.uniform(.001, .02, (NB, Hkv)).astype(
+            np.float32), torch.float32), v_scale=t(rng.uniform(
+                .001, .02, (NB, Hkv)).astype(np.float32), torch.float32))
+    else:
+        kv = [t(rng.standard_normal((NB, bs, Hkv, D), np.float32))
+              for _ in range(2)]
+    return q, kv, kw, NB
+
+
+def _states_range(row, q, kv, kw, lo, hi):
+    """The partial-state twin of ``row``'s wrapper over keys (pages)
+    [lo, hi): a dense slice with its positions, or a pool slice with its
+    scales and the table of global width whose other pages are -1."""
+    from repro_torch.distribution.placed import own_pages
+    from repro_torch.kernels import ops as kops
+    kw = dict(kw)
+    if row.startswith("paged"):
+        kv = [x[lo:hi] for x in kv]
+        kw["block_tables"] = own_pages(kw["block_tables"], lo, hi - lo)
+        for k in ("k_scale", "v_scale"):
+            if k in kw:
+                kw[k] = kw[k][lo:hi].contiguous()
+    else:
+        kv = [x[:, lo:hi].contiguous() for x in kv]
+        kw["kv_positions"] = kw["kv_positions"][:, lo:hi].contiguous()
+    name = {"bhsd": "decode_attention", "merged": "decode_attention_merged"
+            }.get(row, "decode_attention_" + row)
+    return getattr(kops, name + "_states")(q, *kv, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["mistral", "chatglm"])
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("row", STATE_ROWS)
+def test_partial_states_on_the_card_combine_to_the_whole_kernel(row, ring,
+                                                                shape,
+                                                                dtype):
+    """Rows 4-9 in the partial-state mode over the ranges of 2- and 4-way
+    cuts of the keys or pages, as the ranks of a model axis hold them:
+    each range's states equal the plain version's on the CPU, and
+    combined (``placed.combine_softmax``) they equal the whole kernel's
+    output, the idle row exactly 0.  One launch per range."""
+    dev = _cuda()
+    from repro_torch.distribution.placed import combine_softmax
+    from repro_torch.kernels import ops as kops
+    Hkv, G, D = DECODE_SHAPES[shape]
+    rng = np.random.default_rng(STATE_ROWS.index(row) + 10 * ring)
+    q, kv, kw, n = _states_case(rng, row, Hkv, G, D, ring, dtype, dev)
+    name = {"bhsd": "decode_attention", "merged": "decode_attention_merged"
+            }.get(row, "decode_attention_" + row)
+    whole = getattr(kops, name)(q, *kv, **kw).reshape(4, Hkv * G, D)
+    cpu = lambda x: x.cpu() if torch.is_tensor(x) else x  # noqa: E731
+    for cut in (2, 4):
+        reset_launch_counts()
+        states = [_states_range(row, q, kv, kw, r * n // cut,
+                                (r + 1) * n // cut) for r in range(cut)]
+        torch.cuda.synchronize()
+        assert sum(launch_counts().values()) == cut
+        for r, got in enumerate(states):
+            want = _states_range(row, q.cpu(), [x.cpu() for x in kv],
+                                 {k: cpu(x) for k, x in kw.items()},
+                                 r * n // cut, (r + 1) * n // cut)
+            for a, b in zip(got, want):
+                tol = 5e-5 * max(1.0, float(b.abs().max()))
+                assert float((a.cpu() - b).abs().max()) <= tol, (cut, r)
+        got = combine_softmax(*(torch.stack(x) for x in zip(*states)))
+        got = got.to(dtype)
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got[3], torch.zeros_like(got[3]))
+        torch.testing.assert_close(got.float(), whole.float(), rtol=0,
+                                   atol=_tol(whole))
+
+
 def _sched_model(window=0):
     from repro_torch.core.merge import merge_skipless
     from repro_torch.models import init_params
@@ -1578,7 +1690,7 @@ def _op_cases(dev, dtype):
     k8 = (rn(B, S, Hkv, D, dt=torch.float32) * 20).to(torch.int8)
     s8 = rn(B, 4, Hkv, dt=torch.float32).abs() * 0.01
     qg, qm = rn(B, Hkv, G, D), rn(B, Hkv * G, D)
-    return [
+    cases = [
         ("decode_attention_bhsd", (qg, rn(B, Hkv, S, D), rn(B, Hkv, S, D),
                                    kvp, qp), {"sliding_window": 16}),
         ("decode_attention_bshd", (qg, rn(B, S, Hkv, D), rn(B, S, Hkv, D),
@@ -1605,6 +1717,11 @@ def _op_cases(dev, dtype):
                             -rn(1, S, 2, dt=torch.float32).abs(),
                             rn(1, S, 2, 8), rn(1, S, 2, 8)), {"chunk": 64}),
     ]
+    # each decode operator's partial-state twin takes its operands (the
+    # in-place bshd launch has none)
+    return cases + [(n + "_states", a, kw) for n, a, kw in cases
+                    if n.startswith("decode")
+                    and n != "decode_attention_bshd"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1632,8 +1749,11 @@ def test_kernel_operators_on_the_card_equal_their_plain_versions(dtype):
         for a, b, f in zip(got, want, fake):
             assert (a.shape, a.dtype) == (b.shape, b.dtype) == \
                 (f.shape, f.dtype), name
+            # the float32 states of the partial-state twins are sums over
+            # the keys (l, o): within 5e-5 of their largest, or absolute
             tol = 3e-5 * float(b.abs().max()) if name == "ssd_chunk_scan" \
-                else _tol(b)
+                else 5e-5 * max(1.0, float(b.abs().max())) \
+                if name.endswith("_states") else _tol(b)
             assert float((a.float().cpu() - b.float()).abs().max()) <= tol, \
                 name
 

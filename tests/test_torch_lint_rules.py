@@ -129,7 +129,7 @@ def _op_cases():
     k8, s8 = (rn(B, S, Hkv, D) * 20).to(torch.int8), rn(B, 2, Hkv).abs()
     qg, qm = rn(B, Hkv, G, D), rn(B, Hkv * G, D)
     ops = torch.ops.repro_torch
-    return [
+    cases = [
         ("decode_attention_bhsd", (qg, rn(B, Hkv, S, D), rn(B, Hkv, S, D),
                                    kvp, qp), {"sliding_window": 4}),
         ("decode_attention_bshd", (qg, rn(B, S, Hkv, D), rn(B, S, Hkv, D),
@@ -154,11 +154,17 @@ def _op_cases():
         ("ssd_chunk_scan", (rn(1, S, 2, 16), rn(1, S, 2).abs(),
                             -rn(1, S, 2).abs(), rn(1, S, 2, 8),
                             rn(1, S, 2, 8)), {"chunk": 4}),
-    ], ops
+    ]
+    # each decode operator's partial-state twin takes its operands (the
+    # in-place bshd launch has none)
+    return cases + [(n + "_states", a, kw) for n, a, kw in cases
+                    if n.startswith("decode")
+                    and n != "decode_attention_bshd"], ops
 
 
 def test_every_kernel_operator_is_registered_with_a_fake():
-    """Each of the twelve entry points is ``torch.ops.repro_torch.<name>``;
+    """Each of the eighteen entry points (the twelve kernels' and the six
+    decode partial-state twins) is ``torch.ops.repro_torch.<name>``;
     on CPU tensors it runs the plain version, and its fake implementation
     gives the real output's shapes and dtypes."""
     from torch._subclasses.fake_tensor import FakeTensorMode

@@ -1,9 +1,11 @@
 """The paged decode cores split over page ranges, as ranks hold them where
 the mesh's model axis splits a pool (``models.attention``'s
-``paged_partial_states`` and ``distribution.placed.combine_softmax``),
+``_paged_on_mesh``: the paged decode wrappers' partial-state twins,
+``kernels.ops.DECODE_STATES``, and ``distribution.placed.combine_softmax``),
 without processes: a seeded pool is cut into 2 and 4 ranges of pages, each
-range's partial softmax state is computed from the GLOBAL table (ring
-positions included), and the states, combined, are held against the
+range's partial softmax state is computed over the table of GLOBAL width
+whose other ranges' pages are -1 (``placed.own_pages``: ring positions
+come from the table slot), and the states, combined, are held against the
 port's whole-pool cores (``decode_attention_core_paged``, ``…_merged``,
 ``…_q8``, ``…_q8_merged``, impl "torch") and the JAX oracles
 (``repro.kernels.ref``) on the same inputs.
@@ -22,7 +24,8 @@ import torch
 
 from repro.kernels import paging as jpaging
 from repro.kernels import ref as jref
-from repro_torch.distribution.placed import combine_softmax
+from repro_torch.distribution.placed import combine_softmax, own_pages
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as tattn
 
 B, HQ, HKV, D, NB = 3, 4, 2, 16, 24
@@ -92,23 +95,28 @@ def _whole(c, core):
 
 
 def _split(c, core, n_ranges):
-    """Each range's partial state from its pages and the global table,
-    stacked, combined."""
+    """Each range's partial state from its pages and the table of global
+    width (the twin's plain version on these CPU tensors), stacked,
+    combined."""
     tdt = getattr(torch, c["dtype"])
-    q = _t(c["u"], tdt).reshape(B, HQ, D)
+    u = _t(c["u"], tdt)
     (kp, vp), sc = _pools(c, core)
+    merged = core.endswith("merged")
+    twin = kops.DECODE_STATES[("paged_q8" if sc else "paged",
+                               "merged" if merged else "generic")]
     n = NB // n_ranges
     states = []
     for r in range(n_ranges):
         lo = r * n
         kw = {} if sc is None else dict(k_scale=sc[0][lo:lo + n],
                                         v_scale=sc[1][lo:lo + n])
-        states.append(tattn.paged_partial_states(
-            q, kp[lo:lo + n], vp[lo:lo + n], block_tables=_t(c["bt"]),
-            q_position=_t(c["qp"]), first_page=lo, sliding_window=c["w"],
-            **kw))
-    stacked = [torch.stack(s) for s in zip(*states)]
-    out = tattn.combined_heads(stacked)[:, 0]
+        if merged:
+            kw["n_kv_heads"] = HKV
+        states.append(twin(
+            u if merged else u.reshape(B, HQ, D), kp[lo:lo + n],
+            vp[lo:lo + n], block_tables=own_pages(_t(c["bt"]), lo, n),
+            q_position=_t(c["qp"]), sliding_window=c["w"], **kw))
+    out = combine_softmax(*(torch.stack(s) for s in zip(*states)))
     return out.to(tdt).float().reshape(B, HQ * D).numpy()
 
 

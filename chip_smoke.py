@@ -3088,18 +3088,62 @@ MESH_TRAIN_STEPS = 5
 MESH_TRAIN_RTOL = 1e-6
 
 
+# the dry run's placed cells on the card's host: one of each kind on both
+# production meshes, among them heads a model axis of 16 does not divide
+# (Qwen2.5-32B's 40 and 8 kv, Hymba's 25 and 5, Phi-3.5-MoE's 8 kv
+# heads and its expert dispatch); the full placed run is ``--all``'s
+DRYRUN_PLACED = ("llama3.2-1b:train_4k,qwen2.5-32b:prefill_32k,"
+                 "phi3.5-moe-42b-a6.6b:decode_32k,hymba-1.5b:long_500k")
+
+
 def start_dryrun():
-    """``repro_torch.launch.dryrun --all --both-meshes`` on the meta device
-    in a subprocess (six workers) on the host's CPU, no card: started
-    before the dense-config phase so that it runs beside the card's
-    phases; ``mesh_path`` collects it."""
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--both-meshes", "--jobs", "6", "--out",
-         os.path.join(ROOT, "build", "dryrun")],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                           CUDA_VISIBLE_DEVICES=""),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    """``repro_torch.launch.dryrun`` on the host's CPU, no card, in two
+    subprocesses of three workers each: every cell's meta-only record
+    (``--all --both-meshes --no-analysis``) and the placed record of
+    ``DRYRUN_PLACED`` on both meshes.  Started before the dense-config
+    phase so that they run beside the card's phases; ``mesh_path``
+    collects them."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    runs = {"meta": ["--all", "--no-analysis"],
+            "placed": ["--cells", DRYRUN_PLACED]}
+    return {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *how,
+         "--both-meshes", "--jobs", "3", "--out",
+         os.path.join(ROOT, "build", "dryrun_" + name)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, how in runs.items()}
+
+
+def collect_dryrun(dry):
+    """The two dry runs' cell counts (each given what is left of 600
+    seconds); a failing cell, a failing run or a run cut at the cap
+    fails the phase."""
+    deadline = time.perf_counter() + 600
+    out = {}
+    for name, proc in dry.items():
+        try:
+            text, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        lines = text.splitlines()
+        counts = json.loads(lines[-1])["dryrun_cells"] if lines and \
+            lines[-1].startswith("{") else None
+        for ln in lines:
+            if "FAIL" in ln or (name == "placed" and ln.startswith("[")):
+                log(f"  dryrun {name} {ln}")
+        log(f"  dryrun {name} --both-meshes (meta device, subprocess): "
+            f"{counts}; exit {proc.returncode}")
+        if proc.returncode != 0 or counts is None or counts["failed"]:
+            raise AssertionError(f"the {name} dry run failed: exit "
+                                 f"{proc.returncode}, {counts}; last lines "
+                                 f"{lines[-5:]}")
+        out[name] = counts
+    if out["placed"]["run"] != 2 * len(DRYRUN_PLACED.split(",")):
+        raise AssertionError(f"placed dry run: {out['placed']}")
+    return out
 
 
 def mesh_path(summary, dry):
@@ -3129,9 +3173,9 @@ def mesh_path(summary, dry):
     (e) the host syncs of one decode step on the paged and on the int8
         pool, meshed and unmeshed (``sync_counted``, which leaves PyTorch's
         trace hooks on, so it runs after the timed parts): equal;
-    (f) the dry run ``dry`` (``start_dryrun``, running on the host's CPU
-        since the dense-config phase): the counts of cells run, skipped
-        and failed; a failure fails the phase."""
+    (f) the dry runs ``dry`` (``start_dryrun``, running on the host's CPU
+        since the dense-config phase; ``collect_dryrun``): the counts of
+        cells run, skipped and failed; a failure fails the phase."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -3160,23 +3204,7 @@ def mesh_path(summary, dry):
             dist.destroy_process_group()
         if os.path.exists(pg):
             os.remove(pg)
-        try:
-            text, _ = dry.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            dry.kill()
-            text, _ = dry.communicate()
-    lines = text.splitlines()
-    counts = json.loads(lines[-1])["dryrun_cells"] if lines and \
-        lines[-1].startswith("{") else None
-    for ln in lines:
-        if "FAIL" in ln:
-            log(f"  dryrun {ln}")
-    log(f"  dryrun --all --both-meshes (meta device, subprocess): {counts}; "
-        f"exit {dry.returncode}")
-    if dry.returncode != 0 or counts is None or counts["failed"]:
-        raise AssertionError(f"the dry run failed: exit {dry.returncode}, "
-                             f"{counts}; last lines {lines[-5:]}")
-    out["dryrun"] = counts
+        out["dryrun"] = collect_dryrun(dry)
     summary["mesh"] = out
 
 
@@ -3249,7 +3277,16 @@ def model_axis_path(summary, meanwhile=None):
         prefill, one decode (rows 5, 7, 9, in the partial-state mode) per
         layer and step; the tokens each stream shares with the unmeshed
         engine's before they part (bf16: the model axis's row-parallel
-        sums round in another order).
+        sums round in another order);
+    (c) at those 32 bfloat16 layers, ``build_step``'s prefill and decode
+        steps (``impl="cuda"``, ``MODEL_AXIS_STEPS``; the functions the dry
+        run runs, on a dense cache) under the collective counter
+        (``distribution.collectives.StepCounter``): each op's count and
+        bytes equal on both ranks and equal to the dry run's prediction
+        for the same step, config, batch, mesh and route, computed by
+        rank 0 in subprocesses over fake groups (``start_prediction``);
+        and, as information, the collectives of one more ``Engine``
+        decode step on each cache and the seconds inside them.
     The phase fails if a rank exits non-zero; the ranks' launch counts
     join the summary's.  ``meanwhile(summary)``, a phase that measures no
     time (the lint), runs in this process while the ranks run, its
@@ -3290,6 +3327,19 @@ def model_axis_path(summary, meanwhile=None):
     if res[0]["streams"] != res[1]["streams"]:
         raise AssertionError("model-axis phase: the two ranks emitted "
                              "different tokens")
+    for kind, c in res[0]["collectives"].items():
+        if any(c[k] != res[1]["collectives"][kind][k] for k in
+               ("counts", "per_op_bytes", "total_bytes", "by_link")):
+            raise AssertionError(f"model-axis phase: the ranks' {kind} "
+                                 f"collectives differ: {c} != "
+                                 f"{res[1]['collectives'][kind]}")
+        _, B, S = MODEL_AXIS_STEPS[kind]
+        log(moved_line(f"(1, 2) mesh, merged bfloat16 32 layers, "
+                       f"build_step {kind} (B {B}, S {S}, impl cuda), rank "
+                       f"0 == rank 1 == the dry run's prediction", c))
+    for cache, c in res[0]["engine_step"].items():
+        log(moved_line(f"(1, 2) mesh, Engine decode step, {cache}, rank 0",
+                       c))
     summary["launches"] = {k: summary["launches"][k] + sum(
         x["launches"][k] for x in res) for k in summary["launches"]}
     summary["model_axis"] = {k: v for k, v in res[0].items()
@@ -3309,6 +3359,123 @@ def wait_ranks(procs):
     return codes
 
 
+# ``build_step``'s steps each rank of the model-axis phase runs under the
+# collective counter: kind -> (dry-run cell, batch, prompt or cache length)
+MODEL_AXIS_STEPS = {"prefill": ("prefill_32k", 2, 256),
+                    "decode": ("decode_32k", 2, 512)}
+
+
+def axis_config():
+    """The merged bfloat16 Mistral-7B of the model-axis phase's 32 layers:
+    what ``build(32, calibrate=False, dtype="bfloat16")`` merges to."""
+    from repro_torch.configs import get_config
+    return get_config("mistral-7b").with_(
+        block_style="skipless_merged", merged_variant="qp", n_layers=32,
+        dtype="bfloat16", param_dtype="bfloat16")
+
+
+def start_prediction():
+    """The dry run's record of each ``MODEL_AXIS_STEPS`` step of
+    ``axis_config()`` on a (1, 2) mesh with ``impl="cuda"``
+    (``python -m repro_torch.launch.dryrun ... --mesh 1x2 --impl cuda``):
+    subprocesses over fake groups of their own, on the host's CPU, no
+    card.  Returns them by kind; ``predicted`` reads them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg, full = axis_config(), get_config("mistral-7b")
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if getattr(cfg, f.name) != getattr(full, f.name)}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return {kind: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "mistral-7b", "--shape", cell, "--mesh", "1x2", "--impl", "cuda",
+         "--batch", str(B), "--seq-len", str(S), "--overrides",
+         json.dumps(over), "--print-record"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for kind, (cell, B, S) in MODEL_AXIS_STEPS.items()}
+
+
+def predicted(procs):
+    """Each prediction's collectives (``start_prediction``), by kind."""
+    out = {}
+    for kind, proc in procs.items():
+        text, _ = proc.communicate(timeout=MODEL_AXIS_TIMEOUT)
+        lines = text.splitlines()
+        if proc.returncode != 0:
+            raise AssertionError(f"the {kind} prediction exited "
+                                 f"{proc.returncode}: {lines[-20:]}")
+        out[kind] = json.loads(lines[-2])[0]["collectives"]
+    return out
+
+
+def counted_steps(mcfg, placed, mesh):
+    """``build_step``'s prefill and decode steps (``impl="cuda"``) of the
+    merged model on this rank, at the ``MODEL_AXIS_STEPS`` sizes, placed
+    as the dry run places them (``dryrun.place_args``: the params as
+    ``place_params`` placed them, the inputs, a dense cache from
+    ``init_cache``), each under ``StepCounter``: its collectives, the
+    seconds inside them and the step's wall seconds."""
+    import torch
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.distribution.collectives import StepCounter
+    from repro_torch.distribution.placed import on_mesh
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import init_cache
+
+    g = torch.Generator("cuda").manual_seed(5)
+
+    def ids(*shape):
+        return torch.randint(0, mcfg.vocab_size, shape, generator=g,
+                             device="cuda", dtype=torch.int32)
+
+    out = {}
+    for kind, (_, B, S) in MODEL_AXIS_STEPS.items():
+        args = (placed, {"inputs": ids(B, S)}) if kind == "prefill" else \
+            (placed, ids(B), init_cache(mcfg, B, S, device="cuda"))
+        args = dryrun.place_args(mcfg, kind, args, mesh,
+                                 shd.make_rules(mesh, batch=B))
+        fn, _ = steps.build_step(mcfg, kind, impl="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with on_mesh(mesh), StepCounter() as c:
+            fn(*args)
+        torch.cuda.synchronize()
+        out[kind] = dict(c.collectives(), comm_s=c.comm_s,
+                         wall_s=time.perf_counter() - t0)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def engine_step_collectives(eng):
+    """One more decode step of ``eng`` after its run (every request done:
+    the step writes rows no request reads) under ``StepCounter``: its
+    collectives, the seconds inside them and the step's wall seconds."""
+    import torch
+    from repro_torch.distribution.collectives import StepCounter
+    from repro_torch.distribution.placed import on_mesh
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with on_mesh(eng.mesh), StepCounter() as c:
+        eng._decode(eng._last_token, eng.kv.device_cache())
+    torch.cuda.synchronize()
+    return dict(c.collectives(), comm_s=c.comm_s,
+                wall_s=time.perf_counter() - t0)
+
+
+def moved_line(tag, c):
+    """One log line of a counted step's collectives."""
+    ops = ", ".join(f"{k} {n} ({c['per_op_bytes'][k]} B)"
+                    for k, n in c["counts"].items() if n)
+    return (f"  {tag}: {ops or 'none'}; total {c['total_bytes']} B, by "
+            f"link {c['by_link']}; {c['comm_s'] * 1e3:.1f} ms inside the "
+            f"gloo collectives of a {c['wall_s'] * 1e3:.1f} ms step")
+
+
 def model_axis_rank(rank: int) -> int:
     """One rank of ``model_axis_path``; writes ``build/model_axis_<rank>
     .json``: its checks' results, the streams it emitted and its launch
@@ -3322,6 +3489,9 @@ def model_axis_rank(rank: int) -> int:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # rank 0 holds this rank's counts against the dry run's prediction,
+    # computed meanwhile on the host's CPU
+    prediction = start_prediction() if rank == 0 else None
     dist.init_process_group("gloo", init_method="file://" + os.path.join(
         ROOT, "build", "model_axis_pg"), rank=rank, world_size=2)
     gloo_cuda_all_gather()
@@ -3336,11 +3506,25 @@ def model_axis_rank(rank: int) -> int:
             out["f32_s"] = time.perf_counter() - t0
             out.update(model_axis_bf16(mesh, prompts, out["streams"]))
         out["seconds"] = time.perf_counter() - t0
+        if prediction is not None:
+            want = predicted(prediction)
+            prediction = None
+            for kind, got in out["collectives"].items():
+                for key in ("counts", "per_op_bytes", "total_bytes",
+                            "by_link"):
+                    if got[key] != want[kind][key]:
+                        raise AssertionError(
+                            f"{kind} step on the (1, 2) mesh: {key} moved "
+                            f"{got[key]} != the dry run's {want[kind][key]}")
+            out["predicted"] = want
         with open(os.path.join(ROOT, "build", f"model_axis_{rank}.json"),
                   "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
+        for proc in (prediction or {}).values():
+            proc.kill()
+            proc.communicate()
     return 0
 
 
@@ -3733,11 +3917,16 @@ def model_axis_bf16(mesh, prompts, emitted):
                 for c in ("dense", "paged", "paged_q8")}
     if rank == 0:
         dist.barrier()
+    if mcfg != axis_config():
+        raise AssertionError(f"the model-axis phase's merged config is not "
+                             f"the prediction's: {mcfg}")
     placed = place_params(mparams, mesh)
     del mparams
     torch.cuda.empty_cache()
     L, n = mcfg.n_layers, len(prompts)
-    res = {"launches": {k: 0 for k in KERNELS}, "bf16": {}}
+    res = {"launches": {k: 0 for k in KERNELS}, "bf16": {},
+           "collectives": counted_steps(mcfg, placed, mesh),
+           "engine_step": {}}
     for cache in ("dense", "paged", "paged_q8"):
         plain, pcounts, pwall = unmeshed[cache]
         eng, meshed, counts, wall = serve(mcfg, placed, prompts,
@@ -3748,6 +3937,7 @@ def model_axis_bf16(mesh, prompts, emitted):
         if counts != pcounts:
             raise AssertionError(f"{cache}: meshed launches {counts} != "
                                  f"unmeshed {pcounts}")
+        res["engine_step"][cache] = engine_step_collectives(eng)
         del eng  # its cache, before the next engine allocates its own
         torch.cuda.empty_cache()
         seng, sched, scounts, swall = serve(mcfg, placed, prompts,
@@ -4907,8 +5097,9 @@ def run() -> int:
                       train_path):
             timed(phase)
     except BaseException:
-        dry.kill()
-        dry.communicate()
+        for proc in dry.values():
+            proc.kill()
+            proc.communicate()
         raise
     timed(mesh_path, dry)
     timed(obs_path)

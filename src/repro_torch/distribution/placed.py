@@ -10,7 +10,8 @@ Three seams need more than propagation, and live here:
     assignment, advanced indexing, ``copy_``), and DTensor refuses an
     in-place op that would need its destination redistributed.  Each rank
     writes the part of the update that falls in its own shard instead;
-    the (small) update itself is gathered first.
+    the (small) update itself is gathered first.  On meta shards (the dry
+    run) the shapes are checked and nothing is written.
   * ``local_call`` / ``local_tree``: where the mesh's model axis has
     size 1 every rank holds whole heads and whole sequences, so the
     attention cores and the SSD scan run on each rank's local shards (its
@@ -19,12 +20,17 @@ Three seams need more than propagation, and live here:
     sees a DTensor (``kernels.ops`` raises ``TypeError`` for one).
   * ``heads_call`` / ``split_k_call``: where the model axis is larger than
     1, the kernel route (``impl="cuda"``) of the attention cores and the
-    SSD scan runs on each rank's local tensors all the same: a prefill,
-    a VLM's cross decode and the scan on the rank's query (SSM) heads and
+    SSD scan (on either route: its chunk loop on DTensors would plan every
+    op) runs on each rank's local tensors all the same: a prefill, a
+    VLM's cross decode and the scan on the rank's query (SSM) heads and
     the kv heads they read (``heads_call``), a decode step over the
     rank's slice of the cache's sequence, whose partial softmax states
     are combined across the model axis (``split_k_call``, then
     ``combine_softmax``).  Neither gathers a cache or a pool.
+  * ``head_layout``: a projection's columns in a layout DTensor can
+    reshape into heads, per ``sharding.heads_split`` (the one rule of
+    whole or split heads, which the engines, the trainer and the dry run
+    all run through ``models.transformer._project_qkv``).
   * ``reanchor``: the counterpart of the reference's
     ``with_sharding_constraint`` (q/k/v of merged layouts, the training
     stream).
@@ -46,7 +52,7 @@ import contextlib
 from typing import Any, Callable, Optional, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 def is_placed(x) -> bool:
@@ -75,6 +81,18 @@ def on_mesh(mesh):
         _DEPTH[0] -= 1
 
 
+def local_part(t, summed=()):
+    """``t.to_local()``, where this rank's use of its local tensor covers
+    only its share of the work over the mesh dims ``summed`` (its batch
+    rows, its heads' slice): there the gradient is a pending sum of the
+    ranks' parts, not a replica (``to_local``'s ``grad_placements``)."""
+    if not summed:
+        return t.to_local()
+    return t.to_local(grad_placements=[
+        Partial() if d in summed and p == Replicate() else p
+        for d, p in enumerate(t.placements)])
+
+
 def full(x):
     """The whole tensor on every rank (a gather of a DTensor's shards)."""
     return x.full_tensor() if isinstance(x, DTensor) else x
@@ -93,20 +111,26 @@ def on_shards(impl: str, *tensors) -> bool:
     """True when an operand is a DTensor on a mesh whose model axis has
     size 1: the attention cores and the SSD scan then run on local shards
     (``local_call``), on either route.  A larger model axis splits heads
-    or sequences: the "torch" route runs on the DTensors, which propagate
-    the sharding, and the kernels ("cuda") on each rank's heads or slice
-    (``model_split``)."""
+    or sequences: the "torch" route's attention runs on the DTensors,
+    which propagate the sharding, and the kernels ("cuda") on each rank's
+    heads or slice (``model_split``); the SSD scan runs on each rank's
+    heads on either route (``over_model_axis``)."""
     placed = [t for t in tensors if isinstance(t, DTensor)]
     return bool(placed) and model_axis_size(placed[0]) == 1
+
+
+def over_model_axis(*tensors) -> bool:
+    """True when an operand is a DTensor on a mesh whose model axis is
+    larger than 1."""
+    placed = [t for t in tensors if isinstance(t, DTensor)]
+    return bool(placed) and model_axis_size(placed[0]) > 1
 
 
 def model_split(impl: str, *tensors) -> bool:
     """True for the kernel route (``impl="cuda"``) when an operand is a
     DTensor on a mesh whose model axis is larger than 1: the cores then
     run the kernels through ``heads_call`` or ``split_k_call``."""
-    placed = [t for t in tensors if isinstance(t, DTensor)]
-    return impl == "cuda" and bool(placed) and \
-        model_axis_size(placed[0]) > 1
+    return impl == "cuda" and over_model_axis(*tensors)
 
 
 def shard_box(dst: DTensor):
@@ -177,6 +201,11 @@ def put_(dst, index, value) -> None:
     for k, (off, n) in enumerate(out_dims):
         value = value.narrow((1 if n_adv else 0) + k, off, n)
     if n_adv:
+        if local.is_meta:
+            # a meta shard holds no values: the shapes above cohere, and
+            # which entries land here is data (``nonzero`` has no meta
+            # form); the gathers, the only collectives, have run
+            return
         keep = torch.nonzero(mask.reshape(-1)).flatten()
         if keep.numel() == 0:
             return
@@ -213,6 +242,71 @@ def reanchor(x, spec):
     mesh = x.device_mesh
     spec = shd.evenly(spec, x, mesh)
     return x.redistribute(mesh, shd.placements(spec, mesh))
+
+
+def head_layout(x, n_kv_heads: int):
+    """``x`` (..., H·Dh), a projection's columns, in a layout DTensor can
+    reshape into heads: as it lies where the model axis splits the heads
+    (``sharding.heads_split``), elsewhere whole on every rank
+    (``whole_dim``: a column split gathered, a pending sum reduced, so
+    that no partial head flows into the cores and no gradient comes back
+    split inside a head).  Plain tensors pass through."""
+    from repro_torch.distribution.sharding import heads_split
+
+    if not isinstance(x, DTensor) or heads_split(n_kv_heads,
+                                                  model_axis_size(x)):
+        return x
+    return whole_dim(x, -1)
+
+
+def row_split(x, w):
+    """``x`` (..., K) for the product ``x @ w``: its last dim split over
+    each mesh dim that splits ``w``'s rows and holds it whole (each rank
+    keeps its slice: no collective).  DTensor would plan that split
+    itself, but then the backward hands ``x``'s gradient on in the
+    product's layout; split here, the backward gathers it back to
+    ``x``'s own (whole heads, where ``head_layout`` made them).  Plain
+    tensors pass through."""
+    if not isinstance(x, DTensor) or not isinstance(w, DTensor):
+        return x
+    rows = Shard(w.ndim - 2)
+    want = [Shard(x.ndim - 1) if pw == rows and px == Replicate() else px
+            for px, pw in zip(x.placements, w.placements)]
+    return x if want == list(x.placements) else \
+        x.redistribute(x.device_mesh, want)
+
+
+def vocab_gather(table, ids):
+    """``table[ids]`` for an embedding ``table`` whose rows (the
+    vocabulary) a mesh may split (a DTensor): each rank looks up the ids
+    that fall in its rows on its local slice and zeros the others, and
+    the rows are summed over the dims that split the vocabulary (the
+    vocabulary-parallel embedding: one all-reduce of the looked-up rows,
+    where DTensor's indexing would gather the table).  One rank holds
+    each id's row, so the sum is exact.  The rows come out placed as the
+    ids are.  A plain table, or one whose rows no mesh dim splits, is
+    indexed as it is."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    vocab = [d for d, p in enumerate(table.placements)
+             if p.is_shard(0) and mesh.size(d) > 1]
+    if not vocab:
+        return table[ids]
+    ids = _as_placed(ids, mesh)
+    want = [Replicate() if d in vocab else p
+            for d, p in enumerate(ids.placements)]
+    if want != list(ids.placements):
+        ids = ids.redistribute(mesh, want)
+    lo, n = shard_box(table)[0]
+    local = ids.to_local().long()
+    own = (local >= lo) & (local < lo + n)
+    split = [d for d, p in enumerate(want) if p.is_shard()]
+    rows = local_part(table, split)[(local - lo).clamp(0, n - 1)]
+    rows = rows.masked_fill(~own[..., None], 0)
+    return DTensor.from_local(rows, mesh, [Partial() if d in vocab else p
+                                           for d, p in enumerate(want)],
+                              run_check=False).redistribute(mesh, want)
 
 
 def local_tree(tree):
@@ -274,7 +368,8 @@ def local_call(fn: Callable, batch: Sequence[Any], other: Sequence[Any] = (),
                     for d in range(mesh.ndim)]
             if list(t.placements) != want:
                 t = t.redistribute(mesh, want)
-        return t.to_local()
+            return t.to_local()
+        return local_part(t, dp)  # used by this rank's batch rows only
 
     args = [local(t, True) for t in batch] + [local(t, False) for t in other]
     out = fn(*args, **kw)
@@ -364,8 +459,12 @@ def heads_call(fn: Callable, operands: Sequence, out_heads, *,
                 for d in range(mesh.ndim)]
         if list(t.placements) != want:
             t = t.redistribute(mesh, want)
-        x = t.to_local()
-        return x.narrow(hdim, lo, hi - lo) if heads and not sharded else x
+        # a per-head constant serves this rank's batch rows, a kv head
+        # replicated and sliced its heads' share
+        narrowed = heads and not sharded
+        x = local_part(t, (() if batch else tuple(dp)) +
+                       ((md,) if narrowed else ()))
+        return x.narrow(hdim, lo, hi - lo) if narrowed else x
 
     out = fn(*[local(*o) for o in operands])
 
@@ -445,6 +544,36 @@ def own_pages(ids, lo: int, n: int):
     holds the page (``lo <= id < lo + n``), -1 elsewhere and where ``ids``
     is -1."""
     return torch.where((ids >= lo) & (ids < lo + n), ids - lo, -1)
+
+
+def hold_layout(x, like=None, dim: int = 0):
+    """``x`` as it lies, or, given ``like``, with dim ``dim`` split over
+    each mesh dim that splits it in ``like`` and holds it whole in ``x``
+    (each rank keeps its slice: no collective), in either case through a
+    DTensor redistribution: in the backward that brings the gradient to
+    ``x``'s own layout, whatever layout the ops after it hand it on in,
+    so that the reshapes that made ``x`` see the split they made.
+    Plain tensors pass through."""
+    if not isinstance(x, DTensor):
+        return x
+    want = list(x.placements)
+    if isinstance(like, DTensor):
+        want = [Shard(dim) if pl.is_shard(dim % like.ndim) and
+                px == Replicate() else px
+                for px, pl in zip(x.placements, like.placements)]
+    return x.redistribute(x.device_mesh, want)
+
+
+def split_count(x, dim: int) -> int:
+    """Into how many parts the mesh splits dim ``dim`` of ``x`` (1 for a
+    plain tensor)."""
+    if not isinstance(x, DTensor):
+        return 1
+    n = 1
+    for d, p in enumerate(x.placements):
+        if p.is_shard(dim % x.ndim):
+            n *= x.device_mesh.size(d)
+    return n
 
 
 def split_group(x, dim: int):

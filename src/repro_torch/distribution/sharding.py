@@ -175,6 +175,17 @@ def qkv_pspec(rules: ShardingRules) -> P:
     return P(rules.dp, None, rules.axis("heads"), None)
 
 
+def heads_split(n_kv_heads: int, m: int) -> bool:
+    """Whether a model axis of size ``m`` splits the attention heads of a
+    placed step: only where it divides the kv heads (it then divides the
+    query heads, a multiple of them).  Elsewhere q, k and v are whole on
+    every rank of the axis: a DTensor cannot reshape a projection split
+    inside a head (or a kv head's query group) into heads, so the
+    projection's column shards are gathered before the reshape
+    (``placed.head_layout``); its matmul stays split."""
+    return n_kv_heads % m == 0
+
+
 def stream_pspec(rules: ShardingRules) -> P:
     """(B, S, d) residual stream, sequence-parallel over TP (training)."""
     return P(rules.dp, rules.tp, None)

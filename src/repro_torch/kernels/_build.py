@@ -181,18 +181,20 @@ def refuse_placed(name: str, *args) -> None:
 
 def check_call(name: str, *tensors) -> None:
     """What every wrapper checks in front of its operator: no DTensor
-    (``refuse_placed``), every tensor on one CUDA device or every one on
-    the CPU (mixed devices raise: the dispatcher would pick the CUDA
-    implementation and hand it host pointers), and no CUDA operand that
-    autograd would need to differentiate (``refuse_autograd``).  On the
-    CPU the operator runs its plain version, which autograd
-    differentiates (``define_op``)."""
+    (``refuse_placed``), every tensor on one CUDA device, every one on
+    the CPU or every one on the meta device (mixed devices raise: the
+    dispatcher would pick the CUDA implementation and hand it host
+    pointers), and no CUDA operand that autograd would need to
+    differentiate (``refuse_autograd``).  On the CPU the operator runs
+    its plain version, which autograd differentiates (``define_op``); on
+    the meta device its fake gives the results' shapes (a dry run: no
+    launch, none counted)."""
     refuse_placed(name, *tensors)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
     dev = devices.pop()
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"{name}: unsupported device {dev}")
     if dev.type == "cuda":
         refuse_autograd(name, *tensors)

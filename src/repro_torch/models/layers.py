@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.placed import vocab_gather
+
 # ---------------------------------------------------------------------------
 # dtype helpers
 # ---------------------------------------------------------------------------
@@ -163,8 +165,10 @@ def init_embedding(gen, vocab: int, dim: int, dtype=torch.float32):
 
 def apply_embedding(params, tokens: torch.Tensor,
                     compute_dtype=torch.bfloat16) -> torch.Tensor:
-    # gather, then cast the gathered rows (never a cast copy of the table)
-    return params["table"][tokens].to(compute_dtype)
+    # gather, then cast the gathered rows (never a cast copy of the table);
+    # a table split over a mesh's vocabulary axis is looked up where its
+    # rows lie (``placed.vocab_gather``)
+    return vocab_gather(params["table"], tokens).to(compute_dtype)
 
 
 def apply_unembedding(params, x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,11 @@ routes, the ``impl`` axis the attention cores take too:
   * ``impl="cuda"`` — the hand-written kernel through
     ``kernels.ops.ssd_scan`` (from a zero state, as the TPU kernel).
 
+Under a mesh the scan runs on local tensors on both routes: each rank's
+batch rows where the model axis has size 1 (``placed.local_call``), its
+SSM heads where it is larger (``placed.heads_call``), so the chunk loop
+moves no collective and DTensor plans none of its ops.
+
 The depthwise causal conv and the decode step have no kernel in the
 reference and none here: they are plain PyTorch on every route.
 
@@ -29,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distribution.placed import (heads_call, local_call,
-                                             model_split, on_shards)
+                                             on_shards, over_model_axis)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ref_ssd_chunked
 from repro_torch.models.layers import (_normal, apply_rmsnorm, dense_init,
@@ -101,7 +106,9 @@ def ssd_chunked(
                 x, dt, A, Bm, Cm, chunk=chunk, D=D, init_state=st,
                 impl=impl),
             (x, dt, Bm, Cm, init_state), (A, D))
-    if model_split(impl, x, Bm, Cm):  # the kernel on this rank's heads
+    if over_model_axis(x, Bm, Cm):
+        # either route on this rank's heads: the chunk loop runs on local
+        # tensors (DTensor would plan every op of it) and moves nothing
         return heads_call(
             lambda x, dt, Bm, Cm, st, A, D: ssd_chunked(
                 x, dt, A, Bm, Cm, chunk=chunk, D=D, init_state=st,

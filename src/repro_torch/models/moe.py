@@ -29,6 +29,12 @@ do in the reference; they are plain ``torch.bmm`` calls, not a kernel.
 
 Under the paper's merged form P folds into the router and into every
 expert's input matrices (``core.merge``): the shapes do not change.
+
+Under a device mesh (DTensors) the "scatter" dispatch routes, fills the
+queues and combines on each rank's local groups, and only the expert
+products run on DTensors, split over the model axis with the expert
+weights (``_groups_scatter_placed``); where the ranks that split the
+batch do not divide the groups, each rank takes the batch whole.
 """
 from __future__ import annotations
 
@@ -36,7 +42,11 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distribution.placed import (hold_layout, is_placed,
+                                             local_part, split_count,
+                                             whole_dim)
 from repro_torch.models.layers import dense_init, gelu
 
 
@@ -85,10 +95,12 @@ def route(router, xg, k: int, cap: int):
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     onehot = F.one_hot(idx, E).float()  # (..., g, k, E)
     # position of each (token, choice) in its expert queue, priority by
-    # (choice rank, token order)
-    flat = onehot.transpose(n, n + 1).reshape(*lead, k * g, E)  # choice-major
-    pos = (torch.cumsum(flat, dim=n) - flat).reshape(*lead, k, g, E) \
-        .transpose(n, n + 1)
+    # (choice rank, token order): the pairs of earlier choices, then this
+    # choice's earlier tokens (the choice-major running count, without
+    # flattening (k, g): under a mesh the tokens may be split)
+    per_choice = onehot.sum(dim=n)  # (..., k, E)
+    earlier = torch.cumsum(per_choice, dim=n) - per_choice
+    pos = torch.cumsum(onehot, dim=n) - onehot + earlier.unsqueeze(n)
     pos = pos.gather(-1, idx[..., None])[..., 0]  # (..., g, k)
     keep = pos < cap
     slot = pos.clamp(0, cap - 1).long()
@@ -106,15 +118,14 @@ def _experts(params, expert_in, ffn_type: str):
     return torch.bmm(h, params["w_down"].to(cdt))
 
 
-def _groups_scatter(params, xs, k: int, E: int, cap: int, ffn_type: str):
-    """The buffer dispatch of every group of xs (G, g, d) in one pass:
-    each group routes and fills its own expert queues (its own buffer
-    rows, each group's last row taking its dropped pairs), the experts run
-    once over all groups' queues, and each group gathers its pairs' expert
-    outputs back and combines them in float32.  Every kept row is written
-    once onto zero, so the add is exact in any dtype.  Returns (out (G, g,
-    d_out), aux (G,))."""
-    gate_vals, idx, slot, keep, aux = route(params["router"], xs, k, cap)
+def _dispatch(router, xs, k: int, E: int, cap: int):
+    """Route every group of xs (G, g, d) and fill its expert queues (its
+    own buffer rows, its last row taking the group's dropped pairs; every
+    kept row is written once onto zero, so the add is exact in any dtype)
+    -> (expert inputs (G, E, cap, d), each (token, choice)'s row in the
+    (G·E·cap) expert outputs (G·g·k,), its weight (G·g·k, 1) float32,
+    aux (G,))."""
+    gate_vals, idx, slot, keep, aux = route(router, xs, k, cap)
     G, g, d = xs.shape
     rows = E * cap + 1  # a group's queues and its overflow row
     local = torch.where(keep, idx * cap + slot, E * cap)  # (G, g, k)
@@ -123,14 +134,71 @@ def _groups_scatter(params, xs, k: int, E: int, cap: int, ffn_type: str):
     x_rep = xs.reshape(G * g, d).repeat_interleave(k, dim=0)
     buf = xs.new_zeros((G * rows, d)).index_add_(0, dest, x_rep)
     ein = buf.reshape(G, rows, d)[:, :E * cap].reshape(G, E, cap, d)
-    eo = _experts(params, ein.transpose(0, 1).reshape(E, G * cap, d),
-                  ffn_type)  # (E, G*cap, d_out)
-    eo = eo.reshape(E, G, cap, -1).transpose(0, 1).reshape(G * E * cap, -1)
     src = (local.clamp(0, E * cap - 1) + base // rows * (E * cap)) \
         .reshape(G * g * k)
     w = (gate_vals * keep.float()).reshape(G * g * k, 1)
-    out = (eo[src].float() * w).reshape(G, g, k, -1).sum(dim=2)
-    return out.to(xs.dtype), aux
+    return ein, src, w, aux
+
+
+def _combine(eo, src, w, g: int, k: int, dtype):
+    """Each group's pairs' expert outputs eo (G, E, cap, d_out) gathered
+    back and combined in float32 -> (G, g, d_out) in ``dtype``."""
+    G = eo.shape[0]
+    out = (eo.reshape(-1, eo.shape[-1])[src].float() * w) \
+        .reshape(G, g, k, -1).sum(dim=2)
+    return out.to(dtype)
+
+
+def _groups_scatter(params, xs, k: int, E: int, cap: int, ffn_type: str):
+    """The buffer dispatch of every group of xs (G, g, d) in one pass:
+    each group routes and fills its own expert queues (``_dispatch``), the
+    experts run once over all groups' queues, and each group gathers its
+    pairs' expert outputs back and combines them in float32
+    (``_combine``).  Returns (out (G, g, d_out), aux (G,))."""
+    if is_placed(xs):
+        return _groups_scatter_placed(params, xs, k, E, cap, ffn_type)
+    ein, src, w, aux = _dispatch(params["router"], xs, k, E, cap)
+    G, d = xs.shape[0], xs.shape[2]
+    eo = _experts(params, ein.transpose(0, 1).reshape(E, G * cap, d),
+                  ffn_type)  # (E, G*cap, d_out)
+    eo = eo.reshape(E, G, cap, -1).transpose(0, 1)
+    return _combine(eo, src, w, xs.shape[1], k, xs.dtype), aux
+
+
+def _groups_scatter_placed(params, xs, k: int, E: int, cap: int,
+                           ffn_type: str):
+    """``_groups_scatter`` of a DTensor xs: each rank routes, dispatches
+    and combines its groups on local tensors (the groups split over the
+    data axes as they lie, each group whole on its ranks, the router
+    whole), and only the experts run on DTensors, split over the model
+    axis as their weights are (each rank its experts, on every queue of
+    its groups); their outputs are gathered over the model axis for the
+    combine.  DTensor places no scatter or gather of the dispatch (its
+    ``index_add`` has no sharding rule of its own)."""
+    mesh = xs.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    md = names.index("model") if "model" in names else None
+    groups = [i for i, p in enumerate(xs.placements)
+              if p.is_shard(0) and mesh.size(i) > 1 and i != md]
+    place = [Shard(0) if i in groups else Replicate()
+             for i in range(mesh.ndim)]
+    xl = xs.redistribute(mesh, place).to_local()
+    router = params["router"]
+    if is_placed(router):  # whole; its gradient a sum over the groups
+        router = local_part(router.redistribute(
+            mesh, [Replicate()] * mesh.ndim), groups)
+    ein, src, w, aux = _dispatch(router, xl, k, E, cap)
+    G, d = xl.shape[0], xl.shape[2]
+    queues = [Shard(1) if i in groups else Replicate()
+              for i in range(mesh.ndim)]
+    eo = _experts(params, DTensor.from_local(
+        ein.transpose(0, 1).reshape(E, G * cap, d), mesh, queues,
+        run_check=False), ffn_type)  # (E, G*cap, d_out)
+    eo = eo.redistribute(mesh, queues).to_local()
+    eo = eo.reshape(E, G, cap, -1).transpose(0, 1)
+    out = _combine(eo, src, w, xl.shape[1], k, xs.dtype)
+    return (DTensor.from_local(out, mesh, place, run_check=False),
+            DTensor.from_local(aux, mesh, place, run_check=False))
 
 
 def _group_einsum(params, xg, k: int, E: int, cap: int, ffn_type: str):
@@ -167,6 +235,12 @@ def apply_moe(params, x, *, n_experts: int, experts_per_token: int,
     if tokens % g:
         g = tokens  # degenerate small inputs: one group
     cap = g if dropless else _capacity(g, E, k, capacity_factor)
+    like = None
+    if tokens // g > 1 and (tokens // g) % split_count(x, 0):
+        # under a mesh the groups split as the batch does; where the
+        # ranks that split it do not divide the groups (DTensor cannot
+        # unflatten such a split), each rank takes the batch whole
+        like, x = x, whole_dim(x, 0)
     groups = x.reshape(tokens // g, g, d)
     if impl == "scatter":  # every group in one pass
         out, aux = _groups_scatter(params, groups, k, E, cap, ffn_type)
@@ -174,4 +248,6 @@ def apply_moe(params, x, *, n_experts: int, experts_per_token: int,
         outs, auxes = zip(*(_group_einsum(params, xg, k, E, cap, ffn_type)
                             for xg in groups))
         out, aux = torch.cat(outs), torch.stack(auxes)
-    return out.reshape(B, S, -1), aux.mean()
+    # split back as the batch came (each rank keeps its rows), its
+    # gradient held to that layout for the groups' reshape
+    return hold_layout(out.reshape(B, S, -1), like, 0), aux.mean()

@@ -67,10 +67,11 @@ from repro_torch._device import resolve_device
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distribution import sharding as shd
-from repro_torch.distribution.placed import (assign_, full, is_placed,
-                                             local_pages, own_pages, put_,
-                                             reanchor, split_group,
-                                             whole_dim)
+from repro_torch.distribution.placed import (assign_, full, head_layout,
+                                             is_placed, local_pages,
+                                             model_axis_size, own_pages,
+                                             put_, reanchor, row_split,
+                                             split_group, whole_dim)
 from repro_torch.kernels import paging, quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backends
@@ -322,7 +323,10 @@ def block_sequence(params, cfg: ModelConfig):
 def _project_qkv(lp, cfg: ModelConfig, u, kv_src, merged: bool):
     """u: (B,S,d) query-side stream; kv_src: (B,Sk,d) key/value source.  In
     merged styles the projection named by ``cfg.merged_variant`` is the
-    identity: the stream is already in its output basis (Fig 2b/c/d)."""
+    identity: the stream is already in its output basis (Fig 2b/c/d).
+    Under a mesh whose model axis does not split the heads
+    (``sharding.heads_split``) each projection's column split is gathered
+    before the reshape into heads (``placed.head_layout``)."""
     Dh = cfg.d_head
     variant = cfg.merged_variant if merged else ""
 
@@ -336,9 +340,10 @@ def _project_qkv(lp, cfg: ModelConfig, u, kv_src, merged: bool):
     k = kv_src if variant == "kp" else proj("k", kv_src)
     v = kv_src if variant == "vp" else proj("v", kv_src)
     B, Sq, Sk = u.shape[0], u.shape[1], kv_src.shape[1]
-    return (q.reshape(B, Sq, cfg.n_heads, Dh),
-            k.reshape(B, Sk, cfg.n_kv_heads, Dh),
-            v.reshape(B, Sk, cfg.n_kv_heads, Dh))
+    Hkv = cfg.n_kv_heads
+    return (head_layout(q, Hkv).reshape(B, Sq, cfg.n_heads, Dh),
+            head_layout(k, Hkv).reshape(B, Sk, Hkv, Dh),
+            head_layout(v, Hkv).reshape(B, Sk, Hkv, Dh))
 
 
 def _rope(cfg: ModelConfig, x, positions):
@@ -410,14 +415,15 @@ def _qkv_reanchor(spec, q, k, v):
     """q/k/v redistributed to ``spec`` (``sharding.qkv_pspec``) when they
     are DTensors: the counterpart of the reference's
     ``with_sharding_constraint`` on merged layouts.  Where the kv heads do
-    not divide the model axis they stay whole, and so do the query heads:
-    a split of each kv head's query group is not a layout the grouped
-    attention below can keep (DTensor cannot flatten it)."""
+    not divide the model axis (``sharding.heads_split``) they stay whole,
+    and so do the query heads: a split of each kv head's query group is
+    not a layout the grouped attention below can keep (DTensor cannot
+    flatten it)."""
     if spec is None or not is_placed(k):
         return q, k, v
     kv_spec = shd.evenly(spec, k, k.device_mesh)
-    if kv_spec[2] is None:
-        spec = kv_spec
+    if not shd.heads_split(k.shape[2], model_axis_size(k)):
+        spec = kv_spec = shd.P(kv_spec[0], None, None, None)
     return reanchor(q, spec), reanchor(k, kv_spec), reanchor(v, kv_spec)
 
 
@@ -440,7 +446,12 @@ def _cross_attention_seq(lp, cfg: ModelConfig, u, vision, merged: bool,
 
 
 def _attn_out_proj(lp, cat):
-    return cat @ lp["wp"].to(cat.dtype)
+    """cat (B, S, attn_dim) @ wp.  Under a mesh ``cat`` is split as wp's
+    rows are first (``placed.row_split``): heads the model axis does not
+    split come whole out of the cores, and their gradient then goes back
+    whole, into the reshapes that made them."""
+    w = lp["wp"]
+    return row_split(cat, w) @ w.to(cat.dtype)
 
 
 def _apply_ffn(p, cfg: ModelConfig, x, dropless: bool = False):
@@ -1501,6 +1512,7 @@ def _cross_attn_step(lp, cfg: ModelConfig, u1, ck, cv, merged: bool, ctx):
         if "bq" in lp:
             q = q + lp["bq"].to(u1.dtype)
     kv_pos, q_pos = ctx["cross_pos"]
+    q = head_layout(q, cfg.n_kv_heads)
     out = attn_mod.decode_attention_core_cross(
         q.reshape(B, cfg.n_heads, cfg.d_head), ck, cv, kv_positions=kv_pos,
         q_position=q_pos, impl=ctx["impl"])

@@ -3,7 +3,9 @@
 the reference: ``SHAPES`` and ``shape_applicable`` (with its reasons) for
 every arch, the input stand-ins' shapes and dtypes, ``n_params`` and the
 model FLOPs, then records of every applicable cell at ``reduce_config``
-and of a few at full width, on the meta device.
+and of a few at full width, on the meta device (the meta-only record,
+``analysis=False``; the placed run's record is
+``tests/test_torch_dryrun_placed.py``'s).
 
 ``repro.launch.dryrun`` is never imported here (it sets ``XLA_FLAGS`` to
 512 host devices on import): the reference's model FLOPs come from
@@ -146,7 +148,7 @@ def test_every_applicable_cell_runs_at_reduce_config(arch, monkeypatch):
                    for x in jax.tree.leaves(jsteps.param_specs(jc)))
     for name, s in tcfg.SHAPES.items():
         for mp in (False, True):
-            rec = dryrun.run_cell(arch, name, multi_pod=mp)
+            rec = dryrun.run_cell(arch, name, multi_pod=mp, analysis=False)
             ok, why = jcfg.shape_applicable(jc, jcfg.SHAPES[name])
             if not ok:
                 assert rec == {"arch": arch, "shape": name, "skipped": True,
@@ -171,7 +173,7 @@ def test_full_width_cells(arch, shape, multi_pod):
     uneven shardings and per-device parameter bytes against the specs."""
     from repro_torch.launch.mesh import make_production_mesh
 
-    rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod)
+    rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod, analysis=False)
     _check_record(rec, arch, shape, multi_pod)
     tc = tcfg.get_config(arch)
     mesh = make_production_mesh(multi_pod=multi_pod)
@@ -200,6 +202,7 @@ def test_cli_writes_records_and_skips_existing(tmp_path, capsys):
                      "mamba2-2.7b__long_500k__single__default.json"]
     rec = json.load(open(os.path.join(out, files[0])))
     assert rec["mesh"]["chips"] == 512 and rec["kind"] == "decode"
+    assert rec["roofline"]["collective_s"] > 0  # the placed run's record
     counts = dryrun.main(["--arch", "llama3.2-1b", "--shape", "long_500k",
                           "--out", out])
     assert counts == {"run": 0, "skipped": 1, "failed": 0}

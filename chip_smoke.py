@@ -3091,9 +3091,13 @@ MESH_TRAIN_RTOL = 1e-6
 # the dry run's placed cells on the card's host: one of each kind on both
 # production meshes, among them heads a model axis of 16 does not divide
 # (Qwen2.5-32B's 40 and 8 kv, Hymba's 25 and 5, Phi-3.5-MoE's 8 kv
-# heads and its expert dispatch); the full placed run is ``--all``'s
+# heads and its expert dispatch), and the two cells this host's PyTorch
+# (2.11) refused before the cores and the encoder's convolution ran on
+# local tensors (HuBERT-XLarge's train step, Moonshot's MHA decode over
+# split heads); the full placed run is ``--all``'s
 DRYRUN_PLACED = ("llama3.2-1b:train_4k,qwen2.5-32b:prefill_32k,"
-                 "phi3.5-moe-42b-a6.6b:decode_32k,hymba-1.5b:long_500k")
+                 "phi3.5-moe-42b-a6.6b:decode_32k,hymba-1.5b:long_500k,"
+                 "hubert-xlarge:train_4k,moonshot-v1-16b-a3b:decode_32k")
 
 
 def start_dryrun():
@@ -3216,8 +3220,9 @@ MODEL_AXIS_NEW = 8
 # costs host time per layer, whatever its length)
 MODEL_AXIS_SCHED = dict(token_budget=512, chunk_tokens=256)
 # the model-axis phase's pools: 32 pages, of which its four requests take
-# 29, so that both ranks' halves hold pages the requests attend (the
-# default pool's 128 pages would keep them all in rank 0's half)
+# 29, so that each rank's part of a model axis of 2 or 4 holds pages the
+# requests attend (the default pool's 128 pages would keep them all in
+# rank 0's part)
 MODEL_AXIS_PAGES = 32
 
 
@@ -3374,12 +3379,13 @@ def axis_config():
         dtype="bfloat16", param_dtype="bfloat16")
 
 
-def start_prediction():
-    """The dry run's record of each ``MODEL_AXIS_STEPS`` step of
-    ``axis_config()`` on a (1, 2) mesh with ``impl="cuda"``
-    (``python -m repro_torch.launch.dryrun ... --mesh 1x2 --impl cuda``):
-    subprocesses over fake groups of their own, on the host's CPU, no
-    card.  Returns them by kind; ``predicted`` reads them."""
+def start_prediction(mesh="1x2", steps=None):
+    """The dry run's record of each ``steps`` step (kind -> (cell, batch,
+    length); default ``MODEL_AXIS_STEPS``) of ``axis_config()`` on a
+    ``mesh`` ("DxM") with ``impl="cuda"`` (``python -m
+    repro_torch.launch.dryrun ... --mesh 1x2 --impl cuda``): subprocesses
+    over fake groups of their own, on the host's CPU, no card.  Returns
+    them by kind; ``predicted`` reads them."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3391,11 +3397,11 @@ def start_prediction():
                CUDA_VISIBLE_DEVICES="")
     return {kind: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "mistral-7b", "--shape", cell, "--mesh", "1x2", "--impl", "cuda",
+         "mistral-7b", "--shape", cell, "--mesh", mesh, "--impl", "cuda",
          "--batch", str(B), "--seq-len", str(S), "--overrides",
          json.dumps(over), "--print-record"], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for kind, (cell, B, S) in MODEL_AXIS_STEPS.items()}
+        for kind, (cell, B, S) in (steps or MODEL_AXIS_STEPS).items()}
 
 
 def predicted(procs):
@@ -3411,9 +3417,10 @@ def predicted(procs):
     return out
 
 
-def counted_steps(mcfg, placed, mesh):
+def counted_steps(mcfg, placed, mesh, sizes=None):
     """``build_step``'s prefill and decode steps (``impl="cuda"``) of the
-    merged model on this rank, at the ``MODEL_AXIS_STEPS`` sizes, placed
+    merged model on this rank, at the ``sizes`` (default
+    ``MODEL_AXIS_STEPS``), placed
     as the dry run places them (``dryrun.place_args``: the params as
     ``place_params`` placed them, the inputs, a dense cache from
     ``init_cache``), each under ``StepCounter``: its collectives, the
@@ -3432,7 +3439,7 @@ def counted_steps(mcfg, placed, mesh):
                              device="cuda", dtype=torch.int32)
 
     out = {}
-    for kind, (_, B, S) in MODEL_AXIS_STEPS.items():
+    for kind, (_, B, S) in (sizes or MODEL_AXIS_STEPS).items():
         args = (placed, {"inputs": ids(B, S)}) if kind == "prefill" else \
             (placed, ids(B), init_cache(mcfg, B, S, device="cuda"))
         args = dryrun.place_args(mcfg, kind, args, mesh,
@@ -3467,13 +3474,13 @@ def engine_step_collectives(eng):
                 wall_s=time.perf_counter() - t0)
 
 
-def moved_line(tag, c):
-    """One log line of a counted step's collectives."""
+def moved_line(tag, c, backend="gloo"):
+    """One log line of a counted step's collectives (over ``backend``)."""
     ops = ", ".join(f"{k} {n} ({c['per_op_bytes'][k]} B)"
                     for k, n in c["counts"].items() if n)
     return (f"  {tag}: {ops or 'none'}; total {c['total_bytes']} B, by "
             f"link {c['by_link']}; {c['comm_s'] * 1e3:.1f} ms inside the "
-            f"gloo collectives of a {c['wall_s'] * 1e3:.1f} ms step")
+            f"{backend} collectives of a {c['wall_s'] * 1e3:.1f} ms step")
 
 
 def model_axis_rank(rank: int) -> int:
@@ -3566,39 +3573,45 @@ def prefill_gap(got, want) -> float:
                for a, b in zip(got, want))
 
 
-def model_axis_f32(mesh, prompts, emitted):
-    """(a) of ``model_axis_path``: per cache, the merged model served
-    meshed and unmeshed, then the source meshed.  On the fp caches the
-    meshed prefill logits are within ``MESH_LOGIT_RTOL`` of the unmeshed
-    engine's, the greedy streams equal, and the source's on the mesh
-    equal the merged model's.  On the int8 pool a float32 rounding
-    difference (the model axis's row-parallel sums) moves some K/V values
-    across an int8 rounding boundary, and the streams part where the
-    unmeshed logits are near a tie: ``q8_on_the_mesh`` shows that cause
-    and gates the int8 prefill and decode in float32 instead, for both
-    models; the streams' agreement is reported."""
+def model_axis_f32(mesh, prompts, emitted, name="(1, 2)", want=None):
+    """(a) of ``model_axis_path`` on the ``name``d mesh: per cache, the
+    merged model served meshed and unmeshed, then the source meshed.  On
+    the fp caches the meshed prefill logits are within ``MESH_LOGIT_RTOL``
+    of the unmeshed engine's, the greedy streams equal, and the source's
+    on the mesh equal the merged model's.  On the int8 pool a float32
+    rounding difference (the model axis's row-parallel sums) moves some
+    K/V values across an int8 rounding boundary, and the streams part
+    where the unmeshed logits are near a tie: ``q8_on_the_mesh`` shows that
+    cause and gates the int8 prefill and decode in float32 instead, for
+    both models; the streams' agreement is reported.  ``want``: cache ->
+    (streams, prefill logits) of the unmeshed merged engine computed
+    elsewhere (``chip_smoke_4.py``'s reference), served here without it."""
     import torch
 
     cfg, params, mcfg, mparams = build(EQ_LAYERS, calibrate=True)
     placed, mplaced = place_params(params, mesh), place_params(mparams, mesh)
     n, res = len(prompts), {}
     for cache in ("dense", "paged"):
-        want, got = [], []
-        _, plain, _, _ = serve(mcfg, mparams, prompts, MODEL_AXIS_NEW,
-                               cache=cache, probe=prefill_logits(want),
-                               **pool_size(cache))
+        got = []
+        if want is None:
+            ref = []
+            _, plain, _, _ = serve(mcfg, mparams, prompts, MODEL_AXIS_NEW,
+                                   cache=cache, probe=prefill_logits(ref),
+                                   **pool_size(cache))
+            plain = streams(plain)
+        else:
+            plain, ref = want[cache]
         eng, mrg, counts, _ = serve(mcfg, mplaced, prompts, MODEL_AXIS_NEW,
                                     cache=cache, mesh=mesh,
                                     probe=prefill_logits(got),
                                     **pool_size(cache))
-        check_counts(f"merged float32 {cache}, (1, 2) mesh", counts, eng,
+        check_counts(f"merged float32 {cache}, {name} mesh", counts, eng,
                      EQ_LAYERS, n, merged=True)
         emitted[f"f32/{cache}"] = streams(mrg)
-        gap = prefill_gap(got, want)
+        gap = prefill_gap(got, [r.to(got[0].device) for r in ref])
         res[cache] = {"prefill_logit_gap": gap,
-                      "agree_unmeshed": agreement(streams(mrg),
-                                                  streams(plain))}
-        if streams(mrg) != streams(plain) or not gap <= MESH_LOGIT_RTOL:
+                      "agree_unmeshed": agreement(streams(mrg), plain)}
+        if streams(mrg) != plain or not gap <= MESH_LOGIT_RTOL:
             bad = first_mismatch(mcfg, mparams, prompts, plain, mrg)
             raise AssertionError(f"{cache}: meshed and unmeshed float32 "
                                  f"streams differ at {bad} or the prefill "
@@ -3606,24 +3619,25 @@ def model_axis_f32(mesh, prompts, emitted):
         eng, src, counts, _ = serve(cfg, placed, prompts, MODEL_AXIS_NEW,
                                     cache=cache, mesh=mesh,
                                     **pool_size(cache))
-        check_counts(f"source float32 {cache}, (1, 2) mesh", counts, eng,
+        check_counts(f"source float32 {cache}, {name} mesh", counts, eng,
                      EQ_LAYERS, n, merged=False)
         if streams(src) != streams(mrg):
             bad = first_mismatch(cfg, params, prompts, src, mrg)
-            raise AssertionError(f"{cache}: on the (1, 2) mesh, merged "
+            raise AssertionError(f"{cache}: on the {name} mesh, merged "
                                  f"and source streams differ at {bad}")
         res[cache]["merged_eq_source"] = True
-        log(f"  (1, 2) mesh, float32 {EQ_LAYERS} layers, {cache}: prefill "
+        log(f"  {name} mesh, float32 {EQ_LAYERS} layers, {cache}: prefill "
             f"logits within {gap:.3g} of the unmeshed engine's; meshed == "
             f"unmeshed and merged == source greedy streams")
     q8, out = {}, {}
     for tag, c, p, pl in (("merged", mcfg, mparams, mplaced),
                           ("source", cfg, params, placed)):
-        q8[tag], out[tag] = q8_on_the_mesh(tag, c, p, pl, mesh, prompts)
+        q8[tag], out[tag] = q8_on_the_mesh(tag, c, p, pl, mesh, prompts,
+                                           name)
     emitted["f32/paged_q8"] = out["merged"]
     q8["merged_vs_source_agree"] = agreement(out["merged"], out["source"])
     res["paged_q8"] = q8
-    log(f"  (1, 2) mesh, float32 {EQ_LAYERS} layers, paged_q8: merged vs "
+    log(f"  {name} mesh, float32 {EQ_LAYERS} layers, paged_q8: merged vs "
         f"source tokens shared {q8['merged_vs_source_agree']} (of "
         f"{MODEL_AXIS_NEW} each; they part unmeshed too)")
     del params, mparams, placed, mplaced, eng
@@ -3756,9 +3770,12 @@ def split_k_gate(sink):
     return wrap
 
 
-def q8_on_the_mesh(tag, cfg, params, placed, mesh, prompts):
-    """One model on the int8 pool in float32: served on the (1, 2) mesh
-    (each decode core's split-K output gated by ``split_k_gate``), then
+def q8_on_the_mesh(tag, cfg, params, placed, mesh, prompts,
+                   name="(1, 2)"):
+    """One model on the int8 pool in float32: served on the ``name``d
+    mesh (where its model axis m is larger than 1, each decode core's
+    split-K output gated by ``split_k_gate``, and the prefills' pages
+    lie in each of the pool's m parts), then
     unmeshed twice: free, and with its quantiser replaying the meshed
     run's int8 values and scales.  Asserts (``q8_rounding_cause``) that
     each run's pool pages hold what its quantiser wrote, that equal float
@@ -3772,20 +3789,22 @@ def q8_on_the_mesh(tag, cfg, params, placed, mesh, prompts):
     from repro_torch.models import attention
 
     n, merged = len(prompts), cfg.block_style == "skipless_merged"
+    m = int(mesh.size(list(mesh.mesh_dim_names).index("model")))
     kw = dict(cache="paged_q8", **pool_size("paged_q8"))
     rec_m, pages_m, ids, lg_m, errs = [], [], [], [], []
     with patched(quant, "q8_quantize_seq", q8_recorder(rec_m)), \
-            patched(attention, "_paged_on_mesh", split_k_gate(errs)):
+            patched(attention, "_paged_on_mesh", split_k_gate(errs)) \
+            if m > 1 else contextlib.nullcontext():
         eng, meshed, counts, _ = serve(
             cfg, placed, prompts, MODEL_AXIS_NEW, mesh=mesh,
             probe=probes(prefill_logits(lg_m), prefill_pages(pages_m, ids)),
             **kw)
-    check_counts(f"{tag} float32 paged_q8, (1, 2) mesh", counts, eng,
+    check_counts(f"{tag} float32 paged_q8, {name} mesh", counts, eng,
                  EQ_LAYERS, n, merged=merged)
-    halves = sorted({2 * i // MODEL_AXIS_PAGES for i in ids})
-    if halves != [0, 1]:
+    parts = sorted({m * i // MODEL_AXIS_PAGES for i in ids})
+    if parts != list(range(m)):
         raise AssertionError(f"{tag} paged_q8: the prefills' pages lie in "
-                             f"the halves {halves} of the pool only")
+                             f"the parts {parts} of the pool's {m} only")
     del eng
     rec_u, pages_u, lg_u, lg_r = [], [], [], []
     with patched(quant, "q8_quantize_seq", q8_recorder(rec_u)):
@@ -3799,17 +3818,17 @@ def q8_on_the_mesh(tag, cfg, params, placed, mesh, prompts):
     res.update(
         prefill_logit_gap=prefill_gap(lg_m, lg_u),
         replayed_prefill_logit_gap=prefill_gap(lg_m, lg_r),
-        split_k_calls=len(errs), split_k_max_abs_err=max(errs),
+        split_k_calls=len(errs), split_k_max_abs_err=max(errs, default=0.0),
         agree_unmeshed=agreement(streams(meshed), streams(plain)),
         agree_replayed=agreement(streams(meshed), streams(replay)))
-    if len(errs) != EQ_LAYERS * (MODEL_AXIS_NEW - 1) or \
+    if len(errs) != (m > 1) * cfg.n_layers * (MODEL_AXIS_NEW - 1) or \
             not res["replayed_prefill_logit_gap"] <= MESH_LOGIT_RTOL:
         raise AssertionError(f"{tag} paged_q8 on the mesh: {len(errs)} "
                              f"gated decode calls, replayed prefill logit "
                              f"gap {res['replayed_prefill_logit_gap']:.3g}")
     first = [c and (c["layer"], c["kv"], c["flips"], c["float_gap_rel"])
              for c in res["first_float_difference"]]
-    log(f"  (1, 2) mesh, float32 {EQ_LAYERS} layers, paged_q8, {tag}: "
+    log(f"  {name} mesh, float32 {EQ_LAYERS} layers, paged_q8, {tag}: "
         f"{res['int8_differing']:,d} of {res['int8_entries']:,d} prefill "
         f"int8 entries differ from the unmeshed run's (per layer "
         f"{res['int8_differing_per_layer']}, max step "

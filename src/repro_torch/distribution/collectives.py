@@ -111,7 +111,10 @@ class StepCounter(TorchDispatchMode):
     entered (``with StepCounter() as c: step(...)``; ``c.record()``).
     ``comm_s`` is the host's seconds inside the collectives and their
     waits: on a group whose collectives block (gloo), the time they
-    take."""
+    take.  A collective on CUDA tensors (NCCL runs it on a device stream,
+    and the host returns at once) is timed between two synchronisations
+    of the device: ``comm_s`` is then its time on the device, waits for
+    the slowest rank included (each step runs slower for it)."""
 
     def __init__(self):
         super().__init__()
@@ -130,10 +133,16 @@ class StepCounter(TorchDispatchMode):
         if ns in _COMM:
             if name not in _QUIET:
                 self._collective(ns, name, args, kwargs)
+            sync = any(t.is_cuda for t in tree_flatten((args, kwargs))[0]
+                       if isinstance(t, torch.Tensor))
+            if sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
                 return func(*args, **kwargs)
             finally:
+                if sync:
+                    torch.cuda.synchronize()
                 self.comm_s += time.perf_counter() - t0
         out = func(*args, **kwargs)
         if not func.is_view and not name.startswith("empty") and \

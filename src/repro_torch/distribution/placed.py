@@ -18,10 +18,14 @@ Three seams need more than propagation, and live here:
     batch rows), through the hand-written kernels on the card, and the
     serving engine runs its decode step and whole-prompt prefill so.  A kernel wrapper never
     sees a DTensor (``kernels.ops`` raises ``TypeError`` for one).
+    ``rows_call`` runs row-local eager work the same way on any mesh (the
+    encoder's and the SSM's convolutions, whose pad PyTorch 2.11's
+    planner fumbles on DTensors).
   * ``heads_call`` / ``split_k_call``: where the model axis is larger than
-    1, the kernel route (``impl="cuda"``) of the attention cores and the
-    SSD scan (on either route: its chunk loop on DTensors would plan every
-    op) runs on each rank's local tensors all the same: a prefill, a
+    1, the attention cores and the SSD scan, on either route (DTensor
+    would plan every op of their loops, and PyTorch 2.11 refuses the
+    einsums' flatten of a split head dim), run on each rank's local
+    tensors all the same: a prefill, a
     VLM's cross decode and the scan on the rank's query (SSM) heads and
     the kv heads they read (``heads_call``), a decode step over the
     rank's slice of the cache's sequence, whose partial softmax states
@@ -111,10 +115,9 @@ def on_shards(impl: str, *tensors) -> bool:
     """True when an operand is a DTensor on a mesh whose model axis has
     size 1: the attention cores and the SSD scan then run on local shards
     (``local_call``), on either route.  A larger model axis splits heads
-    or sequences: the "torch" route's attention runs on the DTensors,
-    which propagate the sharding, and the kernels ("cuda") on each rank's
-    heads or slice (``model_split``); the SSD scan runs on each rank's
-    heads on either route (``over_model_axis``)."""
+    or sequences (``over_model_axis``): the cores and the SSD scan run on
+    each rank's heads or slice there (``heads_call``, ``split_k_call``),
+    on either route too."""
     placed = [t for t in tensors if isinstance(t, DTensor)]
     return bool(placed) and model_axis_size(placed[0]) == 1
 
@@ -124,13 +127,6 @@ def over_model_axis(*tensors) -> bool:
     larger than 1."""
     placed = [t for t in tensors if isinstance(t, DTensor)]
     return bool(placed) and model_axis_size(placed[0]) > 1
-
-
-def model_split(impl: str, *tensors) -> bool:
-    """True for the kernel route (``impl="cuda"``) when an operand is a
-    DTensor on a mesh whose model axis is larger than 1: the cores then
-    run the kernels through ``heads_call`` or ``split_k_call``."""
-    return impl == "cuda" and over_model_axis(*tensors)
 
 
 def shard_box(dst: DTensor):
@@ -283,16 +279,18 @@ def vocab_gather(table, ids):
     the rows are summed over the dims that split the vocabulary (the
     vocabulary-parallel embedding: one all-reduce of the looked-up rows,
     where DTensor's indexing would gather the table).  One rank holds
-    each id's row, so the sum is exact.  The rows come out placed as the
-    ids are.  A plain table, or one whose rows no mesh dim splits, is
-    indexed as it is."""
-    if not isinstance(table, DTensor):
+    each id's row, so the sum is exact.  Where no mesh dim splits the
+    rows, each rank looks up its ids in its whole local table (DTensor's
+    own indexing fails in its backward on PyTorch 2.11 where the ids are
+    split over a data axis).  The rows come out placed as the ids are.
+    A plain table, or one whose embedding dim a mesh splits, is indexed
+    as it is."""
+    if not isinstance(table, DTensor) or any(
+            p.is_shard(1) for p in table.placements):
         return table[ids]
     mesh = table.device_mesh
     vocab = [d for d, p in enumerate(table.placements)
              if p.is_shard(0) and mesh.size(d) > 1]
-    if not vocab:
-        return table[ids]
     ids = _as_placed(ids, mesh)
     want = [Replicate() if d in vocab else p
             for d, p in enumerate(ids.placements)]
@@ -300,8 +298,11 @@ def vocab_gather(table, ids):
         ids = ids.redistribute(mesh, want)
     lo, n = shard_box(table)[0]
     local = ids.to_local().long()
-    own = (local >= lo) & (local < lo + n)
     split = [d for d, p in enumerate(want) if p.is_shard()]
+    if not vocab:
+        return DTensor.from_local(local_part(table, split)[local], mesh,
+                                  want, run_check=False)
+    own = (local >= lo) & (local < lo + n)
     rows = local_part(table, split)[(local - lo).clamp(0, n - 1)]
     rows = rows.masked_fill(~own[..., None], 0)
     return DTensor.from_local(rows, mesh, [Partial() if d in vocab else p
@@ -343,14 +344,31 @@ def local_call(fn: Callable, batch: Sequence[Any], other: Sequence[Any] = (),
     pool, per-head constants) go as they lie.  The output is placed back
     with the batch placement.  Size-1 mesh dims are never redistributed:
     their local shard is the whole dim."""
+    placed = [t for t in list(batch) + list(other) if isinstance(t, DTensor)]
+    if placed and model_axis_size(placed[0]) > 1:
+        raise ValueError("local_call: the model axis splits heads or "
+                         "sequences; run heads_call or split_k_call there")
+    return _rows_call(fn, batch, other, kw, whole_other=False)
+
+
+def rows_call(fn: Callable, batch: Sequence[Any], other: Sequence[Any] = ()):
+    """``fn(*batch, *other)`` on this rank's batch rows, on any mesh: work
+    that is local to each batch row and splits no head or sequence (the
+    encoder's convolution along the sequence), which DTensor would
+    otherwise plan op by op.  ``batch`` operands go to ``local_call``'s
+    batch placement (whole over the model axis); ``other`` operands (the
+    convolution's kernel and bias) are made whole on every rank.  The
+    output is placed with the batch placement; plain operands run ``fn``
+    as it is."""
+    return _rows_call(fn, batch, other, {}, whole_other=True)
+
+
+def _rows_call(fn, batch, other, kw, whole_other):
     ops = list(batch) + list(other)
     placed = [t for t in ops if isinstance(t, DTensor)]
     if not placed:
         return fn(*ops, **kw)
     mesh = placed[0].device_mesh
-    if model_axis_size(placed[0]) > 1:
-        raise ValueError("local_call: the model axis splits heads or "
-                         "sequences; run heads_call or split_k_call there")
     sizes = [int(s) for s in mesh.shape]
     dp = _batch_dims(mesh, batch)
 
@@ -369,6 +387,11 @@ def local_call(fn: Callable, batch: Sequence[Any], other: Sequence[Any] = (),
             if list(t.placements) != want:
                 t = t.redistribute(mesh, want)
             return t.to_local()
+        if whole_other:
+            want = [t.placements[d] if sizes[d] == 1 else Replicate()
+                    for d in range(mesh.ndim)]
+            if list(t.placements) != want:
+                t = t.redistribute(mesh, want)
         return local_part(t, dp)  # used by this rank's batch rows only
 
     args = [local(t, True) for t in batch] + [local(t, False) for t in other]

@@ -446,6 +446,18 @@ def place(x, spec: P, mesh):
     return distribute_tensor(x, tm, placements(spec, tm))
 
 
+def place_host(x, spec: P, mesh):
+    """``place`` for a tensor that every rank holds whole and equal (host
+    data copied to the device: the sampled tokens): each rank keeps its
+    own shard (``placed.place_local``), where ``distribute_tensor`` would
+    scatter or broadcast from rank 0."""
+    from repro_torch.distribution.placed import place_local
+
+    spec = evenly(spec, x, mesh)
+    tm = torch_mesh(mesh)
+    return place_local(x, tm, placements(spec, tm))
+
+
 def distribute_tree(tree, specs, mesh):
     """``tree``'s tensors as DTensors on ``torch_mesh(mesh)``, placed per
     ``specs`` after ``evenly`` (the counterpart of ``device_put`` with

@@ -25,14 +25,16 @@ axis has size 1 every rank holds whole heads and sequences, so each core
 runs on its rank's local shards (``distribution.placed.local_call``: the
 batch rows of every dp rank; a paged pool goes in as it lies, whole on
 every rank), through the kernels on the card; a kernel never sees a
-DTensor.  A larger model axis splits heads or sequences: the "torch"
-route then runs on the DTensors, which propagate the sharding and insert
-the collectives.  The "cuda" route runs the kernels on each rank's local
-tensors there too: a prefill and a VLM's cross decode on the rank's
-query heads and the kv heads they read (``placed.heads_call``); a dense
-decode step over the rank's slice of the cache's sequence, the decode
-kernel's partial softmax states combined across the model axis
-(``placed.split_k_call``, the reference's flash-decoding split-K).  The
+DTensor.  A larger model axis splits heads or sequences: each core runs
+on each rank's local tensors there too, on either route: a prefill and
+a VLM's cross decode on the rank's query heads and the kv heads they
+read (``placed.heads_call``); a dense decode step over the rank's slice
+of the cache's sequence, the decode kernel's partial softmax states (its
+plain version on the "torch" route's CPU or meta tensors) combined
+across the model axis (``placed.split_k_call``, the reference's
+flash-decoding split-K).  No einsum of the "torch" route sees a DTensor
+whose head dim the axis splits (PyTorch 2.11's view rule refuses the
+flatten of such a dim that an einsum makes).  The
 paged pools split their PAGES over it instead: each rank attends over the
 pages it holds (table entries for other ranks' pages are masked after
 the positions are derived from the table of global width: the partial-
@@ -49,7 +51,7 @@ import torch
 
 from repro_torch.distribution.placed import (combine_softmax, heads_call,
                                              is_placed, local_call,
-                                             model_split, on_shards,
+                                             on_shards, over_model_axis,
                                              own_pages, shard_box,
                                              split_group, split_k_call)
 from repro_torch.kernels import quant
@@ -121,7 +123,7 @@ def attention_core(
                 sliding_window=sliding_window, kv_valid=kvv,
                 query_chunk=query_chunk, impl=impl),
             (q, k, v, q_positions, kv_positions, kv_valid))
-    if model_split(impl, q, k, v):  # the kernel on this rank's heads
+    if over_model_axis(q, k, v):  # on this rank's heads
         return heads_call(
             lambda q, k, v, qp, kp, kvv: attention_core(
                 q, k, v, q_positions=qp, kv_positions=kp, causal=causal,
@@ -199,7 +201,7 @@ def attention_core_merged(
             (u, k, v, q_positions, kv_positions, k_scale, v_scale))
     B, Sq, d = u.shape
     D = k.shape[3]
-    if model_split(impl, u, k, v):  # the kernel on this rank's heads
+    if over_model_axis(u, k, v):  # on this rank's heads
         Hq = d // D
         out = heads_call(
             lambda u, k, v, qp, kp, ks, vs: attention_core_merged(
@@ -254,7 +256,7 @@ def decode_attention_core_merged(
                 n_kv_heads=n_kv_heads, sliding_window=sliding_window,
                 impl=impl),
             (u, k_cache, v_cache, kv_positions, q_position))
-    if model_split(impl, u, k_cache, v_cache):  # split-K over the sequence
+    if over_model_axis(u, k_cache, v_cache):  # split-K over the sequence
         from repro_torch.kernels import ops as kops
 
         return split_k_call(
@@ -298,7 +300,7 @@ def decode_attention_core_positions(
                 q, k, v, kv_positions=kp, q_position=qp,
                 sliding_window=sliding_window, impl=impl),
             (q, k_cache, v_cache, kv_positions, q_position))
-    if model_split(impl, q, k_cache, v_cache):  # split-K over the sequence
+    if over_model_axis(q, k_cache, v_cache):  # split-K over the sequence
         from repro_torch.kernels import ops as kops
 
         return split_k_call(
@@ -353,7 +355,7 @@ def decode_attention_core_cross(
             lambda q, k, v, kp, qp: decode_attention_core_cross(
                 q, k, v, kv_positions=kp, q_position=qp, impl=impl),
             (q, k_cache, v_cache, kv_positions, q_position))
-    if model_split(impl, q, k_cache, v_cache):  # this rank's heads
+    if over_model_axis(q, k_cache, v_cache):  # this rank's heads
         return heads_call(
             lambda q, k, v, kp, qp: decode_attention_core_cross(
                 q, k, v, kv_positions=kp, q_position=qp, impl=impl),

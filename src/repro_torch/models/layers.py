@@ -13,7 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distribution.placed import vocab_gather
+from repro_torch.distribution.placed import rows_call, vocab_gather
 
 # ---------------------------------------------------------------------------
 # dtype helpers
@@ -197,10 +197,16 @@ def apply_conv_pos(params, x: torch.Tensor) -> torch.Tensor:
     (width // 2, width - 1 - width // 2): ``F.conv1d``'s symmetric
     ``padding=`` cannot pad an even width so, hence the explicit pad.  On
     the card the convolution is cuDNN's, which runs float32 in TF32 unless
-    ``torch.backends.cudnn.allow_tf32`` is off."""
-    width = params["kernel"].shape[0]
+    ``torch.backends.cudnn.allow_tf32`` is off.  Under a mesh each rank
+    pads and convolves its own batch rows, whole along the sequence
+    (``placed.rows_call``): DTensor's planner need not see the pad."""
+    return rows_call(_conv_pos, (x,), (params["kernel"], params["bias"]))
+
+
+def _conv_pos(x, kernel, bias):
+    width = kernel.shape[0]
     lo = width // 2
-    w = params["kernel"].float().permute(2, 1, 0)  # (D, 1, width)
+    w = kernel.float().permute(2, 1, 0)  # (D, 1, width)
     xp = F.pad(x.float().transpose(1, 2), (lo, width - 1 - lo))
     y = F.conv1d(xp, w, groups=x.shape[-1]).transpose(1, 2)
-    return x + gelu(y + params["bias"].float()).to(x.dtype)
+    return x + gelu(y + bias.float()).to(x.dtype)

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distribution.placed import (heads_call, local_call,
-                                             on_shards, over_model_axis)
+                                             on_shards, over_model_axis,
+                                             rows_call)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ref_ssd_chunked
 from repro_torch.models.layers import (_normal, apply_rmsnorm, dense_init,
@@ -136,7 +137,18 @@ def ssd_step(
     state: torch.Tensor,  # (B, H, P, N) float32
     D: Optional[torch.Tensor] = None,
 ):
-    """Single decode step.  Returns (y (B,H,P), new_state)."""
+    """Single decode step.  Returns (y (B,H,P), new_state).  Under a mesh
+    whose model axis is larger than 1 it runs on each rank's heads (whole
+    heads where the axis does not divide them): its einsums on DTensors
+    would flatten a split head dim."""
+    if over_model_axis(x, Bm, Cm):
+        return heads_call(
+            lambda x, dt, A, Bm, Cm, st, D: ssd_step(x, dt, A, Bm, Cm, st,
+                                                     D=D),
+            [(x, True, 1, False), (dt, True, 1, False), (A, False, 0, False),
+             (Bm, True, 1, False), (Cm, True, 1, False),
+             (state, True, 1, False), (D, False, 0, False)],
+            (1, 1), n_heads=x.shape[1])
     dt32 = dt.float()
     decay = torch.exp(dt32 * A)[:, :, None, None]
     dbx = torch.einsum("bh,bhn,bhp->bhpn", dt32, Bm.float(), x.float())
@@ -198,19 +210,13 @@ def apply_mamba2_seq(params, x: torch.Tensor, cfg: ModelConfig, *,
     scan's final state and the conv tail (the last W-1 conv inputs,
     float32)."""
     B, S, _ = x.shape
-    W = cfg.ssm_conv_width
     z, xbc, dt_raw = _split_in_proj(cfg, x @ params["in_proj"].to(x.dtype))
-
-    # causal depthwise conv over xBC
-    kern = params["conv_kernel"].float()  # (W, C)
-    if init_state is not None:
-        xbc_in = torch.cat([init_state.conv.to(xbc.dtype), xbc], dim=1)
-    else:
-        xbc_in = F.pad(xbc, (0, 0, W - 1, 0))
-    conv_tail = xbc_in[:, xbc_in.shape[1] - (W - 1):]
-    xbc32 = xbc_in.float()
-    conv = sum(xbc32[:, i:i + S] * kern[i] for i in range(W))
-    xbc = F.silu(conv + params["conv_bias"].float()).to(x.dtype)
+    # under a mesh on each rank's batch rows, whole along the sequence and
+    # the channels (``placed.rows_call``): DTensor's planner never sees
+    # the pad
+    xbc, conv_tail = rows_call(
+        _causal_conv, (xbc, None if init_state is None else init_state.conv),
+        (params["conv_kernel"], params["conv_bias"]))
 
     x_h, bm, cm, dt, A = _activations(params, cfg, xbc, dt_raw, (B, S))
     y, fin = ssd_chunked(x_h, dt, A, bm, cm, chunk=cfg.ssm_chunk,
@@ -219,8 +225,25 @@ def apply_mamba2_seq(params, x: torch.Tensor, cfg: ModelConfig, *,
                          else init_state.ssm, impl=impl)
     out = _gate_norm_out(params, cfg, y, z)
     if return_state:
-        return out, SSMState(ssm=fin, conv=conv_tail.float())
+        return out, SSMState(ssm=fin, conv=conv_tail)
     return out
+
+
+def _causal_conv(xbc, conv0, kernel, bias):
+    """The causal depthwise conv over xBC (B, S, C): the W - 1 inputs
+    before the first come from ``conv0`` (the state's conv tail), or are
+    zeros.  Returns (silu(conv + bias) in xbc's dtype, the last W - 1
+    inputs in float32)."""
+    S, W = xbc.shape[1], kernel.shape[0]
+    kern = kernel.float()  # (W, C)
+    if conv0 is not None:
+        xbc_in = torch.cat([conv0.to(xbc.dtype), xbc], dim=1)
+    else:
+        xbc_in = F.pad(xbc, (0, 0, W - 1, 0))
+    conv_tail = xbc_in[:, xbc_in.shape[1] - (W - 1):]
+    xbc32 = xbc_in.float()
+    conv = sum(xbc32[:, i:i + S] * kern[i] for i in range(W))
+    return F.silu(conv + bias.float()).to(xbc.dtype), conv_tail.float()
 
 
 def apply_mamba2_step(params, x: torch.Tensor, cfg: ModelConfig,
@@ -228,15 +251,23 @@ def apply_mamba2_step(params, x: torch.Tensor, cfg: ModelConfig,
     """Decode mode: x (B, d) one token -> ((B, d), new ``SSMState``)."""
     B = x.shape[0]
     z, xbc, dt_raw = _split_in_proj(cfg, x @ params["in_proj"].to(x.dtype))
-    window = torch.cat([state.conv, xbc.float()[:, None, :]], dim=1)
-    conv = torch.einsum("bwc,wc->bc", window, params["conv_kernel"].float()) \
-        + params["conv_bias"].float()
-    xbc = F.silu(conv).to(x.dtype)
+    # under a mesh on each rank's batch rows, as in sequence mode
+    xbc, conv = rows_call(_conv_step, (xbc, state.conv),
+                          (params["conv_kernel"], params["conv_bias"]))
     x_h, bm, cm, dt, A = _activations(params, cfg, xbc, dt_raw, (B,))
     y, new_ssm = ssd_step(x_h, dt, A, bm, cm, state.ssm,
                           D=params["D"].float())
-    return _gate_norm_out(params, cfg, y, z), \
-        SSMState(ssm=new_ssm, conv=window[:, 1:])
+    return _gate_norm_out(params, cfg, y, z), SSMState(ssm=new_ssm,
+                                                       conv=conv)
+
+
+def _conv_step(xbc, conv0, kernel, bias):
+    """One token's causal depthwise conv: xbc (B, C) after the state's
+    W - 1 inputs ``conv0`` (B, W - 1, C) float32.  Returns (silu(conv +
+    bias) in xbc's dtype, the new last W - 1 inputs)."""
+    window = torch.cat([conv0, xbc.float()[:, None, :]], dim=1)
+    conv = torch.einsum("bwc,wc->bc", window, kernel.float()) + bias.float()
+    return F.silu(conv).to(xbc.dtype), window[:, 1:]
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, device="cpu") -> SSMState:

@@ -80,9 +80,9 @@ prefill run on local tensors (each rank's batch rows; a paged step
 gathers its new K/V rows over the data axes before it writes them, so
 the pool replicas stay equal), through the kernels on ``impl="cuda"``.
 A larger model axis runs the step and the prefill on the DTensors on
-either route: ``impl="torch"`` lets DTensor propagate the sharding
-through the attention cores, and ``impl="cuda"`` runs the kernels on each
-rank's local tensors there (``models.attention``): a prefill, a VLM's
+either route, and the attention cores on each rank's local tensors
+there (``models.attention``; the kernels on ``impl="cuda"``, their plain
+versions or the plain cores on ``impl="torch"``): a prefill, a VLM's
 cross decode and the SSD scan on the rank's heads, a decode step over
 the rank's slice of the dense cache's sequence or the pages it holds,
 whose partial softmax states are combined across the model axis.  No
@@ -511,7 +511,7 @@ class Engine:
             return forward_step(self.params, self.cfg, tokens, cache,
                                 impl=self.impl)
         if self._local_params is None:
-            tokens = shd.place(tokens, shd.P(self.rules.dp), self.mesh)
+            tokens = shd.place_host(tokens, shd.P(self.rules.dp), self.mesh)
             return forward_step(self.params, self.cfg, tokens, cache,
                                 impl=self.impl, qkv_sharding=self._qkv)
         from torch.distributed.tensor import DTensor

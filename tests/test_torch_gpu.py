@@ -14,6 +14,8 @@ outputs are rounded once from float32 on both sides, so they may differ by
 about one bf16 ulp (2**-7 relative): two ulps at the reference's largest
 magnitude, capped at 2e-2 for O(1) outputs.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1809,3 +1811,47 @@ def test_decode_step_on_the_card_makes_no_host_sync(kind):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(logits.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke_4.py: four cards, one NCCL rank each
+# ---------------------------------------------------------------------------
+
+_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+
+def test_chip_smoke_4_refuses_fewer_than_four_cards():
+    """With one card visible the four-card script exits non-zero, names
+    the count, and prints no result line (no fallback to fewer ranks, to
+    gloo or to the CPU)."""
+    _cuda()
+    import subprocess
+    import sys
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+    r = subprocess.run([sys.executable, os.path.join(_ROOT,
+                                                     "chip_smoke_4.py")],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=_ROOT, env=env)
+    assert r.returncode != 0
+    assert "needs 4 CUDA cards" in r.stderr and "is 1" in r.stderr, r.stderr
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_4_serves_and_trains_on_four_cards():
+    """The four ranks of ``chip_smoke_4.py`` (every part on (1, 4), (2, 2)
+    and (4, 1)) exit 0 and the script's last line counts four cards.
+    Skips where fewer than four cards are present."""
+    _cuda()
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs four CUDA cards; {torch.cuda.device_count()} "
+                    f"present")
+    import json
+    import subprocess
+    import sys
+    r = subprocess.run([sys.executable, os.path.join(_ROOT,
+                                                     "chip_smoke_4.py")],
+                       capture_output=True, text=True, timeout=1300,
+                       cwd=_ROOT)
+    assert r.returncode == 0, r.stdout[-5000:] + r.stderr[-5000:]
+    last = json.loads(r.stdout.strip().splitlines()[-1])
+    assert last["ok"] and last["device"]["count"] == 4, last

@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package ``repro``, and entry points never carry
-on on the CPU when a card was asked for."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``chip_smoke_4.py`` import neither JAX nor the JAX package ``repro``,
+and entry points never carry on on the CPU when a card was asked for."""
 import ast
 import os
 import pkgutil
@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "chip_smoke_4.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -32,7 +33,7 @@ def _port_modules():
 
 
 def test_no_module_imports_jax_or_the_jax_package():
-    """Every module of the port and chip_smoke.py import, in a fresh
+    """Every module of the port and both smoke scripts import, in a fresh
     interpreter, with neither jax nor repro landing in sys.modules."""
     mods = _port_modules()
     assert {"repro_torch.kernels.ops", "repro_torch.serving.engine",
@@ -54,7 +55,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'chip_smoke_4']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"

@@ -3468,7 +3468,8 @@ def engine_step_collectives(eng):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with on_mesh(eng.mesh), StepCounter() as c:
-        eng._decode(eng._last_token, eng.kv.device_cache())
+        eng._decode(eng.host_to_device(eng._last_token),
+                    eng.kv.device_cache())
     torch.cuda.synchronize()
     return dict(c.collectives(), comm_s=c.comm_s,
                 wall_s=time.perf_counter() - t0)

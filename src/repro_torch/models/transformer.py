@@ -92,6 +92,8 @@ from repro_torch.models.layers import (
     init_rmsnorm,
     orthogonal_init,
 )
+from repro_torch.obs import get_active
+
 
 def _init_fn_for(cfg: ModelConfig):
     """Orthogonal init for skipless styles (norm-preserving, cond(Q)≈1 so
@@ -458,15 +460,26 @@ def _apply_ffn(p, cfg: ModelConfig, x, dropless: bool = False):
     """The dense FFN or the MoE -> (out, aux_loss); ``dropless`` routes
     every (token, choice) pair (chunk and decode programs).  A dense FFN's
     aux is the Python float 0.0: a device zero would be one more launch
-    per layer and decode step."""
-    if "moe" in p:
-        return moe_mod.apply_moe(
-            p["moe"], x, n_experts=cfg.n_experts,
-            experts_per_token=cfg.experts_per_token,
-            capacity_factor=cfg.capacity_factor, ffn_type=cfg.ffn_type,
-            dropless=dropless, impl=cfg.moe_impl,
-            group_size=cfg.moe_group or x.shape[0] * x.shape[1])
-    return ffn_mod.apply_ffn(p["ffn"], x, cfg.ffn_type), 0.0
+    per layer and decode step.  The profiler range ``model::ffn`` while
+    the serving engine's observer is armed and a profiler records."""
+    with get_active().range("model::ffn"):
+        if "moe" in p:
+            return moe_mod.apply_moe(
+                p["moe"], x, n_experts=cfg.n_experts,
+                experts_per_token=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor, ffn_type=cfg.ffn_type,
+                dropless=dropless, impl=cfg.moe_impl,
+                group_size=cfg.moe_group or x.shape[0] * x.shape[1])
+        return ffn_mod.apply_ffn(p["ffn"], x, cfg.ffn_type), 0.0
+
+
+def _ranged_mixer(mixer_fn):
+    """``mixer_fn`` under the profiler range ``model::attn`` (as
+    ``_apply_ffn``'s ``model::ffn``)."""
+    def mixer(x):
+        with get_active().range("model::attn"):
+            return mixer_fn(x)
+    return mixer
 
 
 def _apply_style(p, cfg: ModelConfig, u, mixer_fn, dropless: bool = False):
@@ -474,6 +487,7 @@ def _apply_style(p, cfg: ModelConfig, u, mixer_fn, dropless: bool = False):
     where the norms, skips, mixer and FFN sit (paper Figs 1, 3, 4) ->
     (out, aux_loss)."""
     style = cfg.block_style
+    mixer_fn = _ranged_mixer(mixer_fn)
     if style in ("standard", "residual_qpfree"):
         if cfg.parallel_block:
             n = apply_rmsnorm(p["norm1"], u)

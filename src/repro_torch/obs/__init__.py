@@ -10,12 +10,15 @@ of the JAX package).  Three pillars:
   3. :mod:`repro_torch.obs.observer` — the single seam the engine emits
      through.  Off by default (``ServeConfig.obs`` falsy → ``NULL``, a
      shared no-op stub) and host-timestamp-only: its hooks never read a
-     device tensor, so they add no host sync to a serving step.
+     device tensor, so they add no host sync to a serving step.  Its
+     ``span`` and ``range`` also name the engine's and the model's
+     phases on a profiler's timeline while one records.
 """
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,  # noqa: F401
                                MetricsRegistry)
 from repro_torch.obs.trace import (TraceBuffer, Track,  # noqa: F401
-                             engine_track, request_track, slot_track)
+                             engine_track, phase_track, request_track,
+                             slot_track)
 from repro_torch.obs.observer import (NULL, NullObserver, Observer,  # noqa: F401
                                 activated, get_active)
 from repro_torch.obs.export import (request_events, serving_obs_doc,  # noqa: F401
@@ -24,7 +27,8 @@ from repro_torch.obs.export import (request_events, serving_obs_doc,  # noqa: F4
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "TraceBuffer", "Track", "engine_track", "request_track", "slot_track",
+    "TraceBuffer", "Track", "engine_track", "phase_track", "request_track",
+    "slot_track",
     "NULL", "NullObserver", "Observer", "activated", "get_active",
     "request_events", "serving_obs_doc", "snapshot", "validate_perfetto",
     "write_json", "write_perfetto",

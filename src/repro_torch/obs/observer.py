@@ -21,8 +21,16 @@ Discipline (``tests/test_torch_obs.py`` scans this package for it):
     device data (the sampled tokens' copy to the host), its span closes
     on a device sync; where it does not (a non-final prefill chunk), the
     span measures the dispatch, not the device's work.
-  * ``compile_event`` is kept for the reference's interface: the port's
-    engines compile nothing, so they emit none.
+  * Phases inside the engine's calls: ``span(name)`` records a complete
+    event on the phase track (set-up, each submit, each step's wait for
+    the sampled tokens: few a step, so the ring keeps the lifecycle), and
+    ``range(name)`` records nothing (the step's phases and each block's
+    mixer and FFN: tens a step).  Both enter a profiler range of the same
+    name while a profiler records, and only then (a range costs several
+    microseconds even with no profiler on): so every span and range lies
+    on the device trace's own timeline.  The engine hands over the
+    profiler's range factory and its "recording now" check
+    (``attach_engine``): this package imports no torch.
 
 Request lifecycle on the trace (one lane per request, one per slot):
 
@@ -36,7 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Optional
 
 from repro_torch.obs import trace as tr
 from repro_torch.obs.metrics import MetricsRegistry
@@ -44,6 +52,19 @@ from repro_torch.obs.metrics import MetricsRegistry
 
 def _noop(*args, **kwargs) -> None:
     return None
+
+
+#: the one do-nothing context that ``span`` and ``range`` return when
+#: nothing is to be recorded
+_NOOP_CTX = contextlib.nullcontext()
+
+
+def _noop_ctx(*args, **kwargs):
+    return _NOOP_CTX
+
+
+def _not_recording() -> bool:
+    return False
 
 
 class NullObserver:
@@ -59,11 +80,12 @@ class NullObserver:
     request_finished = _noop
     step_done = _noop
     queue_depth = _noop
-    compile_event = _noop
     attach_engine = _noop
     generate_done = _noop
     sched_iteration = _noop
     chunk_done = _noop
+    span = _noop_ctx
+    range = _noop_ctx
 
     def clock(self) -> float:
         return 0.0
@@ -113,12 +135,6 @@ class Observer:
         self._h_tok_s = m.histogram(
             "serve_decode_tok_s", "per-request steady decode rate "
             "(single-token requests excluded, not zero)", lo=1e-2, hi=1e6)
-        self._h_compile = m.histogram(
-            "compile_seconds", "lower+compile wall time", lo=1e-3,
-            hi=1e4)
-        self._c_compiles = m.counter("compile_events", "lower+compile calls")
-        self._c_compile_bytes = m.counter(
-            "compile_hlo_bytes", "compiled HLO text bytes, cumulative")
         # continuous-batching scheduler (repro_torch.serving.sched)
         self._c_sched_iters = m.counter(
             "sched_iterations", "scheduler iterations planned")
@@ -132,16 +148,22 @@ class Observer:
             "sched_chunk_seconds", "one chunk-prefill dispatch",
             lo=1e-5, hi=1e2)
         self._engine = None
+        self._new_range: Callable[[str], Any] = _noop_ctx
+        self._recording: Callable[[], bool] = _not_recording
 
     # -- plumbing -------------------------------------------------------
     def clock(self) -> float:
         return time.perf_counter()
 
-    def attach_engine(self, engine) -> None:
+    def attach_engine(self, engine, *, new_range: Callable[[str], Any],
+                      recording: Callable[[], bool]) -> None:
         """Register the LAZY gauges lifted from the engine and its cache
         adapter (pool occupancy, recycle/CoW/prefix-hit counters…) —
-        evaluated only at ``collect()``, never on the serving path."""
+        evaluated only at ``collect()``, never on the serving path — and
+        take the profiler's range factory ``new_range(name)`` and its
+        check ``recording()`` for ``span`` and ``range``."""
         self._engine = engine
+        self._new_range, self._recording = new_range, recording
         m = self.metrics
         m.gauge_fn("serve_slots_free", lambda: len(engine.free_slots),
                    "slots idle")
@@ -254,16 +276,25 @@ class Observer:
         self.trace.complete(tr.engine_track(), "generate", t0, t1,
                             n_requests=n_requests, n_tokens=n_tokens)
 
-    # -- compile events -------------------------------------------------
-    def compile_event(self, phase: str, bucket_len: Optional[int],
-                      hlo_bytes: int, seconds: float) -> None:
-        t1 = self.clock()
-        self._c_compiles.inc()
-        self._c_compile_bytes.inc(hlo_bytes)
-        self._h_compile.observe(seconds)
-        self.trace.complete(tr.engine_track(), f"compile:{phase}",
-                            t1 - seconds, t1, bucket_len=bucket_len,
-                            hlo_bytes=hlo_bytes)
+    # -- phases inside the engine's calls --------------------------------
+    def range(self, name: str):
+        """A profiler range ``name`` while a profiler records, else the
+        shared no-op; nothing in the ring."""
+        if self._recording():
+            return self._new_range(name)
+        return _NOOP_CTX
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        """``range(name)``, and a complete event ``name`` on the phase
+        track from entry to exit, on ``time.perf_counter``."""
+        t0 = time.perf_counter()
+        try:
+            with self.range(name):
+                yield
+        finally:
+            self.trace.complete(tr.phase_track(), name, t0,
+                                time.perf_counter())
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ Recording model (host-timestamp-only — hooks never touch the device):
   * A ``Track`` is one Perfetto "thread": the engine loop, each serving
     SLOT, and each REQUEST get their own, so a request's
     queued→prefill→decode→preempted→decode→finish life reads as one
-    horizontal lane even as it migrates between slots.
+    horizontal lane even as it migrates between slots.  The PHASE track
+    holds the observer's ``span``s inside the engine's calls (its set-up,
+    each submit, each step's wait for the device), apart from the
+    engine track's lifecycle events.
   * Completed spans are stored as single COMPLETE events (begin + dur in
     one record), appended to a bounded ring buffer (``collections.deque``
     maxlen) that drops OLDEST-first under pressure.  Spans still open
@@ -32,9 +35,9 @@ from typing import Any, Dict, List, Optional, Tuple
 #: (process id, process name) per track family — Perfetto groups tids
 #: under pids, so the engine / slots / requests render as three groups.
 _FAMILIES = {"engine": (1, "engine"), "slot": (2, "slots"),
-             "request": (3, "requests")}
+             "request": (3, "requests"), "phase": (4, "phases")}
 
-Track = Tuple[str, int]  # ("engine"|"slot"|"request", index)
+Track = Tuple[str, int]  # ("engine"|"slot"|"request"|"phase", index)
 
 
 def engine_track() -> Track:
@@ -47,6 +50,10 @@ def slot_track(slot: int) -> Track:
 
 def request_track(rid: int) -> Track:
     return ("request", int(rid))
+
+
+def phase_track() -> Track:
+    return ("phase", 0)
 
 
 class TraceBuffer:

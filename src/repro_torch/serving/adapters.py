@@ -93,7 +93,10 @@ class KVCacheAdapter:
         under a mesh, as the reference's ``.size`` counts them."""
         raise NotImplementedError
 
-    def device_cache(self):
+    def device_cache(self, upload=None):
+        """The cache a decode step reads.  ``upload(array)``, the engine's
+        counted ingestion seam, copies each host array it ships (the paged
+        tables and lengths); by default a plain copy."""
         raise NotImplementedError
 
     def update(self, new) -> None:
@@ -227,7 +230,9 @@ class DenseCacheAdapter(KVCacheAdapter):
 
         self._prefill = run
 
-    def device_cache(self):
+    def device_cache(self, upload=None):
+        # nothing goes through ``upload``: the cache lives on the device,
+        # and chunked mode stages its lengths through pinned memory
         if self._chunked:
             # chunked mode: the HOST lengths are authoritative (a
             # mid-prefill slot's length is its chunk frontier).  One copy
@@ -380,8 +385,8 @@ class PagedCacheAdapter(KVCacheAdapter):
         """The prefill destination: the mapped pages of the pools."""
         return PagedPrefillDest(self.pm.k, self.pm.v, block_ids)
 
-    def device_cache(self):
-        return self.pm.device_cache()
+    def device_cache(self, upload=None):
+        return self.pm.device_cache(upload)
 
     def update(self, new):
         pass  # the step wrote the pools in place; tables live on the host

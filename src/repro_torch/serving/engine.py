@@ -60,8 +60,17 @@ shared no-op ``NULL`` by default, or an ``Observer`` recording spans and
 histograms.  Every hook is called with host values after the host read
 that ends its work (a step's span closes after ``_sample``'s copy of the
 tokens to the host, a device sync), so turning the observer on changes no
-token, no kernel launch and no host sync.  The reference's
-``compile_event`` has no counterpart here: the port compiles nothing.
+token, no kernel launch and no host sync.  With the observer on the
+engine arms it (``obs.activated``) around ``step`` and ``submit`` and
+names their phases: spans on the observer's phase track (``engine::init``,
+``engine::submit``, ``engine::wait``: the read of the sampled tokens) and,
+while a ``torch.profiler`` records, profiler ranges of the same names and
+of the step's phases (``engine::appendable``, ``engine::upload``,
+``engine::forward``, ``engine::sample``, ``engine::emit``), the submit's
+(``engine::admit``, ``engine::prefill``) and each block's mixer and FFN
+(``model::attn``, ``model::ffn``).  Always on, ``stats["n_step_syncs"]``
+counts a decode step's blocking host<->device transfers: the tokens'
+upload, the paged tables' and lengths', the sampled tokens' read.
 
 Under a device mesh (``mesh=``, a ``torch.distributed`` ``DeviceMesh``
 with "data" and "model" axes, one process per rank, every rank running
@@ -90,6 +99,7 @@ step gathers a cache or a pool.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -104,10 +114,15 @@ from repro_torch.distribution.placed import (full, local_tree, on_mesh,
                                              row_gather, shard_box)
 from repro_torch.models import (backends, forward_step, prefill_style_key,
                                 serving_style_key)
-from repro_torch.obs import NULL, MetricsRegistry, Observer
+from repro_torch.obs import NULL, MetricsRegistry, Observer, activated
 from repro_torch.serving.adapters import KVCacheAdapter, make_adapter
 
 _IMPL_DEVICE = {"cuda": "cuda", "torch": "cpu"}
+
+#: the profiler range a span or range enters while a profiler records: the
+#: C++ ``RecordFunction`` costs a tenth of ``torch.profiler.record_function``
+_profiler_range = torch._C._profiler._RecordFunctionFast
+_UNARMED = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -195,6 +210,22 @@ class Engine:
                  impl: str = "cuda",
                  cache: Union[str, KVCacheAdapter] = "dense",
                  device="cuda", mesh=None):
+        # the engine ALWAYS owns a MetricsRegistry: the always-on counters
+        # below back Engine.stats; timestamps, histograms and spans are the
+        # Observer's, off by default
+        if isinstance(sc.obs, Observer):
+            self.obs = sc.obs
+            self.metrics = sc.obs.metrics
+        elif sc.obs:
+            self.obs = Observer()
+            self.metrics = self.obs.metrics
+        else:
+            self.obs = NULL
+            self.metrics = MetricsRegistry()
+        with self.obs.span("engine::init"):
+            self._init(cfg, params, sc, impl, cache, device, mesh)
+
+    def _init(self, cfg, params, sc, impl, cache, device, mesh) -> None:
         if not cfg.causal:
             raise ValueError("serving requires a decoder")
         cfg.validate_style()  # merged styles need a square Q basis
@@ -224,22 +255,13 @@ class Engine:
         self.active: Dict[int, Request] = {}
         self.preempted: List[Request] = []
         self._rid = 0
-        # the engine ALWAYS owns a MetricsRegistry: the always-on counters
-        # below back Engine.stats; timestamps, histograms and spans are the
-        # Observer's, off by default
-        if isinstance(sc.obs, Observer):
-            self.obs = sc.obs
-            self.metrics = sc.obs.metrics
-        elif sc.obs:
-            self.obs = Observer()
-            self.metrics = self.obs.metrics
-        else:
-            self.obs = NULL
-            self.metrics = MetricsRegistry()
         self._g_peak = self.metrics.gauge(
             "serve_peak_active", "most slots concurrently decoding")
         self._c_steps = self.metrics.counter(
             "serve_decode_steps", "batched decode steps run")
+        self._c_step_syncs = self.metrics.counter(
+            "serve_step_syncs", "blocking host<->device transfers of the "
+            "decode steps")
         self._c_preempted = self.metrics.counter(
             "serve_preempted", "requests evicted mid-decode")
         self._c_deferred = self.metrics.counter(
@@ -262,8 +284,11 @@ class Engine:
         self._last_token = np.zeros((sc.n_slots,), np.int32)
         # temperature sampling: each slot's request's private generator
         self._gens: List[Optional[torch.Generator]] = [None] * sc.n_slots
-        # lifts the adapter's pool telemetry in as LAZY gauges (no-op off)
-        self.obs.attach_engine(self)
+        # lifts the adapter's pool telemetry in as LAZY gauges, and hands
+        # over the profiler's range and its check (no-op off)
+        self.obs.attach_engine(
+            self, new_range=_profiler_range,
+            recording=torch._C._autograd._profiler_enabled)
 
     def _place_on(self, mesh) -> None:
         """Params and cache onto ``mesh`` (the reference's ``device_put``
@@ -286,12 +311,14 @@ class Engine:
     @property
     def stats(self) -> Dict[str, int]:
         """Scheduler counters, read through ``self.metrics``: peak
-        concurrent slots, decode steps run, requests preempted mid-decode
-        and admissions deferred."""
+        concurrent slots, decode steps run, requests preempted mid-decode,
+        admissions deferred and the decode steps' blocking host<->device
+        transfers."""
         return {"peak_active": int(self._g_peak.high_water),
                 "n_steps": int(self._c_steps.value),
                 "n_preempted": int(self._c_preempted.value),
-                "n_deferred": int(self._c_deferred.value)}
+                "n_deferred": int(self._c_deferred.value),
+                "n_step_syncs": int(self._c_step_syncs.value)}
 
     @property
     def paged(self) -> bool:
@@ -316,9 +343,27 @@ class Engine:
     def host_to_device(self, x, dtype=None) -> torch.Tensor:
         """The ONE host->device ingestion seam: always copies, so a caller
         that reuses its buffer (a prompt) or engine-mutated host state
-        never aliases memory an in-flight step still reads."""
+        never aliases memory an in-flight step still reads.  From
+        pageable memory the copy to a card blocks the host."""
         return torch.from_numpy(np.array(x, dtype=dtype, copy=True)).to(
             self.device)
+
+    def device_to_host(self, x: torch.Tensor) -> np.ndarray:
+        """The ONE device->host read seam: waits for the device (the
+        observer's span ``engine::wait``)."""
+        with self.obs.span("engine::wait"):
+            return x.cpu().numpy()
+
+    def _step_upload(self, x, dtype=None) -> torch.Tensor:
+        """``host_to_device`` for a decode step, counted in
+        ``stats["n_step_syncs"]``."""
+        self._c_step_syncs.inc()
+        return self.host_to_device(x, dtype)
+
+    def _armed(self):
+        """The observer armed for model code (``get_active``) while obs is
+        on; nothing to arm while it is off."""
+        return activated(self.obs) if self.obs.enabled else _UNARMED
 
     @property
     def merged_fast_path(self) -> bool:
@@ -374,7 +419,8 @@ class Engine:
         A request with ``out_tokens`` already set is a RESUME (preempted
         earlier): its prompt and generated tokens but the last re-prefill,
         and decoding continues from its last token."""
-        with on_mesh(self.mesh):
+        with on_mesh(self.mesh), self._armed(), \
+                self.obs.span("engine::submit"):
             return self._submit(req, vision)
 
     def _submit(self, req: Request, vision) -> bool:
@@ -398,7 +444,8 @@ class Engine:
             toks = np.concatenate(
                 [toks, np.asarray(req.out_tokens[:-1], np.int32)])
         slot = self.free_slots[0]
-        n_shared = self.kv.admit(slot, toks)
+        with self.obs.range("engine::admit"):
+            n_shared = self.kv.admit(slot, toks)
         if n_shared is None:
             self._c_deferred.inc()
             return False
@@ -407,9 +454,10 @@ class Engine:
         padded, n = self._bucket_pad(toks)
         vs = None if vision is None else self.host_to_device(
             vision, np.float32)[None]
-        logits = self.kv.prefill(self._prefill_params, slot,
-                                 self.host_to_device(padded, np.int32)[None],
-                                 n, n_shared, vs)
+        with self.obs.range("engine::prefill"):
+            logits = self.kv.prefill(
+                self._prefill_params, slot,
+                self.host_to_device(padded, np.int32)[None], n, n_shared, vs)
         if req.rid < 0:
             req.rid = self._rid
             self._rid += 1
@@ -451,36 +499,44 @@ class Engine:
     def step(self) -> Dict[int, int]:
         """One batched decode step for all active slots; returns
         slot -> token."""
-        with on_mesh(self.mesh):
+        with on_mesh(self.mesh), self._armed():
             return self._step()
 
     def _step(self) -> Dict[int, int]:
         if not self.active:
             return {}
-        t0 = self.obs.clock()  # the step span includes appendability
-        self._make_appendable()
-        logits, new_cache = self._decode(self._last_token,
-                                         self.kv.device_cache())
-        self.kv.update(new_cache)
-        self._c_steps.inc()
-        slots = sorted(self.active)
-        next_tokens = dict(zip(slots, self._sample(logits, slots,
-                                                   rows=slots)))
-        now = time.perf_counter()
-        emitted: Dict[int, int] = {}
-        for slot, req in list(self.active.items()):
-            tok = int(next_tokens[slot])
-            req.out_tokens.append(tok)
-            req.remaining -= 1
-            req.t_last = now
-            self._last_token[slot] = tok
-            emitted[slot] = tok
-            self.kv.advance(slot)
-            if req.remaining <= 0 or tok == self.sc.eos_token:
-                self._finish(slot)
-        # after _sample's host copy: the span closes on a device sync
-        self.obs.step_done(t0, self.obs.clock(), n_active=len(self.active),
-                           n_tokens=len(emitted))
+        obs = self.obs
+        t0 = obs.clock()  # the step span includes appendability
+        with obs.range("engine::appendable"):
+            self._make_appendable()
+        with obs.range("engine::upload"):
+            tokens = self._step_upload(self._last_token, np.int32)
+            cache = self.kv.device_cache(self._step_upload)
+        with obs.range("engine::forward"):
+            logits, new_cache = self._decode(tokens, cache)
+            self.kv.update(new_cache)
+        with obs.range("engine::sample"):
+            self._c_steps.inc()
+            slots = sorted(self.active)
+            next_tokens = dict(zip(slots, self._sample(logits, slots,
+                                                       rows=slots)))
+            self._c_step_syncs.inc()  # _sample's one device_to_host
+        with obs.range("engine::emit"):
+            now = time.perf_counter()
+            emitted: Dict[int, int] = {}
+            for slot, req in list(self.active.items()):
+                tok = int(next_tokens[slot])
+                req.out_tokens.append(tok)
+                req.remaining -= 1
+                req.t_last = now
+                self._last_token[slot] = tok
+                emitted[slot] = tok
+                self.kv.advance(slot)
+                if req.remaining <= 0 or tok == self.sc.eos_token:
+                    self._finish(slot)
+            # after _sample's host copy: the span closes on a device sync
+            obs.step_done(t0, obs.clock(), n_active=len(self.active),
+                          n_tokens=len(emitted))
         return emitted
 
     @property
@@ -494,8 +550,8 @@ class Engine:
         return self.params if self._local_params is None \
             else self._local_params
 
-    def _decode(self, last_token: np.ndarray, cache):
-        """One decode step over the host's (n_slots,) last tokens:
+    def _decode(self, tokens: torch.Tensor, cache):
+        """One decode step over the (n_slots,) last tokens, uploaded:
         ``forward_step`` on plain tensors without a mesh, on the DTensors
         under one (the tokens split over the data axes), or, where the
         mesh's model axis has size 1, on each rank's local tensors: its
@@ -506,7 +562,6 @@ class Engine:
         (``row_gather`` over the data axes).  The cache is written in place
         either way; the new lengths and the logits are placed back with
         the cache's batch placement."""
-        tokens = self.host_to_device(last_token, np.int32)
         if self.mesh is None:
             return forward_step(self.params, self.cfg, tokens, cache,
                                 impl=self.impl)
@@ -619,11 +674,12 @@ class Engine:
         scaled by 1/T and cut to the top k, and each row draws from ITS
         slot's generator (Gumbel-max on uniforms drawn on the device): a
         slot's generator advances only when its row samples.  The host
-        copy synchronises with the device.  Under a mesh the logits are
-        gathered whole first: every rank draws the same tokens."""
+        copy (``device_to_host``) synchronises with the device.  Under a
+        mesh the logits are gathered whole first: every rank draws the
+        same tokens."""
         logits = full(logits)[:, :self.cfg.vocab_size]
         if self.sc.temperature <= 0:
-            toks = logits.argmax(dim=-1).cpu().numpy()
+            toks = self.device_to_host(logits.argmax(dim=-1))
             return toks if rows is None else toks[list(rows)]
         if rows is not None and len(rows) < logits.shape[0]:
             logits = logits[torch.as_tensor(rows, device=logits.device)]
@@ -637,4 +693,4 @@ class Engine:
             u[i].uniform_(generator=self._gens[slot])
         gumbel = -torch.log(-torch.log(
             u.clamp_(min=torch.finfo(torch.float32).tiny)))
-        return (scaled + gumbel).argmax(dim=-1).cpu().numpy()
+        return self.device_to_host((scaled + gumbel).argmax(dim=-1))

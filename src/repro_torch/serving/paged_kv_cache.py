@@ -309,23 +309,28 @@ class PagedCacheManager:
     def v(self) -> torch.Tensor:
         return self._pools.v
 
-    def device_cache(self) -> PagedDecodeCache:
+    def device_cache(self, upload=None) -> PagedDecodeCache:
         """The pools (a ``PagedDecodeCache``, or a ``PagedQ8DecodeCache``
         from the int8 manager) with a COPY of the host tables and lengths
         on the pools' device: the manager mutates its numpy arrays between
         steps, and ``torch.from_numpy(...).to("cpu")`` would share their
-        memory.  On a mesh (``place``) each rank keeps its rows of the
-        tables and lengths, placed batch-sharded; every rank's host copy
-        is the same, so no collective runs."""
-        dev = self.k.device
+        memory.  ``upload(array)`` makes each copy: the engine's step
+        passes its counted ingestion seam (``Engine.host_to_device``); by
+        default a plain copy to the pools' device.  On a mesh (``place``)
+        each rank keeps its rows of the tables and lengths, placed
+        batch-sharded; every rank's host copy is the same, so no
+        collective runs."""
+        if upload is None:
+            dev = self.k.device
+            upload = lambda x: torch.from_numpy(x.copy()).to(dev)  # noqa: E731
         tbl = self.tables.copy()
         if self.shielded:
             # mid-chunked-prefill slots: the decode step's write for them
             # drops and its output for them is discarded; the true rows
             # stay on the host and feed the chunk programs
             tbl[sorted(self.shielded), :] = -1
-        tables = torch.from_numpy(tbl).to(dev)
-        length = torch.from_numpy(self.lengths.copy()).to(dev)
+        tables = upload(tbl)
+        length = upload(self.lengths)
         if self._placed is not None:
             mesh, tp, lp = self._placed
             tables = place_local(tables, mesh, tp)

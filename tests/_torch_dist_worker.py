@@ -272,7 +272,8 @@ def _dtensor_vs_local(eng):
     changes nothing."""
     from repro_torch.distribution.placed import full, on_mesh
 
-    tokens, cache = eng._last_token.copy(), eng.kv.device_cache()
+    tokens = eng.host_to_device(eng._last_token)
+    cache = eng.kv.device_cache()
     with on_mesh(eng.mesh):
         local = full(eng._decode(tokens, cache)[0])
         saved, eng._local_params = eng._local_params, None

@@ -1813,6 +1813,45 @@ def test_decode_step_on_the_card_makes_no_host_sync(kind):
     assert torch.isfinite(logits.float()).all()
 
 
+@pytest.mark.parametrize("kind,syncs", [("paged", 4), ("paged_q8", 4),
+                                        ("dense", 2)])
+def test_step_sync_counter_matches_the_sync_debug_mode(kind, syncs):
+    """One ``Engine.step`` through the kernels: the engine's count of its
+    blocking host<->device transfers (``stats["n_step_syncs"]``) equals
+    the host syncs that ``torch.cuda.set_sync_debug_mode("warn")``
+    reports: the tokens' upload, the paged tables' and lengths', the
+    sampled tokens' read."""
+    dev = _cuda()
+    import gc
+    import importlib
+    import warnings
+    from repro_torch.serving import Engine, Request, ServeConfig
+    sw = importlib.import_module("repro_torch.lint.sweep")
+    cfg, params = sw.sweep_models(dev)["merged"]
+    eng = Engine(cfg, params, ServeConfig(n_slots=4, max_len=64,
+                                          block_size=8),
+                 impl="cuda", cache=kind, device=dev)
+    for n in (5, 11):
+        assert eng.submit(Request(
+            prompt=np.arange(n, dtype=np.int32) * 3 % cfg.vocab_size,
+            max_new_tokens=8))
+    eng.step()  # warm-up
+    gc.collect()
+    torch.cuda.synchronize()
+    before = eng.stats["n_step_syncs"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    said = [str(w.message) for w in caught]
+    reported = [m for m in said if "synchroniz" in m]
+    assert eng.stats["n_step_syncs"] - before == len(reported) == syncs, \
+        said
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke_4.py: four cards, one NCCL rank each
 # ---------------------------------------------------------------------------

@@ -86,7 +86,7 @@ def test_aliasing_flags_noncopying_device_cache(port_model, jax_model):
     jit-boundary spy does."""
     eng = _port_engine(port_model, "paged")
 
-    def bad(self):
+    def bad(self, upload=None):  # the manager's signature, no copy
         return self._pools._replace(
             block_tables=torch.from_numpy(self.tables),
             length=torch.from_numpy(self.lengths))

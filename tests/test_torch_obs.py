@@ -17,9 +17,11 @@ seams, held against ``repro.obs`` and the JAX engines.
 
 Tolerance: identity (names, counts, token lists)."""
 import ast
+import contextlib
 import inspect
 import math
 import os
+import types
 
 import jax
 import numpy as np
@@ -200,7 +202,6 @@ def test_null_observer_is_inert():
     O.NULL.request_admitted("x", 1, n_shared=0, resume=False,
                             bucket_len=8, t_prefill0=0.0)
     O.NULL.step_done(0, 0, n_active=0, n_tokens=0)
-    O.NULL.compile_event("decode", None, 0, 0.0)
     O.NULL.sched_iteration(0, 0, n_decode=0, n_chunks=0, n_chunk_tokens=0,
                            budget_used=0)
     assert O.get_active() is O.NULL
@@ -217,13 +218,75 @@ def test_activated_scopes_the_active_observer():
     assert O.get_active() is O.NULL
 
 
+#: the reference's compile telemetry, which the port (it compiles
+#: nothing) does not carry
+COMPILE_HOOKS = {"compile_event"}
+COMPILE_METRICS = {"compile_seconds", "compile_events", "compile_hlo_bytes"}
+
+
 def test_hooks_and_metrics_are_the_references():
-    """The copy keeps the reference's hook set and metric names."""
+    """The copy keeps the reference's hook set and metric names, less the
+    compile telemetry, plus the phase hooks ``span`` and ``range``."""
     hooks = {n for n in vars(JO.NullObserver) if not n.startswith("_")}
-    assert hooks == {n for n in vars(O.NullObserver)
-                     if not n.startswith("_")}
-    assert sorted(O.Observer().metrics.collect()) == \
-        sorted(JO.Observer().metrics.collect())
+    assert COMPILE_HOOKS <= hooks
+    assert {n for n in vars(O.NullObserver) if not n.startswith("_")} == \
+        (hooks - COMPILE_HOOKS) | {"span", "range"}
+    ref = set(JO.Observer().metrics.collect())
+    assert COMPILE_METRICS <= ref
+    assert set(O.Observer().metrics.collect()) == ref - COMPILE_METRICS
+
+
+def test_null_span_and_range_are_one_shared_noop():
+    ctx = O.NULL.span("engine::wait")
+    assert ctx is O.NULL.range("model::ffn") is O.NULL.span("x")
+    with ctx as got, ctx:
+        assert got is None
+    assert O.NULL.enabled is False
+
+
+class _Ranges:
+    """A stand-in profiler: counts the ranges it is asked for."""
+
+    def __init__(self, on: bool):
+        self.on, self.names = on, []
+
+    def new_range(self, name):
+        self.names.append(name)
+        return contextlib.nullcontext()
+
+    def recording(self):
+        return self.on
+
+
+def _armed_observer(on: bool):
+    obs, ranges = O.Observer(), _Ranges(on)
+    engine = types.SimpleNamespace(
+        free_slots=[], preempted=[], kv=types.SimpleNamespace(
+            obs_gauges=dict))
+    obs.attach_engine(engine, new_range=ranges.new_range,
+                      recording=ranges.recording)
+    return obs, ranges
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_span_writes_the_phase_track_and_range_writes_nothing(on):
+    """``span`` leaves one complete event on the phase track whether or
+    not a profiler records; ``range`` leaves none; a profiler range is
+    asked for only while one records."""
+    obs, ranges = _armed_observer(on)
+    with obs.span("engine::wait"):
+        with obs.range("model::attn"), obs.range("model::ffn"):
+            pass
+    evs = obs.trace.events()
+    assert [(e["ph"], e["name"], e["track"]) for e in evs] == [
+        ("X", "engine::wait", O.phase_track())]
+    assert evs[0]["dur"] >= 0
+    assert ranges.names == (["engine::wait", "model::attn", "model::ffn"]
+                            if on else [])
+    doc = obs.trace.to_perfetto()
+    O.validate_perfetto(doc)
+    assert {"ph": "M", "name": "process_name", "pid": 4, "tid": 0,
+            "args": {"name": "phases"}} in doc["traceEvents"]
 
 
 HOST_READS = ("item", "cpu", "tolist", "numpy", "synchronize")
@@ -558,3 +621,84 @@ def test_single_token_request_tok_s_is_excluded_not_zero(runs):
     h = eng.metrics["serve_decode_tok_s"]
     assert h.count == 0 and h.n_excluded == 1 and h.mean is None
     assert eng.metrics["serve_requests_finished"].value == 1
+
+
+# ---------------------------------------------------------------------------
+# the engine's phases on a profiler's timeline, and its step-sync counter
+# ---------------------------------------------------------------------------
+
+STEP_PHASES = {"engine::appendable", "engine::upload", "engine::forward",
+               "engine::sample", "engine::wait", "engine::emit"}
+SUBMIT_PHASES = {"engine::submit", "engine::admit", "engine::prefill",
+                 "engine::wait"}
+MODEL_RANGES = {"model::attn", "model::ffn"}
+
+
+@pytest.fixture(scope="module")
+def small_model():
+    from repro_torch.lint.submitpath import audit_model
+    return audit_model("cpu")
+
+
+def _small_engine(small_model, cache, obs):
+    cfg, params = small_model
+    return Engine(cfg, params, ServeConfig(n_slots=2, max_len=48,
+                                           block_size=8, obs=obs),
+                  impl="torch", cache=cache, device="cpu")
+
+
+def _request(cfg, n=12, new=4):
+    from repro_torch.serving import Request
+    return Request(prompt=(np.arange(n, dtype=np.int32) * 7)
+                   % cfg.vocab_size, max_new_tokens=new)
+
+
+def test_engine_phases_nest_under_step_and_submit_in_a_profile(
+        small_model):
+    """Under ``torch.profiler`` (CPU), one submit and one step of a paged
+    engine with obs on: every phase and model range appears, on the
+    caller's thread, inside the caller's range around that call; the
+    phase track holds the spans only (set-up, submit, waits)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    eng = _small_engine(small_model, "paged", True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("test::submit"):
+            assert eng.submit(_request(eng.cfg))
+        with record_function("test::step"):
+            eng.step()
+    events = list(prof.events())
+    outer = {e.name: e for e in events if e.name.startswith("test::")}
+    for call, want in (("test::submit", SUBMIT_PHASES | MODEL_RANGES),
+                       ("test::step", STEP_PHASES | MODEL_RANGES)):
+        o = outer[call]
+        inside = {e.name for e in events
+                  if e.thread == o.thread
+                  and o.time_range.start <= e.time_range.start
+                  and e.time_range.end <= o.time_range.end
+                  and e.name.startswith(("engine::", "model::"))}
+        assert inside == want, (call, inside ^ want)
+    names = [(e["name"], e["track"]) for e in eng.obs.trace.events()
+             if e["track"] == O.phase_track()]
+    assert names == [("engine::init", O.phase_track()),
+                     ("engine::wait", O.phase_track()),
+                     ("engine::submit", O.phase_track()),
+                     ("engine::wait", O.phase_track())]
+    # off, the model code sees no armed observer
+    assert O.get_active() is O.NULL
+
+
+@pytest.mark.parametrize("cache,syncs", [("paged", 4), ("paged_q8", 4),
+                                         ("dense", 2)])
+def test_step_counts_its_blocking_transfers(small_model, cache, syncs):
+    """A decode step uploads the tokens (and on a paged pool the tables and
+    the lengths) and reads the sampled tokens back: that many counted,
+    obs on or off; a submit counts none."""
+    for obs in (False, True):
+        eng = _small_engine(small_model, cache, obs)
+        assert eng.submit(_request(eng.cfg))
+        assert eng.stats["n_step_syncs"] == 0
+        before = dict(eng.stats)
+        eng.step()
+        assert eng.stats["n_steps"] - before["n_steps"] == 1
+        assert eng.stats["n_step_syncs"] - before["n_step_syncs"] == syncs
